@@ -52,6 +52,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (heavy parity / multi-mesh); "
         "opt in with --runslow or RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (CUDA kernels of "
+        "outgridvit_tpu_torch); skips without a card")
 
 
 def pytest_collection_modifyitems(config, items):
