@@ -26,6 +26,7 @@
 // coalesced along the output dimension and hit L2. Moving both products to
 // the tensor cores (mma.sync, then wgmma) is what lifts the FMA bound; it is
 // left for a later version.
+#include "act.cuh"
 #include "common.cuh"
 
 using namespace ogvt;
@@ -39,19 +40,6 @@ constexpr int kMaxTM = 16;                     // tokens per block
 constexpr int kRPT = kMaxTM / kRowGroups;      // fc1 tokens per thread
 constexpr int kMaxTile = 4096;                 // TM * C <= kMaxTile
 constexpr int kYPT = kMaxTile / kThreads;      // fc2 outputs per thread
-
-enum Act : int { kGelu = 0, kSilu = 1, kRelu = 2 };
-
-template <int ACT>
-__device__ __forceinline__ float act_f32(float x) {
-  if constexpr (ACT == kGelu) {
-    return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-  } else if constexpr (ACT == kSilu) {
-    return x / (1.f + expf(-x));
-  } else {
-    return fmaxf(x, 0.f);
-  }
-}
 
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kThreads)

@@ -1,10 +1,13 @@
-"""Attention blocks, eval mode, NHWC (twins of ``outgridvit_tpu/models/
-blocks.py``): outlook attention, grid MHSA, the outlooker block and the
-hybrid OutGrid block. Drop-path and dropout are identity in eval mode and
-are not carried.
+"""Attention blocks, NHWC (twins of ``outgridvit_tpu/models/blocks.py``):
+outlook attention, grid MHSA, the outlooker block and the hybrid OutGrid
+block. Drop-path runs in train mode with masks passed in
+(:class:`~outgridvit_tpu_torch.ops.drop_path.DropPathMasks`); dropout is not
+ported, and a nonzero dropout rate in train mode raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -12,15 +15,16 @@ from torch import nn
 from outgridvit_tpu_torch.models.layers import (
     ChannelMLP,
     Dense,
+    DropPath,
     LayerNorm,
     MBConv,
     layernorm_fp32,
 )
+from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import (
     MAX_TOKENS,
-    grid_mhsa,
-    grid_mhsa_reference,
+    grid_mhsa_autograd,
 )
 from outgridvit_tpu_torch.ops.outlook import outlook_aggregate
 from outgridvit_tpu_torch.stage_config import MBConvConfig, StageCfg
@@ -57,9 +61,9 @@ class MultiHeadSelfAttention(nn.Module):
     """Grid MHSA on an NHWC map: partition into grids, pre-LN, qkv
     projection, the attention core, output projection, unpartition.
 
-    The core is :func:`grid_mhsa` with ``use_kernels`` (the CUDA kernel on a
-    CUDA tensor) and :func:`grid_mhsa_reference` otherwise. qkv's last axis
-    is laid out (3, heads, hd)."""
+    The core is :func:`grid_mhsa_autograd`: the CUDA kernels forward and
+    backward with ``use_kernels``, their plain versions otherwise. qkv's last
+    axis is laid out (3, heads, hd)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  use_kernels: bool = False, device=None):
@@ -82,8 +86,8 @@ class MultiHeadSelfAttention(nn.Module):
                 "N >= 64 branch kernel or the block-packed kernel, not "
                 "ported yet (ROADMAP §2 #5, #6)")
         t = layernorm_fp32(grids.reshape(G, N, C), ln.weight, ln.bias, ln.eps)
-        core = grid_mhsa if self.use_kernels else grid_mhsa_reference
-        out = self.proj(core(self.qkv(t).contiguous(), self.heads))
+        out = self.proj(grid_mhsa_autograd(self.qkv(t).contiguous(),
+                                           self.heads, self.use_kernels))
         return grid_unpartition(out.reshape(G, Hg, Wg, C), meta)
 
 
@@ -106,38 +110,45 @@ class GridAttention2D(nn.Module):
 
 
 class OutlookerBlock2d(nn.Module):
-    """Pre-LN outlooker block: x + attn(LN(x)); x + mlp(LN(x)). LN eps is
-    1e-6 here."""
+    """Pre-LN outlooker block: x + DP(attn(LN(x))); x + DP(mlp(LN(x))). LN
+    eps is 1e-6 here."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  mlp_ratio: float = 2.0, act: str = "gelu",
-                 norm_eps: float = 1e-6, dtype=torch.float32,
-                 use_kernels: bool = False, device=None):
+                 norm_eps: float = 1e-6, drop_path: float = 0.0,
+                 dtype=torch.float32, use_kernels: bool = False, device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps, device)
         self.attn = OutlookAttention2d(dim, num_heads, kernel_size, dtype,
                                        device)
+        self.dp1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps, device)
         self.mlp = ChannelMLP(dim, mlp_ratio, act, dtype, use_kernels, device)
+        self.dp2 = DropPath(drop_path)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(x, self.norm2)
+    def forward(self, x, masks: Optional[DropPathMasks] = None):
+        x = x + self.dp1(self.attn(self.norm1(x)), masks)
+        return x + self.dp2(self.mlp(x, self.norm2), masks)
 
 
 class OutGridBlock(nn.Module):
     """The hybrid block: outlooker -> MBConv -> grid attention -> MLP, with
-    pre-LN residuals. ``outlook_heads == 0``, ``num_heads == 0`` and
-    ``use_mbconv=False`` skip their branch. The grid and MLP norms use eps
-    1e-5."""
+    pre-LN residuals and drop-path at ``cfg.drop_path`` on the outlooker's
+    two branches (dp1, dp2 inside it), the grid branch (dp2) and the MLP
+    (dp3); MBConv's own drop-path is 0 here. ``outlook_heads == 0``,
+    ``num_heads == 0`` and ``use_mbconv=False`` skip their branch. The grid
+    and MLP norms use eps 1e-5."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
                  use_kernels: bool = False, device=None):
         super().__init__()
         C = cfg.dim
+        self.dropout = {"attn_drop": cfg.attn_drop,
+                        "proj_drop": cfg.proj_drop, "ffn_drop": cfg.ffn_drop}
         self.outlook = (OutlookerBlock2d(
             C, cfg.outlook_heads, cfg.outlook_kernel, cfg.outlook_mlp_ratio,
-            cfg.mlp_act, dtype=dtype, use_kernels=use_kernels, device=device)
+            cfg.mlp_act, drop_path=cfg.drop_path, dtype=dtype,
+            use_kernels=use_kernels, device=device)
             if cfg.outlook_heads > 0 else None)
         self.mbconv = (MBConv(C, C, 1, MBConvConfig(
             expand_ratio=cfg.mbconv_expand_ratio, se_ratio=cfg.mbconv_se_ratio,
@@ -147,17 +158,25 @@ class OutGridBlock(nn.Module):
             self.norm2 = LayerNorm(C, 1e-5, device)
             self.grid_attn = GridAttention2D(C, cfg.num_heads, cfg.grid_size,
                                              dtype, use_kernels, device)
+            self.dp2 = DropPath(cfg.drop_path)
         else:
-            self.norm2 = self.grid_attn = None
+            self.norm2 = self.grid_attn = self.dp2 = None
         self.norm3 = LayerNorm(C, 1e-5, device)
         self.mlp = ChannelMLP(C, cfg.mlp_ratio, cfg.mlp_act, dtype,
                               use_kernels, device)
+        self.dp3 = DropPath(cfg.drop_path)
 
-    def forward(self, x):
+    def forward(self, x, masks: Optional[DropPathMasks] = None):
+        if self.training:
+            active = {k: v for k, v in self.dropout.items() if v > 0.0}
+            if active:
+                raise NotImplementedError(
+                    f"dropout {active} in train mode is not ported yet "
+                    "(ROADMAP §1); every shipped config sets it to 0")
         if self.outlook is not None:
-            x = self.outlook(x)
+            x = self.outlook(x, masks)
         if self.mbconv is not None:
             x = self.mbconv(x)
         if self.grid_attn is not None:
-            x = x + self.grid_attn(x, self.norm2)
-        return x + self.mlp(x, self.norm3)
+            x = x + self.dp2(self.grid_attn(x, self.norm2), masks)
+        return x + self.dp3(self.mlp(x, self.norm3), masks)

@@ -45,6 +45,7 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         stages=build_stages(model_cfg.get("stages", [])),
         in_ch=int(model_cfg.get("in_ch", 3)),
         stem_dim=int(model_cfg.get("stem_dim", 64)),
+        dpr_max=float(model_cfg.get("dpr_max", 0.1)),
         down_cfg=DownsampleConfig.from_dict(model_cfg.get("downsample", {})
                                             or {}),
         dtype=dtype, use_kernels=use_kernels, device=device)

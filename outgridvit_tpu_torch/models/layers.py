@@ -1,6 +1,7 @@
-"""Shared NHWC layers, eval mode (twins of ``outgridvit_tpu/models/
-layers.py``): LayerNorm, BatchNorm, Dense, the channel MLP, NHWC convs
-(stem, depthwise 3x3, downsample), squeeze-excite and MBConv.
+"""Shared NHWC layers (twins of ``outgridvit_tpu/models/layers.py``):
+LayerNorm, BatchNorm (batch statistics in train mode), DropPath, Dense, the
+channel MLP, NHWC convs (stem, depthwise 3x3, downsample), squeeze-excite
+and MBConv.
 
 Parameters are fp32 in PyTorch's layouts (Linear [out, in], Conv OIHW,
 depthwise [C, 1, 3, 3]) and are cast to the module's compute ``dtype`` per
@@ -19,10 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from outgridvit_tpu_torch.ops.activations import make_activation
+from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, drop_path
 from outgridvit_tpu_torch.ops.mlp_branch import (
     layernorm_fp32,
-    mlp_branch,
-    mlp_branch_reference,
+    mlp_branch_autograd,
 )
 from outgridvit_tpu_torch.stage_config import DownsampleConfig, MBConvConfig
 
@@ -42,8 +43,16 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm on NHWC: fp32 running statistics and affine, as
-    flax ``nn.BatchNorm(dtype=float32)``; output cast back to x.dtype."""
+    """BatchNorm on NHWC with the numerics of flax ``nn.BatchNorm(dtype=
+    float32)``: fp32 statistics and affine, output cast back to x.dtype.
+
+    Eval mode normalizes with the running statistics. Train mode uses the
+    batch's: mean and the fast variance ``mean(x^2) - mean^2`` clamped at 0,
+    and updates the running statistics with that **biased** variance at
+    flax momentum 0.9 (``ra = 0.9 ra + 0.1 batch``; ``torch.nn.BatchNorm2d``
+    would use the unbiased one)."""
+
+    momentum = 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -54,9 +63,41 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim, device=device))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
-        return y.to(x.dtype)
+        x32 = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x32.mean(dims)
+            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth at ``rate`` in train mode, identity in
+    eval mode or at rate 0. ``path`` is the flax module path that keys its
+    mask in :class:`DropPathMasks` (set by the model)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.path = ""
+
+    def forward(self, x, masks: Optional[DropPathMasks]):
+        if not self.training or self.rate == 0.0:
+            return x
+        if masks is None:
+            raise ValueError(
+                f"DropPath '{self.path}' (rate {self.rate}) in train mode "
+                "needs drop-path masks (DropPathMasks)")
+        keep = masks.get(self.path, self.rate, x.shape[0], x.device)
+        return drop_path(x, keep, self.rate)
 
 
 class Dense(nn.Module):
@@ -106,10 +147,9 @@ def _conv_bn(conv: nn.Module, dim: int, use_bn: bool, device) -> nn.Sequential:
 
 
 class ChannelMLP(nn.Module):
-    """Pre-LN channel MLP branch ``fc2(act(fc1(LN(x))))`` over the last axis.
-
-    With ``use_kernels`` it runs :func:`mlp_branch` (the CUDA kernel on a
-    CUDA tensor); otherwise :func:`mlp_branch_reference`."""
+    """Pre-LN channel MLP branch ``fc2(act(fc1(LN(x))))`` over the last axis,
+    through :func:`mlp_branch_autograd`: with ``use_kernels`` the CUDA
+    kernels forward and backward, otherwise their plain versions."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, act: str = "gelu",
                  dtype=torch.float32, use_kernels: bool = False, device=None):
@@ -123,11 +163,11 @@ class ChannelMLP(nn.Module):
 
     def forward(self, x, ln: LayerNorm):
         dt = self.dtype
-        fn = mlp_branch if self.use_kernels else mlp_branch_reference
-        return fn(x.to(dt).contiguous(), ln.weight, ln.bias,
-                  self.fc1.weight.to(dt).t().contiguous(), self.fc1.bias.to(dt),
-                  self.fc2.weight.to(dt).t().contiguous(), self.fc2.bias.to(dt),
-                  self.act, ln.eps, True)
+        return mlp_branch_autograd(
+            x.to(dt).contiguous(), ln.weight, ln.bias,
+            self.fc1.weight.to(dt).t().contiguous(), self.fc1.bias.to(dt),
+            self.fc2.weight.to(dt).t().contiguous(), self.fc2.bias.to(dt),
+            self.act, ln.eps, True, self.use_kernels)
 
 
 class SqueezeExcite(nn.Module):

@@ -1,12 +1,14 @@
-"""Model A, MaxOutNet, eval forward (twin of ``outgridvit_tpu/models/
-model_a.py``): stem -> 1x1 ``proj_in`` when the stem width differs from
-stage 0 -> stages of OutGridBlocks with stride-2 conv downsamples between
-them -> BN head -> fp32 mean over H, W -> fp32 classifier. NHWC throughout.
+"""Model A, MaxOutNet (twin of ``outgridvit_tpu/models/model_a.py``): stem
+-> 1x1 ``proj_in`` when the stem width differs from stage 0 -> stages of
+OutGridBlocks (linear stochastic-depth schedule ``make_dpr`` over all
+blocks) with stride-2 conv downsamples between them -> BN head -> fp32 mean
+over H, W -> fp32 classifier. NHWC throughout.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import re
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -17,13 +19,26 @@ from outgridvit_tpu_torch.models.layers import (
     ConvStem,
     Dense,
     Downsample,
+    DropPath,
 )
-from outgridvit_tpu_torch.stage_config import DownsampleConfig, StageCfg
+from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+from outgridvit_tpu_torch.stage_config import (
+    DownsampleConfig,
+    StageCfg,
+    make_dpr,
+)
+
+
+def flax_path(torch_name: str) -> str:
+    """'stages.0.1.outlook.dp1' -> 'stages_0_1/outlook/dp1', the module path
+    the JAX model gives the same DropPath."""
+    return re.sub(r"^stages\.(\d+)\.(\d+)", r"stages_\1_\2",
+                  torch_name).replace(".", "/")
 
 
 class MaxOutNet(nn.Module):
     def __init__(self, num_classes: int, stages: Sequence[StageCfg],
-                 in_ch: int = 3, stem_dim: int = 64,
+                 in_ch: int = 3, stem_dim: int = 64, dpr_max: float = 0.1,
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None):
         super().__init__()
@@ -34,8 +49,10 @@ class MaxOutNet(nn.Module):
         self.proj_in = (Dense(stem_dim, stages[0].dim, dtype=dtype,
                               device=device)
                         if stem_dim != stages[0].dim else None)
+        dprs = iter(make_dpr(sum(s.depth for s in stages), dpr_max))
         self.stages = nn.ModuleList(
-            nn.ModuleList(OutGridBlock(s, dtype, use_kernels, device)
+            nn.ModuleList(OutGridBlock(s.replace(drop_path=next(dprs)), dtype,
+                                       use_kernels, device)
                           for _ in range(s.depth))
             for s in stages)
         self.downs = nn.ModuleList(
@@ -44,19 +61,22 @@ class MaxOutNet(nn.Module):
         self.head_norm = BatchNorm(stages[-1].dim, device=device)
         self.classifier = Dense(stages[-1].dim, num_classes,
                                 dtype=torch.float32, device=device)
+        for name, m in self.named_modules():
+            if isinstance(m, DropPath):
+                m.path = flax_path(name)
 
-    def forward(self, x):
-        """x: [B, H, W, in_ch] float -> logits [B, num_classes] fp32."""
-        if self.training:
-            raise RuntimeError(
-                "MaxOutNet is ported for eval only (call .eval()); the train "
-                "forward comes with the train step (ROADMAP §1)")
+    def forward(self, x, drop_masks: Optional[DropPathMasks] = None):
+        """x: [B, H, W, in_ch] float -> logits [B, num_classes] fp32.
+
+        In train mode BatchNorm uses (and updates) batch statistics, and
+        drop-path draws its keep masks from ``drop_masks`` (required when any
+        block's rate is nonzero)."""
         x = self.stem(x.to(self.dtype))
         if self.proj_in is not None:
             x = self.proj_in(x)
         for si, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x)
+                x = block(x, drop_masks)
             if si < len(self.downs):
                 x = self.downs[si](x)
         x = self.head_norm(x).float().mean(dim=(1, 2))

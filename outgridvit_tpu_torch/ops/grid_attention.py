@@ -1,12 +1,17 @@
-"""Grid MHSA core for tiny grids: the CUDA kernel ``csrc/grid_mhsa.cu`` and
-its plain PyTorch version (twin of ``outgridvit_tpu/ops/
-grid_attention_pallas_t.py:grid_mhsa_pallas_t``, forward).
+"""Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa.cu``
+(forward and backward) and their plain PyTorch versions (twin of
+``outgridvit_tpu/ops/grid_attention_pallas_t.py:grid_mhsa_pallas_t`` and its
+recompute backward).
 
-Both compute, per grid and head, ``softmax(q.k^T * hd^-1/2) v`` with the
-q.k sum in fp32 scaled after the sum, an fp32 softmax with max subtraction,
-and the P.V sum in fp32 cast once (the kernel's rounding points; the JAX
-non-kernel path casts the probabilities to the compute dtype before P.V,
-the port does not).
+Forward, per grid and head: ``softmax(q.k^T * hd^-1/2) v`` with the q.k sum
+in fp32 scaled after the sum, an fp32 softmax with max subtraction, and the
+P.V sum in fp32 cast once (the kernel's rounding points; the JAX non-kernel
+path casts the probabilities to the compute dtype before P.V, the port does
+not). The backward recomputes the probabilities from qkv and casts dq, dk
+and dv once (:func:`grid_mhsa_backward_reference`).
+
+:func:`grid_mhsa_autograd` is the differentiable core the model calls: a
+``torch.autograd.Function`` that saves only qkv.
 """
 
 from __future__ import annotations
@@ -31,16 +36,58 @@ def _check(qkv: torch.Tensor, heads: int):
     return G, N, C3 // 3
 
 
+def _probs(q, k, hd):
+    logits = torch.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return e * (1.0 / e.sum(-1, keepdim=True))
+
+
 def grid_mhsa_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Plain PyTorch version: qkv [G, N, 3C] -> [G, N, C]."""
     G, N, C = _check(qkv, heads)
     hd = C // heads
     q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
-    logits = torch.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = e * (1.0 / e.sum(-1, keepdim=True))
-    out = torch.einsum("ghnm,gmhd->gnhd", p, v)
+    out = torch.einsum("ghnm,gmhd->gnhd", _probs(q, k, hd), v)
     return out.to(qkv.dtype).reshape(G, N, C)
+
+
+def grid_mhsa_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
+                                 heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward: (qkv [G, N, 3C], dout
+    [G, N, C]) -> dqkv [G, N, 3C], with the rounding points of the Pallas
+    ``_bwd_kernel``: fp32 q, k, v and dO; recomputed probabilities a;
+    ``dp = dO.v^T``; ``ds = a * (dp - sum_m dp*a)``; dq and dk multiplied by
+    the scale before the single cast, dv cast once."""
+    G, N, C = _check(qkv, heads)
+    hd = C // heads
+    scale = hd**-0.5
+    q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
+    g = dout.float().reshape(G, N, heads, hd)
+    a = _probs(q, k, hd)
+    dp = torch.einsum("gnhd,gmhd->ghnm", g, v)
+    ds = a * (dp - (dp * a).sum(-1, keepdim=True))
+    dq = torch.einsum("ghnm,gmhd->gnhd", ds, k) * scale
+    dk = torch.einsum("ghnm,gnhd->gmhd", ds, q) * scale
+    dv = torch.einsum("ghnm,gnhd->gmhd", a, g)
+    return torch.stack([dq, dk, dv], 2).to(qkv.dtype).reshape(G, N, 3 * C)
+
+
+def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats):
+    G, N, C = _check(qkv, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dtype not in kernel_build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {qkv.dtype} is not float32/bfloat16")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name}: qkv must be contiguous")
+    if not 1 <= N <= MAX_TOKENS:
+        raise ValueError(
+            f"{name}: N={N} tokens per grid; the kernel takes "
+            f"1..{MAX_TOKENS}")
+    if smem_floats(N, C) * 4 > _MAX_SMEM:
+        raise ValueError(f"{name}: grid of N={N}, C={C} exceeds shared "
+                         "memory")
+    return G, N, C
 
 
 def grid_mhsa(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -48,20 +95,8 @@ def grid_mhsa(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     raises); a CPU tensor takes :func:`grid_mhsa_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_reference(qkv, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"grid_mhsa: unsupported device {qkv.device}")
-    G, N, C = _check(qkv, heads)
-    if qkv.dtype not in kernel_build.DTYPE_CODES:
-        raise TypeError(f"grid_mhsa: dtype {qkv.dtype} is not float32/bfloat16")
-    if not qkv.is_contiguous():
-        raise ValueError("grid_mhsa: qkv must be contiguous")
-    if not 1 <= N <= MAX_TOKENS:
-        raise ValueError(
-            f"grid_mhsa: N={N} tokens per grid; the kernel takes "
-            f"1..{MAX_TOKENS}")
-    if (N * 3 * C + heads * N * N) * 4 > _MAX_SMEM:
-        raise ValueError(f"grid_mhsa: grid of N={N}, C={C} exceeds shared "
-                         "memory")
+    G, N, C = _check_launch("grid_mhsa", qkv, heads,
+                            lambda N, C: N * 3 * C + heads * N * N)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
     with torch.cuda.device(qkv.device):
@@ -76,3 +111,59 @@ def grid_mhsa(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 grid_mhsa.launches = 0
+
+
+def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor,
+                       heads: int) -> torch.Tensor:
+    """(qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C]. A CUDA tensor
+    launches the kernel (or raises); a CPU tensor takes
+    :func:`grid_mhsa_backward_reference`."""
+    if qkv.device.type == "cpu":
+        return grid_mhsa_backward_reference(qkv, dout, heads)
+    G, N, C = _check_launch("grid_mhsa_backward", qkv, heads,
+                            lambda N, C: N * 4 * C + 2 * heads * N * N)
+    if (dout.shape != (G, N, C) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous()):
+        raise ValueError(
+            f"grid_mhsa_backward: dout is {tuple(dout.shape)} {dout.dtype} "
+            f"on {dout.device}; expected contiguous {(G, N, C)} {qkv.dtype} "
+            f"on {qkv.device}")
+    dqkv = torch.empty_like(qkv)
+    lib = kernel_build.load()
+    with torch.cuda.device(qkv.device):
+        err = lib.ogvt_grid_mhsa_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C, heads,
+            ctypes.c_float((C // heads) ** -0.5),
+            kernel_build.DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "grid_mhsa_backward launch")
+    grid_mhsa_backward.launches += 1
+    return dqkv
+
+
+grid_mhsa_backward.launches = 0
+
+
+class _GridMHSA(torch.autograd.Function):
+    """Recompute style, as ``_fwd_vjp``/``_bwd_vjp``: saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, use_kernels):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.use_kernels = heads, use_kernels
+        return (grid_mhsa if use_kernels else grid_mhsa_reference)(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        fn = (grid_mhsa_backward if ctx.use_kernels
+              else grid_mhsa_backward_reference)
+        return fn(qkv, dout.contiguous(), ctx.heads), None, None
+
+
+def grid_mhsa_autograd(qkv: torch.Tensor, heads: int,
+                       use_kernels: bool) -> torch.Tensor:
+    """Differentiable grid MHSA core: the kernels (:func:`grid_mhsa`,
+    :func:`grid_mhsa_backward`) with ``use_kernels``, else the plain
+    versions, both ways."""
+    return _GridMHSA.apply(qkv, heads, use_kernels)

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 All sources under ``outgridvit_tpu_torch/csrc/`` are compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use (never at import), into
+for ``sm_90a`` (one process per source, in parallel) into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use (never at import), into
 ``outgridvit_tpu_torch/_build/``, under a name keyed on a hash of the
 sources, so an edit to any source rebuilds.
 
@@ -29,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # element types the kernels take (enum DType in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,14 +39,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each entry point: argtypes (restype is int: cudaError_t)
+# C signature of each entry point: (argtypes, restype). A launch returns a
+# cudaError_t as int.
 _SIGNATURES = {
     # qkv, out, G, N, C, heads, scale, dtype, stream
-    "ogvt_grid_mhsa": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "ogvt_grid_mhsa": ((_P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    # qkv, dout, dqkv, G, N, C, heads, scale, dtype, stream
+    "ogvt_grid_mhsa_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, C, H, act, eps, apply_ln,
     # dtype, stream
-    "ogvt_mlp_branch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                        _I, _I, _P),
+    "ogvt_mlp_branch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _I, _I, _P), _I),
+    # x, ln_scale, ln_bias, w1, b1, w2, dy, dx, dln_scale, dln_bias, dw1,
+    # db1, dw2, db2, workspace, M, C, H, act, eps, apply_ln, dtype, stream
+    "ogvt_mlp_branch_bwd": ((_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
+                            _I),
+    # M, C, H -> floats of workspace
+    "ogvt_mlp_branch_bwd_workspace": ((_I, _I, _I), ctypes.c_longlong),
+    "ogvt_error_string": ((_I,), ctypes.c_char_p),
 }
 
 
@@ -66,7 +78,7 @@ def library_path() -> Path:
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libogvt_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -89,24 +101,45 @@ def find_nvcc() -> str:
 
 
 def build() -> BuildResult:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return BuildResult(out, False, 0.0, "")
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    log = []
+    failed = []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{text}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log[-1]}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
-    return BuildResult(out, True, seconds, log)
+    return BuildResult(out, True, time.perf_counter() - t0, "".join(log))
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -117,12 +150,10 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.ogvt_error_string.argtypes = (ctypes.c_int,)
-        lib.ogvt_error_string.restype = ctypes.c_char_p
+            fn.restype = restype
         _lib = lib
     return _lib
 

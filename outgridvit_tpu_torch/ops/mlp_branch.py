@@ -1,11 +1,15 @@
-"""Fused pre-LN channel-MLP branch: the CUDA kernel ``csrc/mlp_branch.cu``
-and its plain PyTorch version (twin of ``outgridvit_tpu/ops/
-mlp_branch_pallas_t.py:mlp_branch_pallas_t``, forward).
+"""Fused pre-LN channel-MLP branch: the CUDA kernels ``csrc/mlp_branch.cu``
+(forward) and ``csrc/mlp_branch_bwd.cu`` (backward) and their plain PyTorch
+versions (twin of ``outgridvit_tpu/ops/mlp_branch_pallas_t.py:
+mlp_branch_pallas_t`` and its recompute backward).
 
 ``y = fc2(act(fc1(LN(x))))`` per token with the kernel's rounding points:
 LN with fp32 statistics cast to x.dtype; ``xn.w1`` summed in fp32, ``+ b1``,
 cast; ``act`` in fp32, cast; ``a.w2`` summed in fp32, ``+ b2``, cast.
-Weights are in the JAX layout: w1 [C, H], w2 [H, C].
+Weights are in the JAX layout: w1 [C, H], w2 [H, C]. The backward is
+:func:`mlp_branch_backward_reference`'s math; :func:`mlp_branch_autograd`
+is the differentiable branch the model calls (a ``torch.autograd.Function``
+that saves only its inputs).
 """
 
 from __future__ import annotations
@@ -13,9 +17,12 @@ from __future__ import annotations
 import torch
 
 from outgridvit_tpu_torch.ops import kernel_build
-from outgridvit_tpu_torch.ops.activations import make_activation
+from outgridvit_tpu_torch.ops.activations import (
+    activation_grad,
+    make_activation,
+)
 
-_ACT_CODES = {"gelu": 0, "silu": 1, "relu": 2}  # enum Act in the .cu
+_ACT_CODES = {"gelu": 0, "silu": 1, "relu": 2}  # enum Act in csrc/act.cuh
 _MAX_C = 4096
 
 
@@ -41,6 +48,82 @@ def mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
     return (a.float() @ w2.float() + b2.float()).to(dt)
 
 
+def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+                                  act: str, eps: float = 1e-5,
+                                  apply_ln: bool = True):
+    """Plain PyTorch version of the backward, written out (not autograd),
+    with the rounding points of the Pallas ``_bwd_kernel``:
+    ``h32 = round(xn.w1 + b1)``, ``a = round(act(h32))``,
+    ``dh = round(da * act'(h32))``, db1 summing the rounded dh, the LN
+    backward in fp32 from xhat and rstd. Parameter grads are summed in fp32
+    over all tokens and returned in their input's dtype. Returns
+    ``(dx, dln_scale, dln_bias, dw1, db1, dw2, db2)``."""
+    dt = x.dtype
+    C = x.shape[-1]
+    x32 = x.reshape(-1, C).float()
+    dy32 = dy.reshape(-1, C).float()
+    if apply_ln:
+        mu = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mu * mu,
+                          min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        xhat = (x32 - mu) * rstd
+        xn = ((x32 - mu) * (rstd * ln_scale.float()) + ln_bias.float()).to(dt)
+    else:
+        xn = x.reshape(-1, C)
+    xn32 = xn.float()
+    h32 = (xn32 @ w1.float() + b1.float()).to(dt).float()
+    a = make_activation(act)(h32).to(dt).float()
+    dw2 = a.t() @ dy32
+    db2 = dy32.sum(0)
+    dh = (dy32 @ w2.float().t() * activation_grad(act)(h32)).to(dt).float()
+    dw1 = xn32.t() @ dh
+    db1 = dh.sum(0)
+    dxn = dh @ w1.float().t()
+    if apply_ln:
+        dls = (dxn * xhat).sum(0)
+        dlb = dxn.sum(0)
+        dxhat = dxn * ln_scale.float()
+        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    else:
+        dls = dlb = torch.zeros(C, dtype=torch.float32, device=x.device)
+        dx = dxn
+    return (dx.to(dt).reshape(x.shape), dls.to(ln_scale.dtype),
+            dlb.to(ln_bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act):
+    """Validate what the kernels take; returns (M, C, H, act code)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in kernel_build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32/bfloat16")
+    act = act.lower()
+    if act not in _ACT_CODES:
+        raise ValueError(f"{name}: unknown activation '{act}'")
+    C = x.shape[-1]
+    H = w1.shape[-1] if w1.dim() == 2 else -1
+    want = {"w1": (w1, (C, H), x.dtype), "b1": (b1, (H,), x.dtype),
+            "w2": (w2, (H, C), x.dtype), "b2": (b2, (C,), x.dtype),
+            "ln_scale": (ln_scale, (C,), torch.float32),
+            "ln_bias": (ln_bias, (C,), torch.float32)}
+    for tname, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"{name}: {tname} is {tuple(t.shape)} {t.dtype}; "
+                f"expected {shape} {dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {tname} must be contiguous on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if not 1 <= C <= _MAX_C:
+        raise ValueError(f"{name}: C={C} outside 1..{_MAX_C}")
+    return x.numel() // C, C, H, _ACT_CODES[act]
+
+
 def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
                eps: float = 1e-5, apply_ln: bool = True):
     """x [..., C] -> [..., C]. A CUDA tensor launches the kernel (or raises);
@@ -48,39 +131,15 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
     if x.device.type == "cpu":
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, act,
                                     eps, apply_ln)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_branch: unsupported device {x.device}")
-    if x.dtype not in kernel_build.DTYPE_CODES:
-        raise TypeError(f"mlp_branch: dtype {x.dtype} is not float32/bfloat16")
-    act = act.lower()
-    if act not in _ACT_CODES:
-        raise ValueError(f"mlp_branch: unknown activation '{act}'")
-    C = x.shape[-1]
-    H = w1.shape[-1] if w1.dim() == 2 else -1
-    want = {"w1": (w1, (C, H), x.dtype), "b1": (b1, (H,), x.dtype),
-            "w2": (w2, (H, C), x.dtype), "b2": (b2, (C,), x.dtype),
-            "ln_scale": (ln_scale, (C,), torch.float32),
-            "ln_bias": (ln_bias, (C,), torch.float32)}
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(
-                f"mlp_branch: {name} is {tuple(t.shape)} {t.dtype}; "
-                f"expected {shape} {dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(
-                f"mlp_branch: {name} must be contiguous on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("mlp_branch: x must be contiguous")
-    if not 1 <= C <= _MAX_C:
-        raise ValueError(f"mlp_branch: C={C} outside 1..{_MAX_C}")
-    M = x.numel() // C
+    M, C, H, code = _check_launch("mlp_branch", x, ln_scale, ln_bias, w1, b1,
+                                  w2, b2, act)
     y = torch.empty_like(x)
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
         err = lib.ogvt_mlp_branch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), M, C, H, _ACT_CODES[act], float(eps),
+            y.data_ptr(), M, C, H, code, float(eps),
             int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "mlp_branch launch")
@@ -89,3 +148,73 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
 
 
 mlp_branch.launches = 0
+
+
+def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, act: str,
+                        eps: float = 1e-5, apply_ln: bool = True):
+    """Gradients ``(dx, dln_scale, dln_bias, dw1, db1, dw2, db2)`` of the
+    branch for the output gradient ``dy``. A CUDA tensor launches the kernels
+    (or raises); a CPU tensor takes :func:`mlp_branch_backward_reference`.
+    Deterministic: two calls on the same inputs give bitwise-equal grads."""
+    if x.device.type == "cpu":
+        return mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2,
+                                             b2, dy, act, eps, apply_ln)
+    M, C, H, code = _check_launch("mlp_branch_backward", x, ln_scale, ln_bias,
+                                  w1, b1, w2, b2, act)
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(
+            f"mlp_branch_backward: dy is {tuple(dy.shape)} {dy.dtype} on "
+            f"{dy.device}; expected contiguous {tuple(x.shape)} {x.dtype} "
+            f"on {x.device}")
+    lib = kernel_build.load()
+    ws = torch.empty(lib.ogvt_mlp_branch_bwd_workspace(M, C, H),
+                     dtype=torch.float32, device=x.device)
+    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
+             torch.empty_like(ln_bias), torch.empty_like(w1),
+             torch.empty_like(b1), torch.empty_like(w2), torch.empty_like(b2))
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_mlp_branch_bwd(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), M, C, H, code,
+            float(eps), int(bool(apply_ln)),
+            kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "mlp_branch_backward launch")
+    mlp_branch_backward.launches += 1
+    return grads
+
+
+mlp_branch_backward.launches = 0
+
+
+class _MLPBranch(torch.autograd.Function):
+    """Recompute style, as ``_mlp_fwd``/``_mlp_bwd``: saves only the
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps,
+                apply_ln, use_kernels):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.cfg = (act, eps, apply_ln, use_kernels)
+        fn = mlp_branch if use_kernels else mlp_branch_reference
+        return fn(x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps, apply_ln)
+
+    @staticmethod
+    def backward(ctx, dy):
+        act, eps, apply_ln, use_kernels = ctx.cfg
+        fn = (mlp_branch_backward if use_kernels
+              else mlp_branch_backward_reference)
+        grads = fn(*ctx.saved_tensors, dy.contiguous(), act, eps, apply_ln)
+        return (*grads, None, None, None, None)
+
+
+def mlp_branch_autograd(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
+                        eps: float = 1e-5, apply_ln: bool = True,
+                        use_kernels: bool = False):
+    """Differentiable fused branch: the kernels (:func:`mlp_branch`,
+    :func:`mlp_branch_backward`) with ``use_kernels``, else the plain
+    versions, both ways."""
+    return _MLPBranch.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps,
+                            apply_ln, use_kernels)

@@ -1,9 +1,13 @@
-"""Load the JAX package's variables into the port.
+"""Load the JAX package's variables and train state into the port.
 
 ``load_flax_variables(model, variables)`` takes the ``{"params": ...,
 "batch_stats": ...}`` tree of ``outgridvit_tpu`` (nested dicts of numpy
-arrays; no JAX needed) and fills the port's parameters and buffers. The
-reverse direction needs no code here:
+arrays; no JAX needed) and fills the port's parameters and buffers.
+``jax_tree_to_port`` maps any tree shaped like the JAX params (grads, AdamW
+moments) to the port's parameter names and layouts, and
+``load_jax_train_state`` turns a JAX ``TrainState``'s parts into the port's
+:class:`~outgridvit_tpu_torch.training.train_state.TrainState`. The reverse
+direction needs no code here:
 ``outgridvit_tpu.utils.port_torch.port_torch_state_dict(model.state_dict(),
 template, strict=True)`` maps the port's keys onto the JAX tree.
 """
@@ -11,11 +15,15 @@ template, strict=True)`` maps the port's keys onto the JAX tree.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+if TYPE_CHECKING:
+    from outgridvit_tpu_torch.training.optim import AdamW
+    from outgridvit_tpu_torch.training.train_state import TrainState
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -83,7 +91,7 @@ def load_flax_variables(model: nn.Module,
                 bad.append(f"{name} {arr.shape} -> {key} "
                            f"{tuple(state[key].shape)}")
                 continue
-            new[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            new[key] = torch.from_numpy(np.array(arr))
     missing = sorted(set(state) - set(new))
     if missing or unused or bad:
         raise ValueError(
@@ -94,3 +102,45 @@ def load_flax_variables(model: nn.Module,
         for key, t in new.items():
             state[key].copy_(t)
     return model
+
+
+def jax_tree_to_port(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A tree shaped like the JAX params (the params themselves, their
+    grads, AdamW ``mu``/``nu``) -> {port parameter name: fp32 array in the
+    port's layout}."""
+    return {torch_key(path): np.ascontiguousarray(
+                _to_torch_layout(np.asarray(leaf, dtype=np.float32), path[-1]))
+            for path, leaf in _flatten(tree)}
+
+
+def load_jax_train_state(model: nn.Module, tx: "AdamW", *,
+                         params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any],
+                         mu: Mapping[str, Any], nu: Mapping[str, Any],
+                         count: int, step: int) -> "TrainState":
+    """The port's ``TrainState`` from a JAX ``TrainState``'s parts (numpy
+    trees): params and batch_stats into ``model`` (strict, as
+    :func:`load_flax_variables`), the AdamW moments and count (``opt_state``'s
+    ``ScaleByAdamState``) into a fresh optimizer state of ``tx``, and the
+    step counter."""
+    from outgridvit_tpu_torch.training.train_state import TrainState
+
+    load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
+    state = TrainState.create(model, tx)
+    for name, tree in (("mu", mu), ("nu", nu)):
+        mapped = jax_tree_to_port(tree)
+        dst = getattr(state.opt_state, name)
+        if set(mapped) != set(dst):
+            raise ValueError(
+                f"AdamW {name} does not match the model's parameters: "
+                f"missing {sorted(set(dst) - set(mapped))}, "
+                f"unused {sorted(set(mapped) - set(dst))}")
+        with torch.no_grad():
+            for key, arr in mapped.items():
+                if tuple(arr.shape) != tuple(dst[key].shape):
+                    raise ValueError(f"AdamW {name} {key}: {arr.shape} vs "
+                                     f"{tuple(dst[key].shape)}")
+                dst[key].copy_(torch.from_numpy(np.array(arr)))
+    state.opt_state.count.fill_(int(count))
+    state.step = int(step)
+    return state

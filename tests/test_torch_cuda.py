@@ -1,8 +1,9 @@
-"""CUDA kernels of outgridvit_tpu_torch against their plain PyTorch versions
-on the card, at edge shapes the Model A-7M path does not reach (odd token
-and channel counts, a ragged last token tile, a hidden width that is not a
-multiple of the 64-unit chunk, a grid whose staging needs more than 48 KB of
-shared memory).
+"""CUDA kernels of outgridvit_tpu_torch (forward and backward) against
+their plain PyTorch versions on the card, at edge shapes the Model A-7M path
+does not reach (odd token and channel counts, N=1, C not a multiple of 32, a
+ragged last token tile, a hidden width that is not a multiple of the 64-unit
+chunk, a grid whose staging needs more than 48 KB of shared memory), plus
+one train step of a tiny model through the kernels against the plain path.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -10,21 +11,36 @@ GPU machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances as in chip_smoke.py: |kernel - plain| <= tol * (1 + |plain|),
-tol 1e-4 in fp32 (summation order), 2e-2 in bf16 (one bf16 ulp).
+tol 1e-4 in fp32 (summation order), 2e-2 in bf16 (one bf16 ulp), for
+activations and their gradients; parameter gradients (sums over all tokens)
+|kernel - plain| <= tol * max|plain| with the same tol.
 """
 
 import pytest
 import torch
 
 from outgridvit_tpu_torch.models import build_model
+from outgridvit_tpu_torch.models.layers import DropPath
+from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa,
+    grid_mhsa_backward,
+    grid_mhsa_backward_reference,
     grid_mhsa_reference,
 )
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
+    mlp_branch_backward,
+    mlp_branch_backward_reference,
     mlp_branch_reference,
 )
+from outgridvit_tpu_torch.training.optim import AdamW
+from outgridvit_tpu_torch.training.steps import (
+    StepConfig,
+    make_train_step,
+    sample_step_draws,
+)
+from outgridvit_tpu_torch.training.train_state import TrainState
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -79,6 +95,63 @@ def test_mlp_branch_kernel_matches_plain(dev, dtype, act, M, C, H, apply_ln):
                   dtype)
 
 
+def _assert_close_to_max(got, want, dtype, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= TOL[dtype] * max(scale, 1e-30), f"{name}: {err} vs {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,N,C,heads", [
+    (5, 1, 8, 1), (7, 9, 36, 3), (3, 16, 40, 5), (2, 16, 512, 8)])
+def test_grid_mhsa_backward_kernel_matches_plain(dev, dtype, G, N, C, heads):
+    g = torch.Generator().manual_seed(G * N + C + 1)
+    qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    n = grid_mhsa_backward.launches
+    got = grid_mhsa_backward(qkv, dout, heads)
+    again = grid_mhsa_backward(qkv, dout, heads)
+    torch.cuda.synchronize()
+    assert grid_mhsa_backward.launches == n + 2
+    assert torch.equal(got, again)
+    _assert_close(got, grid_mhsa_backward_reference(qkv, dout, heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+@pytest.mark.parametrize("M,C,H,apply_ln", [
+    (37, 48, 100, True), (5, 320, 640, False), (300, 7, 28, True),
+    (1000, 40, 100, False)])
+def test_mlp_branch_backward_kernel_matches_plain(dev, dtype, act, M, C, H,
+                                                  apply_ln):
+    g = torch.Generator().manual_seed(M + C + H + 1)
+
+    def r(*shape, s=1.0, b=0.0):
+        return torch.randn(*shape, generator=g) * s + b
+
+    args = (r(M, C).to(dev, dtype), r(C, s=0.1, b=1.0).to(dev),
+            r(C, s=0.1).to(dev), r(C, H, s=C ** -0.5).to(dev, dtype),
+            r(H, s=0.02).to(dev, dtype), r(H, C, s=H ** -0.5).to(dev, dtype),
+            r(C, s=0.02).to(dev, dtype))
+    dy = r(M, C).to(dev, dtype)
+    n = mlp_branch_backward.launches
+    got = mlp_branch_backward(*args, dy, act, 1e-5, apply_ln)
+    again = mlp_branch_backward(*args, dy, act, 1e-5, apply_ln)
+    torch.cuda.synchronize()
+    assert mlp_branch_backward.launches == n + 2
+    want = mlp_branch_backward_reference(*args, dy, act, 1e-5, apply_ln)
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    for name, a, b, w in zip(names, got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        elif not apply_ln and name.startswith("dln"):
+            assert not a.any(), name
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     qkv = torch.randn(4, 17, 48, device=dev)
     with pytest.raises(ValueError, match="N=17"):
@@ -93,6 +166,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         mlp_branch(x, torch.ones(16, device=dev), torch.zeros(16, device=dev),
                    w, torch.zeros(32, device=dev), w, torch.zeros(16,
                    device=dev), "gelu")
+    qkv = torch.randn(4, 4, 48, device=dev)
+    with pytest.raises(ValueError, match="dout"):
+        grid_mhsa_backward(qkv, torch.randn(4, 4, 8, device=dev), 2)
+    with pytest.raises(ValueError, match="dout"):
+        grid_mhsa_backward(qkv, torch.randn(4, 16, 4, device=dev)
+                           .transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="N=17"):
+        grid_mhsa_backward(torch.randn(4, 17, 48, device=dev),
+                           torch.randn(4, 17, 16, device=dev), 2)
+    ln = (torch.ones(16, device=dev), torch.zeros(16, device=dev))
+    args = (x, *ln, w, torch.zeros(32, device=dev), w.t().contiguous(),
+            torch.zeros(16, device=dev))
+    with pytest.raises(ValueError, match="dy"):
+        mlp_branch_backward(*args, torch.randn(16, 8, device=dev).t(),
+                            "gelu")
+    with pytest.raises(TypeError, match="float16"):
+        mlp_branch_backward(x.half(), *args[1:], x.half(), "gelu")
+    with pytest.raises(ValueError, match="activation"):
+        mlp_branch_backward(*args, x, "tanh")
 
 
 def test_tiny_model_kernel_path_matches_plain_path(dev):
@@ -110,3 +202,41 @@ def test_tiny_model_kernel_path_matches_plain_path(dev):
     assert (grid_mhsa.launches - counts[0],
             mlp_branch.launches - counts[1]) == (2, 4)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_tiny_model_train_step_kernel_path_matches_plain_path(dev):
+    cfg = {"type": "model_a", "num_classes": 10, "stem_dim": 8,
+           "dpr_max": 0.2, "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 4,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 4,
+                "outlook_heads": 4}]}
+    step_cfg = StepConfig(num_classes=10, mixup_alpha=0.8, cutmix_alpha=1.0,
+                          mix_prob=0.5)
+    step = make_train_step(step_cfg)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 16, 16, 3, generator=g).to(dev)
+    y = (torch.arange(8) % 10).to(dev)
+    draws = sample_step_draws(g, step_cfg, tuple(x.shape), dev)
+    out = {}
+    for use_kernels in (True, False):
+        model = build_model(cfg, use_kernels=use_kernels, device=dev, seed=3)
+        paths = [m.path for m in model.modules()
+                 if isinstance(m, DropPath) and m.rate > 0]
+        masks = DropPathMasks({p: torch.arange(8, device=dev) % (i + 2) > 0
+                               for i, p in enumerate(paths)})
+        counts = (grid_mhsa_backward.launches, mlp_branch_backward.launches)
+        state, m = step(TrainState.create(model, AdamW(1e-3)), (x, y),
+                        draws._replace(drop_masks=masks))
+        torch.cuda.synchronize()
+        launched = (grid_mhsa_backward.launches - counts[0],
+                    mlp_branch_backward.launches - counts[1])
+        assert launched == ((2, 4) if use_kernels else (0, 0))
+        out[use_kernels] = (float(m["loss"]), {
+            k: p.grad.clone() for k, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [t.norm() for t in gp.values()])).item()
+    for k in gp:
+        assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * gnorm, k

@@ -2,9 +2,12 @@
 on the same numpy inputs (CPU, fp32 unless stated).
 
 Tolerances: 1e-5 per fp32 op; 3e-5 for the kernels' plain versions against
-the Pallas kernels in interpret mode (the JAX kernel tests' own bar); bf16
-cases at about one bf16 ulp of O(1) values (2^-7 ~ 7.8e-3), since a
-different fp32 summation order can flip one rounding.
+the Pallas kernels in interpret mode (the JAX kernel tests' own bar),
+forward and backward; 2e-3 for the N=16 attention gradient against
+``jax.grad`` of the XLA einsum form (``tests/test_grid_attention_pallas_t.py``'s
+gradient bar); bf16 cases at about one bf16 ulp of O(1) values
+(2^-7 ~ 7.8e-3), since a different fp32 summation order can flip one
+rounding.
 """
 
 import jax
@@ -27,11 +30,17 @@ from outgridvit_tpu_torch.ops.activations import make_activation
 from outgridvit_tpu_torch.ops.augment import normalize_batch
 from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa,
+    grid_mhsa_autograd,
+    grid_mhsa_backward,
+    grid_mhsa_backward_reference,
     grid_mhsa_reference,
 )
 from outgridvit_tpu_torch.ops.mlp_branch import (
     layernorm_fp32,
     mlp_branch,
+    mlp_branch_autograd,
+    mlp_branch_backward,
+    mlp_branch_backward_reference,
     mlp_branch_reference,
 )
 from outgridvit_tpu_torch.ops.outlook import outlook_aggregate
@@ -203,6 +212,106 @@ def test_mlp_branch_reference_bf16_matches_pallas_interpret():
     np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
+# ---- kernel 1 backward ----------------------------------------------------
+
+def _jnp(a, dtype):
+    return jnp.asarray(a, {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("G,N,C,heads", [
+    (8, 4, 96, 3),    # stage-1 family
+    (4, 4, 256, 8),   # stage-3 family
+    (4, 8, 48, 2),    # N=8
+])
+def test_grid_mhsa_backward_reference_matches_pallas_interpret(
+        G, N, C, heads, dtype):
+    rng = np.random.default_rng(13)
+    qkv = rng.normal(size=(G, N, 3 * C)).astype(np.float32)
+    dout = rng.normal(size=(G, N, C)).astype(np.float32)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    got = grid_mhsa_backward_reference(_t(qkv, tdt), _t(dout, tdt), heads)
+    assert got.dtype == tdt
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q: grid_mhsa_pallas_t(q, heads),
+                         _jnp(qkv, dtype))
+        (want,) = vjp(_jnp(dout, dtype))
+    tol = 3e-5 if dtype == "f32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_grid_mhsa_backward_reference_n16_matches_jax_grad():
+    # N=16 (stage 0) in interpret mode is slow: hold the plain backward
+    # against jax.grad of the XLA einsum form instead
+    rng = np.random.default_rng(14)
+    G, N, C, heads = 4, 16, 48, 2
+    hd = C // heads
+    qkv = rng.normal(size=(G, N, 3 * C)).astype(np.float32)
+    dout = rng.normal(size=(G, N, C)).astype(np.float32)
+
+    def xla_form(x):
+        q, k, v = (x.reshape(G, N, 3, heads, hd)[:, :, i] for i in range(3))
+        a = jax.nn.softmax(jnp.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5,
+                           axis=-1)
+        return jnp.einsum("ghnm,gmhd->gnhd", a, v).reshape(G, N, C)
+
+    _, vjp = jax.vjp(xla_form, jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(dout))
+    got = grid_mhsa_backward_reference(_t(qkv), _t(dout), heads)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-3,
+                               rtol=2e-3)
+
+
+def test_grid_mhsa_autograd_grads_equal_the_plain_backward():
+    rng = np.random.default_rng(15)
+    qkv = _t(rng.normal(size=(6, 4, 3 * 24))).requires_grad_(True)
+    dout = _t(rng.normal(size=(6, 4, 24)))
+    (g,) = torch.autograd.grad(grid_mhsa_autograd(qkv, 3, False), qkv, dout)
+    torch.testing.assert_close(
+        g, grid_mhsa_backward_reference(qkv.detach(), dout, 3), rtol=0,
+        atol=0)
+
+
+# ---- kernel 2 backward ----------------------------------------------------
+
+MLP_GRADS = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+@pytest.mark.parametrize("apply_ln", [True, False])
+def test_mlp_branch_backward_reference_matches_pallas_interpret(
+        act, apply_ln, dtype):
+    args = _mlp_args(16, 128, 48, 96)
+    dy = np.random.default_rng(17).normal(size=(128, 48)).astype(np.float32)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    x, ls, lb, w1, b1, w2, b2 = args
+    targs = [_t(x, tdt), _t(ls), _t(lb)] + [_t(a, tdt) for a in (w1, b1, w2,
+                                                                 b2)]
+    got = mlp_branch_backward_reference(*targs, _t(dy, tdt), act, 1e-5,
+                                        apply_ln)
+    jargs = [_jnp(x, dtype), jnp.asarray(ls), jnp.asarray(lb)] + [
+        _jnp(a, dtype) for a in (w1, b1, w2, b2)]
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda *a: mlp_branch_pallas_t(*a, act, 1e-5,
+                                                        apply_ln), *jargs)
+        want = vjp(_jnp(dy, dtype))
+    tol = 3e-5 if dtype == "f32" else BF16_TOL
+    for name, g, w in zip(MLP_GRADS, got, want):
+        assert g.dtype == {"float32": torch.float32,
+                           "bfloat16": torch.bfloat16}[str(w.dtype)], name
+        np.testing.assert_allclose(_np(g), np.asarray(w, np.float32),
+                                   atol=tol, rtol=tol, err_msg=name)
+    if dtype == "f32":
+        # the autograd Function's plain backward is exactly this function
+        leaves = [a.clone().requires_grad_(True) for a in targs]
+        y = mlp_branch_autograd(*leaves, act, 1e-5, apply_ln, False)
+        fn_grads = torch.autograd.grad(y, leaves, _t(dy))
+        for name, g, r in zip(MLP_GRADS, fn_grads, got):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, msg=name)
+
+
 def test_wrappers_on_cpu_tensors_take_the_plain_version():
     qkv = _t(np.random.default_rng(11).normal(size=(3, 4, 3 * 16)))
     n1 = grid_mhsa.launches
@@ -213,5 +322,17 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(mlp_branch(*args, "silu", 1e-5, True),
                                mlp_branch_reference(*args, "silu", 1e-5, True),
                                rtol=0, atol=0)
+    dout = _t(np.random.default_rng(18).normal(size=(3, 4, 16)))
+    n3 = grid_mhsa_backward.launches
+    torch.testing.assert_close(grid_mhsa_backward(qkv, dout, 2),
+                               grid_mhsa_backward_reference(qkv, dout, 2),
+                               rtol=0, atol=0)
+    dy = torch.ones(10, 16)
+    n4 = mlp_branch_backward.launches
+    for g, r in zip(mlp_branch_backward(*args, dy, "gelu"),
+                    mlp_branch_backward_reference(*args, dy, "gelu")):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     # the counters count kernel launches only
-    assert (grid_mhsa.launches, mlp_branch.launches) == (n1, n2)
+    assert (grid_mhsa.launches, mlp_branch.launches,
+            grid_mhsa_backward.launches,
+            mlp_branch_backward.launches) == (n1, n2, n3, n4)

@@ -1,6 +1,7 @@
-"""Port plumbing: weights across both ways, strictness, independence from
-JAX, kernel dispatch rules, the kernel build's cache key, and chip_smoke.py's
-flagship config and its refusal to run without a card."""
+"""Port plumbing: weights and train state across both ways, strictness,
+independence from JAX, kernel dispatch rules, the kernel build's cache key,
+and chip_smoke.py's flagship config and its refusal to run without a
+card."""
 
 import os
 import subprocess
@@ -18,7 +19,11 @@ from outgridvit_tpu.models import build_model as jax_build_model
 from outgridvit_tpu.utils.port_torch import port_torch_state_dict
 from outgridvit_tpu_torch.models import build_model
 from outgridvit_tpu_torch.ops import kernel_build
-from outgridvit_tpu_torch.utils.port_jax import load_flax_variables
+from outgridvit_tpu_torch.utils.port_jax import (
+    jax_tree_to_port,
+    load_flax_variables,
+    load_jax_train_state,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = {
@@ -74,13 +79,33 @@ def test_load_flax_variables_is_strict(jax_variables, fault):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, torch\n"
+        "import sys, torch, pkgutil, importlib\n"
+        "import outgridvit_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                              'outgridvit_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'outgridvit_tpu_torch.training.steps' in mods, mods\n"
+        "assert 'outgridvit_tpu_torch.ops.augment' in mods, mods\n"
         "from outgridvit_tpu_torch.serving import build_predictor\n"
         f"cfg = {SMALL!r}\n"
         "p = build_predictor(cfg, batch_size=2, img_size=16, device='cpu')\n"
         "import numpy as np\n"
         "l, pr = p.predict(np.zeros((1, 16, 16, 3), np.uint8))\n"
         "assert l.shape == (1,) and pr.shape == (1, 10)\n"
+        "from outgridvit_tpu_torch.models import build_model\n"
+        "from outgridvit_tpu_torch.ops.augment import AugmentConfig\n"
+        "from outgridvit_tpu_torch.training.optim import AdamW\n"
+        "from outgridvit_tpu_torch.training.steps import (StepConfig,\n"
+        "                                                 make_train_step)\n"
+        "from outgridvit_tpu_torch.training.train_state import TrainState\n"
+        "st = TrainState.create(build_model(cfg, device='cpu'), AdamW(1e-3))\n"
+        "step = make_train_step(StepConfig(10, mixup_alpha=0.8, augment=\n"
+        "    AugmentConfig((0.5,) * 3, (0.25,) * 3, 2)))\n"
+        "st, m = step(st, (torch.zeros(2, 16, 16, 3, dtype=torch.uint8),\n"
+        "                  torch.zeros(2, dtype=torch.long)),\n"
+        "             generator=torch.Generator().manual_seed(0))\n"
+        "assert st.step == 1 and bool(torch.isfinite(m['loss']))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml'))\n"
         "print('LOADED', bad)\n")
@@ -99,8 +124,14 @@ def test_kernel_dispatch_rules():
         build_model(dict(SMALL, type="model_b"), device="cpu")
     with pytest.raises(ValueError, match="model.type"):
         build_model(dict(SMALL, type="vit"), device="cpu")
+    # the train forward needs explicit drop-path masks (dpr_max defaults to
+    # 0.1) and refuses dropout, which is not ported
     model = build_model(SMALL, device="cpu").train()
-    with pytest.raises(RuntimeError, match="eval"):
+    with pytest.raises(ValueError, match="drop-path masks"):
+        model(torch.zeros(1, 16, 16, 3))
+    stages = [dict(s, ffn_drop=0.1) for s in SMALL["stages"]]
+    model = build_model(dict(SMALL, stages=stages), device="cpu").train()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(torch.zeros(1, 16, 16, 3))
 
 
@@ -142,3 +173,85 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_jax_train_state_loads_and_the_next_step_matches():
+    """A JAX TrainState after 2 steps (params, batch_stats, AdamW mu/nu and
+    count, step) becomes the port's TrainState; the third step then matches
+    the JAX step (fp32, CPU) to 1e-5."""
+    from outgridvit_tpu.training.optim import make_optimizer
+    from outgridvit_tpu.training.optim import warmup_cosine_lr as jax_lr
+    from outgridvit_tpu.training.steps import StepConfig as JaxStepConfig
+    from outgridvit_tpu.training.steps import make_train_step as jax_step
+    from outgridvit_tpu.training.train_state import TrainState as JaxState
+    from outgridvit_tpu_torch.training.optim import AdamW, warmup_cosine_lr
+    from outgridvit_tpu_torch.training.steps import (
+        StepConfig,
+        StepDraws,
+        make_train_step,
+    )
+
+    cfg = dict(SMALL, dpr_max=0.0)
+    lr = dict(base_lr=1e-3, total_steps=10, warmup_steps=2, min_lr=1e-6)
+    jmodel = jax_build_model(cfg, use_pallas=False)
+    init = jax.jit(jmodel.init)(jax.random.PRNGKey(1),
+                                jnp.zeros((1, 16, 16, 3)))
+    state = JaxState.create(apply_fn=jmodel.apply, params=init["params"],
+                            batch_stats=init["batch_stats"],
+                            tx=make_optimizer(jax_lr(**lr), 0.05, 1.0))
+    step = jax_step(JaxStepConfig(num_classes=10), jax_lr(**lr))
+    rng = np.random.default_rng(3)
+    batches = [(rng.normal(size=(4, 16, 16, 3)).astype(np.float32),
+                rng.integers(0, 10, 4)) for _ in range(3)]
+    key = jax.random.PRNGKey(0)
+    for x, y in batches[:2]:
+        state, _ = step(state, (jnp.asarray(x), jnp.asarray(y)), key)
+    adam = state.opt_state[1][0]
+    assert int(state.opt_state[1][2].count) == int(adam.count) == 2
+    tx = AdamW(warmup_cosine_lr(**lr), 0.05, 1.0)
+    port = load_jax_train_state(
+        build_model(cfg, device="cpu"), tx,
+        params=jax.tree_util.tree_map(np.asarray, state.params),
+        batch_stats=jax.tree_util.tree_map(np.asarray, state.batch_stats),
+        mu=jax.tree_util.tree_map(np.asarray, adam.mu),
+        nu=jax.tree_util.tree_map(np.asarray, adam.nu),
+        count=int(adam.count), step=int(state.step))
+    assert port.step == 2 and int(port.opt_state.count) == 2
+
+    x, y = batches[2]
+    state, jm = step(state, (jnp.asarray(x), jnp.asarray(y)), key)
+    port, tm = make_train_step(StepConfig(num_classes=10),
+                               warmup_cosine_lr(**lr))(
+        port, (torch.from_numpy(x), torch.from_numpy(y)), StepDraws())
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+    want = jax_tree_to_port(jax.tree_util.tree_map(np.asarray, state.params))
+    want.update(jax_tree_to_port(jax.tree_util.tree_map(
+        np.asarray, state.batch_stats)))
+    got = {k: t.numpy() for k, t in port.model.state_dict().items()}
+    assert set(got) == set(want)
+    # Leaves whose exact gradient is 0 get noise-level grads that Adam
+    # scales up to lr-sized steps of either sign, in both frameworks: the
+    # key third of each qkv bias (softmax ignores a constant added to every
+    # key) and the last MLP's fc2 bias (a per-channel constant that the
+    # train-mode head BN subtracts again). They are held to that bound.
+    last_fc2 = [k for k in got if k.endswith("mlp.fc2.bias")][-1]
+    for k, v in want.items():
+        g = got[k]
+        if k.endswith("qkv.bias"):
+            C = v.shape[0] // 3
+            np.testing.assert_array_less(np.abs(g[C:2 * C] - v[C:2 * C]),
+                                         3 * lr["base_lr"], err_msg=k)
+            g, v = np.delete(g, np.s_[C:2 * C]), np.delete(v, np.s_[C:2 * C])
+        elif k == last_fc2:
+            np.testing.assert_array_less(np.abs(g - v), 3 * lr["base_lr"],
+                                         err_msg=k)
+            continue
+        np.testing.assert_allclose(g, v, atol=1e-5, rtol=1e-5, err_msg=k)
+    mu = jax_tree_to_port(jax.tree_util.tree_map(
+        np.asarray, state.opt_state[1][0].mu))
+    for k, v in mu.items():
+        np.testing.assert_allclose(port.opt_state.mu[k].numpy(), v,
+                                   atol=1e-5, rtol=1e-5, err_msg=k)
+    assert port.step == int(state.step) == 3
