@@ -5,22 +5,32 @@ GPU.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``outgridvit_tpu_torch/csrc`` (nvcc,
-sm_90a), holds each kernel against its plain PyTorch version at every
-Model A-7M stage shape in fp32 and bf16, serves requests through
-``Predictor`` at the flagship's full width (CIFAR-100 32px, batch 64, bf16,
-random weights from a seed), checks that the serving path launched every
-kernel, checks the kernel path's logits against the plain path's, and times
-kernels and the predictor. Then the train step (batch 128, raw uint8 in,
-the full augmentation and mixup/cutmix recipe, AdamW): the backward kernels
-against their plain versions at every stage shape (twice, bitwise equal),
-one step through the kernels against one through the plain path, the launch
-counts per step, 30 steps on one batch (the loss must fall), the non-finite
-guard, and timings.
+sm_90a), then drives two models at their full width with random weights
+from a seed:
+
+- Model A-7M (``configs/cifar100_model_a_7m.yaml``, CIFAR-100 32px): grid
+  attention on N <= 16 token grids (``grid_mhsa``), MLP branches
+  (``mlp_branch``);
+- Model A on Tiny-ImageNet-200 (``configs/tinyimagenet200_model_a.yaml``,
+  64px): stage 0 runs grids of N=64 through the fused attention branch
+  (``attn_branch``) and its MLPs at the shapes of the row-layout TPU kernel;
+  stages 1-3 run the N=16 grids of the head-chunked TPU kernel.
+
+For each model: every kernel against its plain PyTorch version at every
+stage shape (forward at the serving batch 64, backward at the train batch
+128, fp32 and bf16; each backward twice, bitwise equal), requests through
+``Predictor`` at batch 64 with the launch counts of each forward, the kernel
+path's logits against the plain path's, one fp32 train step through the
+kernels against one through the plain path (batch 128, raw uint8 in, the
+config's augmentation and mixing recipe, AdamW), bf16 steps on one batch in
+which the loss must fall (launch counts of each step), and timings. The 7M
+path also checks the non-finite guard.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
-limit, then a JSON line ``{"kernels": [...]}`` (forward kernels: launches
-and ms per batch-64 serving forward; backward kernels: per batch-128 train
-step), then the last line ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
+limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
+paths; ms per Tiny-ImageNet batch-64 forward for the forward kernels and per
+batch-128 train step for the backward ones), then the last line
+``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without the last line. Without a CUDA device it exits 1
 before doing anything. Imports no JAX and no yaml.
 """
@@ -54,10 +64,63 @@ FLAGSHIP_MODEL_CFG = {
     ],
 }
 FLAGSHIP_PARAMS = 7_518_102
+# The `model:` section of configs/tinyimagenet200_model_a.yaml (a test
+# checks that the two agree, and the count against the JAX build).
+TIN_MODEL_CFG = {
+    "type": "model_a",
+    "num_classes": 200,
+    "in_ch": 3,
+    "stem_dim": 64,
+    "dpr_max": 0.11,
+    "stages": [
+        {"dim": 64, "depth": 2, "num_heads": 2, "grid_size": 8,
+         "outlook_heads": 2},
+        {"dim": 128, "depth": 3, "num_heads": 4, "grid_size": 8,
+         "outlook_heads": 4},
+        {"dim": 256, "depth": 4, "num_heads": 8, "grid_size": 4,
+         "outlook_heads": 8},
+        {"dim": 384, "depth": 2, "num_heads": 6, "grid_size": 2,
+         "outlook_heads": 6},
+    ],
+}
+TIN_PARAMS = 22_542_628
 BATCH = 64
-IMG = 32
+TRAIN_BATCH = 128
 SEED = 0
 DEVICE = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCase:
+    """One configuration: its model, input and train recipe (the yaml's
+    ``training:`` values, with ``bench.py``'s schedule, and the dataset's
+    statistics and crop pad, ``scripts/bench_config.py:32, 75``)."""
+
+    tag: str
+    config: str
+    model: dict
+    params: int
+    img: int
+    mean: tuple
+    std: tuple
+    crop_pad: int
+    train: dict
+    loss_steps: int
+    fixed_draws_loss: bool  # the loss loop reuses one step's draws
+
+
+FLAGSHIP = ModelCase(
+    "a7m", "configs/cifar100_model_a_7m.yaml", FLAGSHIP_MODEL_CFG,
+    FLAGSHIP_PARAMS, 32, (0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761),
+    4, {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
+        "min_lr": 1e-6, "label_smoothing": 0.1, "mixup_alpha": 0.8,
+        "cutmix_alpha": 1.0, "mix_prob": 0.5}, 30, False)
+TIN = ModelCase(
+    "tin200", "configs/tinyimagenet200_model_a.yaml", TIN_MODEL_CFG,
+    TIN_PARAMS, 64, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), 8,
+    {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
+     "min_lr": 1e-6, "label_smoothing": 0.0, "mixup_alpha": 0.0,
+     "cutmix_alpha": 1.0, "mix_prob": 0.5}, 10, True)
 
 # Kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|:
 # fp32 differs only by summation order (errors ~1e-6 at these sums of
@@ -66,20 +129,13 @@ DEVICE = "cuda"
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Logits, as a fraction of max(1, max |plain fp32 logits|): the fp32 kernel
 # path reorders fp32 sums only; bf16 carries ~3 significant digits through
-# 7 blocks (a half-width model on the CPU measured 1.5% of max |logits|).
+# 7-11 blocks (a half-width 7M model on the CPU measured 1.5% of max
+# |logits|).
 LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
-
-# Train step: configs/cifar100_model_a_7m.yaml's `training:` values, with
-# bench.py's batch, schedule and augmentation (bench.py:82-123).
-TRAIN_BATCH = 128
-TRAIN = {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
-         "min_lr": 1e-6, "label_smoothing": 0.1, "mixup_alpha": 0.8,
-         "cutmix_alpha": 1.0, "mix_prob": 0.5}
-MEAN, STD, CROP_PAD = (0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761), 4
-# Parameter gradients of a backward kernel (sums over all M tokens), as a
+# Parameter gradients of a backward kernel (sums over all tokens), as a
 # fraction of max |plain grad|: fp32 reorders the sums; in bf16 a flipped
-# rounding of dh moves a sum by a bf16 ulp of one term, and the result is
-# rounded to bf16 once (2^-8 relative).
+# rounding of an intermediate moves a sum by a bf16 ulp of one term, and the
+# result is rounded to bf16 once (2^-8 relative).
 WGRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # One fp32 train step, kernel path vs plain path (same state and draws):
 # loss relative; every param grad as a fraction of the global grad norm;
@@ -89,20 +145,52 @@ WGRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STAT_TOL = (
     1e-5, 1e-4, 4.0, 1e-4)
 # bf16 kernel step vs the fp32 plain step: loss relative (bf16 keeps ~3
-# significant digits through 7 blocks).
+# significant digits through the blocks).
 BF16_LOSS_TOL = 3e-2
-LOSS_STEPS = 30
 
+# name -> (source, the TPU kernel it replaces, the JAX entry points it covers)
 SOURCES = {
-    "grid_mhsa": ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
-                  "outgridvit_tpu/ops/grid_attention_pallas_t.py:270"),
-    "mlp_branch": ("outgridvit_tpu_torch/csrc/mlp_branch.cu",
-                   "outgridvit_tpu/ops/mlp_branch_pallas_t.py:182"),
-    "grid_mhsa_bwd": ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
-                      "outgridvit_tpu/ops/grid_attention_pallas_t.py:319"),
-    "mlp_branch_bwd": ("outgridvit_tpu_torch/csrc/mlp_branch_bwd.cu",
-                       "outgridvit_tpu/ops/mlp_branch_pallas_t.py:248"),
+    "grid_mhsa": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas_t.py:270",
+        ["outgridvit_tpu/ops/grid_attention_pallas_t.py:270 "
+         "grid_mhsa_pallas_t (#1, variant t)",
+         "outgridvit_tpu/ops/grid_attention_pallas_t.py:344 "
+         "grid_mhsa_pallas_th (#3, variant th)"]),
+    "mlp_branch": (
+        "outgridvit_tpu_torch/csrc/mlp_branch.cu",
+        "outgridvit_tpu/ops/mlp_branch_pallas_t.py:182",
+        ["outgridvit_tpu/ops/mlp_branch_pallas_t.py:182 mlp_branch_pallas_t "
+         "(#2, variant t)",
+         "outgridvit_tpu/ops/mlp_branch_pallas.py:199 mlp_branch_pallas "
+         "(#4, variant row)"]),
+    "attn_branch": (
+        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        "outgridvit_tpu/ops/attn_branch_pallas.py:324",
+        ["outgridvit_tpu/ops/attn_branch_pallas.py:324 attn_branch_pallas "
+         "(#5, forward :349)"]),
+    "grid_mhsa_bwd": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas_t.py:319",
+        ["outgridvit_tpu/ops/grid_attention_pallas_t.py:319 "
+         "grid_mhsa_pallas_t backward (#1)",
+         "outgridvit_tpu/ops/grid_attention_pallas_t.py:412 "
+         "grid_mhsa_pallas_th backward (#3)"]),
+    "mlp_branch_bwd": (
+        "outgridvit_tpu_torch/csrc/mlp_branch_bwd.cu",
+        "outgridvit_tpu/ops/mlp_branch_pallas_t.py:248",
+        ["outgridvit_tpu/ops/mlp_branch_pallas_t.py:248 mlp_branch_pallas_t "
+         "backward (#2)",
+         "outgridvit_tpu/ops/mlp_branch_pallas.py:266 mlp_branch_pallas "
+         "backward (#4)"]),
+    "attn_branch_bwd": (
+        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        "outgridvit_tpu/ops/attn_branch_pallas.py:396",
+        ["outgridvit_tpu/ops/attn_branch_pallas.py:396 attn_branch_pallas "
+         "backward (#5)"]),
 }
+FWD = ("grid_mhsa", "attn_branch", "mlp_branch")
+BWD = ("grid_mhsa_bwd", "attn_branch_bwd", "mlp_branch_bwd")
 
 
 class CheckFailed(RuntimeError):
@@ -122,19 +210,47 @@ def gpu_name_and_power_limit() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def stage_shapes(batch: int = BATCH):
-    """Per stage: the kernels' shapes at ``batch`` and how often one forward
-    launches them."""
+def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
+    """Per stage: the kernels' shapes at ``batch``, how often one forward
+    launches them, and the JAX kernels the port's dispatch stands for (as
+    ``models/blocks.py`` and ``models/layers.py`` pick them)."""
+    from outgridvit_tpu_torch.ops.attn_branch import MIN_TOKENS
+    from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
+    from outgridvit_tpu_torch.ops.mlp_branch import mlp_branch_variant
+
     out = []
-    for si, s in enumerate(FLAGSHIP_MODEL_CFG["stages"]):
-        hw = IMG >> si
+    for si, s in enumerate(case.model["stages"]):
+        hw = case.img >> si
         g, C = s["grid_size"], s["dim"]
+        N = (hw // g) ** 2
         out.append({
             "stage": si, "blocks": s["depth"], "C": C,
-            "G": batch * g * g, "N": (hw // g) ** 2, "heads": s["num_heads"],
+            "G": batch * g * g, "N": N, "heads": s["num_heads"],
             "M": batch * hw * hw, "H_outlook": 2 * C, "H_block": 4 * C,
+            "attn": "branch" if N >= MIN_TOKENS else "grid",
+            "grid_variant": grid_mhsa_variant(N, C),
+            "mlp_variant": mlp_branch_variant(hw * hw, C),
         })
     return out
+
+
+def launch_plan(shapes, backward=False):
+    """Launches of one forward (or one backward): per kernel, and per
+    variant of the kernels whose launches are tagged."""
+    sfx = "_bwd" if backward else ""
+    plan = {name + sfx: 0 for name in FWD}
+    variants = {"grid_mhsa" + sfx: {}, "mlp_branch" + sfx: {}}
+    for sh in shapes:
+        n = sh["blocks"]
+        for name, count, variant in (
+                ("attn_branch" if sh["attn"] == "branch" else "grid_mhsa", n,
+                 sh["grid_variant"]),
+                ("mlp_branch", 2 * n, sh["mlp_variant"])):
+            plan[name + sfx] += count
+            if name + sfx in variants:
+                tags = variants[name + sfx]
+                tags[variant] = tags.get(variant, 0) + count
+    return plan, {k: v for k, v in variants.items() if v}
 
 
 def time_ms(fn, args, iters=50, warmup=5):
@@ -154,60 +270,121 @@ def time_ms(fn, args, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
-def train_phases(dev, gpu: str) -> dict:
-    """Phases 8-13: the train step of Model A-7M at TRAIN_BATCH. Returns the
-    backward kernels' launches per step, max errors and per-step times."""
-    import torch
+class Smoke:
+    """The checks, counters and results of one run."""
 
-    from outgridvit_tpu_torch.models import build_model
-    from outgridvit_tpu_torch.models.layers import DropPath
-    from outgridvit_tpu_torch.ops.augment import AugmentConfig
-    from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
-    from outgridvit_tpu_torch.ops.grid_attention import (
-        grid_mhsa,
-        grid_mhsa_backward,
-        grid_mhsa_backward_reference,
-    )
-    from outgridvit_tpu_torch.ops.mlp_branch import (
-        mlp_branch,
-        mlp_branch_backward,
-        mlp_branch_backward_reference,
-    )
-    from outgridvit_tpu_torch.training.optim import AdamW, warmup_cosine_lr
-    from outgridvit_tpu_torch.training.steps import (
-        StepConfig,
-        make_train_step,
-        sample_step_draws,
-    )
-    from outgridvit_tpu_torch.training.train_state import TrainState
+    def __init__(self, dev, gpu: str):
+        import torch
 
-    shapes = stage_shapes(TRAIN_BATCH)
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        from outgridvit_tpu_torch.ops import attn_branch as ab
+        from outgridvit_tpu_torch.ops import grid_attention as ga
+        from outgridvit_tpu_torch.ops import mlp_branch as mb
 
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+        self.dev, self.gpu = dev, gpu
+        self.gen = torch.Generator(device="cpu").manual_seed(SEED)
+        self.kernels = {
+            "grid_mhsa": (ga.grid_mhsa, ga.grid_mhsa_reference),
+            "attn_branch": (ab.attn_branch, ab.attn_branch_reference),
+            "mlp_branch": (mb.mlp_branch, mb.mlp_branch_reference),
+            "grid_mhsa_bwd": (ga.grid_mhsa_backward,
+                              ga.grid_mhsa_backward_reference),
+            "attn_branch_bwd": (ab.attn_branch_backward,
+                                ab.attn_branch_backward_reference),
+            "mlp_branch_bwd": (mb.mlp_branch_backward,
+                               mb.mlp_branch_backward_reference),
+        }
+        self.max_err = {n: 0.0 for n in SOURCES}
+        self.launches = {n: {} for n in SOURCES}   # name -> {path: count}
+        self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
+        self.ms = {}                               # name -> (kernel, plain)
 
-    def grid_args(sh, dtype):
-        return (randn(sh["G"], sh["N"], 3 * sh["C"]).to(dtype),
-                randn(sh["G"], sh["N"], sh["C"]).to(dtype), sh["heads"])
+    # -- launch counters --------------------------------------------------
+    def reset_counts(self):
+        for fn, _ in self.kernels.values():
+            fn.launches = 0
+            if hasattr(fn, "by_variant"):
+                fn.by_variant.clear()
 
-    def mlp_args(sh, H, dtype, act="gelu", apply_ln=True):
-        C, M = sh["C"], sh["M"]
-        return (randn(M, C).to(dtype), randn(C, scale=0.1, shift=1.0),
-                randn(C, scale=0.1), randn(C, H, scale=C ** -0.5).to(dtype),
-                randn(H, scale=0.02).to(dtype),
-                randn(H, C, scale=H ** -0.5).to(dtype),
-                randn(C, scale=0.02).to(dtype),
-                randn(M, C, scale=0.01).to(dtype), act, 1e-5, apply_ln)
+    def read_counts(self):
+        return ({n: fn.launches for n, (fn, _) in self.kernels.items()},
+                {n: dict(fn.by_variant) for n, (fn, _) in self.kernels.items()
+                 if hasattr(fn, "by_variant")})
 
-    # -- phase 8: each backward kernel against its plain version ----------
-    max_err = {"grid_mhsa_bwd": 0.0, "mlp_branch_bwd": 0.0}
-    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    def record(self, path, counts, variants):
+        for n, c in counts.items():
+            if c:
+                self.launches[n][path] = c
+        for n, v in variants.items():
+            for k, c in v.items():
+                self.variants[n][k] = self.variants[n].get(k, 0) + c
 
-    def compare_bwd(name, kernel, plain, args, dtype, label):
+    # -- inputs -----------------------------------------------------------
+    def randn(self, *shape, scale=1.0, shift=0.0):
+        import torch
+
+        return (torch.randn(*shape, generator=self.gen) * scale
+                + shift).to(self.dev)
+
+    def fwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True):
+        G, N, C, heads = sh["G"], sh["N"], sh["C"], sh["heads"]
+        r = self.randn
+        if name == "grid_mhsa":
+            return (r(G, N, 3 * C).to(dtype), heads)
+        ln = (r(C, scale=0.1, shift=1.0), r(C, scale=0.1))
+        if name == "attn_branch":
+            return (r(G, N, C).to(dtype), *ln,
+                    r(C, 3 * C, scale=C ** -0.5).to(dtype),
+                    r(3 * C, scale=0.02).to(dtype),
+                    r(C, C, scale=C ** -0.5).to(dtype),
+                    r(C, scale=0.02).to(dtype), heads)
+        M = sh["M"]
+        return (r(M, C).to(dtype), *ln, r(C, H, scale=C ** -0.5).to(dtype),
+                r(H, scale=0.02).to(dtype),
+                r(H, C, scale=H ** -0.5).to(dtype), r(C, scale=0.02).to(dtype),
+                act, 1e-5, apply_ln)
+
+    def bwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True):
+        base = name[:-len("_bwd")]
+        args = self.fwd_args(base, sh, dtype, H, act, apply_ln)
+        if base == "grid_mhsa":
+            dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
+            return (args[0], dout, args[1])
+        if base == "attn_branch":
+            return (*args[:7], self.randn(*args[0].shape).to(dtype), args[7])
+        return (*args[:7], self.randn(*args[0].shape, scale=0.01).to(dtype),
+                *args[7:])
+
+    def cases(self, shapes, backward, dtype):
+        """(name, args, label) of every kernel at every stage shape."""
+        out = []
+        for sh in shapes:
+            tag = f"stage{sh['stage']}"
+            attn = "attn_branch" if sh["attn"] == "branch" else "grid_mhsa"
+            names = [(attn, None), ("mlp_branch", sh["H_outlook"]),
+                     ("mlp_branch", sh["H_block"])]
+            for base, H in names:
+                name = base + ("_bwd" if backward else "")
+                make = self.bwd_args if backward else self.fwd_args
+                if base == "mlp_branch":
+                    label = (f"{tag} M={sh['M']} C={sh['C']} H={H} "
+                             f"variant={sh['mlp_variant']}")
+                else:
+                    label = (f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
+                             f"heads={sh['heads']}")
+                    if base == "grid_mhsa":
+                        label += f" variant={sh['grid_variant']}"
+                out.append((name, make(name, sh, dtype, H), label, sh))
+        return out
+
+    # -- kernel vs plain --------------------------------------------------
+    def compare(self, name, args, dtype, label):
+        import torch
+
+        kernel, plain = self.kernels[name]
         dt = str(dtype).split(".")[-1]
+        backward = name.endswith("_bwd")
         got = kernel(*args)
-        again = kernel(*args)
+        again = kernel(*args) if backward else got
         torch.cuda.synchronize()
         want = plain(*args)
         got, again, want = ((t,) if torch.is_tensor(t) else t
@@ -215,207 +392,386 @@ def train_phases(dev, gpu: str) -> dict:
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"{name} {label}: two calls differ")
         worst = []
-        for gname, g, w in zip(names if len(got) > 1 else ("dqkv",), got,
-                               want):
+        for i, (g, w) in enumerate(zip(got, want)):
             require(torch.isfinite(g.float()).all().item(),
-                    f"{name} {label} {gname}: non-finite")
+                    f"{name} {label} output {i}: non-finite")
             diff = (g.float() - w.float()).abs()
-            if gname in ("dx", "dqkv"):  # per-element, as the forward
+            if i == 0:  # output, dx or dqkv: per element
                 tol = KERNEL_TOL[dt]
                 ok = bool((diff <= tol + tol * w.float().abs()).all())
-                max_err[name] = max(max_err[name], diff.max().item())
-                worst.append(f"{gname}={diff.max().item():.2e}")
-            else:  # sums over all tokens, relative to max |plain grad|
+                self.max_err[name] = max(self.max_err[name],
+                                         diff.max().item())
+                worst.append(f"max_abs_err={diff.max().item():.3e}")
+            else:  # parameter grads: sums over all tokens, rel to max
                 scale = w.float().abs().max().item()
                 rel = diff.max().item() / max(scale, 1e-30)
                 ok = rel <= WGRAD_TOL[dt]
-                worst.append(f"{gname}={rel:.1e}")
-            require(ok, f"{name} {label} {gname}: kernel disagrees with "
+                worst.append(f"g{i}={rel:.1e}")
+            require(ok, f"{name} {label} output {i}: kernel disagrees with "
                     "plain version")
-        print(f"[compare-bwd] {name} {label} {dt} " + " ".join(worst)
-              + f" (dx/dqkv abs, tol {KERNEL_TOL[dt]:g} abs+rel; param "
-              f"grads rel to max, tol {WGRAD_TOL[dt]:g}) deterministic ok")
+        print(f"[compare] {name} {label} {dt} " + " ".join(worst)
+              + f" (tol {KERNEL_TOL[dt]:g} abs+rel; param grads rel to max, "
+              f"tol {WGRAD_TOL[dt]:g})"
+              + (" deterministic ok" if backward else ""))
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for sh in shapes:
-            tag = f"stage{sh['stage']}"
-            compare_bwd("grid_mhsa_bwd", grid_mhsa_backward,
-                        grid_mhsa_backward_reference, grid_args(sh, dtype),
-                        dtype, f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
-                        f"heads={sh['heads']}")
-            for H in (sh["H_outlook"], sh["H_block"]):
-                compare_bwd("mlp_branch_bwd", mlp_branch_backward,
-                            mlp_branch_backward_reference,
-                            mlp_args(sh, H, dtype), dtype,
-                            f"{tag} M={sh['M']} C={sh['C']} H={H} gelu ln")
-        sh = shapes[0]
-        for act in ("silu", "relu"):
-            compare_bwd("mlp_branch_bwd", mlp_branch_backward,
-                        mlp_branch_backward_reference,
-                        mlp_args(sh, sh["H_block"], dtype, act, False), dtype,
-                        f"stage0 M={sh['M']} C={sh['C']} act={act} ln=False")
+    def compare_all(self, case: ModelCase):
+        import torch
 
-    # -- phase 9: one train step, kernel path vs plain path ---------------
-    step_cfg = StepConfig(
-        num_classes=FLAGSHIP_MODEL_CFG["num_classes"],
-        label_smoothing=TRAIN["label_smoothing"],
-        mixup_alpha=TRAIN["mixup_alpha"], cutmix_alpha=TRAIN["cutmix_alpha"],
-        mix_prob=TRAIN["mix_prob"], grad_clip_norm=TRAIN["grad_clip_norm"],
-        augment=AugmentConfig(mean=MEAN, std=STD, crop_pad=CROP_PAD))
-    bench_lr = warmup_cosine_lr(TRAIN["lr"], 10_000, 500, TRAIN["min_lr"])
-    step = make_train_step(step_cfg, bench_lr)
-    images = torch.randint(0, 256, (TRAIN_BATCH, IMG, IMG, 3),
-                           dtype=torch.uint8, generator=gen).to(dev)
-    labels = torch.randint(0, FLAGSHIP_MODEL_CFG["num_classes"],
-                           (TRAIN_BATCH,), generator=gen).to(dev)
+        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
+            shapes = stage_shapes(case, batch)
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, args, label, _ in self.cases(shapes, backward,
+                                                       dtype):
+                    self.compare(name, args, dtype, f"{case.tag} {label}")
+                    del args
+            if case is FLAGSHIP:  # every activation and the no-LN form
+                sh = shapes[0]
+                name = "mlp_branch" + ("_bwd" if backward else "")
+                make = self.bwd_args if backward else self.fwd_args
+                for dtype in (torch.float32, torch.bfloat16):
+                    for act in ("silu", "relu"):
+                        self.compare(name, make(name, sh, dtype,
+                                                sh["H_block"], act, False),
+                                     dtype, f"{case.tag} stage0 M={sh['M']} "
+                                     f"C={sh['C']} act={act} ln=False")
 
-    def new_state(dtype, use_kernels, lr=bench_lr):
-        model = build_model(FLAGSHIP_MODEL_CFG, dtype=dtype,
-                            use_kernels=use_kernels, device=dev, seed=SEED)
-        return TrainState.create(model, AdamW(
-            lr, TRAIN["weight_decay"], TRAIN["grad_clip_norm"]))
+    def time_kernels(self, case: ModelCase, backward: bool, iters: int):
+        """µs per launch, kernel vs plain, at every stage shape in bf16;
+        summed per forward or per train step into ``self.ms``."""
+        import torch
 
-    def fixed_draws(model):
-        draws = sample_step_draws(gen, step_cfg, tuple(images.shape), dev)
-        return draws._replace(drop_masks=DropPathMasks({
-            m.path: torch.rand(TRAIN_BATCH, generator=gen) < 1.0 - m.rate
-            for m in model.modules() if isinstance(m, DropPath)
-            and m.rate > 0}))
-
-    runs = {}
-    draws = None
-    for label, dtype, kern in (("fp32 kernel", torch.float32, True),
-                               ("fp32 plain", torch.float32, False),
-                               ("bf16 kernel", torch.bfloat16, True)):
-        state = new_state(dtype, kern)
-        draws = draws or fixed_draws(state.model)
-        state, m = step(state, (images, labels), draws)
-        torch.cuda.synchronize()
-        runs[label] = (state, {k: v.item() for k, v in m.items()})
-        print(f"[train-step] {label}: " + " ".join(
-            f"{k}={v:.6g}" for k, v in runs[label][1].items()))
-    (ks, km), (ps, pm) = runs["fp32 kernel"], runs["fp32 plain"]
-    require(km["nonfinite"] == 0.0 and pm["nonfinite"] == 0.0,
-            "train step: non-finite loss")
-    loss_err = abs(km["loss"] - pm["loss"]) / abs(pm["loss"])
-    gnorm = pm["grad_norm"]
-    grad_err = max((kp.grad - pp.grad).abs().max().item()
-                   for kp, pp in zip(ks.model.parameters(),
-                                     ps.model.parameters())) / gnorm
-    lr0 = pm["lr"]
-    param_err = max((kp - pp).abs().max().item()
-                    for kp, pp in zip(ks.model.parameters(),
-                                      ps.model.parameters()))
-    stat_err = max(((kb - pb).abs() / (1 + pb.abs())).max().item()
-                   for kb, pb in zip(ks.model.buffers(), ps.model.buffers()))
-    print(f"[train-step] fp32 kernel vs plain: loss rel err {loss_err:.2e} "
-          f"(tol {STEP_LOSS_TOL:g}); max grad err / grad norm {grad_err:.2e} "
-          f"(tol {STEP_GRAD_TOL:g}, grad norm {gnorm:.4f}); params after "
-          f"the step max abs err {param_err:.2e} (tol {STEP_PARAM_TOL:g} x "
-          f"lr {lr0:.3g}); BN stats rel err {stat_err:.2e} "
-          f"(tol {STEP_STAT_TOL:g})")
-    require(loss_err <= STEP_LOSS_TOL, "train step: loss disagrees")
-    require(grad_err <= STEP_GRAD_TOL, "train step: grads disagree")
-    require(param_err <= STEP_PARAM_TOL * lr0, "train step: params disagree")
-    require(stat_err <= STEP_STAT_TOL, "train step: BN stats disagree")
-    bf_err = abs(runs["bf16 kernel"][1]["loss"] - pm["loss"]) / pm["loss"]
-    print(f"[train-step] bf16 kernel vs fp32 plain: loss rel err "
-          f"{bf_err:.2e} (tol {BF16_LOSS_TOL:g})")
-    require(bf_err <= BF16_LOSS_TOL, "bf16 train step: loss disagrees")
-    del runs, ks, ps
-
-    # -- phases 10-11: the main path, 30 steps on one batch ---------------
-    counters = {"grid_mhsa": grid_mhsa, "grid_mhsa_bwd": grid_mhsa_backward,
-                "mlp_branch": mlp_branch,
-                "mlp_branch_bwd": mlp_branch_backward}
-    blocks = sum(sh["blocks"] for sh in shapes)
-    per_step = {"grid_mhsa": blocks, "grid_mhsa_bwd": blocks,
-                "mlp_branch": 2 * blocks, "mlp_branch_bwd": 2 * blocks}
-    require(per_step == {"grid_mhsa": 7, "grid_mhsa_bwd": 7,
-                         "mlp_branch": 14, "mlp_branch_bwd": 14},
-            f"unexpected per-step launch plan {per_step}")
-    state = new_state(torch.bfloat16, True, warmup_cosine_lr(
-        TRAIN["lr"], LOSS_STEPS, 3, TRAIN["min_lr"]))
-    loss_step = make_train_step(step_cfg, state.tx.learning_rate)
-    sampler = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    losses = []
-    launches = {}
-    for i in range(LOSS_STEPS):
-        for fn in counters.values():
-            fn.launches = 0
-        state, m = loss_step(state, (images, labels), generator=sampler)
-        launches = {k: fn.launches for k, fn in counters.items()}
-        require(launches == per_step,
-                f"step {i}: launches {launches}, expected {per_step}")
-        losses.append(m["loss"].item())
-        require(m["nonfinite"].item() == 0.0 and math.isfinite(losses[-1]),
-                f"step {i}: non-finite loss")
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    print(f"[train] launches per step {launches} (every one of "
-          f"{LOSS_STEPS} steps)")
-    print(f"[train] {LOSS_STEPS} bf16 kernel-path steps on one batch of "
-          f"{TRAIN_BATCH}: losses " + " ".join(f"{x:.4f}" for x in losses)
-          + f"; mean of first 5 {first:.4f}, of last 5 {last:.4f}")
-    require(last < first, "the loss did not fall over 30 steps")
-
-    # -- phase 12: the non-finite guard -----------------------------------
-    nan_step = make_train_step(dataclasses.replace(step_cfg, augment=None),
-                               state.tx.learning_rate)
-    bad = images.float()
-    bad[0, 0, 0, 0] = float("nan")
-    before = ([t.clone() for t in state.model.state_dict().values()],
-              [t.clone() for t in state.opt_state.mu.values()],
-              [t.clone() for t in state.opt_state.nu.values()],
-              state.opt_state.count.clone())
-    state, m = nan_step(state, (bad, labels), generator=sampler)
-    after = (list(state.model.state_dict().values()),
-             list(state.opt_state.mu.values()),
-             list(state.opt_state.nu.values()), state.opt_state.count)
-    same = all(torch.equal(a, b) for a, b in zip(before[0], after[0])) and \
-        all(torch.equal(a, b) for a, b in zip(before[1], after[1])) and \
-        all(torch.equal(a, b) for a, b in zip(before[2], after[2])) and \
-        torch.equal(before[3], after[3])
-    print(f"[guard] NaN batch: nonfinite={m['nonfinite'].item():g} "
-          f"loss={m['loss'].item():g} grad_norm={m['grad_norm'].item():g}; "
-          f"params, BN stats, AdamW mu/nu/count bitwise unchanged: {same}; "
-          f"state.step {state.step}")
-    require(m["nonfinite"].item() == 1.0 and m["loss"].item() == 0.0,
-            "guard: NaN loss not reported")
-    require(same, "guard: the state changed on a non-finite step")
-
-    # -- phase 13: timings ------------------------------------------------
-    bf16 = torch.bfloat16
-    step_ms = {"grid_mhsa_bwd": [0.0, 0.0], "mlp_branch_bwd": [0.0, 0.0]}
-    for sh in shapes:
-        cases = [("grid_mhsa_bwd", grid_mhsa_backward,
-                  grid_mhsa_backward_reference, grid_args(sh, bf16),
-                  f"G={sh['G']} N={sh['N']} C={sh['C']}")]
-        cases += [("mlp_branch_bwd", mlp_branch_backward,
-                   mlp_branch_backward_reference, mlp_args(sh, H, bf16),
-                   f"M={sh['M']} C={sh['C']} H={H}")
-                  for H in (sh["H_outlook"], sh["H_block"])]
-        for name, kern, plain, args, what in cases:
-            k_ms = time_ms(kern, args, iters=10, warmup=2)
-            p_ms = time_ms(plain, args, iters=10, warmup=2)
-            step_ms[name][0] += sh["blocks"] * k_ms
-            step_ms[name][1] += sh["blocks"] * p_ms
-            print(f"[time] {name} stage{sh['stage']} {what} bf16: kernel "
+        shapes = stage_shapes(case, TRAIN_BATCH if backward else BATCH)
+        totals = {}
+        for name, args, label, sh in self.cases(shapes, backward,
+                                                torch.bfloat16):
+            kern, plain = self.kernels[name]
+            k_ms = time_ms(kern, args, iters=iters, warmup=2)
+            p_ms = time_ms(plain, args, iters=iters, warmup=2)
+            t = totals.setdefault(name, [0.0, 0.0])
+            t[0] += sh["blocks"] * k_ms
+            t[1] += sh["blocks"] * p_ms
+            print(f"[time] {case.tag} {name} {label} bf16: kernel "
                   f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
-                  f"({k_ms and p_ms / k_ms:.2f}x) [{gpu}]")
-    for name, (k, p) in step_ms.items():
-        print(f"[time] {name} per batch-{TRAIN_BATCH} train step: kernel "
-              f"{k:.4f} ms, plain {p:.4f} ms [{gpu}]")
-    draws = fixed_draws(state.model)
-    for label, st in (("kernel path", state),
-                      ("plain path", new_state(bf16, False))):
-        def one(st=st):
-            step(st, (images, labels), draws)
-        ms = time_ms(one, (), iters=10, warmup=3)
-        print(f"[time] Model A-7M train step bs{TRAIN_BATCH} bf16 {label} "
-              f"(uint8 in, augment + mix + fwd + bwd + AdamW; draws "
-              f"sampled beforehand): {ms:.3f} ms/step, "
-              f"{TRAIN_BATCH / ms * 1e3:.1f} imgs/s [{gpu}]")
-    return {"launches": launches, "max_err": max_err, "ms": step_ms}
+                  f"({k_ms and p_ms / k_ms:.2f}x) [{self.gpu}]")
+            del args
+        per = (f"batch-{TRAIN_BATCH} train step" if backward
+               else f"batch-{BATCH} forward")
+        for name, (k, p) in totals.items():
+            print(f"[time] {case.tag} {name} per {per}: kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms [{self.gpu}]")
+            if case is TIN:
+                self.ms[name] = (k, p)
+
+    # -- serving ----------------------------------------------------------
+    def serve(self, case: ModelCase):
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.ops.augment import normalize_batch
+        from outgridvit_tpu_torch.serving import build_predictor
+
+        img, classes = case.img, case.model["num_classes"]
+        pred = build_predictor(case.model, batch_size=BATCH, img_size=img,
+                               mean=case.mean, std=case.std, device=self.dev,
+                               seed=SEED)
+        n_params = sum(p.numel() for p in pred.model.parameters())
+        print(f"[predictor] {case.tag} ({case.config}) params={n_params} "
+              f"batch={BATCH} img={img} dtype={pred.model.dtype}")
+        require(n_params == case.params, f"param count {n_params}")
+
+        rng = np.random.default_rng(SEED)
+        images = rng.integers(0, 256, (200, img, img, 3), dtype=np.uint8)
+        requests = [("full batch", images[:BATCH]), ("ragged 3", images[:3]),
+                    ("200 images", images)]
+        plan, variants = launch_plan(stage_shapes(case))
+        print(f"[serve] {case.tag} launch plan per forward {plan}, by "
+              f"variant {variants}")
+        results = {}
+        self.reset_counts()
+        for label, req in requests:
+            before = self.read_counts()[0]
+            labels, probs = pred.predict_many(req)
+            forwards = -(-len(req) // BATCH)
+            counts = self.read_counts()[0]
+            delta = {k: counts[k] - before[k] for k in plan}
+            print(f"[serve] {case.tag} {label}: labels {labels.shape} probs "
+                  f"{probs.shape} forwards={forwards} launches={delta}")
+            require(labels.shape == (len(req),) and labels.dtype == np.int32,
+                    f"{label}: labels {labels.shape} {labels.dtype}")
+            require(probs.shape == (len(req), classes),
+                    f"{label}: probs shape")
+            require(np.isfinite(probs).all(), f"{label}: non-finite probs")
+            require(np.allclose(probs.sum(-1), 1.0, atol=1e-4),
+                    f"{label}: probs do not sum to 1")
+            require((labels == probs.argmax(-1)).all(), f"{label}: argmax")
+            require(delta == {k: v * forwards for k, v in plan.items()},
+                    f"{label}: launches {delta}, expected {plan} x "
+                    f"{forwards}")
+            results[label] = (labels, probs)
+        counts, by_variant = self.read_counts()
+        total = sum(-(-len(r) // BATCH) for _, r in requests)
+        require({k: by_variant[k] for k in variants}
+                == {k: {v: c * total for v, c in vs.items()}
+                    for k, vs in variants.items()},
+                f"launches by variant {by_variant}, expected {variants} x "
+                f"{total}")
+        self.record(f"{case.tag} serve", counts, by_variant)
+        full_l, full_p = results["full batch"]
+        rag_l, rag_p = results["ragged 3"]
+        require((rag_l == full_l[:3]).all()
+                and np.allclose(rag_p, full_p[:3], atol=1e-3),
+                "ragged request disagrees with the same rows of a full batch")
+        require((results["200 images"][0][:BATCH] == full_l).all(),
+                "predict_many disagrees with predict")
+
+        # kernel path vs plain path, same weights and inputs
+        state = pred.model.state_dict()
+
+        def model(dtype, use_kernels):
+            m = build_model(case.model, dtype=dtype, use_kernels=use_kernels,
+                            device=self.dev)
+            m.load_state_dict(state)
+            return m
+
+        plainbf = model(torch.bfloat16, False)
+        x = normalize_batch(torch.from_numpy(images[:BATCH]).to(self.dev),
+                            pred.mean, pred.std)
+        with torch.inference_mode():
+            ref = model(torch.float32, False)(x)
+            outs = {"fp32 kernel path": (model(torch.float32, True)(x),
+                                         "float32"),
+                    "bf16 kernel path (served)": (pred.model(x), "bfloat16"),
+                    "bf16 plain path": (plainbf(x), "bfloat16")}
+        scale = max(1.0, ref.abs().max().item())
+        top2 = ref.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        for label, (logits, dt) in outs.items():
+            require(torch.isfinite(logits).all().item(),
+                    f"{label}: non-finite")
+            err = (logits.float() - ref).abs().max().item()
+            tol = LOGIT_TOL[dt] * scale
+            decided = margin > 2 * tol
+            agree = logits.argmax(-1) == ref.argmax(-1)
+            print(f"[logits] {case.tag} {label} vs fp32 plain path: "
+                  f"max_abs_err={err:.4e} tol={tol:.4e} (max|logit|="
+                  f"{scale:.3f}); labels agree {int(agree.sum())}/{BATCH}; "
+                  f"on the {int(decided.sum())} rows with top-2 margin > "
+                  f"2*tol: {int((agree & decided).sum())}")
+            require(err <= tol, f"{label}: logits off by {err}")
+            require(bool(agree[decided].all()), f"{label}: labels disagree")
+        del outs, ref
+
+        with torch.inference_mode():
+            fwd_k = time_ms(pred.model, (x,), iters=20, warmup=3)
+            fwd_p = time_ms(plainbf, (x,), iters=20, warmup=3)
+        print(f"[time] {case.tag} forward bs{BATCH} bf16: kernel path "
+              f"{fwd_k:.3f} ms, plain path {fwd_p:.3f} ms [{self.gpu}]")
+        full = images[:BATCH]
+        for _ in range(3):
+            pred.predict(full)
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pred.predict(full)
+        secs = time.perf_counter() - t0
+        print(f"[time] {case.tag} predictor bs{BATCH} bf16 (uint8 in, "
+              f"labels+probs out): {reps * BATCH / secs:.1f} imgs/s, "
+              f"{secs / reps * 1e3:.3f} ms/request [{self.gpu}]")
+
+    # -- training ---------------------------------------------------------
+    def train(self, case: ModelCase):
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.models.layers import DropPath
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            StepConfig,
+            make_train_step,
+            sample_step_draws,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        T, dev, gen = case.train, self.dev, self.gen
+        classes = case.model["num_classes"]
+        step_cfg = StepConfig(
+            num_classes=classes, label_smoothing=T["label_smoothing"],
+            mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+            mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
+            augment=AugmentConfig(mean=case.mean, std=case.std,
+                                  crop_pad=case.crop_pad))
+        bench_lr = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+        step = make_train_step(step_cfg, bench_lr)
+        images = torch.randint(0, 256, (TRAIN_BATCH, case.img, case.img, 3),
+                               dtype=torch.uint8, generator=gen).to(dev)
+        labels = torch.randint(0, classes, (TRAIN_BATCH,),
+                               generator=gen).to(dev)
+
+        def new_state(dtype, use_kernels, lr=bench_lr):
+            model = build_model(case.model, dtype=dtype,
+                                use_kernels=use_kernels, device=dev,
+                                seed=SEED)
+            return TrainState.create(model, AdamW(
+                lr, T["weight_decay"], T["grad_clip_norm"]))
+
+        def fixed_draws(model):
+            draws = sample_step_draws(gen, step_cfg, tuple(images.shape), dev)
+            return draws._replace(drop_masks=DropPathMasks({
+                m.path: torch.rand(TRAIN_BATCH, generator=gen) < 1.0 - m.rate
+                for m in model.modules() if isinstance(m, DropPath)
+                and m.rate > 0}))
+
+        # one train step, kernel path vs plain path
+        runs = {}
+        draws = None
+        for label, dtype, kern in (("fp32 kernel", torch.float32, True),
+                                   ("fp32 plain", torch.float32, False),
+                                   ("bf16 kernel", torch.bfloat16, True)):
+            state = new_state(dtype, kern)
+            draws = draws or fixed_draws(state.model)
+            state, m = step(state, (images, labels), draws)
+            torch.cuda.synchronize()
+            runs[label] = (state, {k: v.item() for k, v in m.items()})
+            print(f"[train-step] {case.tag} {label}: " + " ".join(
+                f"{k}={v:.6g}" for k, v in runs[label][1].items()))
+        (ks, km), (ps, pm) = runs["fp32 kernel"], runs["fp32 plain"]
+        require(km["nonfinite"] == 0.0 and pm["nonfinite"] == 0.0,
+                "train step: non-finite loss")
+        loss_err = abs(km["loss"] - pm["loss"]) / abs(pm["loss"])
+        gnorm = pm["grad_norm"]
+        grad_err = max((kp.grad - pp.grad).abs().max().item()
+                       for kp, pp in zip(ks.model.parameters(),
+                                         ps.model.parameters())) / gnorm
+        lr0 = pm["lr"]
+        param_err = max((kp - pp).abs().max().item()
+                        for kp, pp in zip(ks.model.parameters(),
+                                          ps.model.parameters()))
+        stat_err = max(((kb - pb).abs() / (1 + pb.abs())).max().item()
+                       for kb, pb in zip(ks.model.buffers(),
+                                         ps.model.buffers()))
+        print(f"[train-step] {case.tag} fp32 kernel vs plain: loss rel err "
+              f"{loss_err:.2e} (tol {STEP_LOSS_TOL:g}); max grad err / grad "
+              f"norm {grad_err:.2e} (tol {STEP_GRAD_TOL:g}, grad norm "
+              f"{gnorm:.4f}); params after the step max abs err "
+              f"{param_err:.2e} (tol {STEP_PARAM_TOL:g} x lr {lr0:.3g}); BN "
+              f"stats rel err {stat_err:.2e} (tol {STEP_STAT_TOL:g})")
+        require(loss_err <= STEP_LOSS_TOL, "train step: loss disagrees")
+        require(grad_err <= STEP_GRAD_TOL, "train step: grads disagree")
+        require(param_err <= STEP_PARAM_TOL * lr0,
+                "train step: params disagree")
+        require(stat_err <= STEP_STAT_TOL, "train step: BN stats disagree")
+        bf_err = abs(runs["bf16 kernel"][1]["loss"] - pm["loss"]) / pm["loss"]
+        print(f"[train-step] {case.tag} bf16 kernel vs fp32 plain: loss rel "
+              f"err {bf_err:.2e} (tol {BF16_LOSS_TOL:g})")
+        require(bf_err <= BF16_LOSS_TOL, "bf16 train step: loss disagrees")
+        del runs, ks, ps
+
+        # the main path: bf16 steps on one batch, launch counts per step
+        shapes = stage_shapes(case, TRAIN_BATCH)
+        fplan, fvar = launch_plan(shapes)
+        bplan, bvar = launch_plan(shapes, backward=True)
+        plan, pvar = {**fplan, **bplan}, {**fvar, **bvar}
+        state = new_state(torch.bfloat16, True, warmup_cosine_lr(
+            T["lr"], case.loss_steps, 3, T["min_lr"]))
+        loss_step = make_train_step(step_cfg, state.tx.learning_rate)
+        sampler = torch.Generator(device="cpu").manual_seed(SEED + 2)
+        same = fixed_draws(state.model) if case.fixed_draws_loss else None
+        losses = []
+        for i in range(case.loss_steps):
+            self.reset_counts()
+            state, m = loss_step(state, (images, labels), same,
+                                 generator=sampler)
+            counts, by_variant = self.read_counts()
+            require({k: counts[k] for k in plan} == plan,
+                    f"step {i}: launches {counts}, expected {plan}")
+            require({k: by_variant[k] for k in pvar} == pvar,
+                    f"step {i}: launches by variant {by_variant}, expected "
+                    f"{pvar}")
+            losses.append(m["loss"].item())
+            require(m["nonfinite"].item() == 0.0
+                    and math.isfinite(losses[-1]),
+                    f"step {i}: non-finite loss")
+        self.record(f"{case.tag} train step", counts, by_variant)
+        k = min(5, case.loss_steps // 2)
+        first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+        print(f"[train] {case.tag} launches per step {counts}, by variant "
+              f"{by_variant} (every one of {case.loss_steps} steps)")
+        print(f"[train] {case.tag} {case.loss_steps} bf16 kernel-path steps "
+              f"on one batch of {TRAIN_BATCH}"
+              + (" with one step's draws" if same else "") + ": losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; mean of first {k} {first:.4f}, of last {k} {last:.4f}")
+        require(last < first, f"the loss did not fall over "
+                f"{case.loss_steps} steps")
+
+        if case is FLAGSHIP:
+            self.nonfinite_guard(step_cfg, state, images, labels, sampler)
+
+        # timings
+        self.time_kernels(case, backward=True, iters=10)
+        draws = fixed_draws(state.model)
+        for label, st in (("kernel path", state),
+                          ("plain path", new_state(torch.bfloat16, False))):
+            def one(st=st):
+                step(st, (images, labels), draws)
+            ms = time_ms(one, (), iters=10, warmup=3)
+            print(f"[time] {case.tag} train step bs{TRAIN_BATCH} bf16 "
+                  f"{label} (uint8 in, augment + mix + fwd + bwd + AdamW; "
+                  f"draws sampled beforehand): {ms:.3f} ms/step, "
+                  f"{TRAIN_BATCH / ms * 1e3:.1f} imgs/s [{self.gpu}]")
+
+    def nonfinite_guard(self, step_cfg, state, images, labels, sampler):
+        import torch
+
+        from outgridvit_tpu_torch.training.steps import make_train_step
+
+        nan_step = make_train_step(dataclasses.replace(step_cfg, augment=None),
+                                   state.tx.learning_rate)
+        bad = images.float()
+        bad[0, 0, 0, 0] = float("nan")
+        before = ([t.clone() for t in state.model.state_dict().values()],
+                  [t.clone() for t in state.opt_state.mu.values()],
+                  [t.clone() for t in state.opt_state.nu.values()],
+                  state.opt_state.count.clone())
+        state, m = nan_step(state, (bad, labels), generator=sampler)
+        after = (list(state.model.state_dict().values()),
+                 list(state.opt_state.mu.values()),
+                 list(state.opt_state.nu.values()), state.opt_state.count)
+        same = all(all(torch.equal(a, b) for a, b in zip(x, y))
+                   for x, y in zip(before[:3], after[:3])) and \
+            torch.equal(before[3], after[3])
+        print(f"[guard] NaN batch: nonfinite={m['nonfinite'].item():g} "
+              f"loss={m['loss'].item():g} grad_norm="
+              f"{m['grad_norm'].item():g}; params, BN stats, AdamW mu/nu/"
+              f"count bitwise unchanged: {same}; state.step {state.step}")
+        require(m["nonfinite"].item() == 1.0 and m["loss"].item() == 0.0,
+                "guard: NaN loss not reported")
+        require(same, "guard: the state changed on a non-finite step")
+
+    def kernels_line(self):
+        out = []
+        for name, (source, replaces, covers) in SOURCES.items():
+            by_path = self.launches[name]
+            k_ms, p_ms = self.ms[name]
+            out.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "covers": covers,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_by_variant": self.variants[name],
+                "max_abs_err": self.max_err[name], "ms": k_ms,
+                "plain_ms": p_ms,
+                "ms_per": (f"tin200 batch-{TRAIN_BATCH} train step"
+                           if name in BWD else f"tin200 batch-{BATCH} "
+                           "forward"),
+            })
+        return out
 
 
 def main() -> int:
@@ -426,20 +782,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    import numpy as np
-
-    from outgridvit_tpu_torch.models import build_model
     from outgridvit_tpu_torch.ops import kernel_build
-    from outgridvit_tpu_torch.ops.augment import normalize_batch
-    from outgridvit_tpu_torch.ops.grid_attention import (
-        grid_mhsa,
-        grid_mhsa_reference,
-    )
-    from outgridvit_tpu_torch.ops.mlp_branch import (
-        mlp_branch,
-        mlp_branch_reference,
-    )
-    from outgridvit_tpu_torch.serving import build_predictor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,7 +792,6 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     print(f"gpu: {gpu}")
 
-    # -- phase 2: build the kernels from the checkout --------------------
     build = kernel_build.build()
     kernel_build.load()
     print(f"[build] nvcc {kernel_build.find_nvcc()} built={build.built} "
@@ -458,195 +800,20 @@ def main() -> int:
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             print(f"[build] {line.strip()}")
 
-    # -- phase 3: each kernel against its plain version -------------------
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
-
-    def grid_inputs(sh, dtype):
-        return (randn(sh["G"], sh["N"], 3 * sh["C"]).to(dtype),
-                sh["heads"])
-
-    def mlp_inputs(sh, H, dtype, act="gelu", apply_ln=True):
-        C, M = sh["C"], sh["M"]
-        return (randn(M, C).to(dtype), randn(C, scale=0.1, shift=1.0),
-                randn(C, scale=0.1), randn(C, H, scale=C ** -0.5).to(dtype),
-                randn(H, scale=0.02).to(dtype),
-                randn(H, C, scale=H ** -0.5).to(dtype),
-                randn(C, scale=0.02).to(dtype), act, 1e-5, apply_ln)
-
-    max_err = {"grid_mhsa": 0.0, "mlp_branch": 0.0}
-
-    def compare(name, kernel, plain, args, dtype, label):
-        got = kernel(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        tol = KERNEL_TOL[str(dtype).split(".")[-1]]
-        ok = bool((diff <= tol + tol * want.float().abs()).all())
-        require(torch.isfinite(got.float()).all().item(),
-                f"{name} {label}: non-finite output")
-        print(f"[compare] {name} {label} {str(dtype).split('.')[-1]} "
-              f"max_abs_err={err:.3e} tol={tol:g}(abs+rel) "
-              f"{'ok' if ok else 'FAIL'}")
-        require(ok, f"{name} {label}: kernel disagrees with plain version")
-        max_err[name] = max(max_err[name], err)
-
-    shapes = stage_shapes()
-    for dtype in (torch.float32, torch.bfloat16):
-        for sh in shapes:
-            tag = f"stage{sh['stage']}"
-            compare("grid_mhsa", grid_mhsa, grid_mhsa_reference,
-                    grid_inputs(sh, dtype), dtype,
-                    f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
-                    f"heads={sh['heads']}")
-            for H in (sh["H_outlook"], sh["H_block"]):
-                compare("mlp_branch", mlp_branch, mlp_branch_reference,
-                        mlp_inputs(sh, H, dtype), dtype,
-                        f"{tag} M={sh['M']} C={sh['C']} H={H} gelu ln")
-        sh = shapes[0]  # every activation and the no-LN form, once
-        for act in ("silu", "relu", "gelu"):
-            compare("mlp_branch", mlp_branch, mlp_branch_reference,
-                    mlp_inputs(sh, sh["H_block"], dtype, act, act != "gelu"),
-                    dtype, f"stage0 M={sh['M']} C={sh['C']} act={act} "
-                    f"ln={act != 'gelu'}")
-
-    # -- phase 4: the flagship predictor on the card ----------------------
-    pred = build_predictor(FLAGSHIP_MODEL_CFG, batch_size=BATCH, img_size=IMG,
-                           device=dev, seed=SEED)
-    n_params = sum(p.numel() for p in pred.model.parameters())
-    print(f"[predictor] Model A-7M params={n_params} batch={BATCH} "
-          f"dtype={pred.model.dtype}")
-    require(n_params == FLAGSHIP_PARAMS, f"param count {n_params}")
-
-    # -- phase 5: serve requests; the counters must show the kernels ran --
-    rng = np.random.default_rng(SEED)
-    images = rng.integers(0, 256, (200, IMG, IMG, 3), dtype=np.uint8)
-    requests = [("full batch", images[:BATCH]), ("ragged 3", images[:3]),
-                ("200 images", images)]
-    per_forward = {"grid_mhsa": sum(s["blocks"] for s in shapes),
-                   "mlp_branch": 2 * sum(s["blocks"] for s in shapes)}
-    require(per_forward == {"grid_mhsa": 7, "mlp_branch": 14},
-            f"unexpected per-forward launch plan {per_forward}")
-    counters = {"grid_mhsa": grid_mhsa, "mlp_branch": mlp_branch}
-    results = {}
-    for fn in counters.values():
-        fn.launches = 0
-    for label, req in requests:
-        before = {k: fn.launches for k, fn in counters.items()}
-        labels, probs = pred.predict_many(req)
-        forwards = -(-len(req) // BATCH)
-        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
-        print(f"[serve] {label}: labels {labels.shape} probs {probs.shape} "
-              f"forwards={forwards} launches={delta}")
-        require(labels.shape == (len(req),) and labels.dtype == np.int32,
-                f"{label}: labels {labels.shape} {labels.dtype}")
-        require(probs.shape == (len(req), 100), f"{label}: probs shape")
-        require(np.isfinite(probs).all(), f"{label}: non-finite probs")
-        require(np.allclose(probs.sum(-1), 1.0, atol=1e-4),
-                f"{label}: probs do not sum to 1")
-        require((labels == probs.argmax(-1)).all(), f"{label}: argmax")
-        require(delta == {k: v * forwards for k, v in per_forward.items()},
-                f"{label}: launches {delta}, expected "
-                f"{per_forward} x {forwards}")
-        results[label] = (labels, probs)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    require(all(v > 0 for v in launches.values()), f"launches {launches}")
-    full_l, full_p = results["full batch"]
-    rag_l, rag_p = results["ragged 3"]
-    require((rag_l == full_l[:3]).all()
-            and np.allclose(rag_p, full_p[:3], atol=1e-3),
-            "ragged request disagrees with the same rows of a full batch")
-    require((results["200 images"][0][:BATCH] == full_l).all(),
-            "predict_many disagrees with predict")
-
-    # -- phase 6: kernel path vs plain path, same weights and inputs -------
-    state = pred.model.state_dict()
-
-    def model(dtype, use_kernels):
-        m = build_model(FLAGSHIP_MODEL_CFG, dtype=dtype,
-                        use_kernels=use_kernels, device=dev)
-        m.load_state_dict(state)
-        return m
-
-    plain32 = model(torch.float32, False)
-    kern32 = model(torch.float32, True)
-    plainbf = model(torch.bfloat16, False)
-    x = normalize_batch(torch.from_numpy(images[:BATCH]).to(dev),
-                        pred.mean, pred.std)
-    with torch.inference_mode():
-        ref = plain32(x)
-        outs = {"fp32 kernel path": (kern32(x), "float32"),
-                "bf16 kernel path (served)": (pred.model(x), "bfloat16"),
-                "bf16 plain path": (plainbf(x), "bfloat16")}
-    scale = max(1.0, ref.abs().max().item())
-    top2 = ref.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    for label, (logits, dt) in outs.items():
-        require(torch.isfinite(logits).all().item(), f"{label}: non-finite")
-        err = (logits.float() - ref).abs().max().item()
-        tol = LOGIT_TOL[dt] * scale
-        decided = margin > 2 * tol
-        agree = logits.argmax(-1) == ref.argmax(-1)
-        print(f"[logits] {label} vs fp32 plain path: max_abs_err={err:.4e} "
-              f"tol={tol:.4e} (max|logit|={scale:.3f}); labels agree "
-              f"{int(agree.sum())}/{BATCH}; on the {int(decided.sum())} rows "
-              f"with top-2 margin > 2*tol: {int((agree & decided).sum())}")
-        require(err <= tol, f"{label}: logits off by {err}")
-        require(bool(agree[decided].all()), f"{label}: labels disagree")
-
-    # -- phase 7: timings (CUDA events after warm-up) ---------------------
-
-    kernel_ms = {"grid_mhsa": [0.0, 0.0], "mlp_branch": [0.0, 0.0]}
-    bf16 = torch.bfloat16
-    for sh in shapes:
-        cases = [("grid_mhsa", grid_mhsa, grid_mhsa_reference,
-                  grid_inputs(sh, bf16), f"N={sh['N']} C={sh['C']}")]
-        cases += [("mlp_branch", mlp_branch, mlp_branch_reference,
-                   mlp_inputs(sh, H, bf16), f"C={sh['C']} H={H}")
-                  for H in (sh["H_outlook"], sh["H_block"])]
-        for name, kern, plain, args, what in cases:
-            k_ms, p_ms = time_ms(kern, args), time_ms(plain, args)
-            kernel_ms[name][0] += sh["blocks"] * k_ms
-            kernel_ms[name][1] += sh["blocks"] * p_ms
-            print(f"[time] {name} stage{sh['stage']} {what} bf16: kernel "
-                  f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
-                  f"({k_ms and p_ms / k_ms:.2f}x) [{gpu}]")
-    for name, (k, p) in kernel_ms.items():
-        print(f"[time] {name} per batch-{BATCH} forward: kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms [{gpu}]")
-
-    with torch.inference_mode():
-        fwd_k = time_ms(pred.model, (x,), iters=20, warmup=3)
-        fwd_p = time_ms(plainbf, (x,), iters=20, warmup=3)
-    print(f"[time] Model A-7M forward bs{BATCH} bf16: kernel path "
-          f"{fwd_k:.3f} ms, plain path {fwd_p:.3f} ms [{gpu}]")
-    full = images[:BATCH]
-    for _ in range(3):
-        pred.predict(full)
-    reps = 20
+    smoke = Smoke(dev, gpu)
     t0 = time.perf_counter()
-    for _ in range(reps):
-        pred.predict(full)
-    secs = time.perf_counter() - t0
-    print(f"[time] predictor bs{BATCH} bf16 (uint8 in, labels+probs out): "
-          f"{reps * BATCH / secs:.1f} imgs/s, {secs / reps * 1e3:.3f} "
-          f"ms/request [{gpu}]")
+    for case in (FLAGSHIP, TIN):
+        smoke.compare_all(case)
+        smoke.serve(case)
+        smoke.time_kernels(case, backward=False, iters=20)
+        smoke.train(case)
+        torch.cuda.empty_cache()
+        print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
+    for name in FWD + BWD:
+        require(smoke.launches[name], f"{name}: no launch on a main path")
 
-    train = train_phases(dev, gpu)
-    launches.update((k, train["launches"][k]) for k in train["ms"])
-    max_err.update(train["max_err"])
-    kernel_ms.update(train["ms"])
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1], "launches": launches[name],
-        "max_abs_err": max_err[name], "ms": kernel_ms[name][0],
-        "plain_ms": kernel_ms[name][1],
-    } for name in SOURCES]
     print(gpu)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": smoke.kernels_line()}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

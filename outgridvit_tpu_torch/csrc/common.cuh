@@ -1,5 +1,6 @@
-// Shared helpers for the OutGridViT CUDA kernels: element-type conversion
-// and the dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16).
+// Shared helpers for the OutGridViT CUDA kernels: element-type conversion,
+// the dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16), warp
+// reductions and the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +29,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+// Above 48 KB a kernel must opt in to its dynamic shared memory.
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace ogvt

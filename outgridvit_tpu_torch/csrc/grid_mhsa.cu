@@ -184,14 +184,6 @@ grid_mhsa_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T>
 cudaError_t launch(const void* qkv, void* out, int G, int N, int C, int heads,
                    float scale, cudaStream_t stream) {

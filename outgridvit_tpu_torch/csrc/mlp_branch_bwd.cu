@@ -42,6 +42,7 @@
 // within kMaxWorkspaceFloats (64 MB), and P1 <= kMaxTokenBlocks.
 #include "act.cuh"
 #include "common.cuh"
+#include "partials.cuh"
 
 using namespace ogvt;
 
@@ -374,45 +375,6 @@ mlp_bwd_weights(const T* __restrict__ x, const float* __restrict__ ls,
   if (tid < wc) base[2ll * C * H + j0 + tid] = ab1;
 }
 
-// dst [cols, rows] fp32 = src [rows, cols] transposed.
-template <typename T>
-__global__ void transpose_f32(const T* __restrict__ src, int rows, int cols,
-                              float* __restrict__ dst) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(rows) * cols) return;
-  const int r = static_cast<int>(i / cols), c = static_cast<int>(i % cols);
-  dst[static_cast<size_t>(c) * rows + r] = to_f32(src[i]);
-}
-
-// out[i] = sum_{s < S} ws[s * stride + i], in order of s.
-template <typename Tout>
-__global__ void reduce_partials(const float* __restrict__ ws, int S,
-                                long long stride, int n,
-                                Tout* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += ws[k * stride + i];
-  out[i] = from_f32<Tout>(s);
-}
-
-template <typename Tout>
-cudaError_t reduce(const float* ws, int S, long long stride, int n, void* out,
-                   cudaStream_t stream) {
-  reduce_partials<Tout><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(ws, S, stride, n, static_cast<Tout*>(out));
-  return cudaGetLastError();
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 struct Args {
   const void *x, *ls, *lb, *w1, *b1, *w2, *dy;
   void *dx, *dls, *dlb, *dw1, *db1, *dw2, *db2;
@@ -430,16 +392,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   float* wpart = part + p.ws_tokens;   // [S, 2CH + H]
   float* w1t = wpart + p.ws_weights;   // [H, C]
   float* w2t = w1t + static_cast<size_t>(C) * H;  // [C, H]
-  const int nw = (C * H + kThreads - 1) / kThreads;
-  transpose_f32<T><<<nw, kThreads, 0, stream>>>(static_cast<const T*>(a.w1),
-                                                C, H, w1t);
-  transpose_f32<T><<<nw, kThreads, 0, stream>>>(static_cast<const T*>(a.w2),
-                                                H, C, w2t);
+  cudaError_t err = transpose<T>(a.w1, C, H, w1t, stream);
+  if (err != cudaSuccess) return err;
+  if ((err = transpose<T>(a.w2, H, C, w2t, stream)) != cudaSuccess) return err;
 
   const size_t smem1 =
       (4ull * p.TM * C + p.TM * kHC + 2ull * p.TM + 3ull * C) * sizeof(float);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   if ((err = set_smem(mlp_bwd_tokens<T, ACT>, smem1)) != cudaSuccess) {
     return err;
   }

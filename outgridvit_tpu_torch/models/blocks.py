@@ -20,11 +20,17 @@ from outgridvit_tpu_torch.models.layers import (
     MBConv,
     layernorm_fp32,
 )
+from outgridvit_tpu_torch.ops.attn_branch import (
+    MIN_TOKENS,
+    attn_branch_autograd,
+)
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import (
     MAX_TOKENS,
     grid_mhsa_autograd,
+    grid_mhsa_reference,
+    grid_mhsa_variant,
 )
 from outgridvit_tpu_torch.ops.outlook import outlook_aggregate
 from outgridvit_tpu_torch.stage_config import MBConvConfig, StageCfg
@@ -61,9 +67,18 @@ class MultiHeadSelfAttention(nn.Module):
     """Grid MHSA on an NHWC map: partition into grids, pre-LN, qkv
     projection, the attention core, output projection, unpartition.
 
-    The core is :func:`grid_mhsa_autograd`: the CUDA kernels forward and
-    backward with ``use_kernels``, their plain versions otherwise. qkv's last
-    axis is laid out (3, heads, hd)."""
+    The JAX dispatch by grid size N (``outgridvit_tpu/models/blocks.py:
+    259-373``), on the kernel path and the plain path alike:
+
+    - N >= 64: the fused branch :func:`attn_branch_autograd` (LN, qkv,
+      attention and proj in one kernel, norm2's LN passed in);
+    - N <= 16: LN and qkv, the core :func:`grid_mhsa_autograd` (tagged
+      ``"t"`` or ``"th"`` by :func:`grid_mhsa_variant`), proj;
+    - 16 < N < 64: the block-packed core, kernel #6 (``grid_mhsa_pallas``),
+      not ported: the kernel path raises, the plain path computes its math
+      (probabilities cast to the compute dtype before P.V).
+
+    qkv's last axis is laid out (3, heads, hd)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  use_kernels: bool = False, device=None):
@@ -80,14 +95,29 @@ class MultiHeadSelfAttention(nn.Module):
         grids, meta = grid_partition(x, grid_size)
         G, Hg, Wg, C = grids.shape
         N = Hg * Wg
-        if self.use_kernels and N > MAX_TOKENS:
-            raise NotImplementedError(
-                f"grid attention with N={N} > {MAX_TOKENS} tokens needs the "
-                "N >= 64 branch kernel or the block-packed kernel, not "
-                "ported yet (ROADMAP §2 #5, #6)")
-        t = layernorm_fp32(grids.reshape(G, N, C), ln.weight, ln.bias, ln.eps)
-        out = self.proj(grid_mhsa_autograd(self.qkv(t).contiguous(),
-                                           self.heads, self.use_kernels))
+        tokens = grids.reshape(G, N, C)
+        if N >= MIN_TOKENS:
+            dt = self.qkv.dtype
+            out = attn_branch_autograd(
+                tokens.to(dt).contiguous(), ln.weight, ln.bias,
+                self.qkv.weight.to(dt).t().contiguous(), self.qkv.bias.to(dt),
+                self.proj.weight.to(dt).t().contiguous(),
+                self.proj.bias.to(dt), self.heads, ln.eps, True,
+                self.use_kernels)
+        else:
+            if N > MAX_TOKENS and self.use_kernels:
+                raise NotImplementedError(
+                    f"grid attention with {MAX_TOKENS} < N={N} < {MIN_TOKENS} "
+                    "tokens runs the block-packed kernel #6 "
+                    "(grid_mhsa_pallas), not ported yet (ROADMAP §2)")
+            t = layernorm_fp32(tokens, ln.weight, ln.bias, ln.eps)
+            qkv = self.qkv(t).contiguous()
+            if N > MAX_TOKENS:
+                core = grid_mhsa_reference(qkv, self.heads, round_probs=True)
+            else:
+                core = grid_mhsa_autograd(qkv, self.heads, self.use_kernels,
+                                          grid_mhsa_variant(N, C))
+            out = self.proj(core)
         return grid_unpartition(out.reshape(G, Hg, Wg, C), meta)
 
 

@@ -13,6 +13,7 @@ the JAX tree unchanged.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,6 +25,7 @@ from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, drop_path
 from outgridvit_tpu_torch.ops.mlp_branch import (
     layernorm_fp32,
     mlp_branch_autograd,
+    mlp_branch_variant,
 )
 from outgridvit_tpu_torch.stage_config import DownsampleConfig, MBConvConfig
 
@@ -149,7 +151,10 @@ def _conv_bn(conv: nn.Module, dim: int, use_bn: bool, device) -> nn.Sequential:
 class ChannelMLP(nn.Module):
     """Pre-LN channel MLP branch ``fc2(act(fc1(LN(x))))`` over the last axis,
     through :func:`mlp_branch_autograd`: with ``use_kernels`` the CUDA
-    kernels forward and backward, otherwise their plain versions."""
+    kernels forward and backward, otherwise their plain versions. Launches
+    are tagged with the JAX kernel the shape picks
+    (:func:`mlp_branch_variant`, ``outgridvit_tpu/models/layers.py:237-241``);
+    the math is the same."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, act: str = "gelu",
                  dtype=torch.float32, use_kernels: bool = False, device=None):
@@ -163,11 +168,13 @@ class ChannelMLP(nn.Module):
 
     def forward(self, x, ln: LayerNorm):
         dt = self.dtype
+        spatial = math.prod(x.shape[1:-1])
         return mlp_branch_autograd(
             x.to(dt).contiguous(), ln.weight, ln.bias,
             self.fc1.weight.to(dt).t().contiguous(), self.fc1.bias.to(dt),
             self.fc2.weight.to(dt).t().contiguous(), self.fc2.bias.to(dt),
-            self.act, ln.eps, True, self.use_kernels)
+            self.act, ln.eps, True, self.use_kernels,
+            mlp_branch_variant(spatial, x.shape[-1]))
 
 
 class SqueezeExcite(nn.Module):

@@ -1,0 +1,264 @@
+"""Fused pre-LN grid-attention branch ``y = proj(MHSA(qkv(LN(x))))`` for
+grids of N >= 64 tokens: the CUDA kernels ``csrc/attn_branch.cu`` (forward
+and backward) and their plain PyTorch versions (twin of
+``outgridvit_tpu/ops/attn_branch_pallas.py:attn_branch_pallas`` and its
+recompute backward).
+
+x is ``[G, N, C]`` (one row of tokens per grid); the LN scale and bias are
+fp32 ``[C]``; ``wqkv [C, 3C]``, ``bqkv [3C]``, ``wproj [C, C]``, ``bproj
+[C]`` are in the compute dtype, in the JAX layout. qkv's last axis is laid
+out (3, heads, hd).
+
+Forward rounding points (``_rows_fwd``): LN with fp32 statistics (fast
+variance clamped at 0) cast to the compute dtype; ``qkv = round(xn.wqkv +
+bqkv)`` summed in fp32; fp32 logits scaled after the sum; an fp32 softmax
+with max subtraction, normalized by division; the probabilities cast to the
+compute dtype before P.V; P.V summed in fp32 and cast once;
+``y = round(out.wproj + bproj)``.
+
+The backward (:func:`attn_branch_backward_reference`, ``_rows_bwd``) saves
+only the inputs and recomputes the rest. :func:`attn_branch_autograd` is the
+differentiable branch the model calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from outgridvit_tpu_torch.ops import kernel_build
+from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_reference
+from outgridvit_tpu_torch.ops.mlp_branch import layernorm_fp32
+
+MIN_TOKENS = 64  # the JAX dispatch fuses the branch for N >= 64
+_MAX_SMEM = 227 * 1024
+
+
+def _check(x: torch.Tensor, heads: int):
+    if x.dim() != 3:
+        raise ValueError(f"x must be [G, N, C]; got {tuple(x.shape)}")
+    G, N, C = x.shape
+    if heads <= 0 or C % heads:
+        raise ValueError(f"C={C} must be divisible by heads={heads}")
+    return G, N, C
+
+
+def attn_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                          heads: int, eps: float = 1e-5,
+                          apply_ln: bool = True):
+    """Plain PyTorch version: x [G, N, C] -> [G, N, C]."""
+    _check(x, heads)
+    dt = x.dtype
+    xn = layernorm_fp32(x, ln_scale, ln_bias, eps) if apply_ln else x
+    qkv = (xn.float() @ wqkv.float() + bqkv.float()).to(dt)
+    out = grid_mhsa_reference(qkv, heads, round_probs=True)
+    return (out.float() @ wproj.float() + bproj.float()).to(dt)
+
+
+def attn_branch_backward_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                   bproj, dy, heads: int, eps: float = 1e-5,
+                                   apply_ln: bool = True):
+    """Plain PyTorch version of the backward, written out (not autograd),
+    with the rounding points of the Pallas ``_rows_bwd``: ``dout =
+    round(dy.wproj^T)``; recomputed fp32 probabilities ``a``; ``dv`` from
+    ``a``, but the ``out`` that feeds ``dwproj`` from the rounded ``a``;
+    ``ds = a * (dp - sum_m dp*a)``; dq and dk scaled in fp32; ``dwqkv`` and
+    ``dxn`` from the rounded dqkv, ``dbqkv`` from the unrounded one; the LN
+    backward in fp32 from xhat and rstd. Parameter grads are summed in fp32
+    over all tokens and returned in their input's dtype. Returns
+    ``(dx, dln_scale, dln_bias, dwqkv, dbqkv, dwproj, dbproj)``."""
+    G, N, C = _check(x, heads)
+    dt = x.dtype
+    hd = C // heads
+    scale = hd**-0.5
+    x32 = x.reshape(-1, C).float()
+    if apply_ln:
+        mu = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mu * mu,
+                          min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        xhat = (x32 - mu) * rstd
+        xn = ((x32 - mu) * (rstd * ln_scale.float()) + ln_bias.float()).to(dt)
+    else:
+        xn = x.reshape(-1, C)
+    xn32 = xn.float()
+    qkv = (xn32 @ wqkv.float() + bqkv.float()).to(dt).float()
+    dy32 = dy.reshape(-1, C).float()
+    dout = (dy32 @ wproj.float().t()).to(dt).float()
+
+    q, k, v = qkv.reshape(G, N, 3, heads, hd).unbind(2)
+    g = dout.reshape(G, N, heads, hd)
+    logits = torch.einsum("gnhd,gmhd->ghnm", q, k) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    a = e / e.sum(-1, keepdim=True)
+    out = torch.einsum("ghnm,gmhd->gnhd", a.to(dt).float(), v)
+    out = out.to(dt).float().reshape(-1, C)
+    dv = torch.einsum("ghnm,gnhd->gmhd", a, g)
+    dp = torch.einsum("gnhd,gmhd->ghnm", g, v)
+    ds = a * (dp - (dp * a).sum(-1, keepdim=True))
+    dq = torch.einsum("ghnm,gmhd->gnhd", ds, k) * scale
+    dk = torch.einsum("ghnm,gnhd->gmhd", ds, q) * scale
+    dqkv = torch.stack([dq, dk, dv], 2).reshape(-1, 3 * C)
+    dqkvb = dqkv.to(dt).float()
+
+    dwproj = out.t() @ dy32
+    dbproj = dy32.sum(0)
+    dwqkv = xn32.t() @ dqkvb
+    dbqkv = dqkv.sum(0)
+    dxn = dqkvb @ wqkv.float().t()
+    if apply_ln:
+        dls = (dxn * xhat).sum(0)
+        dlb = dxn.sum(0)
+        dxhat = dxn * ln_scale.float()
+        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    else:
+        dls = dlb = torch.zeros(C, dtype=torch.float32, device=x.device)
+        dx = dxn
+    return (dx.to(dt).reshape(G, N, C), dls.to(ln_scale.dtype),
+            dlb.to(ln_bias.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
+            dwproj.to(wproj.dtype), dbproj.to(bproj.dtype))
+
+
+def smem_bytes(N: int, C: int, heads: int, backward: bool) -> int:
+    """Dynamic shared memory of one block: fp32 rows padded by one float
+    (``fwd_smem_floats`` / ``bwd_smem_floats`` of csrc/attn_branch.cu)."""
+    hd = C // heads
+    if backward:
+        floats = N * (5 * (C + 1) + (3 * C + 1) + 2 * (N + 1) + (hd + 1) + 1)
+    else:
+        floats = N * (C + 1) + N * (3 * C + 1) + N * (N + 1)
+    return 4 * floats
+
+
+def _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                  heads, backward):
+    """Validate what the kernels take; returns (G, N, C)."""
+    G, N, C = _check(x, heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in kernel_build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32/bfloat16")
+    want = {"wqkv": (wqkv, (C, 3 * C), x.dtype),
+            "bqkv": (bqkv, (3 * C,), x.dtype),
+            "wproj": (wproj, (C, C), x.dtype),
+            "bproj": (bproj, (C,), x.dtype),
+            "ln_scale": (ln_scale, (C,), torch.float32),
+            "ln_bias": (ln_bias, (C,), torch.float32)}
+    for tname, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"{name}: {tname} is {tuple(t.shape)} {t.dtype}; "
+                f"expected {shape} {dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {tname} must be contiguous on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if smem_bytes(N, C, heads, backward) > _MAX_SMEM:
+        raise ValueError(f"{name}: a grid of N={N}, C={C}, heads={heads} "
+                         "exceeds shared memory")
+    return G, N, C
+
+
+def attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads: int,
+                eps: float = 1e-5, apply_ln: bool = True):
+    """x [G, N, C] -> [G, N, C]. A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes :func:`attn_branch_reference`."""
+    if x.device.type == "cpu":
+        return attn_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                     bproj, heads, eps, apply_ln)
+    G, N, C = _check_launch("attn_branch", x, ln_scale, ln_bias, wqkv, bqkv,
+                            wproj, bproj, heads, False)
+    y = torch.empty_like(x)
+    lib = kernel_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_attn_branch(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            bproj.data_ptr(), y.data_ptr(), G, N, C, heads,
+            ctypes.c_float((C // heads) ** -0.5), float(eps),
+            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "attn_branch launch")
+    attn_branch.launches += 1
+    return y
+
+
+attn_branch.launches = 0
+
+
+def attn_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy,
+                         heads: int, eps: float = 1e-5,
+                         apply_ln: bool = True):
+    """Gradients ``(dx, dln_scale, dln_bias, dwqkv, dbqkv, dwproj,
+    dbproj)`` of the branch for the output gradient ``dy``. A CUDA tensor
+    launches the kernels (or raises); a CPU tensor takes
+    :func:`attn_branch_backward_reference`. Deterministic: two calls on the
+    same inputs give bitwise-equal grads."""
+    if x.device.type == "cpu":
+        return attn_branch_backward_reference(x, ln_scale, ln_bias, wqkv,
+                                              bqkv, wproj, bproj, dy, heads,
+                                              eps, apply_ln)
+    G, N, C = _check_launch("attn_branch_backward", x, ln_scale, ln_bias,
+                            wqkv, bqkv, wproj, bproj, heads, True)
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(
+            f"attn_branch_backward: dy is {tuple(dy.shape)} {dy.dtype} on "
+            f"{dy.device}; expected contiguous {tuple(x.shape)} {x.dtype} "
+            f"on {x.device}")
+    lib = kernel_build.load()
+    ws = torch.empty(lib.ogvt_attn_branch_bwd_workspace(G, C),
+                     dtype=torch.float32, device=x.device)
+    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
+             torch.empty_like(ln_bias), torch.empty_like(wqkv),
+             torch.empty_like(bqkv), torch.empty_like(wproj),
+             torch.empty_like(bproj))
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_attn_branch_bwd(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), dy.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), G, N, C, heads,
+            ctypes.c_float((C // heads) ** -0.5), float(eps),
+            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "attn_branch_backward launch")
+    attn_branch_backward.launches += 1
+    return grads
+
+
+attn_branch_backward.launches = 0
+
+
+class _AttnBranch(torch.autograd.Function):
+    """Recompute style, as ``_branch_fwd``/``_branch_bwd``: saves only the
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads,
+                eps, apply_ln, use_kernels):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
+        ctx.cfg = (heads, eps, apply_ln, use_kernels)
+        fn = attn_branch if use_kernels else attn_branch_reference
+        return fn(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, eps,
+                  apply_ln)
+
+    @staticmethod
+    def backward(ctx, dy):
+        heads, eps, apply_ln, use_kernels = ctx.cfg
+        fn = (attn_branch_backward if use_kernels
+              else attn_branch_backward_reference)
+        grads = fn(*ctx.saved_tensors, dy.contiguous(), heads, eps, apply_ln)
+        return (*grads, None, None, None, None)
+
+
+def attn_branch_autograd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                         heads: int, eps: float = 1e-5, apply_ln: bool = True,
+                         use_kernels: bool = False):
+    """Differentiable fused branch: the kernels (:func:`attn_branch`,
+    :func:`attn_branch_backward`) with ``use_kernels``, else the plain
+    versions, both ways."""
+    return _AttnBranch.apply(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                             heads, eps, apply_ln, use_kernels)

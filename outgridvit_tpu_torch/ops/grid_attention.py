@@ -1,14 +1,22 @@
 """Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa.cu``
-(forward and backward) and their plain PyTorch versions (twin of
-``outgridvit_tpu/ops/grid_attention_pallas_t.py:grid_mhsa_pallas_t`` and its
-recompute backward).
+(forward and backward) and their plain PyTorch versions. One kernel stands
+for two TPU kernels of ``outgridvit_tpu/ops/grid_attention_pallas_t.py``
+that compute the same math in different VMEM layouts: ``grid_mhsa_pallas_t``
+(#1, variant ``"t"``) and the head-chunked ``grid_mhsa_pallas_th`` (#3,
+variant ``"th"``, the wide-C N=16 grids of the 64px configs). The variant
+only tags the launch count (``grid_mhsa.by_variant``).
 
 Forward, per grid and head: ``softmax(q.k^T * hd^-1/2) v`` with the q.k sum
 in fp32 scaled after the sum, an fp32 softmax with max subtraction, and the
-P.V sum in fp32 cast once (the kernel's rounding points; the JAX non-kernel
-path casts the probabilities to the compute dtype before P.V, the port does
-not). The backward recomputes the probabilities from qkv and casts dq, dk
-and dv once (:func:`grid_mhsa_backward_reference`).
+P.V sum in fp32 cast once (the kernels' rounding points). The backward
+recomputes the probabilities from qkv and casts dq, dk and dv once
+(:func:`grid_mhsa_backward_reference`).
+
+``grid_mhsa_reference(..., round_probs=True)`` is the other rounding point,
+used by every JAX path for grids of N > 16 tokens (the XLA path,
+``models/blocks.py:394``, and the block-packed kernels' ``_attn_tile``):
+the probabilities are normalized by division and cast to the compute dtype
+before P.V.
 
 :func:`grid_mhsa_autograd` is the differentiable core the model calls: a
 ``torch.autograd.Function`` that saves only qkv.
@@ -17,6 +25,7 @@ and dv once (:func:`grid_mhsa_backward_reference`).
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -24,6 +33,15 @@ from outgridvit_tpu_torch.ops import kernel_build
 
 MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
 _MAX_SMEM = 227 * 1024
+VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
+
+
+def grid_mhsa_variant(N: int, C: int) -> str:
+    """The JAX kernel a grid shape stands for: the head-chunked ``"th"`` for
+    the wide-C N=16 grids whose full-C TPU blocks overflow VMEM (the 64px
+    configs' stages 1-3, C >= 128; ``grid_attention_pallas_t.py:349-352``),
+    ``"t"`` otherwise."""
+    return "th" if N >= MAX_TOKENS and C >= 128 else "t"
 
 
 def _check(qkv: torch.Tensor, heads: int):
@@ -36,18 +54,26 @@ def _check(qkv: torch.Tensor, heads: int):
     return G, N, C3 // 3
 
 
-def _probs(q, k, hd):
+def _probs(q, k, hd, divide=False):
     logits = torch.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    return e * (1.0 / e.sum(-1, keepdim=True))
+    s = e.sum(-1, keepdim=True)
+    return e / s if divide else e * (1.0 / s)
 
 
-def grid_mhsa_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Plain PyTorch version: qkv [G, N, 3C] -> [G, N, C]."""
+def grid_mhsa_reference(qkv: torch.Tensor, heads: int,
+                        round_probs: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: qkv [G, N, 3C] -> [G, N, C]. ``round_probs``
+    divides by the softmax sum and casts the probabilities to qkv's dtype
+    before P.V (the JAX rounding point for N > 16); without it they stay
+    fp32 (kernels #1 and #3)."""
     G, N, C = _check(qkv, heads)
     hd = C // heads
     q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
-    out = torch.einsum("ghnm,gmhd->gnhd", _probs(q, k, hd), v)
+    a = _probs(q, k, hd, divide=round_probs)
+    if round_probs:
+        a = a.to(qkv.dtype).float()
+    out = torch.einsum("ghnm,gmhd->gnhd", a, v)
     return out.to(qkv.dtype).reshape(G, N, C)
 
 
@@ -72,8 +98,10 @@ def grid_mhsa_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
     return torch.stack([dq, dk, dv], 2).to(qkv.dtype).reshape(G, N, 3 * C)
 
 
-def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats):
+def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
+                  variant: str):
     G, N, C = _check(qkv, heads)
+    kernel_build.check_variant(name, variant, VARIANTS)
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     if qkv.dtype not in kernel_build.DTYPE_CODES:
@@ -90,13 +118,15 @@ def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats):
     return G, N, C
 
 
-def grid_mhsa(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def grid_mhsa(qkv: torch.Tensor, heads: int,
+              variant: str = "t") -> torch.Tensor:
     """qkv [G, N, 3C] -> [G, N, C]. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes :func:`grid_mhsa_reference`."""
+    raises); a CPU tensor takes :func:`grid_mhsa_reference`. ``variant``
+    names the JAX kernel the launch stands for (:data:`VARIANTS`)."""
     if qkv.device.type == "cpu":
         return grid_mhsa_reference(qkv, heads)
     G, N, C = _check_launch("grid_mhsa", qkv, heads,
-                            lambda N, C: N * 3 * C + heads * N * N)
+                            lambda N, C: N * 3 * C + heads * N * N, variant)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
     with torch.cuda.device(qkv.device):
@@ -106,22 +136,25 @@ def grid_mhsa(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             kernel_build.DTYPE_CODES[qkv.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "grid_mhsa launch")
-    grid_mhsa.launches += 1
+    kernel_build.count_launch(grid_mhsa, variant)
     return out
 
 
 grid_mhsa.launches = 0
+grid_mhsa.by_variant = Counter()
 
 
-def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor,
-                       heads: int) -> torch.Tensor:
+def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                       variant: str = "t") -> torch.Tensor:
     """(qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C]. A CUDA tensor
     launches the kernel (or raises); a CPU tensor takes
-    :func:`grid_mhsa_backward_reference`."""
+    :func:`grid_mhsa_backward_reference`. ``variant`` as in
+    :func:`grid_mhsa`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_backward_reference(qkv, dout, heads)
     G, N, C = _check_launch("grid_mhsa_backward", qkv, heads,
-                            lambda N, C: N * 4 * C + 2 * heads * N * N)
+                            lambda N, C: N * 4 * C + 2 * heads * N * N,
+                            variant)
     if (dout.shape != (G, N, C) or dout.dtype != qkv.dtype
             or dout.device != qkv.device or not dout.is_contiguous()):
         raise ValueError(
@@ -137,33 +170,39 @@ def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor,
             kernel_build.DTYPE_CODES[qkv.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "grid_mhsa_backward launch")
-    grid_mhsa_backward.launches += 1
+    kernel_build.count_launch(grid_mhsa_backward, variant)
     return dqkv
 
 
 grid_mhsa_backward.launches = 0
+grid_mhsa_backward.by_variant = Counter()
 
 
 class _GridMHSA(torch.autograd.Function):
     """Recompute style, as ``_fwd_vjp``/``_bwd_vjp``: saves only qkv."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, use_kernels):
+    def forward(ctx, qkv, heads, use_kernels, variant):
         ctx.save_for_backward(qkv)
-        ctx.heads, ctx.use_kernels = heads, use_kernels
-        return (grid_mhsa if use_kernels else grid_mhsa_reference)(qkv, heads)
+        ctx.cfg = (heads, use_kernels, variant)
+        if use_kernels:
+            return grid_mhsa(qkv, heads, variant)
+        return grid_mhsa_reference(qkv, heads)
 
     @staticmethod
     def backward(ctx, dout):
         (qkv,) = ctx.saved_tensors
-        fn = (grid_mhsa_backward if ctx.use_kernels
-              else grid_mhsa_backward_reference)
-        return fn(qkv, dout.contiguous(), ctx.heads), None, None
+        heads, use_kernels, variant = ctx.cfg
+        if use_kernels:
+            dqkv = grid_mhsa_backward(qkv, dout.contiguous(), heads, variant)
+        else:
+            dqkv = grid_mhsa_backward_reference(qkv, dout.contiguous(), heads)
+        return dqkv, None, None, None
 
 
-def grid_mhsa_autograd(qkv: torch.Tensor, heads: int,
-                       use_kernels: bool) -> torch.Tensor:
+def grid_mhsa_autograd(qkv: torch.Tensor, heads: int, use_kernels: bool,
+                       variant: str = "t") -> torch.Tensor:
     """Differentiable grid MHSA core: the kernels (:func:`grid_mhsa`,
     :func:`grid_mhsa_backward`) with ``use_kernels``, else the plain
     versions, both ways."""
-    return _GridMHSA.apply(qkv, heads, use_kernels)
+    return _GridMHSA.apply(qkv, heads, use_kernels, variant)

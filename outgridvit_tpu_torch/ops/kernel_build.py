@@ -56,6 +56,17 @@ _SIGNATURES = {
                             _I),
     # M, C, H -> floats of workspace
     "ogvt_mlp_branch_bwd_workspace": ((_I, _I, _I), ctypes.c_longlong),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, G, N, C, heads, scale, eps,
+    # apply_ln, dtype, stream
+    "ogvt_attn_branch": ((_P,) * 8 + (_I, _I, _I, _I, _F, _F, _I, _I, _P),
+                         _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wp, dy, dx, dln_scale, dln_bias,
+    # dwqkv, dbqkv, dwp, dbp, workspace, G, N, C, heads, scale, eps,
+    # apply_ln, dtype, stream
+    "ogvt_attn_branch_bwd": ((_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I, _I,
+                                           _P), _I),
+    # G, C -> floats of workspace
+    "ogvt_attn_branch_bwd_workspace": ((_I, _I), ctypes.c_longlong),
     "ogvt_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -156,6 +167,19 @@ def load() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def check_variant(name: str, variant: str, variants) -> None:
+    if variant not in variants:
+        raise ValueError(f"{name}: variant {variant!r} is not one of "
+                         f"{variants}")
+
+
+def count_launch(fn, variant: str) -> None:
+    """Count one kernel launch on the wrapper ``fn``: ``fn.launches`` and
+    ``fn.by_variant[variant]``, the JAX kernel the launch stands for."""
+    fn.launches += 1
+    fn.by_variant[variant] += 1
 
 
 def check(err: int, what: str) -> None:

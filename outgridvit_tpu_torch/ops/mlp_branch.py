@@ -1,7 +1,11 @@
 """Fused pre-LN channel-MLP branch: the CUDA kernels ``csrc/mlp_branch.cu``
 (forward) and ``csrc/mlp_branch_bwd.cu`` (backward) and their plain PyTorch
-versions (twin of ``outgridvit_tpu/ops/mlp_branch_pallas_t.py:
-mlp_branch_pallas_t`` and its recompute backward).
+versions. One kernel pair stands for two TPU kernels that compute the same
+math and rounding points in different VMEM layouts:
+``outgridvit_tpu/ops/mlp_branch_pallas_t.py:mlp_branch_pallas_t`` (#2,
+variant ``"t"``) and the row-layout
+``outgridvit_tpu/ops/mlp_branch_pallas.py:mlp_branch_pallas`` (#4, variant
+``"row"``). The variant only tags the launch count (``mlp_branch.by_variant``).
 
 ``y = fc2(act(fc1(LN(x))))`` per token with the kernel's rounding points:
 LN with fp32 statistics cast to x.dtype; ``xn.w1`` summed in fp32, ``+ b1``,
@@ -14,6 +18,8 @@ that saves only its inputs).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from outgridvit_tpu_torch.ops import kernel_build
@@ -24,6 +30,15 @@ from outgridvit_tpu_torch.ops.activations import (
 
 _ACT_CODES = {"gelu": 0, "silu": 1, "relu": 2}  # enum Act in csrc/act.cuh
 _MAX_C = 4096
+VARIANTS = ("t", "row")  # mlp_branch_pallas_t (#2), mlp_branch_pallas (#4)
+
+
+def mlp_branch_variant(spatial: int, C: int) -> str:
+    """The JAX kernel an NHWC map of ``spatial`` = H*W pixels and C channels
+    stands for: the row layout for H*W >= 4096 and C <= 64
+    (``outgridvit_tpu/models/layers.py:241``), the transposed one
+    otherwise."""
+    return "row" if spatial >= 4096 and C <= 64 else "t"
 
 
 def layernorm_fp32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -94,8 +109,9 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
             dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
-def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act):
+def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act, variant):
     """Validate what the kernels take; returns (M, C, H, act code)."""
+    kernel_build.check_variant(name, variant, VARIANTS)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in kernel_build.DTYPE_CODES:
@@ -125,14 +141,15 @@ def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act):
 
 
 def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
-               eps: float = 1e-5, apply_ln: bool = True):
+               eps: float = 1e-5, apply_ln: bool = True, variant: str = "t"):
     """x [..., C] -> [..., C]. A CUDA tensor launches the kernel (or raises);
-    a CPU tensor takes :func:`mlp_branch_reference`."""
+    a CPU tensor takes :func:`mlp_branch_reference`. ``variant`` names the
+    JAX kernel the launch stands for (:data:`VARIANTS`)."""
     if x.device.type == "cpu":
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, act,
                                     eps, apply_ln)
     M, C, H, code = _check_launch("mlp_branch", x, ln_scale, ln_bias, w1, b1,
-                                  w2, b2, act)
+                                  w2, b2, act, variant)
     y = torch.empty_like(x)
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
@@ -143,24 +160,27 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
             int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "mlp_branch launch")
-    mlp_branch.launches += 1
+    kernel_build.count_launch(mlp_branch, variant)
     return y
 
 
 mlp_branch.launches = 0
+mlp_branch.by_variant = Counter()
 
 
 def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, act: str,
-                        eps: float = 1e-5, apply_ln: bool = True):
+                        eps: float = 1e-5, apply_ln: bool = True,
+                        variant: str = "t"):
     """Gradients ``(dx, dln_scale, dln_bias, dw1, db1, dw2, db2)`` of the
     branch for the output gradient ``dy``. A CUDA tensor launches the kernels
     (or raises); a CPU tensor takes :func:`mlp_branch_backward_reference`.
-    Deterministic: two calls on the same inputs give bitwise-equal grads."""
+    Deterministic: two calls on the same inputs give bitwise-equal grads.
+    ``variant`` as in :func:`mlp_branch`."""
     if x.device.type == "cpu":
         return mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2,
                                              b2, dy, act, eps, apply_ln)
     M, C, H, code = _check_launch("mlp_branch_backward", x, ln_scale, ln_bias,
-                                  w1, b1, w2, b2, act)
+                                  w1, b1, w2, b2, act, variant)
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
             or not dy.is_contiguous()):
         raise ValueError(
@@ -182,11 +202,12 @@ def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, act: str,
             kernel_build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "mlp_branch_backward launch")
-    mlp_branch_backward.launches += 1
+    kernel_build.count_launch(mlp_branch_backward, variant)
     return grads
 
 
 mlp_branch_backward.launches = 0
+mlp_branch_backward.by_variant = Counter()
 
 
 class _MLPBranch(torch.autograd.Function):
@@ -195,26 +216,30 @@ class _MLPBranch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps,
-                apply_ln, use_kernels):
+                apply_ln, use_kernels, variant):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
-        ctx.cfg = (act, eps, apply_ln, use_kernels)
-        fn = mlp_branch if use_kernels else mlp_branch_reference
-        return fn(x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps, apply_ln)
+        ctx.cfg = (act, eps, apply_ln, use_kernels, variant)
+        args = (x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps, apply_ln)
+        if use_kernels:
+            return mlp_branch(*args, variant)
+        return mlp_branch_reference(*args)
 
     @staticmethod
     def backward(ctx, dy):
-        act, eps, apply_ln, use_kernels = ctx.cfg
-        fn = (mlp_branch_backward if use_kernels
-              else mlp_branch_backward_reference)
-        grads = fn(*ctx.saved_tensors, dy.contiguous(), act, eps, apply_ln)
-        return (*grads, None, None, None, None)
+        act, eps, apply_ln, use_kernels, variant = ctx.cfg
+        args = (*ctx.saved_tensors, dy.contiguous(), act, eps, apply_ln)
+        if use_kernels:
+            grads = mlp_branch_backward(*args, variant)
+        else:
+            grads = mlp_branch_backward_reference(*args)
+        return (*grads, None, None, None, None, None)
 
 
 def mlp_branch_autograd(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
                         eps: float = 1e-5, apply_ln: bool = True,
-                        use_kernels: bool = False):
+                        use_kernels: bool = False, variant: str = "t"):
     """Differentiable fused branch: the kernels (:func:`mlp_branch`,
     :func:`mlp_branch_backward`) with ``use_kernels``, else the plain
     versions, both ways."""
     return _MLPBranch.apply(x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps,
-                            apply_ln, use_kernels)
+                            apply_ln, use_kernels, variant)

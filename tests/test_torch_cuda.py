@@ -1,9 +1,12 @@
 """CUDA kernels of outgridvit_tpu_torch (forward and backward) against
-their plain PyTorch versions on the card, at edge shapes the Model A-7M path
-does not reach (odd token and channel counts, N=1, C not a multiple of 32, a
+their plain PyTorch versions on the card, at edge shapes the Model A paths
+do not reach (odd token and channel counts, N=1, C not a multiple of 32, a
 ragged last token tile, a hidden width that is not a multiple of the 64-unit
-chunk, a grid whose staging needs more than 48 KB of shared memory), plus
-one train step of a tiny model through the kernels against the plain path.
+chunk, a grid whose staging needs more than 48 KB of shared memory) and at
+the full Tiny-ImageNet-200 stage shapes (train batch 128: the fused
+attention branch at N=64, the head-chunked grid shapes at C=128/256/384, the
+row-layout MLP shapes at M=524,288), plus a tiny model through the kernels
+against the plain path, forward and one train step.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -21,6 +24,12 @@ import torch
 
 from outgridvit_tpu_torch.models import build_model
 from outgridvit_tpu_torch.models.layers import DropPath
+from outgridvit_tpu_torch.ops.attn_branch import (
+    attn_branch,
+    attn_branch_backward,
+    attn_branch_backward_reference,
+    attn_branch_reference,
+)
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa,
@@ -37,6 +46,7 @@ from outgridvit_tpu_torch.ops.mlp_branch import (
 from outgridvit_tpu_torch.training.optim import AdamW
 from outgridvit_tpu_torch.training.steps import (
     StepConfig,
+    StepDraws,
     make_train_step,
     sample_step_draws,
 )
@@ -152,6 +162,105 @@ def test_mlp_branch_backward_kernel_matches_plain(dev, dtype, act, M, C, H,
             _assert_close_to_max(a, w, dtype, name)
 
 
+def _branch_args(g, G, N, C, dev, dtype):
+    def r(*shape, s=1.0, b=0.0):
+        return torch.randn(*shape, generator=g) * s + b
+
+    return (r(G, N, C).to(dev, dtype), r(C, s=0.1, b=1.0).to(dev),
+            r(C, s=0.1).to(dev), r(C, 3 * C, s=C ** -0.5).to(dev, dtype),
+            r(3 * C, s=0.02).to(dev, dtype),
+            r(C, C, s=C ** -0.5).to(dev, dtype), r(C, s=0.02).to(dev, dtype))
+
+
+BRANCH_GRADS = ("dx", "dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwproj",
+                "dbproj")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,N,C,heads,apply_ln", [
+    (8192, 64, 64, 2, True),   # Tiny-ImageNet stage 0 at train batch 128
+    (5, 64, 80, 2, True),      # cifar100_model_a stage 0 (hd 40)
+    (3, 72, 48, 3, False),     # N not a multiple of 32, no LN
+    (2, 100, 24, 4, True)])
+def test_attn_branch_kernels_match_plain(dev, dtype, G, N, C, heads,
+                                         apply_ln):
+    g = torch.Generator().manual_seed(G + N + C)
+    args = _branch_args(g, G, N, C, dev, dtype)
+    dy = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    n = (attn_branch.launches, attn_branch_backward.launches)
+    got = attn_branch(*args, heads, 1e-5, apply_ln)
+    grads = attn_branch_backward(*args, dy, heads, 1e-5, apply_ln)
+    again = attn_branch_backward(*args, dy, heads, 1e-5, apply_ln)
+    torch.cuda.synchronize()
+    assert (attn_branch.launches, attn_branch_backward.launches) == \
+        (n[0] + 1, n[1] + 2)
+    _assert_close(got, attn_branch_reference(*args, heads, 1e-5, apply_ln),
+                  dtype)
+    want = attn_branch_backward_reference(*args, dy, heads, 1e-5, apply_ln)
+    for name, a, b, w in zip(BRANCH_GRADS, grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        elif not apply_ln and name.startswith("dln"):
+            assert not a.any(), name
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,heads", [(8192, 128, 4), (2048, 256, 8),
+                                       (512, 384, 6)])
+def test_grid_mhsa_kernels_at_the_64px_shapes(dev, dtype, G, C, heads):
+    # Tiny-ImageNet stages 1-3 at train batch 128: N=16, the shapes of the
+    # head-chunked TPU kernel #3 (hd 32 and 64; up to 108 KB of staging)
+    g = torch.Generator().manual_seed(C)
+    qkv = torch.randn(G, 16, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(G, 16, C, generator=g).to(dev, dtype)
+    n = (grid_mhsa.by_variant["th"], grid_mhsa_backward.by_variant["th"])
+    got = grid_mhsa(qkv, heads, "th")
+    dqkv = grid_mhsa_backward(qkv, dout, heads, "th")
+    again = grid_mhsa_backward(qkv, dout, heads, "th")
+    torch.cuda.synchronize()
+    assert (grid_mhsa.by_variant["th"],
+            grid_mhsa_backward.by_variant["th"]) == (n[0] + 1, n[1] + 2)
+    assert torch.equal(dqkv, again)
+    _assert_close(got, grid_mhsa_reference(qkv, heads), dtype)
+    _assert_close(dqkv, grid_mhsa_backward_reference(qkv, dout, heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [128, 256])
+def test_mlp_branch_kernels_at_the_64px_row_shapes(dev, dtype, H):
+    # Tiny-ImageNet stage 0 at train batch 128: M = 128*64*64 tokens of
+    # C=64, the shapes of the row-layout TPU kernel #4
+    M, C = 524_288, 64
+    g = torch.Generator().manual_seed(H)
+
+    def r(*shape, s=1.0, b=0.0):
+        return torch.randn(*shape, generator=g) * s + b
+
+    args = (r(M, C).to(dev, dtype), r(C, s=0.1, b=1.0).to(dev),
+            r(C, s=0.1).to(dev), r(C, H, s=C ** -0.5).to(dev, dtype),
+            r(H, s=0.02).to(dev, dtype), r(H, C, s=H ** -0.5).to(dev, dtype),
+            r(C, s=0.02).to(dev, dtype))
+    dy = r(M, C, s=0.01).to(dev, dtype)
+    n = mlp_branch_backward.by_variant["row"]
+    got = mlp_branch(*args, "gelu", 1e-5, True, "row")
+    grads = mlp_branch_backward(*args, dy, "gelu", 1e-5, True, "row")
+    again = mlp_branch_backward(*args, dy, "gelu", 1e-5, True, "row")
+    torch.cuda.synchronize()
+    assert mlp_branch_backward.by_variant["row"] == n + 2
+    _assert_close(got, mlp_branch_reference(*args, "gelu", 1e-5, True), dtype)
+    want = mlp_branch_backward_reference(*args, dy, "gelu", 1e-5, True)
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    for name, a, b, w in zip(names, grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     qkv = torch.randn(4, 17, 48, device=dev)
     with pytest.raises(ValueError, match="N=17"):
@@ -185,6 +294,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         mlp_branch_backward(x.half(), *args[1:], x.half(), "gelu")
     with pytest.raises(ValueError, match="activation"):
         mlp_branch_backward(*args, x, "tanh")
+    bargs = _branch_args(torch.Generator().manual_seed(0), 2, 64, 16, dev,
+                         torch.float32)
+    with pytest.raises(ValueError, match="wqkv"):
+        attn_branch(bargs[0], *bargs[1:3], bargs[3].t(), *bargs[4:], 2)
+    with pytest.raises(ValueError, match="ln_scale"):
+        attn_branch(bargs[0], bargs[1].bfloat16(), *bargs[2:], 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        attn_branch(torch.randn(1, 256, 16, device=dev), *bargs[1:], 2)
+    with pytest.raises(ValueError, match="dy"):
+        attn_branch_backward(*bargs, bargs[0][:1], 2)
+    with pytest.raises(ValueError, match="variant"):
+        grid_mhsa(qkv, 2, "row")
 
 
 def test_tiny_model_kernel_path_matches_plain_path(dev):
@@ -202,6 +323,46 @@ def test_tiny_model_kernel_path_matches_plain_path(dev):
     assert (grid_mhsa.launches - counts[0],
             mlp_branch.launches - counts[1]) == (2, 4)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_tiny_64_token_model_kernel_path_matches_plain_path(dev):
+    # 16px input, grid 2: stage 0 has grids of N=64 (the fused branch),
+    # stage 1 grids of N=16
+    cfg = {"type": "model_a", "num_classes": 10, "stem_dim": 8,
+           "dpr_max": 0.2, "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 4}]}
+    x = torch.randn(8, 16, 16, 3, generator=torch.Generator().manual_seed(1))
+    y = (torch.arange(8) % 10).to(dev)
+    counters = (attn_branch, attn_branch_backward, grid_mhsa,
+                grid_mhsa_backward)
+    out = {}
+    for use_kernels in (True, False):
+        model = build_model(cfg, use_kernels=use_kernels, device=dev, seed=4)
+        with torch.inference_mode():
+            logits = model(x.to(dev))
+        paths = [m.path for m in model.modules()
+                 if isinstance(m, DropPath) and m.rate > 0]
+        masks = DropPathMasks({p: torch.arange(8, device=dev) % (i + 2) > 0
+                               for i, p in enumerate(paths)})
+        step = make_train_step(StepConfig(num_classes=10))
+        before = [c.launches for c in counters]
+        state, m = step(TrainState.create(model, AdamW(1e-3)), (x.to(dev), y),
+                        StepDraws(drop_masks=masks))
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([1, 1, 1, 1] if use_kernels else [0] * 4)
+        out[use_kernels] = (logits, float(m["loss"]), {
+            k: p.grad.clone() for k, p in model.named_parameters()})
+    (lk, sk, gk), (lp, sp, gp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert abs(sk - sp) <= 1e-5 * abs(sp)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [t.norm() for t in gp.values()])).item()
+    for k in gp:
+        assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * gnorm, k
 
 
 def test_tiny_model_train_step_kernel_path_matches_plain_path(dev):
