@@ -5,7 +5,7 @@ GPU.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``outgridvit_tpu_torch/csrc`` (nvcc,
-sm_90a), then drives two models at their full width with random weights
+sm_90a), then drives three models at their full width with random weights
 from a seed:
 
 - Model A-7M (``configs/cifar100_model_a_7m.yaml``, CIFAR-100 32px): grid
@@ -14,7 +14,12 @@ from a seed:
 - Model A on Tiny-ImageNet-200 (``configs/tinyimagenet200_model_a.yaml``,
   64px): stage 0 runs grids of N=64 through the fused attention branch
   (``attn_branch``) and its MLPs at the shapes of the row-layout TPU kernel;
-  stages 1-3 run the N=16 grids of the head-chunked TPU kernel.
+  stages 1-3 run the N=16 grids of the head-chunked TPU kernel;
+- Model B (``configs/cifar100_model_b.yaml``, CIFAR-100 32px) with
+  ``model.use_pallas: fused_agg``: its three front outlookers run the fused
+  outlook aggregate + projection (``outlook_agg``), its grid-only stages
+  ``grid_mhsa`` and ``mlp_branch``; then again with ``fused_agg_v``, the
+  value projection folded in (``outlook_branch``).
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -24,12 +29,15 @@ path's logits against the plain path's, one fp32 train step through the
 kernels against one through the plain path (batch 128, raw uint8 in, the
 config's augmentation and mixing recipe, AdamW), bf16 steps on one batch in
 which the loss must fall (launch counts of each step), and timings. The 7M
-path also checks the non-finite guard.
+path also checks the non-finite guard. Model B's phase also holds both outlook
+kernels against their plain versions at every outlooker shape of the three
+configurations.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
-paths; ms per Tiny-ImageNet batch-64 forward for the forward kernels and per
-batch-128 train step for the backward ones), then the last line
+paths; ms per batch-64 forward for the forward kernels and per batch-128
+train step for the backward ones, of Tiny-ImageNet for the grid and MLP
+kernels and of Model B for the outlook ones), then the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without the last line. Without a CUDA device it exits 1
 before doing anything. Imports no JAX and no yaml.
@@ -84,6 +92,29 @@ TIN_MODEL_CFG = {
     ],
 }
 TIN_PARAMS = 22_542_628
+# The `model:` section of configs/cifar100_model_b.yaml plus the fused
+# outlook mode of the main run (a test checks the two agree, and the count
+# against the JAX build).
+MODEL_B_MODEL_CFG = {
+    "type": "model_b",
+    "num_classes": 100,
+    "in_ch": 3,
+    "stem_dim": 64,
+    "outlooker_front_depth": 3,
+    "dpr_max": 0.1,
+    "stages": [
+        {"dim": 64, "depth": 2, "num_heads": 2, "grid_size": 8,
+         "outlook_heads": 2},
+        {"dim": 128, "depth": 2, "num_heads": 4, "grid_size": 8,
+         "outlook_heads": 4},
+        {"dim": 256, "depth": 3, "num_heads": 8, "grid_size": 4,
+         "outlook_heads": 8},
+        {"dim": 384, "depth": 1, "num_heads": 6, "grid_size": 2,
+         "outlook_heads": 6},
+    ],
+    "use_pallas": "fused_agg",
+}
+MODEL_B_PARAMS = 12_266_266
 BATCH = 64
 TRAIN_BATCH = 128
 SEED = 0
@@ -108,6 +139,17 @@ class ModelCase:
     loss_steps: int
     fixed_draws_loss: bool  # the loss loop reuses one step's draws
 
+    @property
+    def front(self) -> int:
+        """Model B's front outlookers (at stage 0's shape)."""
+        return (int(self.model.get("outlooker_front_depth", 2))
+                if self.model["type"] == "model_b" else 0)
+
+    @property
+    def outlook_kernel(self):
+        """The kernel of the outlook value path, None on the XLA path."""
+        return OUTLOOK_KERNELS.get(self.model.get("use_pallas"))
+
 
 FLAGSHIP = ModelCase(
     "a7m", "configs/cifar100_model_a_7m.yaml", FLAGSHIP_MODEL_CFG,
@@ -121,6 +163,24 @@ TIN = ModelCase(
     {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
      "min_lr": 1e-6, "label_smoothing": 0.0, "mixup_alpha": 0.0,
      "cutmix_alpha": 1.0, "mix_prob": 0.5}, 10, True)
+MODEL_B = ModelCase(
+    "model_b", "configs/cifar100_model_b.yaml", MODEL_B_MODEL_CFG,
+    MODEL_B_PARAMS, 32, (0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761),
+    4, {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
+        "min_lr": 1e-6, "label_smoothing": 0.0, "mixup_alpha": 0.0,
+        "cutmix_alpha": 1.0, "mix_prob": 0.5}, 10, True)
+# the same model with the value projection folded into the outlook kernel
+MODEL_B_V = dataclasses.replace(
+    MODEL_B, tag="model_b_v", model=dict(MODEL_B_MODEL_CFG,
+                                         use_pallas="fused_agg_v"),
+    loss_steps=4)
+OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch"}
+# Every outlooker shape of the three configurations: (H=W, C, heads).
+OUTLOOK_SHAPES = {
+    "model_b front": [(32, 64, 2)],
+    "a7m": [(32, 48, 2), (16, 96, 3), (8, 192, 6), (4, 256, 8)],
+    "tin200": [(64, 64, 2), (32, 128, 4), (16, 256, 8), (8, 384, 6)],
+}
 
 # Kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|:
 # fp32 differs only by summation order (errors ~1e-6 at these sums of
@@ -188,9 +248,36 @@ SOURCES = {
         "outgridvit_tpu/ops/attn_branch_pallas.py:396",
         ["outgridvit_tpu/ops/attn_branch_pallas.py:396 attn_branch_pallas "
          "backward (#5)"]),
+    "outlook_agg": (
+        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:499",
+        ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:499 "
+         "outlook_attention_proj_pallas (#7, forward: whole image :426, "
+         "row-chunked :333)"]),
+    "outlook_agg_bwd": (
+        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:461",
+        ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:461 "
+         "outlook_attention_proj_pallas backward (#7, row-chunked :374)"]),
+    "outlook_branch": (
+        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:809",
+        ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:809 "
+         "outlook_branch_pallas (#8, forward: whole image :693, "
+         "row-chunked :710)"]),
+    "outlook_branch_bwd": (
+        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746",
+        ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746 "
+         "outlook_branch_pallas backward (#8, row-chunked :773)"]),
 }
-FWD = ("grid_mhsa", "attn_branch", "mlp_branch")
-BWD = ("grid_mhsa_bwd", "attn_branch_bwd", "mlp_branch_bwd")
+FWD = ("grid_mhsa", "attn_branch", "mlp_branch", "outlook_agg",
+       "outlook_branch")
+BWD = tuple(name + "_bwd" for name in FWD)
+OUTLOOK = ("outlook_agg", "outlook_branch")
+# outputs of a backward kernel held per element (the others are parameter
+# gradients, sums over every pixel): dx, or dv / dx and da
+PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
 
 
 class CheckFailed(RuntimeError):
@@ -212,7 +299,9 @@ def gpu_name_and_power_limit() -> str:
 
 def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     """Per stage: the kernels' shapes at ``batch``, how often one forward
-    launches them, and the JAX kernels the port's dispatch stands for (as
+    launches them (``blocks`` grid attentions, ``outlook`` outlookers, each
+    with an MLP of hidden width ``H_outlook``, ``blocks`` MLPs of width
+    ``H_block``), and the JAX kernels the port's dispatch stands for (as
     ``models/blocks.py`` and ``models/layers.py`` pick them)."""
     from outgridvit_tpu_torch.ops.attn_branch import MIN_TOKENS
     from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
@@ -224,7 +313,9 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
         g, C = s["grid_size"], s["dim"]
         N = (hw // g) ** 2
         out.append({
-            "stage": si, "blocks": s["depth"], "C": C,
+            "stage": si, "batch": batch, "blocks": s["depth"], "C": C,
+            "outlook": (case.front if si == 0 else 0) if case.front
+            else s["depth"], "H_img": hw, "outlook_heads": s["outlook_heads"],
             "G": batch * g * g, "N": N, "heads": s["num_heads"],
             "M": batch * hw * hw, "H_outlook": 2 * C, "H_block": 4 * C,
             "attn": "branch" if N >= MIN_TOKENS else "grid",
@@ -234,7 +325,7 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     return out
 
 
-def launch_plan(shapes, backward=False):
+def launch_plan(case, shapes, backward=False):
     """Launches of one forward (or one backward): per kernel, and per
     variant of the kernels whose launches are tagged."""
     sfx = "_bwd" if backward else ""
@@ -242,10 +333,12 @@ def launch_plan(shapes, backward=False):
     variants = {"grid_mhsa" + sfx: {}, "mlp_branch" + sfx: {}}
     for sh in shapes:
         n = sh["blocks"]
-        for name, count, variant in (
-                ("attn_branch" if sh["attn"] == "branch" else "grid_mhsa", n,
+        todo = [("attn_branch" if sh["attn"] == "branch" else "grid_mhsa", n,
                  sh["grid_variant"]),
-                ("mlp_branch", 2 * n, sh["mlp_variant"])):
+                ("mlp_branch", n + sh["outlook"], sh["mlp_variant"])]
+        if case.outlook_kernel:
+            todo.append((case.outlook_kernel, sh["outlook"], None))
+        for name, count, variant in todo:
             plan[name + sfx] += count
             if name + sfx in variants:
                 tags = variants[name + sfx]
@@ -279,6 +372,7 @@ class Smoke:
         from outgridvit_tpu_torch.ops import attn_branch as ab
         from outgridvit_tpu_torch.ops import grid_attention as ga
         from outgridvit_tpu_torch.ops import mlp_branch as mb
+        from outgridvit_tpu_torch.ops import outlook_agg as oa
 
         self.dev, self.gpu = dev, gpu
         self.gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -292,6 +386,13 @@ class Smoke:
                                 ab.attn_branch_backward_reference),
             "mlp_branch_bwd": (mb.mlp_branch_backward,
                                mb.mlp_branch_backward_reference),
+            "outlook_agg": (oa.outlook_agg_proj,
+                            oa.outlook_agg_proj_reference),
+            "outlook_branch": (oa.outlook_branch, oa.outlook_branch_reference),
+            "outlook_agg_bwd": (oa.outlook_agg_proj_backward,
+                                oa.outlook_agg_proj_backward_reference),
+            "outlook_branch_bwd": (oa.outlook_branch_backward,
+                                   oa.outlook_branch_backward_reference),
         }
         self.max_err = {n: 0.0 for n in SOURCES}
         self.launches = {n: {} for n in SOURCES}   # name -> {path: count}
@@ -325,9 +426,29 @@ class Smoke:
         return (torch.randn(*shape, generator=self.gen) * scale
                 + shift).to(self.dev)
 
-    def fwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True):
+    def outlook_args(self, name, B, H, C, heads, dtype, backward=False):
+        """(v or x, a, [wv, bv,] wp, bp) of an H x H outlooker of C
+        channels, a softmaxed over the 9 taps of each head; for the backward
+        the output gradient in place of bp."""
+        import torch
+
+        r = self.randn
+        a = torch.softmax(r(B, H, H, heads, 9), -1).reshape(B, H, H,
+                                                            heads * 9)
+        w = [r(C, C, scale=C ** -0.5), r(C, scale=0.02)]
+        if name == "outlook_branch":
+            w = [r(C, C, scale=C ** -0.5), r(C, scale=0.02)] + w
+        if backward:
+            w[-1] = r(B, H, H, C)
+        return tuple(t.to(dtype) for t in (r(B, H, H, C), a, *w))
+
+    def fwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True,
+                 backward=False):
         G, N, C, heads = sh["G"], sh["N"], sh["C"], sh["heads"]
         r = self.randn
+        if name in OUTLOOK:
+            return self.outlook_args(name, sh["batch"], sh["H_img"], C,
+                                     sh["outlook_heads"], dtype, backward)
         if name == "grid_mhsa":
             return (r(G, N, 3 * C).to(dtype), heads)
         ln = (r(C, scale=0.1, shift=1.0), r(C, scale=0.1))
@@ -345,7 +466,10 @@ class Smoke:
 
     def bwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True):
         base = name[:-len("_bwd")]
-        args = self.fwd_args(base, sh, dtype, H, act, apply_ln)
+        args = self.fwd_args(base, sh, dtype, H, act, apply_ln,
+                             base in OUTLOOK)
+        if base in OUTLOOK:  # (v, a, wp, g) / (x, a, wv, bv, wp, g)
+            return args
         if base == "grid_mhsa":
             dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
             return (args[0], dout, args[1])
@@ -354,26 +478,36 @@ class Smoke:
         return (*args[:7], self.randn(*args[0].shape, scale=0.01).to(dtype),
                 *args[7:])
 
-    def cases(self, shapes, backward, dtype):
-        """(name, args, label) of every kernel at every stage shape."""
+    def cases(self, shapes, backward, dtype, outlook=()):
+        """(name, args, label, shape, launches per forward) of every kernel
+        at every stage shape that runs it; the outlook kernels in
+        ``outlook`` at the shapes of the stages' outlookers."""
         out = []
         for sh in shapes:
             tag = f"stage{sh['stage']}"
             attn = "attn_branch" if sh["attn"] == "branch" else "grid_mhsa"
-            names = [(attn, None), ("mlp_branch", sh["H_outlook"]),
-                     ("mlp_branch", sh["H_block"])]
-            for base, H in names:
+            names = [(attn, None, sh["blocks"]),
+                     ("mlp_branch", sh["H_outlook"], sh["outlook"]),
+                     ("mlp_branch", sh["H_block"], sh["blocks"])]
+            names += [(k, None, sh["outlook"]) for k in outlook]
+            for base, H, count in names:
+                if not count:
+                    continue
                 name = base + ("_bwd" if backward else "")
                 make = self.bwd_args if backward else self.fwd_args
                 if base == "mlp_branch":
                     label = (f"{tag} M={sh['M']} C={sh['C']} H={H} "
                              f"variant={sh['mlp_variant']}")
+                elif base in OUTLOOK:
+                    label = (f"{tag} B={sh['batch']} "
+                             f"H=W={sh['H_img']} C={sh['C']} "
+                             f"heads={sh['outlook_heads']}")
                 else:
                     label = (f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
                              f"heads={sh['heads']}")
                     if base == "grid_mhsa":
                         label += f" variant={sh['grid_variant']}"
-                out.append((name, make(name, sh, dtype, H), label, sh))
+                out.append((name, make(name, sh, dtype, H), label, sh, count))
         return out
 
     # -- kernel vs plain --------------------------------------------------
@@ -396,7 +530,7 @@ class Smoke:
             require(torch.isfinite(g.float()).all().item(),
                     f"{name} {label} output {i}: non-finite")
             diff = (g.float() - w.float()).abs()
-            if i == 0:  # output, dx or dqkv: per element
+            if i in PER_ELEMENT.get(name, (0,)):  # output, dx, dqkv, da
                 tol = KERNEL_TOL[dt]
                 ok = bool((diff <= tol + tol * w.float().abs()).all())
                 self.max_err[name] = max(self.max_err[name],
@@ -420,10 +554,12 @@ class Smoke:
         for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
             shapes = stage_shapes(case, batch)
             for dtype in (torch.float32, torch.bfloat16):
-                for name, args, label, _ in self.cases(shapes, backward,
-                                                       dtype):
+                for name, args, label, *_ in self.cases(shapes, backward,
+                                                        dtype):
                     self.compare(name, args, dtype, f"{case.tag} {label}")
                     del args
+                if case is MODEL_B:
+                    self.compare_outlook(backward, batch, dtype)
             if case is FLAGSHIP:  # every activation and the no-LN form
                 sh = shapes[0]
                 name = "mlp_branch" + ("_bwd" if backward else "")
@@ -435,21 +571,37 @@ class Smoke:
                                      dtype, f"{case.tag} stage0 M={sh['M']} "
                                      f"C={sh['C']} act={act} ln=False")
 
+    def compare_outlook(self, backward, batch, dtype):
+        """Both outlook kernels against their plain versions at every
+        outlooker shape of the three configurations."""
+        sfx = "_bwd" if backward else ""
+        for cfg, shapes in OUTLOOK_SHAPES.items():
+            for H, C, heads in shapes:
+                for base in OUTLOOK:
+                    args = self.outlook_args(base, batch, H, C, heads, dtype,
+                                             backward)
+                    self.compare(base + sfx, args, dtype,
+                                 f"{cfg} B={batch} H=W={H} C={C} "
+                                 f"heads={heads}")
+                    del args
+
     def time_kernels(self, case: ModelCase, backward: bool, iters: int):
         """µs per launch, kernel vs plain, at every stage shape in bf16;
-        summed per forward or per train step into ``self.ms``."""
+        summed per forward or per train step into ``self.ms`` (the outlook
+        kernels at Model B's front, both whichever the case launches)."""
         import torch
 
         shapes = stage_shapes(case, TRAIN_BATCH if backward else BATCH)
         totals = {}
-        for name, args, label, sh in self.cases(shapes, backward,
-                                                torch.bfloat16):
+        for name, args, label, sh, count in self.cases(
+                shapes, backward, torch.bfloat16,
+                OUTLOOK if case.front else ()):
             kern, plain = self.kernels[name]
             k_ms = time_ms(kern, args, iters=iters, warmup=2)
             p_ms = time_ms(plain, args, iters=iters, warmup=2)
             t = totals.setdefault(name, [0.0, 0.0])
-            t[0] += sh["blocks"] * k_ms
-            t[1] += sh["blocks"] * p_ms
+            t[0] += count * k_ms
+            t[1] += count * p_ms
             print(f"[time] {case.tag} {name} {label} bf16: kernel "
                   f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
                   f"({k_ms and p_ms / k_ms:.2f}x) [{self.gpu}]")
@@ -459,7 +611,7 @@ class Smoke:
         for name, (k, p) in totals.items():
             print(f"[time] {case.tag} {name} per {per}: kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms [{self.gpu}]")
-            if case is TIN:
+            if case is (MODEL_B if name.startswith("outlook") else TIN):
                 self.ms[name] = (k, p)
 
     # -- serving ----------------------------------------------------------
@@ -484,7 +636,7 @@ class Smoke:
         images = rng.integers(0, 256, (200, img, img, 3), dtype=np.uint8)
         requests = [("full batch", images[:BATCH]), ("ragged 3", images[:3]),
                     ("200 images", images)]
-        plan, variants = launch_plan(stage_shapes(case))
+        plan, variants = launch_plan(case, stage_shapes(case))
         print(f"[serve] {case.tag} launch plan per forward {plan}, by "
               f"variant {variants}")
         results = {}
@@ -674,8 +826,8 @@ class Smoke:
 
         # the main path: bf16 steps on one batch, launch counts per step
         shapes = stage_shapes(case, TRAIN_BATCH)
-        fplan, fvar = launch_plan(shapes)
-        bplan, bvar = launch_plan(shapes, backward=True)
+        fplan, fvar = launch_plan(case, shapes)
+        bplan, bvar = launch_plan(case, shapes, backward=True)
         plan, pvar = {**fplan, **bplan}, {**fvar, **bvar}
         state = new_state(torch.bfloat16, True, warmup_cosine_lr(
             T["lr"], case.loss_steps, 3, T["min_lr"]))
@@ -714,7 +866,6 @@ class Smoke:
             self.nonfinite_guard(step_cfg, state, images, labels, sampler)
 
         # timings
-        self.time_kernels(case, backward=True, iters=10)
         draws = fixed_draws(state.model)
         for label, st in (("kernel path", state),
                           ("plain path", new_state(torch.bfloat16, False))):
@@ -759,6 +910,9 @@ class Smoke:
         for name, (source, replaces, covers) in SOURCES.items():
             by_path = self.launches[name]
             k_ms, p_ms = self.ms[name]
+            model = "model_b" if name.startswith("outlook") else "tin200"
+            per = (f"batch-{TRAIN_BATCH} train step" if name in BWD
+                   else f"batch-{BATCH} forward")
             out.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "covers": covers,
@@ -767,9 +921,7 @@ class Smoke:
                 "launches_by_variant": self.variants[name],
                 "max_abs_err": self.max_err[name], "ms": k_ms,
                 "plain_ms": p_ms,
-                "ms_per": (f"tin200 batch-{TRAIN_BATCH} train step"
-                           if name in BWD else f"tin200 batch-{BATCH} "
-                           "forward"),
+                "ms_per": f"{model} {per}",
             })
         return out
 
@@ -802,11 +954,15 @@ def main() -> int:
 
     smoke = Smoke(dev, gpu)
     t0 = time.perf_counter()
-    for case in (FLAGSHIP, TIN):
-        smoke.compare_all(case)
+    for case in (FLAGSHIP, TIN, MODEL_B, MODEL_B_V):
+        if case is not MODEL_B_V:  # the same kernels and shapes as MODEL_B
+            smoke.compare_all(case)
         smoke.serve(case)
-        smoke.time_kernels(case, backward=False, iters=20)
+        if case is not MODEL_B_V:
+            smoke.time_kernels(case, backward=False, iters=20)
         smoke.train(case)
+        if case is not MODEL_B_V:
+            smoke.time_kernels(case, backward=True, iters=10)
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

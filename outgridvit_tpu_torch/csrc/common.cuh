@@ -1,6 +1,7 @@
 // Shared helpers for the OutGridViT CUDA kernels: element-type conversion,
 // the dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16), warp
-// reductions and the dynamic shared-memory opt-in.
+// reductions, the block-wide product from shared memory and the dynamic
+// shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +42,42 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   }
   return v;
+}
+
+// out[r][j] = sum_k round_to<TA>(A[r*asr + k*ask]) * B[k*bsk + j*bsj] for
+// r < R, j < J, handed to epi(r, j, sum). A is fp32 in shared memory (TA
+// marks an operand that the reference rounds to the compute type), B is of
+// type TB in shared or global memory. A thread owns one column j and RT
+// consecutive rows: each B element it loads feeds RT FMAs, and the threads
+// of a warp (consecutive j, the same rows) read A as a broadcast.
+template <int RT, typename TA, typename TB, typename Epi>
+__device__ __forceinline__ void block_gemm(const float* A, int asr, int ask,
+                                           int R, int K, const TB* B, int bsk,
+                                           int bsj, int J, Epi epi) {
+  const int groups = (R + RT - 1) / RT;
+  for (int item = threadIdx.x; item < groups * J; item += blockDim.x) {
+    const int j = item % J;
+    const int r0 = (item / J) * RT;
+    int row[RT];
+    float acc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      row[i] = min(r0 + i, R - 1) * asr;
+      acc[i] = 0.f;
+    }
+    const TB* b = B + j * bsj;
+    for (int k = 0; k < K; ++k) {
+      const float bv = to_f32(b[k * bsk]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        acc[i] = fmaf(round_to<TA>(A[row[i] + k * ask]), bv, acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      if (r0 + i < R) epi(r0 + i, j, acc[i]);
+    }
+  }
 }
 
 // Above 48 KB a kernel must opt in to its dynamic shared memory.

@@ -1,6 +1,6 @@
 """Attention blocks, NHWC (twins of ``outgridvit_tpu/models/blocks.py``):
-outlook attention, grid MHSA, the outlooker block and the hybrid OutGrid
-block. Drop-path runs in train mode with masks passed in
+outlook attention, grid MHSA, the outlooker block, the hybrid OutGrid block
+and Model B's grid-only block. Drop-path runs in train mode with masks passed in
 (:class:`~outgridvit_tpu_torch.ops.drop_path.DropPathMasks`); dropout is not
 ported, and a nonzero dropout rate in train mode raises.
 """
@@ -33,23 +33,43 @@ from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa_variant,
 )
 from outgridvit_tpu_torch.ops.outlook import outlook_aggregate
+from outgridvit_tpu_torch.ops.outlook_agg import (
+    outlook_agg_proj_autograd,
+    outlook_branch_autograd,
+)
 from outgridvit_tpu_torch.stage_config import MBConvConfig, StageCfg
+
+
+OUTLOOK_MODES = ("xla", "fused_agg", "fused_agg_v")  # the default first
 
 
 class OutlookAttention2d(nn.Module):
     """VOLO-style outlook attention, stride 1: a 1x1 projection gives
     heads*K^2 logits per pixel (heads-major), softmaxed in fp32 over the K^2
-    taps; values from a 1x1 projection are aggregated by
-    :func:`outlook_aggregate`, then projected."""
+    taps; values from a 1x1 projection are aggregated, then projected.
+
+    ``mode`` picks the value path as the JAX module's ``use_pallas`` does
+    (``outgridvit_tpu/models/blocks.py:106-155``): ``"xla"`` aggregates
+    with :func:`outlook_aggregate` and projects apart; ``"fused_agg"`` runs
+    aggregate + projection as one op (TPU kernel #7) and ``"fused_agg_v"``
+    folds the value projection in as well (#8), for K = 3 only (another K
+    takes the ``"xla"`` path). A fused mode runs the CUDA kernels with
+    ``use_kernels`` and their plain versions without: one function either
+    way."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, mode: str = "xla",
+                 use_kernels: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
         if kernel_size <= 0 or kernel_size % 2 == 0:
             raise ValueError("kernel_size must be odd and >0 (e.g., 3,5,7)")
+        if mode not in OUTLOOK_MODES:
+            raise ValueError(f"outlook mode {mode!r} is not one of "
+                             f"{OUTLOOK_MODES}")
         self.heads, self.k = num_heads, kernel_size
+        self.mode, self.use_kernels = mode, use_kernels
         kk = kernel_size * kernel_size
         self.attn = Dense(dim, num_heads * kk, dtype=dtype, device=device)
         self.v = Dense(dim, dim, dtype=dtype, device=device)
@@ -59,8 +79,19 @@ class OutlookAttention2d(nn.Module):
         B, H, W, _ = x.shape
         a = self.attn(x).reshape(B, H, W, self.heads, self.k * self.k)
         a = torch.softmax(a.float(), dim=-1).to(x.dtype)
-        y = outlook_aggregate(self.v(x), a, kernel_size=self.k, stride=1)
-        return self.proj(y)
+        if self.mode == "xla" or self.k != 3:
+            y = outlook_aggregate(self.v(x), a, kernel_size=self.k, stride=1)
+            return self.proj(y)
+        dt = self.proj.dtype
+        a = a.to(dt).reshape(B, H, W, self.heads * 9).contiguous()
+        wp = self.proj.weight.to(dt).t().contiguous()
+        bp = self.proj.bias.to(dt)
+        if self.mode == "fused_agg_v":
+            return outlook_branch_autograd(
+                x.to(dt).contiguous(), a, self.v.weight.to(dt).t().contiguous(),
+                self.v.bias.to(dt), wp, bp, self.use_kernels)
+        return outlook_agg_proj_autograd(self.v(x).contiguous(), a, wp, bp,
+                                         self.use_kernels)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -146,11 +177,12 @@ class OutlookerBlock2d(nn.Module):
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  mlp_ratio: float = 2.0, act: str = "gelu",
                  norm_eps: float = 1e-6, drop_path: float = 0.0,
-                 dtype=torch.float32, use_kernels: bool = False, device=None):
+                 dtype=torch.float32, use_kernels: bool = False, device=None,
+                 outlook_mode: str = "xla"):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps, device)
         self.attn = OutlookAttention2d(dim, num_heads, kernel_size, dtype,
-                                       device)
+                                       device, outlook_mode, use_kernels)
         self.dp1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps, device)
         self.mlp = ChannelMLP(dim, mlp_ratio, act, dtype, use_kernels, device)
@@ -167,10 +199,12 @@ class OutGridBlock(nn.Module):
     two branches (dp1, dp2 inside it), the grid branch (dp2) and the MLP
     (dp3); MBConv's own drop-path is 0 here. ``outlook_heads == 0``,
     ``num_heads == 0`` and ``use_mbconv=False`` skip their branch. The grid
-    and MLP norms use eps 1e-5."""
+    and MLP norms use eps 1e-5. ``outlook_mode`` as in
+    :class:`OutlookAttention2d`."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
-                 use_kernels: bool = False, device=None):
+                 use_kernels: bool = False, device=None,
+                 outlook_mode: str = "xla"):
         super().__init__()
         C = cfg.dim
         self.dropout = {"attn_drop": cfg.attn_drop,
@@ -178,7 +212,7 @@ class OutGridBlock(nn.Module):
         self.outlook = (OutlookerBlock2d(
             C, cfg.outlook_heads, cfg.outlook_kernel, cfg.outlook_mlp_ratio,
             cfg.mlp_act, drop_path=cfg.drop_path, dtype=dtype,
-            use_kernels=use_kernels, device=device)
+            use_kernels=use_kernels, device=device, outlook_mode=outlook_mode)
             if cfg.outlook_heads > 0 else None)
         self.mbconv = (MBConv(C, C, 1, MBConvConfig(
             expand_ratio=cfg.mbconv_expand_ratio, se_ratio=cfg.mbconv_se_ratio,
@@ -210,3 +244,14 @@ class OutGridBlock(nn.Module):
         if self.grid_attn is not None:
             x = x + self.dp2(self.grid_attn(x, self.norm2), masks)
         return x + self.dp3(self.mlp(x, self.norm3), masks)
+
+
+class GridOnlyBlock(OutGridBlock):
+    """Model B's unit (``outgridvit_tpu/models/blocks.py:583-637``): MBConv
+    -> grid attention (dp2) -> MLP (dp3), the hybrid block without its
+    outlooker; the submodule and drop-path names are the same."""
+
+    def __init__(self, cfg: StageCfg, dtype=torch.float32,
+                 use_kernels: bool = False, device=None):
+        super().__init__(cfg.replace(outlook_heads=0), dtype, use_kernels,
+                         device)

@@ -1,46 +1,73 @@
 """Model construction from a config dict (twin of ``outgridvit_tpu/models/
-build.py``), with the same ``model.type`` aliases."""
+build.py``), with the same ``model.type`` aliases and the same reading of
+``model.use_pallas`` and ``model.remat``."""
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Union
 
 import torch
 
+from outgridvit_tpu_torch.models.blocks import OUTLOOK_MODES
 from outgridvit_tpu_torch.models.layers import init_parameters
 from outgridvit_tpu_torch.models.model_a import MaxOutNet
+from outgridvit_tpu_torch.models.model_b import OutlookerFrontGridNet
 from outgridvit_tpu_torch.stage_config import DownsampleConfig, build_stages
 
 _MODEL_A_ALIASES = ("a", "model_a", "maxout", "outgrid")
 _MODEL_B_ALIASES = ("b", "model_b", "outlooker_front", "front")
+# ``model.remat`` values that mean off (``models/rematerialize.py:66``)
+_REMAT_OFF = ("off", "none", "false", "0", "")
+
+
+def outlook_mode(use_pallas: Any) -> str:
+    """The outlook value path ``model.use_pallas`` asks for
+    (``outgridvit_tpu/models/blocks.py:106-155``): ``"xla"`` for None or a
+    boolean (the kernels are then ``use_kernels``'s choice), or the fused
+    mode it names. ``"fused_outlook"`` (TPU kernel #9) is not ported; any
+    other string is refused."""
+    if use_pallas is None or isinstance(use_pallas, bool):
+        return "xla"
+    if use_pallas == "fused_outlook":
+        raise NotImplementedError(
+            "model.use_pallas: fused_outlook runs TPU kernel #9 "
+            "(outlook_attention_pallas), not ported yet (ROADMAP §2)")
+    fused = OUTLOOK_MODES[1:]
+    if use_pallas not in fused:
+        raise ValueError(
+            f"model.use_pallas {use_pallas!r} is not null, a boolean or one "
+            f"of {fused + ('fused_outlook',)}")
+    return use_pallas
+
+
+def _check_remat(remat: Any) -> None:
+    if remat and str(remat).strip().lower() not in _REMAT_OFF:
+        raise NotImplementedError(
+            f"model.remat {remat!r}: per-block rematerialization is not "
+            "ported yet (ROADMAP §1); set it off")
 
 
 def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
                 use_kernels: Optional[bool] = None, device="cuda",
-                seed: int = 0) -> MaxOutNet:
+                seed: int = 0) -> Union[MaxOutNet, OutlookerFrontGridNet]:
     """Build a model in eval mode with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (skipped on the ``meta``
     device). Parameters are fp32; ``dtype`` is the compute dtype.
 
     ``use_kernels``: None runs the CUDA kernels iff ``device`` is CUDA;
     False runs their plain PyTorch versions; True on a non-CUDA device
-    raises."""
+    raises. ``model.use_pallas`` picks the outlook value path
+    (:func:`outlook_mode`); ``model.remat`` other than off raises."""
     device = torch.device(device)
     if use_kernels is None:
         use_kernels = device.type == "cuda"
     elif use_kernels and device.type != "cuda":
         raise ValueError(
             f"use_kernels=True needs a CUDA device; got {device}")
+    mode = outlook_mode(model_cfg.get("use_pallas"))
+    _check_remat(model_cfg.get("remat"))
     model_type = str(model_cfg.get("type", "model_a")).lower()
-    if model_type in _MODEL_B_ALIASES:
-        raise NotImplementedError(
-            "model_b (OutlookerFrontGridNet) is not ported yet: ROADMAP §1, "
-            "'Model B and remat'")
-    if model_type not in _MODEL_A_ALIASES:
-        raise ValueError(
-            f"Unknown model.type '{model_type}'. Use 'model_a' (MaxOutNet) or "
-            f"'model_b' (OutlookerFrontGridNet)")
-    model = MaxOutNet(
+    common = dict(
         num_classes=int(model_cfg.get("num_classes", 100)),
         stages=build_stages(model_cfg.get("stages", [])),
         in_ch=int(model_cfg.get("in_ch", 3)),
@@ -48,7 +75,18 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         dpr_max=float(model_cfg.get("dpr_max", 0.1)),
         down_cfg=DownsampleConfig.from_dict(model_cfg.get("downsample", {})
                                             or {}),
-        dtype=dtype, use_kernels=use_kernels, device=device)
+        dtype=dtype, use_kernels=use_kernels, device=device,
+        outlook_mode=mode)
+    if model_type in _MODEL_A_ALIASES:
+        model = MaxOutNet(**common)
+    elif model_type in _MODEL_B_ALIASES:
+        model = OutlookerFrontGridNet(
+            outlooker_front_depth=int(model_cfg.get("outlooker_front_depth",
+                                                    2)), **common)
+    else:
+        raise ValueError(
+            f"Unknown model.type '{model_type}'. Use 'model_a' (MaxOutNet) or "
+            f"'model_b' (OutlookerFrontGridNet)")
     if device.type != "meta":
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.eval()

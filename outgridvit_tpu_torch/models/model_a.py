@@ -30,17 +30,19 @@ from outgridvit_tpu_torch.stage_config import (
 
 
 def flax_path(torch_name: str) -> str:
-    """'stages.0.1.outlook.dp1' -> 'stages_0_1/outlook/dp1', the module path
-    the JAX model gives the same DropPath."""
-    return re.sub(r"^stages\.(\d+)\.(\d+)", r"stages_\1_\2",
-                  torch_name).replace(".", "/")
+    """'stages.0.1.outlook.dp1' -> 'stages_0_1/outlook/dp1' and
+    'front.2.dp1' -> 'front_2/dp1', the module path the JAX model gives the
+    same DropPath."""
+    s = re.sub(r"^stages\.(\d+)\.(\d+)", r"stages_\1_\2", torch_name)
+    return re.sub(r"^front\.(\d+)", r"front_\1", s).replace(".", "/")
 
 
 class MaxOutNet(nn.Module):
     def __init__(self, num_classes: int, stages: Sequence[StageCfg],
                  in_ch: int = 3, stem_dim: int = 64, dpr_max: float = 0.1,
                  down_cfg: DownsampleConfig = DownsampleConfig(),
-                 dtype=torch.float32, use_kernels: bool = False, device=None):
+                 dtype=torch.float32, use_kernels: bool = False, device=None,
+                 outlook_mode: str = "xla"):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
@@ -52,7 +54,7 @@ class MaxOutNet(nn.Module):
         dprs = iter(make_dpr(sum(s.depth for s in stages), dpr_max))
         self.stages = nn.ModuleList(
             nn.ModuleList(OutGridBlock(s.replace(drop_path=next(dprs)), dtype,
-                                       use_kernels, device)
+                                       use_kernels, device, outlook_mode)
                           for _ in range(s.depth))
             for s in stages)
         self.downs = nn.ModuleList(

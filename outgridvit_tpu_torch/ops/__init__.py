@@ -1,3 +1,4 @@
 """Tensor ops: activations, grid partition, outlook aggregation, input
-normalization, and the two hand-written CUDA kernels with their plain
-PyTorch versions."""
+normalization, augmentation, drop-path, and the hand-written CUDA kernels
+(grid MHSA, MLP branch, attention branch, fused outlook value path) with
+their plain PyTorch versions."""

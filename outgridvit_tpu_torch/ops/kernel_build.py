@@ -67,6 +67,14 @@ _SIGNATURES = {
                                            _P), _I),
     # G, C -> floats of workspace
     "ogvt_attn_branch_bwd_workspace": ((_I, _I), ctypes.c_longlong),
+    # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
+    # stream
+    "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),
+    # x, a, wv, bv, wp, g, dx, da, dwv, dbv, dwp, dbp, workspace, B, H, W,
+    # Cin, C, heads, rows, fold, dtype, stream
+    "ogvt_outlook_agg_bwd": ((_P,) * 13 + (_I,) * 9 + (_P,), _I),
+    # B, H, W, Cin, C, heads, rows, fold -> floats of workspace
+    "ogvt_outlook_agg_bwd_workspace": ((_I,) * 8, ctypes.c_longlong),
     "ogvt_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,0 +1,361 @@
+"""Fused outlook value path for K=3, stride 1: the CUDA kernels
+``csrc/outlook_agg.cu`` (forward and backward) and their plain PyTorch
+versions. Twin of ``outgridvit_tpu/ops/experimental/outlook_agg_pallas.py``:
+
+- ``outlook_attention_proj_pallas`` (TPU kernel #7): ``out =
+  aggregate(v, a).wp + bp`` (:func:`outlook_agg_proj`);
+- ``outlook_branch_pallas`` (#8): ``out = aggregate(x.wv + bv, a).wp + bp``
+  with the value projection folded in, so v never reaches device memory
+  (:func:`outlook_branch`).
+
+Layouts are the JAX ones: v / x ``[B, H, W, C]`` / ``[B, H, W, Cin]``; ``a``
+``[B, H, W, heads*9]``, the softmaxed tap weights at index ``h*9 + t`` with
+the taps row-major (``t = 3*(dy+1) + (dx+1)``, ``_OFFS`` of
+``ops/experimental/dwconv_bwd_pallas.py:38``); ``wv [Cin, C]``, ``wp [C,
+C]``; biases ``[C]``. The aggregate reads zero outside the image: zero v,
+not ``bv`` (``_halo_border_mask``, ``outlook_agg_pallas.py:579``).
+
+Rounding points (``round()`` is the cast to the compute dtype), as in the
+Pallas kernels:
+
+- forward (``_fwd_kernel``, ``_fwdv_kernel``): the aggregate is summed in
+  fp32 over the taps in order, each tap a separately rounded product, and
+  cast once: ``y = round(agg)``; ``out = round(y.wp + bp)`` summed in fp32.
+  With the fold, ``v = x.wv + bv`` stays fp32 and is never rounded.
+- backward (``_proj_grads``, ``_bwd_taps``, ``_bwdv_kernel``): ``y`` is
+  recomputed; ``dyag = g.wp^T`` stays fp32; ``dv[q] = sum_t (dyag *
+  w_t)[q - off_t]`` and ``da[p, h*9+t] = sum_{c in head h} v[p + off_t, c]
+  * dyag[p, c]`` from it and the fp32 tap weights. dWp = y^T.g and dbp =
+  sum g are fp32 sums over every pixel, cast to the weight's dtype. With
+  the fold, dx = round(dv).wv^T and dWv = x^T.round(dv), but dbv = sum of
+  the unrounded dv. dv is rounded once, as in the whole-image Pallas
+  kernels (the row-chunked ones round the halo rows' part apart).
+
+:func:`outlook_agg_proj_autograd` and :func:`outlook_branch_autograd` are
+the differentiable ops the model calls: ``torch.autograd.Function``\\ s in
+recompute style that save only their inputs (``_fwd_vjp`` :509,
+``_fwdv_vjp`` :819).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from outgridvit_tpu_torch.ops import kernel_build
+
+TAPS = 9  # K = 3
+# (dy, dx) of tap t, row-major
+OFFS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+_MAX_SMEM = 227 * 1024
+_TILE_PIXELS = 128  # rows per block: as many as keep a tile <= 128 pixels
+
+
+def _heads(v: torch.Tensor, a: torch.Tensor) -> int:
+    if v.dim() != 4:
+        raise ValueError(f"v must be [B, H, W, C]; got {tuple(v.shape)}")
+    if a.dim() != 4 or a.shape[:3] != v.shape[:3] or a.shape[-1] % TAPS:
+        raise ValueError(
+            f"a must be [B, H, W, heads*9] beside {tuple(v.shape)}; got "
+            f"{tuple(a.shape)}")
+    return a.shape[-1] // TAPS
+
+
+def _check_heads(C: int, heads: int) -> None:
+    if heads <= 0 or C % heads:
+        raise ValueError(f"C={C} must be divisible by heads={heads}")
+
+
+def _aggregate(v32: torch.Tensor, a: torch.Tensor, heads: int):
+    """fp32 ``y[p] = sum_t v[p + off_t] * a[p, h*9+t]`` (zero outside the
+    image), the taps in order."""
+    B, H, W, C = v32.shape
+    vp = F.pad(v32, (0, 0, 1, 1, 1, 1)).reshape(B, H + 2, W + 2, heads, -1)
+    a5 = a.float().reshape(B, H, W, heads, TAPS)
+    acc = torch.zeros_like(vp[:, 1:H + 1, 1:W + 1])
+    for t, (dy, dx) in enumerate(OFFS):
+        acc = acc + vp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] * \
+            a5[..., t, None]
+    return acc.reshape(B, H, W, C)
+
+
+def _project(y: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, dt):
+    return (y.float() @ wp.float() + bp.float()).to(dt)
+
+
+def outlook_agg_proj_reference(v, a, wp, bp):
+    """Plain PyTorch version of #7: ``round(round(aggregate(v, a)).wp +
+    bp)``, [B, H, W, C] -> [B, H, W, C]."""
+    heads = _heads(v, a)
+    _check_heads(v.shape[-1], heads)
+    y = _aggregate(v.float(), a, heads).to(v.dtype)
+    return _project(y, wp, bp, v.dtype)
+
+
+def outlook_branch_reference(x, a, wv, bv, wp, bp):
+    """Plain PyTorch version of #8: the fp32 ``v = x.wv + bv``, then #7's
+    math; [B, H, W, Cin] -> [B, H, W, C]."""
+    heads = _heads(x, a)
+    _check_heads(wv.shape[-1], heads)
+    v32 = x.float() @ wv.float() + bv.float()
+    y = _aggregate(v32, a, heads).to(x.dtype)
+    return _project(y, wp, bp, x.dtype)
+
+
+def _backward_core(v32, a, wp, g, dt):
+    """Shared backward of #7 and #8 from the fp32 values: ``(dv fp32, da,
+    dwp, dbp)``, the last three in the dtypes of ``a`` and ``wp``."""
+    B, H, W, C = v32.shape
+    heads = a.shape[-1] // TAPS
+    y = _aggregate(v32, a, heads).to(dt).float().reshape(-1, C)
+    g32 = g.float().reshape(-1, C)
+    dwp = y.t() @ g32
+    dbp = g32.sum(0)
+    dyag = (g32 @ wp.float().t()).reshape(B, H, W, heads, -1)
+    vp = F.pad(v32, (0, 0, 1, 1, 1, 1)).reshape(B, H + 2, W + 2, heads, -1)
+    a5 = a.float().reshape(B, H, W, heads, TAPS)
+    dv = torch.zeros_like(dyag)
+    da = torch.empty_like(a5)
+    for t, (dy, dx) in enumerate(OFFS):
+        da[..., t] = (vp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                      * dyag).sum(-1)
+        # dv[q] += (dyag * w_t)[q - off_t], zero where q - off_t is outside
+        z = F.pad(dyag * a5[..., t, None], (0, 0, 0, 0, 1, 1, 1, 1))
+        dv = dv + z[:, 1 - dy:1 - dy + H, 1 - dx:1 - dx + W]
+    return (dv.reshape(B, H, W, C), da.reshape(a.shape).to(a.dtype),
+            dwp.to(wp.dtype), dbp.to(wp.dtype))
+
+
+def outlook_agg_proj_backward_reference(v, a, wp, g):
+    """Plain PyTorch version of #7's backward, written out (not autograd),
+    for the output gradient ``g``: ``(dv, da, dwp, dbp)``."""
+    _check_heads(v.shape[-1], _heads(v, a))
+    dv, da, dwp, dbp = _backward_core(v.float(), a, wp, g, v.dtype)
+    return dv.to(v.dtype), da, dwp, dbp
+
+
+def outlook_branch_backward_reference(x, a, wv, bv, wp, g):
+    """Plain PyTorch version of #8's backward, written out: ``(dx, da, dwv,
+    dbv, dwp, dbp)``; dx and dwv from the rounded dv, dbv from the fp32
+    one."""
+    _check_heads(wv.shape[-1], _heads(x, a))
+    Cin, C = wv.shape
+    v32 = x.float() @ wv.float() + bv.float()
+    dv, da, dwp, dbp = _backward_core(v32, a, wp, g, x.dtype)
+    dv32 = dv.reshape(-1, C)
+    dvd = dv32.to(x.dtype).float()
+    dx = (dvd @ wv.float().t()).to(x.dtype).reshape(x.shape)
+    dwv = x.float().reshape(-1, Cin).t() @ dvd
+    return (dx, da, dwv.to(wv.dtype), dv32.sum(0).to(bv.dtype), dwp, dbp)
+
+
+# ---- the CUDA kernels -----------------------------------------------------
+
+def smem_bytes(rows: int, W: int, Cin: int, C: int, heads: int,
+               fold: bool) -> int:
+    """Dynamic shared memory of the largest of the three kernels for a tile
+    of ``rows`` image rows (fp32, rows padded by one float): mirrors
+    ``fwd_smem_floats`` / ``bwd_proj_smem_floats`` / ``bwd_dv_smem_floats``
+    of csrc/outlook_agg.cu."""
+    ext, S = (rows + 2) * W, rows * W
+    lc, la, li = C + 1, TAPS * heads + 1, Cin + 1
+    x_ext = ext * li if fold else 0
+    fwd = ext * lc + max(x_ext, S * la + S * lc)
+    bwd_proj = ext * lc + max(x_ext, S * la + 3 * S * lc)
+    bwd_dv = ext * lc + ext * la + (S * lc + S * li if fold else 0)
+    return 4 * max(fwd, bwd_proj, bwd_dv)
+
+
+def tile_rows(H: int, W: int, Cin: int, C: int, heads: int,
+              fold: bool) -> int:
+    """Image rows per block: the most that keep a tile within
+    ``_TILE_PIXELS`` pixels and every kernel within shared memory; 0 when
+    even one row does not fit."""
+    rows = max(1, min(H, _TILE_PIXELS // W))
+    while rows > 1 and smem_bytes(rows, W, Cin, C, heads, fold) > _MAX_SMEM:
+        rows -= 1
+    return rows if smem_bytes(rows, W, Cin, C, heads, fold) <= _MAX_SMEM \
+        else 0
+
+
+def _check_launch(name, x, a, wv, bv, wp, bp, g=None):
+    """Validate what the kernels take; returns (B, H, W, Cin, C, heads,
+    rows). ``wv``/``bv`` are None without the fold; ``bp`` is None in the
+    backward and ``g`` None in the forward."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in kernel_build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32/bfloat16")
+    heads = _heads(x, a)
+    B, H, W, Cin = x.shape
+    C = wp.shape[0]
+    _check_heads(C, heads)
+    want = {"a": (a, (B, H, W, TAPS * heads)), "wp": (wp, (C, C))}
+    if wv is not None:
+        want.update(wv=(wv, (Cin, C)), bv=(bv, (C,)))
+    elif Cin != C:
+        raise ValueError(f"{name}: v has C={Cin}, wp is {tuple(wp.shape)}")
+    if bp is not None:
+        want["bp"] = (bp, (C,))
+    if g is not None:
+        want["g"] = (g, (B, H, W, C))
+    for tname, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != x.dtype:
+            raise ValueError(
+                f"{name}: {tname} is {tuple(t.shape)} {t.dtype}; expected "
+                f"{shape} {x.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {tname} must be contiguous on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    rows = tile_rows(H, W, Cin, C, heads, wv is not None)
+    if rows == 0:
+        raise ValueError(f"{name}: one image row of W={W}, C={C} exceeds "
+                         "shared memory")
+    return B, H, W, Cin, C, heads, rows
+
+
+def _forward(name, x, a, wv, bv, wp, bp):
+    B, H, W, Cin, C, heads, rows = _check_launch(name, x, a, wv, bv, wp, bp)
+    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
+    lib = kernel_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_outlook_agg(
+            x.data_ptr(), a.data_ptr(), None if wv is None else wv.data_ptr(),
+            None if bv is None else bv.data_ptr(), wp.data_ptr(),
+            bp.data_ptr(), out.data_ptr(), B, H, W, Cin, C, heads, rows,
+            int(wv is not None), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, f"{name} launch")
+    return out
+
+
+def _backward(name, x, a, wv, bv, wp, g):
+    B, H, W, Cin, C, heads, rows = _check_launch(name, x, a, wv, bv, wp,
+                                                 None, g)
+    fold = wv is not None
+    lib = kernel_build.load()
+    ws = torch.empty(lib.ogvt_outlook_agg_bwd_workspace(
+        B, H, W, Cin, C, heads, rows, int(fold)), dtype=torch.float32,
+        device=x.device)
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    dwv = torch.empty_like(wv) if fold else None
+    dbv = torch.empty_like(bv) if fold else None
+    dwp, dbp = torch.empty_like(wp), torch.empty((C,), dtype=wp.dtype,
+                                                 device=x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_outlook_agg_bwd(
+            x.data_ptr(), a.data_ptr(), ptr(wv), ptr(bv), wp.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), da.data_ptr(), ptr(dwv), ptr(dbv),
+            dwp.data_ptr(), dbp.data_ptr(), ws.data_ptr(), B, H, W, Cin, C,
+            heads, rows, int(fold), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, f"{name} launch")
+    return (dx, da, dwv, dbv, dwp, dbp) if fold else (dx, da, dwp, dbp)
+
+
+def outlook_agg_proj(v, a, wp, bp):
+    """#7 forward, [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches the
+    kernel (or raises); a CPU tensor takes
+    :func:`outlook_agg_proj_reference`."""
+    if v.device.type == "cpu":
+        return outlook_agg_proj_reference(v, a, wp, bp)
+    out = _forward("outlook_agg_proj", v, a, None, None, wp, bp)
+    outlook_agg_proj.launches += 1
+    return out
+
+
+outlook_agg_proj.launches = 0
+
+
+def outlook_agg_proj_backward(v, a, wp, g):
+    """#7 backward: ``(dv, da, dwp, dbp)``. A CUDA tensor launches the
+    kernels (or raises); a CPU tensor takes
+    :func:`outlook_agg_proj_backward_reference`. Deterministic: two calls
+    give bitwise-equal grads."""
+    if v.device.type == "cpu":
+        return outlook_agg_proj_backward_reference(v, a, wp, g)
+    grads = _backward("outlook_agg_proj_backward", v, a, None, None, wp, g)
+    outlook_agg_proj_backward.launches += 1
+    return grads
+
+
+outlook_agg_proj_backward.launches = 0
+
+
+def outlook_branch(x, a, wv, bv, wp, bp):
+    """#8 forward, [B, H, W, Cin] -> [B, H, W, C]. A CUDA tensor launches
+    the kernel (or raises); a CPU tensor takes
+    :func:`outlook_branch_reference`."""
+    if x.device.type == "cpu":
+        return outlook_branch_reference(x, a, wv, bv, wp, bp)
+    out = _forward("outlook_branch", x, a, wv, bv, wp, bp)
+    outlook_branch.launches += 1
+    return out
+
+
+outlook_branch.launches = 0
+
+
+def outlook_branch_backward(x, a, wv, bv, wp, g):
+    """#8 backward: ``(dx, da, dwv, dbv, dwp, dbp)``. A CUDA tensor launches
+    the kernels (or raises); a CPU tensor takes
+    :func:`outlook_branch_backward_reference`. Deterministic."""
+    if x.device.type == "cpu":
+        return outlook_branch_backward_reference(x, a, wv, bv, wp, g)
+    grads = _backward("outlook_branch_backward", x, a, wv, bv, wp, g)
+    outlook_branch_backward.launches += 1
+    return grads
+
+
+outlook_branch_backward.launches = 0
+
+
+class _OutlookAggProj(torch.autograd.Function):
+    """Recompute style, as ``_fwd_vjp``/``_bwd_vjp``: saves only v, a and
+    wp."""
+
+    @staticmethod
+    def forward(ctx, v, a, wp, bp, use_kernels):
+        ctx.save_for_backward(v, a, wp)
+        ctx.use_kernels = use_kernels
+        fn = outlook_agg_proj if use_kernels else outlook_agg_proj_reference
+        return fn(v, a, wp, bp)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = (outlook_agg_proj_backward if ctx.use_kernels
+              else outlook_agg_proj_backward_reference)
+        return (*fn(*ctx.saved_tensors, g.contiguous()), None)
+
+
+class _OutlookBranch(torch.autograd.Function):
+    """Recompute style, as ``_fwdv_vjp``/``_bwdv_vjp``: saves only x, a and
+    the weights."""
+
+    @staticmethod
+    def forward(ctx, x, a, wv, bv, wp, bp, use_kernels):
+        ctx.save_for_backward(x, a, wv, bv, wp)
+        ctx.use_kernels = use_kernels
+        fn = outlook_branch if use_kernels else outlook_branch_reference
+        return fn(x, a, wv, bv, wp, bp)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = (outlook_branch_backward if ctx.use_kernels
+              else outlook_branch_backward_reference)
+        return (*fn(*ctx.saved_tensors, g.contiguous()), None)
+
+
+def outlook_agg_proj_autograd(v, a, wp, bp, use_kernels: bool = False):
+    """Differentiable #7: the kernels with ``use_kernels``, else the plain
+    versions, both ways."""
+    return _OutlookAggProj.apply(v, a, wp, bp, use_kernels)
+
+
+def outlook_branch_autograd(x, a, wv, bv, wp, bp, use_kernels: bool = False):
+    """Differentiable #8: the kernels with ``use_kernels``, else the plain
+    versions, both ways."""
+    return _OutlookBranch.apply(x, a, wv, bv, wp, bp, use_kernels)

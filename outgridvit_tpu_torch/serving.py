@@ -10,12 +10,16 @@ shape, as the JAX predictor's one compiled program does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from outgridvit_tpu_torch.models import MaxOutNet, build_model
+from outgridvit_tpu_torch.models import (
+    MaxOutNet,
+    OutlookerFrontGridNet,
+    build_model,
+)
 from outgridvit_tpu_torch.ops.augment import normalize_batch
 
 
@@ -24,7 +28,7 @@ class Predictor:
     """``predict`` accepts 1..batch_size uint8 images [n, H, W, 3] (or one
     [H, W, 3]) and returns argmax labels [n] and softmax probs [n, classes]."""
 
-    model: MaxOutNet
+    model: Union[MaxOutNet, OutlookerFrontGridNet]
     batch_size: int
     img_size: int
     num_classes: int

@@ -31,6 +31,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
 # flax module path (dot-joined) -> torch module path, applied in order
 _RENAMES = (
     (r"stages_(\d+)_(\d+)", r"stages.\1.\2"),
+    (r"front_(\d+)", r"front.\1"),
     (r"^stem\.conv$", "stem.stem.0"),
     (r"^stem\.bn\.bn$", "stem.stem.1"),
     (r"^downs_(\d+)\.conv$", r"downs.\1.op.0"),

@@ -5,8 +5,11 @@ ragged last token tile, a hidden width that is not a multiple of the 64-unit
 chunk, a grid whose staging needs more than 48 KB of shared memory) and at
 the full Tiny-ImageNet-200 stage shapes (train batch 128: the fused
 attention branch at N=64, the head-chunked grid shapes at C=128/256/384, the
-row-layout MLP shapes at M=524,288), plus a tiny model through the kernels
-against the plain path, forward and one train step.
+row-layout MLP shapes at M=524,288), the fused outlook kernels (#7, #8) at
+a Model B front shape, a 64 x 64 shape and an hd=24 shape with H != W and a
+ragged last tile, plus tiny models (Model A, Model B in both fused outlook
+modes) through the kernels against the plain path, forward and one train
+step.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -42,6 +45,16 @@ from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch_backward,
     mlp_branch_backward_reference,
     mlp_branch_reference,
+)
+from outgridvit_tpu_torch.ops.outlook_agg import (
+    outlook_agg_proj,
+    outlook_agg_proj_backward,
+    outlook_agg_proj_backward_reference,
+    outlook_agg_proj_reference,
+    outlook_branch,
+    outlook_branch_backward,
+    outlook_branch_backward_reference,
+    outlook_branch_reference,
 )
 from outgridvit_tpu_torch.training.optim import AdamW
 from outgridvit_tpu_torch.training.steps import (
@@ -397,6 +410,129 @@ def test_tiny_model_train_step_kernel_path_matches_plain_path(dev):
             k: p.grad.clone() for k, p in model.named_parameters()})
     (lk, gk), (lp, gp) = out[True], out[False]
     assert abs(lk - lp) <= 1e-5 * abs(lp)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [t.norm() for t in gp.values()])).item()
+    for k in gp:
+        assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * gnorm, k
+
+
+def _outlook_args(g, B, H, W, Cin, C, heads, fold, dev, dtype):
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g) * s
+
+    a = torch.softmax(r(B, H, W, heads, 9), -1).reshape(B, H, W, heads * 9)
+    w = [r(C, C, s=C ** -0.5), r(C, s=0.02)]
+    if fold:
+        w = [r(Cin, C, s=Cin ** -0.5), r(C, s=0.02)] + w
+    return tuple(t.to(dev, dtype) for t in (r(B, H, W, Cin), a, *w))
+
+
+OUTLOOK_SHAPES = [
+    (128, 32, 32, 64, 64, 2),   # Model B front at train batch 128
+    (4, 64, 64, 64, 64, 2),     # 64px stage 0: two image rows per block
+    (3, 13, 20, 40, 48, 2),     # hd=24, H != W, a ragged last tile, Cin != C
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("B,H,W,Cin,C,heads", OUTLOOK_SHAPES)
+def test_outlook_kernels_match_plain(dev, dtype, fold, B, H, W, Cin, C,
+                                     heads):
+    if not fold and Cin != C:
+        Cin = C
+    g = torch.Generator().manual_seed(B + H + W + C)
+    args = _outlook_args(g, B, H, W, Cin, C, heads, fold, dev, dtype)
+    dy = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    if fold:
+        fwd, bwd = outlook_branch, outlook_branch_backward
+        fwd_ref, bwd_ref = outlook_branch_reference, \
+            outlook_branch_backward_reference
+        names = ("dx", "da", "dwv", "dbv", "dwp", "dbp")
+    else:
+        fwd, bwd = outlook_agg_proj, outlook_agg_proj_backward
+        fwd_ref, bwd_ref = outlook_agg_proj_reference, \
+            outlook_agg_proj_backward_reference
+        names = ("dv", "da", "dwp", "dbp")
+    n = (fwd.launches, bwd.launches)
+    got = fwd(*args)
+    grads = bwd(*args[:-1], dy)
+    again = bwd(*args[:-1], dy)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (n[0] + 1, n[1] + 2)
+    _assert_close(got, fwd_ref(*args), dtype)
+    want = bwd_ref(*args[:-1], dy)
+    for name, a, b, w in zip(names, grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name in ("dx", "dv", "da"):
+            _assert_close(a, w, dtype)
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
+def test_outlook_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    v, a, wp, bp = _outlook_args(g, 2, 4, 8, 16, 16, 2, False, dev,
+                                 torch.float32)
+    with pytest.raises(TypeError, match="float16"):
+        outlook_agg_proj(v.half(), a.half(), wp.half(), bp.half())
+    with pytest.raises(ValueError, match="wp"):
+        outlook_agg_proj(v, a, wp.bfloat16(), bp)
+    with pytest.raises(ValueError, match="contiguous"):
+        outlook_agg_proj(v, a, wp.t(), bp)
+    with pytest.raises(ValueError, match="a must be"):
+        outlook_agg_proj(v, a[..., :10], wp, bp)
+    with pytest.raises(ValueError, match="divisible"):
+        outlook_agg_proj(v[..., :15].contiguous(), a, wp[:15, :15]
+                         .contiguous(), bp[:15].contiguous())
+    with pytest.raises(ValueError, match="g is"):
+        outlook_agg_proj_backward(v, a, wp, v[:1])
+    x, a, wv, bv, wp, bp = _outlook_args(g, 2, 4, 8, 12, 16, 2, True, dev,
+                                         torch.float32)
+    with pytest.raises(ValueError, match="wv"):
+        outlook_branch(x, a, wv[:8].contiguous(), bv, wp, bp)
+    with pytest.raises(ValueError, match="shared memory"):
+        outlook_branch(torch.randn(1, 2, 4096, 12, device=dev),
+                       torch.randn(1, 2, 4096, 18, device=dev), wv, bv, wp,
+                       bp)
+
+
+@pytest.mark.parametrize("mode", ["fused_agg", "fused_agg_v"])
+def test_tiny_model_b_kernel_path_matches_plain_path(dev, mode):
+    cfg = {"type": "model_b", "num_classes": 10, "stem_dim": 8,
+           "outlooker_front_depth": 3, "dpr_max": 0.2, "use_pallas": mode,
+           "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 4,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 4}]}
+    fwd, bwd = ((outlook_branch, outlook_branch_backward)
+                if mode == "fused_agg_v"
+                else (outlook_agg_proj, outlook_agg_proj_backward))
+    x = torch.randn(8, 16, 16, 3, generator=torch.Generator().manual_seed(2))
+    y = (torch.arange(8) % 10).to(dev)
+    out = {}
+    for use_kernels in (True, False):
+        model = build_model(cfg, use_kernels=use_kernels, device=dev, seed=5)
+        before = fwd.launches
+        with torch.inference_mode():
+            logits = model(x.to(dev))
+        assert fwd.launches - before == (3 if use_kernels else 0)
+        paths = [m.path for m in model.modules()
+                 if isinstance(m, DropPath) and m.rate > 0]
+        masks = DropPathMasks({p: torch.arange(8, device=dev) % (i + 2) > 0
+                               for i, p in enumerate(paths)})
+        before = bwd.launches
+        state, m = make_train_step(StepConfig(num_classes=10))(
+            TrainState.create(model, AdamW(1e-3)), (x.to(dev), y),
+            StepDraws(drop_masks=masks))
+        torch.cuda.synchronize()
+        assert bwd.launches - before == (3 if use_kernels else 0)
+        out[use_kernels] = (logits, float(m["loss"]), {
+            k: p.grad.clone() for k, p in model.named_parameters()})
+    (lk, sk, gk), (lp, sp, gp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert abs(sk - sp) <= 1e-5 * abs(sp)
     gnorm = torch.linalg.vector_norm(torch.stack(
         [t.norm() for t in gp.values()])).item()
     for k in gp:

@@ -121,7 +121,9 @@ def test_kernel_dispatch_rules():
         build_model(SMALL, use_kernels=True, device="cpu")
     assert not build_model(SMALL, device="cpu").stages[0][0].mlp.use_kernels
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(SMALL, type="model_b"), device="cpu")
+        build_model(dict(SMALL, remat="dots"), device="cpu")
+    assert type(build_model(dict(SMALL, type="model_b"), device="cpu")
+                ).__name__ == "OutlookerFrontGridNet"
     with pytest.raises(ValueError, match="model.type"):
         build_model(dict(SMALL, type="vit"), device="cpu")
     # the train forward needs explicit drop-path masks (dpr_max defaults to
