@@ -19,7 +19,12 @@ from a seed:
   ``model.use_pallas: fused_agg``: its three front outlookers run the fused
   outlook aggregate + projection (``outlook_agg``), its grid-only stages
   ``grid_mhsa`` and ``mlp_branch``; then again with ``fused_agg_v``, the
-  value projection folded in (``outlook_branch``).
+  value projection folded in (``outlook_branch``); then with
+  ``use_pallas: fused_outlook`` and ``dwconv="t"``: the front runs the fused
+  outlook softmax + aggregate (``outlook_softmax``), every MBConv the
+  depthwise kernels (``dwconv3x3``, ``dwconv3x3_bwd`` tagged "t");
+- Model A-7M again with ``dwconv="bwd"``, train phase only: the grouped
+  conv forward and the depthwise backward kernel (tagged "bwd").
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -31,13 +36,17 @@ config's augmentation and mixing recipe, AdamW), bf16 steps on one batch in
 which the loss must fall (launch counts of each step), and timings. The 7M
 path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
-configurations.
+configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
+(K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
+depthwise shape of the three configurations.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
 train step for the backward ones, of Tiny-ImageNet for the grid and MLP
-kernels and of Model B for the outlook ones), then the last line
+kernels and of Model B for the others: the kernel, its plain version, one
+PyTorch call computing the same function where there is one, and the bound
+from the bytes and operations of the same launches), then the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without the last line. Without a CUDA device it exits 1
 before doing anything. Imports no JAX and no yaml.
@@ -138,6 +147,7 @@ class ModelCase:
     train: dict
     loss_steps: int
     fixed_draws_loss: bool  # the loss loop reuses one step's draws
+    dwconv: str = "xla"  # every MBConv's depthwise mode (build_model)
 
     @property
     def front(self) -> int:
@@ -174,7 +184,19 @@ MODEL_B_V = dataclasses.replace(
     MODEL_B, tag="model_b_v", model=dict(MODEL_B_MODEL_CFG,
                                          use_pallas="fused_agg_v"),
     loss_steps=4)
-OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch"}
+# the fused outlook softmax at the front and the depthwise kernels in every
+# MBConv (TPU kernels #9 and #10)
+MODEL_B_O = dataclasses.replace(
+    MODEL_B, tag="model_b_o", model=dict(MODEL_B_MODEL_CFG,
+                                         use_pallas="fused_outlook"),
+    loss_steps=4, dwconv="t")
+# the 7M train step with the conv forward and the depthwise backward kernel
+# (#11)
+A7M_DWB = dataclasses.replace(FLAGSHIP, tag="a7m_dwb", loss_steps=6,
+                              fixed_draws_loss=True, dwconv="bwd")
+CASES = (FLAGSHIP, TIN, MODEL_B, MODEL_B_V, MODEL_B_O, A7M_DWB)
+OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch",
+                   "fused_outlook": "outlook_softmax"}
 # Every outlooker shape of the three configurations: (H=W, C, heads).
 OUTLOOK_SHAPES = {
     "model_b front": [(32, 64, 2)],
@@ -197,6 +219,12 @@ LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # rounding of an intermediate moves a sum by a bf16 ulp of one term, and the
 # result is rounded to bf16 once (2^-8 relative).
 WGRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The H100 SXM's published rates for the bounds: HBM
+# bytes/s; matrix products at the bf16 tensor-core peak; every other
+# operation at the fp32 peak outside the tensor cores (the kernels compute
+# in fp32).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16 tensor": 989e12, "fp32": 67e12}
 # One fp32 train step, kernel path vs plain path (same state and draws):
 # loss relative; every param grad as a fraction of the global grad norm;
 # params after the update within STEP_PARAM_TOL x the step's lr (Adam moves
@@ -270,11 +298,33 @@ SOURCES = {
         "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746",
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746 "
          "outlook_branch_pallas backward (#8, row-chunked :773)"]),
+    "outlook_softmax": (
+        "outgridvit_tpu_torch/csrc/outlook_softmax.cu",
+        "outgridvit_tpu/ops/experimental/outlook_pallas.py:141",
+        ["outgridvit_tpu/ops/experimental/outlook_pallas.py:141 "
+         "outlook_attention_pallas (#9, forward :157; its backward is XLA's "
+         "vjp, autograd in the port)"]),
+    "dwconv3x3": (
+        "outgridvit_tpu_torch/csrc/dwconv.cu",
+        "outgridvit_tpu/ops/experimental/dwconv_pallas_t.py:160",
+        ["outgridvit_tpu/ops/experimental/dwconv_pallas_t.py:160 "
+         "dwconv3x3_t (#10, forward :181)"]),
+    "dwconv3x3_bwd": (
+        "outgridvit_tpu_torch/csrc/dwconv.cu",
+        "outgridvit_tpu/ops/experimental/dwconv_pallas_t.py:211",
+        ["outgridvit_tpu/ops/experimental/dwconv_pallas_t.py:160 "
+         "dwconv3x3_t backward (#10, :211, variant t)",
+         "outgridvit_tpu/ops/experimental/dwconv_bwd_pallas.py:201 "
+         "dwconv3x3 backward (#11, :170, variant bwd)"]),
 }
 FWD = ("grid_mhsa", "attn_branch", "mlp_branch", "outlook_agg",
-       "outlook_branch")
-BWD = tuple(name + "_bwd" for name in FWD)
+       "outlook_branch", "outlook_softmax", "dwconv3x3")
+# #9 has no backward kernel (its backward is autograd of plain PyTorch)
+BWD = tuple(name + "_bwd" for name in FWD if name + "_bwd" in SOURCES)
 OUTLOOK = ("outlook_agg", "outlook_branch")
+# the case whose forward / train step each kernel's ms are taken on
+TIMED_ON = {"outlook_agg": "model_b", "outlook_branch": "model_b",
+            "outlook_softmax": "model_b_o", "dwconv3x3": "model_b_o"}
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -301,7 +351,8 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     """Per stage: the kernels' shapes at ``batch``, how often one forward
     launches them (``blocks`` grid attentions, ``outlook`` outlookers, each
     with an MLP of hidden width ``H_outlook``, ``blocks`` MLPs of width
-    ``H_block``), and the JAX kernels the port's dispatch stands for (as
+    ``H_block``, ``blocks`` MBConvs whose depthwise 3x3 is ``mid`` wide),
+    and the JAX kernels the port's dispatch stands for (as
     ``models/blocks.py`` and ``models/layers.py`` pick them)."""
     from outgridvit_tpu_torch.ops.attn_branch import MIN_TOKENS
     from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
@@ -318,6 +369,7 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
             else s["depth"], "H_img": hw, "outlook_heads": s["outlook_heads"],
             "G": batch * g * g, "N": N, "heads": s["num_heads"],
             "M": batch * hw * hw, "H_outlook": 2 * C, "H_block": 4 * C,
+            "mid": 4 * C,
             "attn": "branch" if N >= MIN_TOKENS else "grid",
             "grid_variant": grid_mhsa_variant(N, C),
             "mlp_variant": mlp_branch_variant(hw * hw, C),
@@ -329,8 +381,10 @@ def launch_plan(case, shapes, backward=False):
     """Launches of one forward (or one backward): per kernel, and per
     variant of the kernels whose launches are tagged."""
     sfx = "_bwd" if backward else ""
-    plan = {name + sfx: 0 for name in FWD}
+    plan = {name: 0 for name in (BWD if backward else FWD)}
     variants = {"grid_mhsa" + sfx: {}, "mlp_branch" + sfx: {}}
+    if backward:
+        variants["dwconv3x3_bwd"] = {}
     for sh in shapes:
         n = sh["blocks"]
         todo = [("attn_branch" if sh["attn"] == "branch" else "grid_mhsa", n,
@@ -338,7 +392,12 @@ def launch_plan(case, shapes, backward=False):
                 ("mlp_branch", n + sh["outlook"], sh["mlp_variant"])]
         if case.outlook_kernel:
             todo.append((case.outlook_kernel, sh["outlook"], None))
+        # "t": kernel forward and backward; "bwd": the backward only
+        if case.dwconv == "t" or (backward and case.dwconv == "bwd"):
+            todo.append(("dwconv3x3", n, case.dwconv))
         for name, count, variant in todo:
+            if name + sfx not in plan:  # no backward kernel (#9)
+                continue
             plan[name + sfx] += count
             if name + sfx in variants:
                 tags = variants[name + sfx]
@@ -363,6 +422,93 @@ def time_ms(fn, args, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
+def work(name, args, outs):
+    """(bytes, matrix-product flop, other flop) of one launch: each input
+    read once and each output written once; the operations the function
+    needs (an attention or MLP backward recomputes what it differentiates
+    through)."""
+    import torch
+
+    outs = (outs,) if torch.is_tensor(outs) else outs
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args, *outs) if torch.is_tensor(t))
+    base, bwd = name.removesuffix("_bwd"), name.endswith("_bwd")
+    x = args[0]
+    if base == "grid_mhsa":  # softmax(q.k^T).v per head
+        G, N, C = x.shape[0], x.shape[1], x.shape[2] // 3
+        return nbytes, (10 if bwd else 4) * G * N * N * C, \
+            5 * G * args[-1] * N * N
+    if base == "attn_branch":  # + LN, the qkv and output projections
+        G, N, C = x.shape
+        return nbytes, ((22 if bwd else 8) * G * N * C * C
+                        + (10 if bwd else 4) * G * N * N * C), \
+            5 * G * args[-1] * N * N + 10 * G * N * C
+    if base == "mlp_branch":  # LN, fc1, activation, fc2
+        M, C = x.shape
+        H = args[3].shape[1]
+        return nbytes, (10 if bwd else 4) * M * C * H, 10 * M * (C + H)
+    if base in OUTLOOK:  # 9 taps, the projections
+        P, C = x.numel() // x.shape[-1], args[-2].shape[0]
+        fold = (6 if bwd else 2) * P * x.shape[-1] * C \
+            if base == "outlook_branch" else 0
+        return nbytes, (4 if bwd else 2) * P * C * C + fold, \
+            (54 if bwd else 18) * P * C
+    if base == "outlook_softmax":  # K*K taps, a softmax per pixel and head
+        heads, k = args[2], args[3]
+        return nbytes, 0, 2 * k * k * x.numel() \
+            + 4 * k * k * heads * (x.numel() // x.shape[-1])
+    if base == "dwconv3x3":  # 9 taps; dx and dw
+        return nbytes, 0, (36 if bwd else 18) * x.numel()
+    raise KeyError(name)
+
+
+def bound_ms(name, args, outs, dtype):
+    """(ms bound by bytes, ms bound by operations) of one launch on the
+    H100 SXM: bytes over HBM_BYTES_PER_S; matrix products at the tensor-core
+    peak in bf16 (the fp32 one otherwise), the rest at the fp32 peak."""
+    import torch
+
+    nbytes, mm, other = work(name, args, outs)
+    mm_peak = PEAK_FLOPS["bf16 tensor" if dtype == torch.bfloat16
+                         else "fp32"]
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            (mm / mm_peak + other / PEAK_FLOPS["fp32"]) * 1e3)
+
+
+def library_call(name, args):
+    """One PyTorch call computing the same function on the same inputs, as
+    a no-argument callable, or None where there is none: SDPA on the grids'
+    heads (and its autograd backward), the grouped conv (and
+    ``aten.convolution_backward``). Timed beside the kernels only; the port
+    never calls them."""
+    import torch
+    import torch.nn.functional as F
+
+    if name.startswith("grid_mhsa"):
+        qkv, heads = args[0], args[-1]
+        G, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+        q, k, v = (t.contiguous() for t in qkv.reshape(
+            G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4))
+        if name == "grid_mhsa":
+            return lambda: F.scaled_dot_product_attention(q, k, v)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        dout = args[1].reshape(G, N, heads, C // heads).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                           retain_graph=True)
+    if name.startswith("dwconv3x3"):
+        x, w9 = args[0], args[1]
+        C = x.shape[-1]
+        xn, w = x.permute(0, 3, 1, 2), w9.t().reshape(C, 1, 3, 3)
+        if name == "dwconv3x3":
+            return lambda: F.conv2d(xn, w, padding=1, groups=C)
+        dyn = args[2].permute(0, 3, 1, 2)
+        return lambda: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], C,
+            [True, True, False])
+    return None
+
+
 class Smoke:
     """The checks, counters and results of one run."""
 
@@ -370,9 +516,11 @@ class Smoke:
         import torch
 
         from outgridvit_tpu_torch.ops import attn_branch as ab
+        from outgridvit_tpu_torch.ops import dwconv as dw
         from outgridvit_tpu_torch.ops import grid_attention as ga
         from outgridvit_tpu_torch.ops import mlp_branch as mb
         from outgridvit_tpu_torch.ops import outlook_agg as oa
+        from outgridvit_tpu_torch.ops import outlook_softmax as osm
 
         self.dev, self.gpu = dev, gpu
         self.gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -393,11 +541,16 @@ class Smoke:
                                 oa.outlook_agg_proj_backward_reference),
             "outlook_branch_bwd": (oa.outlook_branch_backward,
                                    oa.outlook_branch_backward_reference),
+            "outlook_softmax": (osm.outlook_softmax_agg,
+                                osm.outlook_softmax_agg_reference),
+            "dwconv3x3": (dw.dwconv3x3, dw.dwconv3x3_reference),
+            "dwconv3x3_bwd": (dw.dwconv3x3_backward,
+                              dw.dwconv3x3_backward_reference),
         }
         self.max_err = {n: 0.0 for n in SOURCES}
         self.launches = {n: {} for n in SOURCES}   # name -> {path: count}
         self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
-        self.ms = {}                               # name -> (kernel, plain)
+        self.ms = {}                               # name -> timings
 
     # -- launch counters --------------------------------------------------
     def reset_counts(self):
@@ -442,10 +595,30 @@ class Smoke:
             w[-1] = r(B, H, H, C)
         return tuple(t.to(dtype) for t in (r(B, H, H, C), a, *w))
 
+    def softmax_args(self, B, H, C, heads, k, dtype):
+        """(v, logits, heads, k) of an H x H outlooker, raw logits."""
+        return (self.randn(B, H, H, C).to(dtype),
+                self.randn(B, H, H, heads * k * k, scale=2.0).to(dtype),
+                heads, k)
+
+    def dw_args(self, B, H, C, dtype, backward=False):
+        """(x, w9[, dy]) of an H x H depthwise 3x3 of C channels."""
+        r = self.randn
+        args = (r(B, H, H, C), r(9, C, scale=1 / 3))
+        if backward:
+            args += (r(B, H, H, C),)
+        return tuple(t.to(dtype) for t in args)
+
     def fwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True,
                  backward=False):
         G, N, C, heads = sh["G"], sh["N"], sh["C"], sh["heads"]
         r = self.randn
+        if name == "outlook_softmax":
+            return self.softmax_args(sh["batch"], sh["H_img"], C,
+                                     sh["outlook_heads"], 3, dtype)
+        if name.startswith("dwconv3x3"):
+            return self.dw_args(sh["batch"], sh["H_img"], sh["mid"], dtype,
+                                backward)
         if name in OUTLOOK:
             return self.outlook_args(name, sh["batch"], sh["H_img"], C,
                                      sh["outlook_heads"], dtype, backward)
@@ -467,8 +640,9 @@ class Smoke:
     def bwd_args(self, name, sh, dtype, H=None, act="gelu", apply_ln=True):
         base = name[:-len("_bwd")]
         args = self.fwd_args(base, sh, dtype, H, act, apply_ln,
-                             base in OUTLOOK)
-        if base in OUTLOOK:  # (v, a, wp, g) / (x, a, wv, bv, wp, g)
+                             base in OUTLOOK or base == "dwconv3x3")
+        if base in OUTLOOK or base == "dwconv3x3":
+            # (v, a, wp, g) / (x, a, wv, bv, wp, g) / (x, w9, dy)
             return args
         if base == "grid_mhsa":
             dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
@@ -478,18 +652,26 @@ class Smoke:
         return (*args[:7], self.randn(*args[0].shape, scale=0.01).to(dtype),
                 *args[7:])
 
-    def cases(self, shapes, backward, dtype, outlook=()):
+    def cases(self, shapes, backward, dtype, outlook=(), dw=False,
+              core=True):
         """(name, args, label, shape, launches per forward) of every kernel
-        at every stage shape that runs it; the outlook kernels in
-        ``outlook`` at the shapes of the stages' outlookers."""
+        at every stage shape that runs it: with ``core`` the attention and
+        MLP kernels, the outlook kernels in ``outlook`` at the shapes of the
+        stages' outlookers, with ``dw`` the depthwise kernels at the
+        MBConvs'."""
         out = []
+        sfx = "_bwd" if backward else ""
         for sh in shapes:
             tag = f"stage{sh['stage']}"
             attn = "attn_branch" if sh["attn"] == "branch" else "grid_mhsa"
             names = [(attn, None, sh["blocks"]),
                      ("mlp_branch", sh["H_outlook"], sh["outlook"]),
-                     ("mlp_branch", sh["H_block"], sh["blocks"])]
-            names += [(k, None, sh["outlook"]) for k in outlook]
+                     ("mlp_branch", sh["H_block"], sh["blocks"])] \
+                if core else []
+            names += [(k, None, sh["outlook"]) for k in outlook
+                      if k + sfx in self.kernels]
+            if dw:
+                names.append(("dwconv3x3", None, sh["blocks"]))
             for base, H, count in names:
                 if not count:
                     continue
@@ -498,7 +680,10 @@ class Smoke:
                 if base == "mlp_branch":
                     label = (f"{tag} M={sh['M']} C={sh['C']} H={H} "
                              f"variant={sh['mlp_variant']}")
-                elif base in OUTLOOK:
+                elif base == "dwconv3x3":
+                    label = (f"{tag} B={sh['batch']} H=W={sh['H_img']} "
+                             f"C={sh['mid']}")
+                elif base in OUTLOOK or base == "outlook_softmax":
                     label = (f"{tag} B={sh['batch']} "
                              f"H=W={sh['H_img']} C={sh['C']} "
                              f"heads={sh['outlook_heads']}")
@@ -551,6 +736,10 @@ class Smoke:
     def compare_all(self, case: ModelCase):
         import torch
 
+        if case is MODEL_B_O:  # its attention and MLP kernels: MODEL_B's
+            self.compare_outlook_softmax()
+            self.compare_dwconv()
+            return
         for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
             shapes = stage_shapes(case, batch)
             for dtype in (torch.float32, torch.bfloat16):
@@ -585,34 +774,97 @@ class Smoke:
                                  f"heads={heads}")
                     del args
 
-    def time_kernels(self, case: ModelCase, backward: bool, iters: int):
-        """µs per launch, kernel vs plain, at every stage shape in bf16;
-        summed per forward or per train step into ``self.ms`` (the outlook
-        kernels at Model B's front, both whichever the case launches)."""
+    def compare_outlook_softmax(self):
+        """#9 against its plain version at every outlooker shape of the
+        three configurations (K = 3), and at Model B's front with K = 5."""
         import torch
 
+        shapes = [(cfg, H, C, heads, 3)
+                  for cfg, sh in OUTLOOK_SHAPES.items() for H, C, heads in sh]
+        shapes.append(("model_b front", 32, 64, 2, 5))
+        for dtype in (torch.float32, torch.bfloat16):
+            for cfg, H, C, heads, k in shapes:
+                self.compare("outlook_softmax", self.softmax_args(
+                    BATCH, H, C, heads, k, dtype), dtype,
+                    f"{cfg} B={BATCH} H=W={H} C={C} heads={heads} K={k}")
+
+    def compare_dwconv(self):
+        """The depthwise kernels against their plain versions at every
+        MBConv depthwise shape of the three configurations: forward at the
+        serving batch, backward at the train batch."""
+        import torch
+
+        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
+            name = "dwconv3x3" + ("_bwd" if backward else "")
+            for dtype in (torch.float32, torch.bfloat16):
+                for case in (FLAGSHIP, TIN, MODEL_B):
+                    for sh in stage_shapes(case, batch):
+                        args = self.dw_args(batch, sh["H_img"], sh["mid"],
+                                            dtype, backward)
+                        self.compare(name, args, dtype,
+                                     f"{case.tag} stage{sh['stage']} "
+                                     f"B={batch} H=W={sh['H_img']} "
+                                     f"C={sh['mid']}")
+                        del args
+                torch.cuda.empty_cache()
+
+    def time_kernels(self, case: ModelCase, backward: bool, iters: int):
+        """µs per launch at every stage shape in bf16: the kernel, its plain
+        version, the one PyTorch call computing the same function where
+        there is one (:func:`library_call`), and the bound
+        (:func:`bound_ms`); summed per forward or per train step into
+        ``self.ms`` for the kernels timed on this case (``TIMED_ON``).
+        Model B times the outlook kernels at its front; the fused_outlook
+        case only #9 and the depthwise kernels, the 7M "bwd" case only the
+        depthwise backward."""
+        import torch
+
+        new = case in (MODEL_B_O, A7M_DWB)  # this slice's kernels only
+        outlook = (("outlook_softmax",) if case is MODEL_B_O
+                   else () if new else OUTLOOK if case.front else ())
         shapes = stage_shapes(case, TRAIN_BATCH if backward else BATCH)
         totals = {}
         for name, args, label, sh, count in self.cases(
-                shapes, backward, torch.bfloat16,
-                OUTLOOK if case.front else ()):
+                shapes, backward, torch.bfloat16, outlook, dw=new,
+                core=not new):
             kern, plain = self.kernels[name]
             k_ms = time_ms(kern, args, iters=iters, warmup=2)
             p_ms = time_ms(plain, args, iters=iters, warmup=2)
-            t = totals.setdefault(name, [0.0, 0.0])
-            t[0] += count * k_ms
-            t[1] += count * p_ms
+            lib = library_call(name, args)
+            l_ms = None if lib is None else time_ms(lib, (), iters=iters,
+                                                    warmup=2)
+            by_bytes, by_ops = bound_ms(name, args, kern(*args),
+                                        torch.bfloat16)
+            t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                         "library_ms": None, "bytes": 0.0,
+                                         "ops": 0.0, "bound_ms": 0.0})
+            t["ms"] += count * k_ms
+            t["plain_ms"] += count * p_ms
+            if l_ms is not None:
+                t["library_ms"] = (t["library_ms"] or 0.0) + count * l_ms
+            # each launch is bound by the larger of its two times
+            t["bytes" if by_bytes >= by_ops else "ops"] += \
+                count * max(by_bytes, by_ops)
+            t["bound_ms"] += count * max(by_bytes, by_ops)
             print(f"[time] {case.tag} {name} {label} bf16: kernel "
                   f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
-                  f"({k_ms and p_ms / k_ms:.2f}x) [{self.gpu}]")
-            del args
+                  f"({k_ms and p_ms / k_ms:.2f}x), library "
+                  + ("none" if l_ms is None else f"{l_ms * 1e3:.1f} us")
+                  + f"; bound {max(by_bytes, by_ops) * 1e3:.2f} us (bytes "
+                  f"{by_bytes * 1e3:.2f}, operations {by_ops * 1e3:.2f}) "
+                  f"[{self.gpu}]")
+            del args, lib
         per = (f"batch-{TRAIN_BATCH} train step" if backward
                else f"batch-{BATCH} forward")
-        for name, (k, p) in totals.items():
-            print(f"[time] {case.tag} {name} per {per}: kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms [{self.gpu}]")
-            if case is (MODEL_B if name.startswith("outlook") else TIN):
-                self.ms[name] = (k, p)
+        for name, t in totals.items():
+            lib = t["library_ms"]
+            by = "bytes" if t["bytes"] >= t["ops"] else "operations"
+            print(f"[time] {case.tag} {name} per {per}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                  + ("none" if lib is None else f"{lib:.4f} ms")
+                  + f", bound {t['bound_ms']:.4f} ms ({by}) [{self.gpu}]")
+            if TIMED_ON.get(name.removesuffix("_bwd"), TIN.tag) == case.tag:
+                self.ms[name] = dict(t, per=f"{case.tag} {per}", bound_by=by)
 
     # -- serving ----------------------------------------------------------
     def serve(self, case: ModelCase):
@@ -626,7 +878,7 @@ class Smoke:
         img, classes = case.img, case.model["num_classes"]
         pred = build_predictor(case.model, batch_size=BATCH, img_size=img,
                                mean=case.mean, std=case.std, device=self.dev,
-                               seed=SEED)
+                               seed=SEED, dwconv=case.dwconv)
         n_params = sum(p.numel() for p in pred.model.parameters())
         print(f"[predictor] {case.tag} ({case.config}) params={n_params} "
               f"batch={BATCH} img={img} dtype={pred.model.dtype}")
@@ -682,7 +934,7 @@ class Smoke:
 
         def model(dtype, use_kernels):
             m = build_model(case.model, dtype=dtype, use_kernels=use_kernels,
-                            device=self.dev)
+                            device=self.dev, dwconv=case.dwconv)
             m.load_state_dict(state)
             return m
 
@@ -768,7 +1020,7 @@ class Smoke:
         def new_state(dtype, use_kernels, lr=bench_lr):
             model = build_model(case.model, dtype=dtype,
                                 use_kernels=use_kernels, device=dev,
-                                seed=SEED)
+                                seed=SEED, dwconv=case.dwconv)
             return TrainState.create(model, AdamW(
                 lr, T["weight_decay"], T["grad_clip_norm"]))
 
@@ -909,19 +1161,17 @@ class Smoke:
         out = []
         for name, (source, replaces, covers) in SOURCES.items():
             by_path = self.launches[name]
-            k_ms, p_ms = self.ms[name]
-            model = "model_b" if name.startswith("outlook") else "tin200"
-            per = (f"batch-{TRAIN_BATCH} train step" if name in BWD
-                   else f"batch-{BATCH} forward")
+            t = self.ms[name]
             out.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "covers": covers,
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_by_variant": self.variants[name],
-                "max_abs_err": self.max_err[name], "ms": k_ms,
-                "plain_ms": p_ms,
-                "ms_per": f"{model} {per}",
+                "max_abs_err": self.max_err[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "ms_per": t["per"],
             })
         return out
 
@@ -954,11 +1204,15 @@ def main() -> int:
 
     smoke = Smoke(dev, gpu)
     t0 = time.perf_counter()
-    for case in (FLAGSHIP, TIN, MODEL_B, MODEL_B_V):
-        if case is not MODEL_B_V:  # the same kernels and shapes as MODEL_B
+    for case in CASES:
+        # MODEL_B_V runs MODEL_B's kernels at its shapes; A7M_DWB the 7M
+        # step with the depthwise backward, whose shapes MODEL_B_O holds
+        full = case not in (MODEL_B_V, A7M_DWB)
+        if full:
             smoke.compare_all(case)
-        smoke.serve(case)
-        if case is not MODEL_B_V:
+        if case is not A7M_DWB:
+            smoke.serve(case)
+        if full:
             smoke.time_kernels(case, backward=False, iters=20)
         smoke.train(case)
         if case is not MODEL_B_V:

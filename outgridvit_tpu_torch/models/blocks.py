@@ -37,10 +37,12 @@ from outgridvit_tpu_torch.ops.outlook_agg import (
     outlook_agg_proj_autograd,
     outlook_branch_autograd,
 )
+from outgridvit_tpu_torch.ops.outlook_softmax import outlook_softmax_autograd
 from outgridvit_tpu_torch.stage_config import MBConvConfig, StageCfg
 
 
-OUTLOOK_MODES = ("xla", "fused_agg", "fused_agg_v")  # the default first
+# the default first
+OUTLOOK_MODES = ("xla", "fused_agg", "fused_agg_v", "fused_outlook")
 
 
 class OutlookAttention2d(nn.Module):
@@ -49,13 +51,14 @@ class OutlookAttention2d(nn.Module):
     taps; values from a 1x1 projection are aggregated, then projected.
 
     ``mode`` picks the value path as the JAX module's ``use_pallas`` does
-    (``outgridvit_tpu/models/blocks.py:106-155``): ``"xla"`` aggregates
+    (``outgridvit_tpu/models/blocks.py:89-156``): ``"xla"`` aggregates
     with :func:`outlook_aggregate` and projects apart; ``"fused_agg"`` runs
     aggregate + projection as one op (TPU kernel #7) and ``"fused_agg_v"``
     folds the value projection in as well (#8), for K = 3 only (another K
-    takes the ``"xla"`` path). A fused mode runs the CUDA kernels with
-    ``use_kernels`` and their plain versions without: one function either
-    way."""
+    takes the ``"xla"`` path); ``"fused_outlook"`` (#9, any K) fuses the
+    softmax of the raw logits with the aggregate and projects apart. A
+    fused mode runs the CUDA kernels with ``use_kernels`` and their plain
+    versions without: one function either way."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  dtype=torch.float32, device=None, mode: str = "xla",
@@ -77,6 +80,11 @@ class OutlookAttention2d(nn.Module):
 
     def forward(self, x):
         B, H, W, _ = x.shape
+        if self.mode == "fused_outlook":
+            y = outlook_softmax_autograd(
+                self.v(x).contiguous(), self.attn(x).contiguous(), self.heads,
+                self.k, self.use_kernels)
+            return self.proj(y)
         a = self.attn(x).reshape(B, H, W, self.heads, self.k * self.k)
         a = torch.softmax(a.float(), dim=-1).to(x.dtype)
         if self.mode == "xla" or self.k != 3:
@@ -200,11 +208,12 @@ class OutGridBlock(nn.Module):
     (dp3); MBConv's own drop-path is 0 here. ``outlook_heads == 0``,
     ``num_heads == 0`` and ``use_mbconv=False`` skip their branch. The grid
     and MLP norms use eps 1e-5. ``outlook_mode`` as in
-    :class:`OutlookAttention2d`."""
+    :class:`OutlookAttention2d`, ``dwconv`` as in
+    :class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
                  use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla"):
+                 outlook_mode: str = "xla", dwconv: str = "xla"):
         super().__init__()
         C = cfg.dim
         self.dropout = {"attn_drop": cfg.attn_drop,
@@ -216,8 +225,8 @@ class OutGridBlock(nn.Module):
             if cfg.outlook_heads > 0 else None)
         self.mbconv = (MBConv(C, C, 1, MBConvConfig(
             expand_ratio=cfg.mbconv_expand_ratio, se_ratio=cfg.mbconv_se_ratio,
-            act=cfg.mbconv_act, use_bn=cfg.use_bn), dtype, device)
-            if cfg.use_mbconv else None)
+            act=cfg.mbconv_act, use_bn=cfg.use_bn), dtype, device, dwconv,
+            use_kernels) if cfg.use_mbconv else None)
         if cfg.num_heads > 0:
             self.norm2 = LayerNorm(C, 1e-5, device)
             self.grid_attn = GridAttention2D(C, cfg.num_heads, cfg.grid_size,
@@ -252,6 +261,6 @@ class GridOnlyBlock(OutGridBlock):
     outlooker; the submodule and drop-path names are the same."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
-                 use_kernels: bool = False, device=None):
+                 use_kernels: bool = False, device=None, dwconv: str = "xla"):
         super().__init__(cfg.replace(outlook_heads=0), dtype, use_kernels,
-                         device)
+                         device, dwconv=dwconv)

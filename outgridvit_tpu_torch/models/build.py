@@ -21,22 +21,18 @@ _REMAT_OFF = ("off", "none", "false", "0", "")
 
 
 def outlook_mode(use_pallas: Any) -> str:
-    """The outlook value path ``model.use_pallas`` asks for
-    (``outgridvit_tpu/models/blocks.py:106-155``): ``"xla"`` for None or a
+    """The outlook path ``model.use_pallas`` asks for
+    (``outgridvit_tpu/models/blocks.py:89-156``): ``"xla"`` for None or a
     boolean (the kernels are then ``use_kernels``'s choice), or the fused
-    mode it names. ``"fused_outlook"`` (TPU kernel #9) is not ported; any
-    other string is refused."""
+    mode it names (``fused_agg`` #7, ``fused_agg_v`` #8, ``fused_outlook``
+    #9); any other string is refused."""
     if use_pallas is None or isinstance(use_pallas, bool):
         return "xla"
-    if use_pallas == "fused_outlook":
-        raise NotImplementedError(
-            "model.use_pallas: fused_outlook runs TPU kernel #9 "
-            "(outlook_attention_pallas), not ported yet (ROADMAP §2)")
     fused = OUTLOOK_MODES[1:]
     if use_pallas not in fused:
         raise ValueError(
             f"model.use_pallas {use_pallas!r} is not null, a boolean or one "
-            f"of {fused + ('fused_outlook',)}")
+            f"of {fused}")
     return use_pallas
 
 
@@ -49,15 +45,23 @@ def _check_remat(remat: Any) -> None:
 
 def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
                 use_kernels: Optional[bool] = None, device="cuda",
-                seed: int = 0) -> Union[MaxOutNet, OutlookerFrontGridNet]:
+                seed: int = 0, dwconv: str = "xla"
+                ) -> Union[MaxOutNet, OutlookerFrontGridNet]:
     """Build a model in eval mode with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (skipped on the ``meta``
     device). Parameters are fp32; ``dtype`` is the compute dtype.
 
     ``use_kernels``: None runs the CUDA kernels iff ``device`` is CUDA;
     False runs their plain PyTorch versions; True on a non-CUDA device
-    raises. ``model.use_pallas`` picks the outlook value path
-    (:func:`outlook_mode`); ``model.remat`` other than off raises."""
+    raises. ``model.use_pallas`` picks the outlook path
+    (:func:`outlook_mode`); ``model.remat`` other than off raises.
+
+    ``dwconv`` picks every MBConv's depthwise 3x3, the port's one switch
+    for the family that the JAX package opts into with ``OUTGRIDVIT_DW_T``
+    and ``OUTGRIDVIT_DW_BWD`` (neither env var is read): ``"xla"`` the
+    grouped conv, ``"t"`` TPU kernel #10's forward and backward, ``"bwd"``
+    the conv forward and #11's backward
+    (:class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`)."""
     device = torch.device(device)
     if use_kernels is None:
         use_kernels = device.type == "cuda"
@@ -76,7 +80,7 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         down_cfg=DownsampleConfig.from_dict(model_cfg.get("downsample", {})
                                             or {}),
         dtype=dtype, use_kernels=use_kernels, device=device,
-        outlook_mode=mode)
+        outlook_mode=mode, dwconv=dwconv)
     if model_type in _MODEL_A_ALIASES:
         model = MaxOutNet(**common)
     elif model_type in _MODEL_B_ALIASES:

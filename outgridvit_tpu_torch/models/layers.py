@@ -22,6 +22,7 @@ from torch import nn
 
 from outgridvit_tpu_torch.ops.activations import make_activation
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, drop_path
+from outgridvit_tpu_torch.ops.dwconv import VARIANTS, dwconv3x3_autograd
 from outgridvit_tpu_torch.ops.mlp_branch import (
     layernorm_fp32,
     mlp_branch_autograd,
@@ -143,6 +144,38 @@ class ConvNHWC(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+DWCONV_MODES = ("xla",) + VARIANTS  # the default first
+
+
+class DepthwiseConv3x3(ConvNHWC):
+    """The MBConv's depthwise 3x3 (``weight [C, 1, 3, 3]``, optional bias)
+    in the JAX module's modes (``outgridvit_tpu/models/layers.py:333-361``):
+    ``"xla"`` is :class:`ConvNHWC`'s grouped conv; ``"t"`` (TPU kernel #10)
+    and ``"bwd"`` (#11) run :func:`dwconv3x3_autograd` at stride 1 (another
+    stride takes the conv), the CUDA kernels with ``use_kernels`` and their
+    plain versions without: one function either way. A bias is added after
+    the conv."""
+
+    def __init__(self, channels: int, stride: int = 1, bias: bool = False,
+                 dtype=torch.float32, device=None, mode: str = "xla",
+                 use_kernels: bool = False):
+        if mode not in DWCONV_MODES:
+            raise ValueError(f"dwconv mode {mode!r} is not one of "
+                             f"{DWCONV_MODES}")
+        super().__init__(channels, channels, 3, stride, groups=channels,
+                         bias=bias, dtype=dtype, device=device)
+        self.mode, self.use_kernels = mode, use_kernels
+
+    def forward(self, x):
+        if self.mode == "xla" or self.stride != 1:
+            return super().forward(x)
+        dt = self.dtype
+        w9 = self.weight.to(dt).reshape(self.weight.shape[0], 9).t()
+        y = dwconv3x3_autograd(x.to(dt).contiguous(), w9.contiguous(),
+                               self.mode, self.use_kernels)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
 def _conv_bn(conv: nn.Module, dim: int, use_bn: bool, device) -> nn.Sequential:
     return nn.Sequential(conv, BatchNorm(dim, device=device)) if use_bn \
         else nn.Sequential(conv)
@@ -200,11 +233,12 @@ class SqueezeExcite(nn.Module):
 class MBConv(nn.Module):
     """Inverted residual: expand 1x1 (skipped if mid == in) -> depthwise 3x3
     -> SE -> project 1x1; residual iff stride 1 and in == out. Expand and
-    project carry no bias when ``use_bn``."""
+    project carry no bias when ``use_bn``. ``dwconv`` and ``use_kernels``
+    pick the depthwise path (:class:`DepthwiseConv3x3`)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  cfg: MBConvConfig = MBConvConfig(), dtype=torch.float32,
-                 device=None):
+                 device=None, dwconv: str = "xla", use_kernels: bool = False):
         super().__init__()
         if in_ch <= 0 or out_ch <= 0:
             raise ValueError("in_ch and out_ch must be > 0")
@@ -218,8 +252,8 @@ class MBConv(nn.Module):
                                       device=device), mid, bn, device)
                        if mid != in_ch else None)
         self.depthwise = _conv_bn(
-            ConvNHWC(mid, mid, 3, stride, groups=mid, bias=not bn, dtype=dtype,
-                     device=device), mid, bn, device)
+            DepthwiseConv3x3(mid, stride, not bn, dtype, device, dwconv,
+                             use_kernels), mid, bn, device)
         self.se = (SqueezeExcite(mid, cfg.se_ratio, cfg.act, dtype, device)
                    if cfg.se_ratio > 0 else None)
         self.project = _conv_bn(Dense(mid, out_ch, bias=not bn, dtype=dtype,

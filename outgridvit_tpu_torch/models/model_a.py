@@ -42,7 +42,7 @@ class MaxOutNet(nn.Module):
                  in_ch: int = 3, stem_dim: int = 64, dpr_max: float = 0.1,
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla"):
+                 outlook_mode: str = "xla", dwconv: str = "xla"):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
@@ -54,7 +54,8 @@ class MaxOutNet(nn.Module):
         dprs = iter(make_dpr(sum(s.depth for s in stages), dpr_max))
         self.stages = nn.ModuleList(
             nn.ModuleList(OutGridBlock(s.replace(drop_path=next(dprs)), dtype,
-                                       use_kernels, device, outlook_mode)
+                                       use_kernels, device, outlook_mode,
+                                       dwconv)
                           for _ in range(s.depth))
             for s in stages)
         self.downs = nn.ModuleList(

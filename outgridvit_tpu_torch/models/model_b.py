@@ -37,7 +37,7 @@ class OutlookerFrontGridNet(nn.Module):
                  outlooker_front_depth: int = 2, dpr_max: float = 0.1,
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla"):
+                 outlook_mode: str = "xla", dwconv: str = "xla"):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
@@ -60,7 +60,7 @@ class OutlookerFrontGridNet(nn.Module):
                         "ffn_drop": f.ffn_drop}
         self.stages = nn.ModuleList(
             nn.ModuleList(GridOnlyBlock(s.replace(drop_path=next(dprs)),
-                                        dtype, use_kernels, device)
+                                        dtype, use_kernels, device, dwconv)
                           for _ in range(s.depth))
             for s in stages)
         self.downs = nn.ModuleList(

@@ -1,0 +1,214 @@
+"""Depthwise 3x3 convolution, stride 1, zero padding 1, no bias, NHWC: the
+CUDA kernels ``csrc/dwconv.cu`` (forward and backward) and their plain
+PyTorch versions. Twin of both TPU entry points of the family:
+
+- ``outgridvit_tpu/ops/experimental/dwconv_pallas_t.py:dwconv3x3_t`` (#10,
+  ``OUTGRIDVIT_DW_T``): a kernel forward and a kernel backward;
+- ``outgridvit_tpu/ops/experimental/dwconv_bwd_pallas.py:dwconv3x3`` (#11,
+  ``OUTGRIDVIT_DW_BWD``): XLA's conv forward, then a one-pass kernel
+  backward.
+
+The two backwards compute the same function (dx and dw) in two TPU layouts,
+so one CUDA kernel serves both; its launches are tagged with the JAX kernel
+they stand for (``dwconv3x3_backward.by_variant``: ``"t"`` #10, ``"bwd"``
+#11).
+
+Layouts: x and dy ``[B, H, W, C]``; ``w9 [9, C]``, the taps row-major
+(``t = 3*(dy+1) + (dx+1)``, ``_OFFS`` of both JAX files): the JAX kernel
+``[3, 3, 1, C]`` reshaped, or the port's ``[C, 1, 3, 3]`` weight as
+``reshape(C, 9).t()``.
+
+Rounding points (the module casts the weight to the compute dtype first,
+``outgridvit_tpu/models/layers.py:354, 361``):
+
+- forward (#10 ``_fwd_kernel`` :81-92): x and w read as fp32, the 9 taps
+  summed in fp32 in order, each product rounded apart, one cast;
+- backward (#10 ``_bwd_kernel`` :95-126, #11 ``_bwd_kernel`` :77-107): dx =
+  sum_t w[t] * dy[p - off_t] the same way, cast to x's dtype; dw[t, c] =
+  sum_p x[p + off_t] * dy[p] in fp32, cast once to w9's dtype
+  (``dwconv_pallas_t.py:238``, ``dwconv_bwd_pallas.py:223``). In bf16 the
+  fp32 parameter's gradient passes through that one rounding; the cast of
+  the weight back to fp32 in autograd is exact. Borders read zero.
+
+:func:`dwconv3x3_autograd` is the differentiable op the model calls.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+import torch.nn.functional as F
+
+from outgridvit_tpu_torch.ops import kernel_build
+
+# (dy, dx) of tap t, row-major
+OFFS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+VARIANTS = ("t", "bwd")  # dwconv3x3_t (#10), dwconv_bwd_pallas.dwconv3x3 (#11)
+
+
+def _check(x: torch.Tensor, w9: torch.Tensor) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C]; got {tuple(x.shape)}")
+    if tuple(w9.shape) != (9, x.shape[-1]):
+        raise ValueError(f"w9 must be [9, C={x.shape[-1]}]; got "
+                         f"{tuple(w9.shape)}")
+
+
+def _shifted(t32: torch.Tensor):
+    """The zero-padded fp32 map and its 9 shifted [B, H, W, C] views,
+    ``view_t[p] = t[p + off_t]``."""
+    B, H, W, _ = t32.shape
+    tp = F.pad(t32, (0, 0, 1, 1, 1, 1))
+    return [tp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] for dy, dx in OFFS]
+
+
+def dwconv3x3_reference(x, w9):
+    """Plain PyTorch version of #10's forward: ``round(sum_t x[p + off_t] *
+    w9[t])`` in fp32, the taps in order."""
+    _check(x, w9)
+    w32 = w9.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for t, xs in enumerate(_shifted(x.float())):
+        acc = acc + xs * w32[t]
+    return acc.to(x.dtype)
+
+
+def dwconv3x3_xla(x, w9):
+    """The forward of #11: the grouped conv (XLA's ``conv_general_dilated``
+    with ``feature_group_count=C`` in the JAX package), in x's dtype."""
+    _check(x, w9)
+    C = x.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2), w9.t().reshape(C, 1, 3, 3).to(x.dtype),
+                 padding=1, groups=C)
+    return y.permute(0, 2, 3, 1)
+
+
+def dwconv3x3_backward_reference(x, w9, dy):
+    """Plain PyTorch version of the backward of #10 and #11, written out:
+    ``(dx, dw)``; dx in x's dtype, dw [9, C] in w9's."""
+    _check(x, w9)
+    w32 = w9.float()
+    dy32 = dy.float()
+    # dx[p] = sum_t w[t] * dy[p - off_t]: the view of the flipped tap
+    views = _shifted(dy32)
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for t in range(9):
+        dx = dx + views[8 - t] * w32[t]
+    dw = torch.stack([(xs * dy32).sum((0, 1, 2))
+                      for xs in _shifted(x.float())])
+    return dx.to(x.dtype), dw.to(w9.dtype)
+
+
+# ---- the CUDA kernels -----------------------------------------------------
+
+def _vec(nbytes: int, C: int, *tensors) -> int:
+    """Channels per thread: ``nbytes`` worth where C and every pointer
+    allow the wide loads, else 1."""
+    vec = nbytes // tensors[0].element_size()
+    ok = C % vec == 0 and all(t.data_ptr() % nbytes == 0 for t in tensors)
+    return vec if ok else 1
+
+
+def _check_launch(name, x, w9, dy=None):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in kernel_build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32/bfloat16")
+    _check(x, w9)
+    want = {"w9": w9} if dy is None else {"w9": w9, "dy": dy}
+    if dy is not None and dy.shape != x.shape:
+        raise ValueError(f"{name}: dy is {tuple(dy.shape)}; expected "
+                         f"{tuple(x.shape)}")
+    for tname, t in want.items():
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: {tname} is {t.dtype} on {t.device}; "
+                             f"expected {x.dtype} on {x.device}")
+    if not all(t.is_contiguous() for t in (x, *want.values())):
+        raise ValueError(f"{name}: x, w9 and dy must be contiguous")
+    if x.numel() == 0:
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+
+
+def dwconv3x3(x, w9):
+    """#10 forward, [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches the
+    kernel (or raises); a CPU tensor takes :func:`dwconv3x3_reference`."""
+    if x.device.type == "cpu":
+        return dwconv3x3_reference(x, w9)
+    _check_launch("dwconv3x3", x, w9)
+    B, H, W, C = x.shape
+    y = torch.empty_like(x)
+    lib = kernel_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_dwconv3x3(
+            x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C,
+            _vec(16, C, x, w9, y), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "dwconv3x3 launch")
+    dwconv3x3.launches += 1
+    return y
+
+
+dwconv3x3.launches = 0
+
+
+def dwconv3x3_backward(x, w9, dy, variant: str = "t"):
+    """Backward of #10 and #11: ``(dx, dw)``. A CUDA tensor launches the
+    kernel (or raises); a CPU tensor takes
+    :func:`dwconv3x3_backward_reference`. ``variant`` names the JAX kernel
+    the launch stands for (:data:`VARIANTS`). Deterministic: two calls give
+    bitwise-equal grads."""
+    kernel_build.check_variant("dwconv3x3_backward", variant, VARIANTS)
+    if x.device.type == "cpu":
+        return dwconv3x3_backward_reference(x, w9, dy)
+    _check_launch("dwconv3x3_backward", x, w9, dy)
+    B, H, W, C = x.shape
+    dx, dw = torch.empty_like(x), torch.empty_like(w9)
+    vec = _vec(8, C, x, w9, dy, dx)
+    lib = kernel_build.load()
+    ws = torch.empty(lib.ogvt_dwconv3x3_bwd_workspace(B, H, W, C, vec),
+                     dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_dwconv3x3_bwd(
+            x.data_ptr(), w9.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), ws.data_ptr(), B, H, W, C, vec,
+            kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "dwconv3x3_backward launch")
+    kernel_build.count_launch(dwconv3x3_backward, variant)
+    return dx, dw
+
+
+dwconv3x3_backward.launches = 0
+dwconv3x3_backward.by_variant = Counter()
+
+
+class _DWConv3x3(torch.autograd.Function):
+    """Mode ``"t"`` (#10): the kernel forward; ``"bwd"`` (#11): the grouped
+    conv forward. The kernel backward in both, from the saved x and w9."""
+
+    @staticmethod
+    def forward(ctx, x, w9, mode, use_kernels):
+        ctx.save_for_backward(x, w9)
+        ctx.mode, ctx.use_kernels = mode, use_kernels
+        if mode == "bwd":
+            return dwconv3x3_xla(x, w9)
+        return (dwconv3x3 if use_kernels else dwconv3x3_reference)(x, w9)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w9 = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.use_kernels:
+            dx, dw = dwconv3x3_backward(x, w9, g, ctx.mode)
+        else:
+            dx, dw = dwconv3x3_backward_reference(x, w9, g)
+        return dx, dw, None, None
+
+
+def dwconv3x3_autograd(x, w9, mode: str = "t", use_kernels: bool = False):
+    """Differentiable depthwise 3x3 in mode ``"t"`` (#10) or ``"bwd"``
+    (#11): the CUDA kernels with ``use_kernels``, else their plain versions
+    (the forward of ``"bwd"`` is the grouped conv either way)."""
+    kernel_build.check_variant("dwconv3x3_autograd", mode, VARIANTS)
+    return _DWConv3x3.apply(x, w9, mode, use_kernels)

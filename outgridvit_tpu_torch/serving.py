@@ -94,14 +94,15 @@ def build_predictor(
     use_kernels: Optional[bool] = None,
     device="cuda",
     seed: int = 0,
+    dwconv: str = "xla",
 ) -> Predictor:
     """Build a predictor from a model config and either the JAX package's
     ``variables`` (numpy tree, loaded by
     :func:`~outgridvit_tpu_torch.utils.port_jax.load_flax_variables`) or
-    random weights from ``seed``. ``use_kernels`` as in
+    random weights from ``seed``. ``use_kernels`` and ``dwconv`` as in
     :func:`~outgridvit_tpu_torch.models.build_model`."""
     model = build_model(model_cfg, dtype=dtype, use_kernels=use_kernels,
-                        device=device, seed=seed)
+                        device=device, seed=seed, dwconv=dwconv)
     if variables is not None:
         from outgridvit_tpu_torch.utils.port_jax import load_flax_variables
 

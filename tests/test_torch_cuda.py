@@ -7,9 +7,12 @@ the full Tiny-ImageNet-200 stage shapes (train batch 128: the fused
 attention branch at N=64, the head-chunked grid shapes at C=128/256/384, the
 row-layout MLP shapes at M=524,288), the fused outlook kernels (#7, #8) at
 a Model B front shape, a 64 x 64 shape and an hd=24 shape with H != W and a
-ragged last tile, plus tiny models (Model A, Model B in both fused outlook
-modes) through the kernels against the plain path, forward and one train
-step.
+ragged last tile, the fused outlook softmax (#9) and the depthwise kernels
+(#10, #11) at one shape of each configuration and at edge shapes (K = 5,
+hd = 24, C not a multiple of the vector width), plus tiny models (Model A,
+Model B in the fused outlook modes, Model B with the depthwise mode "t" and
+Model A with "bwd") through the kernels against the plain path, forward and
+one train step.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -34,6 +37,12 @@ from outgridvit_tpu_torch.ops.attn_branch import (
     attn_branch_reference,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+from outgridvit_tpu_torch.ops.dwconv import (
+    dwconv3x3,
+    dwconv3x3_backward,
+    dwconv3x3_backward_reference,
+    dwconv3x3_reference,
+)
 from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa,
     grid_mhsa_backward,
@@ -55,6 +64,10 @@ from outgridvit_tpu_torch.ops.outlook_agg import (
     outlook_branch_backward,
     outlook_branch_backward_reference,
     outlook_branch_reference,
+)
+from outgridvit_tpu_torch.ops.outlook_softmax import (
+    outlook_softmax_agg,
+    outlook_softmax_agg_reference,
 )
 from outgridvit_tpu_torch.training.optim import AdamW
 from outgridvit_tpu_torch.training.steps import (
@@ -528,6 +541,127 @@ def test_tiny_model_b_kernel_path_matches_plain_path(dev, mode):
             StepDraws(drop_masks=masks))
         torch.cuda.synchronize()
         assert bwd.launches - before == (3 if use_kernels else 0)
+        out[use_kernels] = (logits, float(m["loss"]), {
+            k: p.grad.clone() for k, p in model.named_parameters()})
+    (lk, sk, gk), (lp, sp, gp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert abs(sk - sp) <= 1e-5 * abs(sp)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [t.norm() for t in gp.values()])).item()
+    for k in gp:
+        assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * gnorm, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads,k", [
+    (64, 32, 32, 64, 2, 3),    # Model B front at the serving batch
+    (64, 16, 16, 96, 3, 3),    # Model A-7M stage 1
+    (16, 64, 64, 64, 2, 3),    # Tiny-ImageNet stage 0
+    (3, 13, 20, 48, 2, 5),     # K = 5, hd = 24, H != W, a ragged last block
+])
+def test_outlook_softmax_kernel_matches_plain(dev, dtype, B, H, W, C, heads,
+                                              k):
+    g = torch.Generator().manual_seed(B + H + C + k)
+    v = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    logits = (2 * torch.randn(B, H, W, heads * k * k, generator=g)).to(
+        dev, dtype)
+    n = outlook_softmax_agg.launches
+    got = outlook_softmax_agg(v, logits, heads, k)
+    torch.cuda.synchronize()
+    assert outlook_softmax_agg.launches == n + 1
+    _assert_close(got, outlook_softmax_agg_reference(v, logits, heads, k),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C", [
+    (128, 32, 32, 192),   # Model A-7M stage 0 at the train batch
+    (128, 64, 64, 256),   # Tiny-ImageNet stage 0
+    (128, 4, 4, 1536),    # Model B stage 3
+    (3, 5, 7, 20),        # C not a multiple of the vector width, H != W
+])
+def test_dwconv_kernels_match_plain(dev, dtype, B, H, W, C):
+    g = torch.Generator().manual_seed(B + H + C)
+    x = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    w9 = (torch.randn(9, C, generator=g) / 3).to(dev, dtype)
+    dy = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    n = (dwconv3x3.launches, dwconv3x3_backward.by_variant["bwd"])
+    got = dwconv3x3(x, w9)
+    grads = dwconv3x3_backward(x, w9, dy, "bwd")
+    again = dwconv3x3_backward(x, w9, dy, "bwd")
+    torch.cuda.synchronize()
+    assert (dwconv3x3.launches, dwconv3x3_backward.by_variant["bwd"]) == \
+        (n[0] + 1, n[1] + 2)
+    _assert_close(got, dwconv3x3_reference(x, w9), dtype)
+    want = dwconv3x3_backward_reference(x, w9, dy)
+    for name, a, b in zip(("dx", "dw"), grads, again):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+    _assert_close(grads[0], want[0], dtype)
+    _assert_close_to_max(grads[1], want[1], dtype, "dw")
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    v = torch.randn(2, 4, 8, 16, device=dev)
+    logits = torch.randn(2, 4, 8, 18, device=dev)
+    with pytest.raises(TypeError, match="float16"):
+        outlook_softmax_agg(v.half(), logits.half(), 2)
+    with pytest.raises(ValueError, match="logits are"):
+        outlook_softmax_agg(v, logits.bfloat16(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        outlook_softmax_agg(v, torch.randn(2, 4, 18, 8, device=dev)
+                            .transpose(2, 3), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        outlook_softmax_agg(v, torch.randn(2, 4, 8, 8 * 17 * 17, device=dev),
+                            8, 17)
+    x, w9 = torch.randn(2, 4, 8, 16, device=dev), torch.randn(9, 16,
+                                                              device=dev)
+    with pytest.raises(TypeError, match="float16"):
+        dwconv3x3(x.half(), w9.half())
+    with pytest.raises(ValueError, match="w9 is"):
+        dwconv3x3(x, w9.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        dwconv3x3(x, torch.randn(16, 9, device=dev).t())
+    with pytest.raises(ValueError, match="dy is"):
+        dwconv3x3_backward(x, w9, x[:1])
+    with pytest.raises(ValueError, match="variant"):
+        dwconv3x3_backward(x, w9, x, "xla")
+
+
+@pytest.mark.parametrize("model_type,use_pallas,dwconv", [
+    ("model_b", "fused_outlook", "t"), ("model_a", None, "bwd")])
+def test_tiny_model_depthwise_modes_kernel_path_matches_plain_path(
+        dev, model_type, use_pallas, dwconv):
+    cfg = {"type": model_type, "num_classes": 10, "stem_dim": 8,
+           "outlooker_front_depth": 3, "dpr_max": 0.2,
+           "use_pallas": use_pallas, "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 4,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 4}]}
+    x = torch.randn(8, 16, 16, 3, generator=torch.Generator().manual_seed(6))
+    y = (torch.arange(8) % 10).to(dev)
+    counters = (outlook_softmax_agg, dwconv3x3)
+    fwd = [3 if use_pallas else 0, 2 if dwconv == "t" else 0]
+    out = {}
+    for use_kernels in (True, False):
+        model = build_model(cfg, use_kernels=use_kernels, device=dev, seed=7,
+                            dwconv=dwconv)
+        before = [c.launches for c in counters]
+        with torch.inference_mode():
+            logits = model(x.to(dev))
+        assert [c.launches - b for c, b in zip(counters, before)] == \
+            (fwd if use_kernels else [0, 0])
+        paths = [m.path for m in model.modules()
+                 if isinstance(m, DropPath) and m.rate > 0]
+        masks = DropPathMasks({p: torch.arange(8, device=dev) % (i + 2) > 0
+                               for i, p in enumerate(paths)})
+        before = dwconv3x3_backward.by_variant[dwconv]
+        state, m = make_train_step(StepConfig(num_classes=10))(
+            TrainState.create(model, AdamW(1e-3)), (x.to(dev), y),
+            StepDraws(drop_masks=masks))
+        torch.cuda.synchronize()
+        assert dwconv3x3_backward.by_variant[dwconv] - before == \
+            (2 if use_kernels else 0)
         out[use_kernels] = (logits, float(m["loss"]), {
             k: p.grad.clone() for k, p in model.named_parameters()})
     (lk, sk, gk), (lp, sp, gp) = out[True], out[False]

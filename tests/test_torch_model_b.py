@@ -6,10 +6,12 @@ cifar100_model_b.yaml``) against ``outgridvit_tpu`` on the same numpy inputs
   carry across strictly, leaf for leaf, both ways; 12,266,266 parameters;
   ``chip_smoke.py``'s Model B configuration is the yaml's.
 - A tiny Model B (front depth 2, two narrow stages, 16 px) against the JAX
-  model with ``use_pallas=False``, in the port's ``xla`` mode and both fused
-  outlook modes (#7, #8: their plain versions here): logits in eval mode
-  and in train mode (JAX's drop-path masks injected), and one
-  ``fused_agg`` train step with the yaml's recipe on the JAX step's draws.
+  model with ``use_pallas=False``, in the port's ``xla`` mode and the three
+  fused outlook modes (#7, #8, and #9 with the depthwise mode "t" of #10:
+  their plain versions here): logits in eval mode and in train mode (JAX's
+  drop-path masks injected), and one ``fused_agg`` train step and one
+  ``fused_outlook`` + "t" step with the yaml's recipe on the JAX step's
+  draws; one step of a tiny Model A with the depthwise mode "bwd" (#11).
 - ``model.use_pallas`` and ``model.remat`` are read, never dropped: a fused
   mode reaches the outlook op, and what is not ported raises.
 
@@ -41,6 +43,7 @@ from outgridvit_tpu.training.train_state import TrainState as JaxTrainState
 from outgridvit_tpu.utils.port_torch import port_torch_state_dict
 from outgridvit_tpu_torch.models import OutlookerFrontGridNet, build_model
 from outgridvit_tpu_torch.models import blocks as tblocks
+from outgridvit_tpu_torch.models import layers as tlayers
 from outgridvit_tpu_torch.models.layers import DropPath
 from outgridvit_tpu_torch.ops import augment as taug
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
@@ -71,7 +74,11 @@ TINY_B = {
     ],
 }
 IMG, BATCH = 16, 8
-MODES = ("xla", "fused_agg", "fused_agg_v")
+MODES = ("xla", "fused_agg", "fused_agg_v", "fused_outlook")
+# fused_outlook runs with the depthwise kernels' mode "t" (#9 with #10, the
+# path chip_smoke.py drives); the other modes with the grouped conv
+PATH_DWCONV = {"fused_outlook": "t"}
+TINY_A = dict(TINY_B, type="model_a", dpr_max=0.1)
 # the cifar100_model_b.yaml recipe (CIFAR-100 statistics, crop pad 4)
 AUG = dict(mean=(0.5071, 0.4867, 0.4408), std=(0.2675, 0.2565, 0.2761),
            crop_pad=4)
@@ -216,8 +223,9 @@ def _masks(model, seed=8):
 @pytest.mark.parametrize("mode", MODES)
 def test_tiny_model_b_logits_match_jax(tiny_b, mode):
     jmodel, variables = tiny_b
-    port = load_flax_variables(build_model(_port_cfg(mode), device="cpu"),
-                               variables)
+    port = load_flax_variables(
+        build_model(_port_cfg(mode), device="cpu",
+                    dwconv=PATH_DWCONV.get(mode, "xla")), variables)
     x = np.random.default_rng(1).normal(size=(BATCH, IMG, IMG, 3)).astype(
         np.float32)
     want = jmodel.apply(variables, jnp.asarray(x), train=False)
@@ -245,11 +253,13 @@ def test_tiny_model_b_logits_match_jax(tiny_b, mode):
                                    atol=1e-5, rtol=1e-5, err_msg=k)
 
 
-def test_tiny_model_b_fused_train_step_matches_jax(tiny_b, monkeypatch):
-    """One step through the fused_agg path with the yaml's recipe, on the
-    JAX step's own draws (the JAX step eagerly around a jitted apply, as in
-    tests/test_torch_train.py)."""
-    jmodel, variables = tiny_b
+def _step_matches_jax(jmodel, variables, port_cfg, dwconv, spies,
+                      monkeypatch):
+    """One port step of ``port_cfg`` (depthwise mode ``dwconv``) against
+    one JAX step with the yaml's recipe, on the JAX step's own draws (the
+    JAX step eagerly around a jitted apply, as in tests/test_torch_train.py).
+    ``spies``: {label: (module, function name)} whose calls' first shapes
+    are recorded and returned."""
     masks_now = {}
 
     @functools.partial(jax.jit, static_argnames=("train", "mutable"))
@@ -269,16 +279,18 @@ def test_tiny_model_b_fused_train_step_matches_jax(tiny_b, monkeypatch):
                          grad_clip_norm=1.0,
                          augment=jaug.AugmentConfig(**AUG), **MIX)
     model = load_flax_variables(
-        build_model(_port_cfg("fused_agg"), device="cpu"), variables)
+        build_model(port_cfg, device="cpu", dwconv=dwconv), variables)
     state = TrainState.create(model, AdamW(warmup_cosine_lr(**LR), 0.05, 1.0))
     step = make_train_step(StepConfig(num_classes=10, label_smoothing=0.0,
                                       grad_clip_norm=1.0,
                                       augment=taug.AugmentConfig(**AUG),
                                       **MIX), warmup_cosine_lr(**LR))
-    calls = []
-    real = tblocks.outlook_agg_proj_autograd
-    monkeypatch.setattr(tblocks, "outlook_agg_proj_autograd",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
+    calls = {label: [] for label in spies}
+    for label, (module, name) in spies.items():
+        real = getattr(module, name)
+        monkeypatch.setattr(
+            module, name, lambda *a, real=real, label=label:
+            calls[label].append(tuple(a[0].shape)) or real(*a))
     # the first key whose mix draw applies cutmix, so that branch is held
     for seed in range(32):
         base_rng = jax.random.PRNGKey(seed)
@@ -301,7 +313,6 @@ def test_tiny_model_b_fused_train_step_matches_jax(tiny_b, monkeypatch):
                             for f in aug)),
         MixDraws(*(_t(np.asarray(f)) for f in mix)),
         DropPathMasks({p: _t(m) for p, m in masks.items()})))
-    assert calls == [(BATCH, IMG, IMG, 16)] * 2
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), atol=1e-5,
                                    rtol=1e-5, err_msg=k)
@@ -317,16 +328,61 @@ def test_tiny_model_b_fused_train_step_matches_jax(tiny_b, monkeypatch):
     for k, v in stats.items():
         np.testing.assert_allclose(model.state_dict()[k].numpy(), v,
                                    atol=1e-5, rtol=1e-5, err_msg=k)
+    return calls
+
+
+def test_tiny_model_b_fused_train_step_matches_jax(tiny_b, monkeypatch):
+    """One step through the fused_agg path (#7's plain versions)."""
+    calls = _step_matches_jax(
+        *tiny_b, _port_cfg("fused_agg"), "xla",
+        {"agg": (tblocks, "outlook_agg_proj_autograd")}, monkeypatch)
+    assert calls == {"agg": [(BATCH, IMG, IMG, 16)] * 2}
+
+
+def test_tiny_model_b_fused_outlook_dwconv_t_train_step_matches_jax(
+        tiny_b, monkeypatch):
+    """One step of the path chip_smoke.py drives as ``model_b_o``:
+    fused_outlook (#9) at the front, the depthwise mode "t" (#10) in every
+    MBConv, their plain versions here; JAX with use_pallas=False computes
+    the same function in fp32."""
+    calls = _step_matches_jax(
+        *tiny_b, _port_cfg("fused_outlook"), "t",
+        {"softmax": (tblocks, "outlook_softmax_autograd"),
+         "dwconv": (tlayers, "dwconv3x3_autograd")}, monkeypatch)
+    # two front outlookers; the MBConvs of stages 0 and 1 (mid = 4 C)
+    assert calls == {"softmax": [(BATCH, IMG, IMG, 16)] * 2,
+                     "dwconv": [(BATCH, IMG, IMG, 64),
+                                (BATCH, IMG // 2, IMG // 2, 128)]}
+
+
+@pytest.fixture(scope="module")
+def tiny_a():
+    jmodel = jax_build_model(TINY_A, use_pallas=False)
+    init = jax.jit(jmodel.init)(jax.random.PRNGKey(1),
+                                jnp.zeros((1, IMG, IMG, 3)))
+    return jmodel, _randomize(_tree_np(dict(init)), seed=2)
+
+
+def test_tiny_model_a_dwconv_bwd_train_step_matches_jax(tiny_a, monkeypatch):
+    """One Model A step with the depthwise mode "bwd" (#11: the grouped
+    conv forward, the written-out backward) against the JAX step."""
+    calls = _step_matches_jax(
+        *tiny_a, TINY_A, "bwd", {"dwconv": (tlayers, "dwconv3x3_autograd")},
+        monkeypatch)
+    assert calls == {"dwconv": [(BATCH, IMG, IMG, 64),
+                                (BATCH, IMG // 2, IMG // 2, 128)]}
 
 
 # ---- model.use_pallas and model.remat are read ----------------------------
 
 @pytest.mark.parametrize("mode,entry", [
     ("xla", None), ("fused_agg", "outlook_agg_proj_autograd"),
-    ("fused_agg_v", "outlook_branch_autograd")])
+    ("fused_agg_v", "outlook_branch_autograd"),
+    ("fused_outlook", "outlook_softmax_autograd")])
 def test_use_pallas_reaches_the_outlook_op(mode, entry, monkeypatch):
     calls = {}
-    for name in ("outlook_agg_proj_autograd", "outlook_branch_autograd"):
+    for name in ("outlook_agg_proj_autograd", "outlook_branch_autograd",
+                 "outlook_softmax_autograd"):
         real = getattr(tblocks, name)
         monkeypatch.setattr(
             tblocks, name,
@@ -347,12 +403,13 @@ def test_use_pallas_reaches_the_outlook_op(mode, entry, monkeypatch):
 
 
 def test_unported_use_pallas_and_remat_raise():
-    for use_pallas in (None, True, False):
+    # every value the JAX build takes builds, fused_outlook (#9) too
+    for use_pallas in (None, True, False, "fused_outlook"):
         build_model(dict(TINY_B, use_pallas=use_pallas), device="meta")
-    with pytest.raises(NotImplementedError, match="#9"):
-        build_model(dict(TINY_B, use_pallas="fused_outlook"), device="meta")
     with pytest.raises(ValueError, match="use_pallas"):
         build_model(dict(TINY_B, use_pallas="fused"), device="meta")
+    with pytest.raises(ValueError, match="dwconv"):
+        build_model(TINY_B, device="meta", dwconv="taps")
     for remat in ("dots", "nothing", "dots_no_batch"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dict(TINY_B, remat=remat), device="meta")

@@ -106,14 +106,50 @@ def test_port_imports_no_jax():
         "                  torch.zeros(2, dtype=torch.long)),\n"
         "             generator=torch.Generator().manual_seed(0))\n"
         "assert st.step == 1 and bool(torch.isfinite(m['loss']))\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml'))\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "assert chip_smoke.MODEL_B_O.model['use_pallas'] == 'fused_outlook'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'yaml', 'outgridvit_tpu'))\n"
         "print('LOADED', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_stage_config_copy_matches_the_jax_schema():
+    """The port keeps its own copy of ``outgridvit_tpu/stage_config.py``:
+    the same dataclasses, field for field, with the same defaults, and the
+    same helpers."""
+    import dataclasses
+
+    from outgridvit_tpu import stage_config as jsc
+    from outgridvit_tpu_torch import stage_config as tsc
+
+    def classes(mod):
+        return {n: c for n, c in vars(mod).items()
+                if dataclasses.is_dataclass(c)
+                and c.__module__ == mod.__name__}
+
+    want, got = classes(jsc), classes(tsc)
+    assert set(got) == set(want) and "StageCfg" in got
+    for name, cls in want.items():
+        assert cls.__dataclass_params__.frozen == \
+            got[name].__dataclass_params__.frozen, name
+        assert [(f.name, str(f.type), f.default)
+                for f in dataclasses.fields(cls)] == [
+            (f.name, str(f.type), f.default)
+            for f in dataclasses.fields(got[name])], name
+    stages = [{"dim": 16, "depth": 2, "num_heads": 2, "grid_size": 4,
+               "ignored": 1}]
+    assert [dataclasses.asdict(s) for s in tsc.build_stages(stages)] == \
+        [dataclasses.asdict(s) for s in jsc.build_stages(stages)]
+    for n in (1, 2, 7):
+        assert tsc.make_dpr(n, 0.1) == jsc.make_dpr(n, 0.1)
+    assert tsc.DownsampleConfig.from_dict({"kind": "pool"}) == \
+        tsc.DownsampleConfig(kind="pool")
 
 
 def test_kernel_dispatch_rules():
