@@ -24,7 +24,17 @@ from a seed:
   outlook softmax + aggregate (``outlook_softmax``), every MBConv the
   depthwise kernels (``dwconv3x3``, ``dwconv3x3_bwd`` tagged "t");
 - Model A-7M again with ``dwconv="bwd"``, train phase only: the grouped
-  conv forward and the depthwise backward kernel (tagged "bwd").
+  conv forward and the depthwise backward kernel (tagged "bwd");
+- Model A-7M at 48 px (``a7m_48``, the same model, crop pad 6): stage 0 runs
+  grids of N=36 through the block-packed core (``grid_mhsa_packed``),
+  stages 1-3 the N=9 grids of ``grid_mhsa``;
+- the default Model A (``configs/cifar100_model_a.yaml``, ``a_base``, 32
+  px) built with ``attn_nhwc=True``: stage 0 runs its N=64 grids through
+  the fused branch on the NHWC map (``attn_branch_nhwc``), stages 1-3 the
+  wide N=16 grids (C = 160/320/448) of ``grid_mhsa`` tagged "th". The same
+  phase holds ``attn_branch_nhwc`` against partition -> ``attn_branch`` ->
+  unpartition on the same inputs and times the two, interleaved (the A/B
+  of the switch).
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -38,13 +48,16 @@ path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
 configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
 (K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
-depthwise shape of the three configurations.
+depthwise shape of the three configurations; ``a7m_48`` and ``a_base``
+time only their new kernels.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
 train step for the backward ones, of Tiny-ImageNet for the grid and MLP
-kernels and of Model B for the others: the kernel, its plain version, one
+kernels, of Model B for the outlook and depthwise ones, of ``a7m_48`` and
+``a_base`` for the block-packed core and the NHWC branch: the kernel, its
+plain version, one
 PyTorch call computing the same function where there is one, and the bound
 from the bytes and operations of the same launches), then the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -124,6 +137,27 @@ MODEL_B_MODEL_CFG = {
     "use_pallas": "fused_agg",
 }
 MODEL_B_PARAMS = 12_266_266
+# The `model:` section of configs/cifar100_model_a.yaml, the config that
+# configs/train.yaml and scripts/train.py use (a test checks the two agree,
+# and the count against the JAX build).
+A_BASE_MODEL_CFG = {
+    "type": "model_a",
+    "num_classes": 100,
+    "in_ch": 3,
+    "stem_dim": 64,
+    "dpr_max": 0.12,
+    "stages": [
+        {"dim": 80, "depth": 2, "num_heads": 2, "grid_size": 4,
+         "outlook_heads": 2},
+        {"dim": 160, "depth": 3, "num_heads": 5, "grid_size": 4,
+         "outlook_heads": 5},
+        {"dim": 320, "depth": 4, "num_heads": 10, "grid_size": 2,
+         "outlook_heads": 10},
+        {"dim": 448, "depth": 2, "num_heads": 8, "grid_size": 1,
+         "outlook_heads": 8},
+    ],
+}
+A_BASE_PARAMS = 32_974_583
 BATCH = 64
 TRAIN_BATCH = 128
 SEED = 0
@@ -148,6 +182,7 @@ class ModelCase:
     loss_steps: int
     fixed_draws_loss: bool  # the loss loop reuses one step's draws
     dwconv: str = "xla"  # every MBConv's depthwise mode (build_model)
+    attn_nhwc: bool = False  # the N >= 64 grids through #12 (build_model)
 
     @property
     def front(self) -> int:
@@ -192,9 +227,22 @@ MODEL_B_O = dataclasses.replace(
     loss_steps=4, dwconv="t")
 # the 7M train step with the conv forward and the depthwise backward kernel
 # (#11)
-A7M_DWB = dataclasses.replace(FLAGSHIP, tag="a7m_dwb", loss_steps=6,
+A7M_DWB = dataclasses.replace(FLAGSHIP, tag="a7m_dwb", loss_steps=4,
                               fixed_draws_loss=True, dwconv="bwd")
-CASES = (FLAGSHIP, TIN, MODEL_B, MODEL_B_V, MODEL_B_O, A7M_DWB)
+# the 7M model at 48 px: grids of N=36 at stage 0 (#6); the crop pad of
+# scripts/bench_config.py:75-76 at that size
+A7M_48 = dataclasses.replace(FLAGSHIP, tag="a7m_48", img=48, crop_pad=6,
+                             loss_steps=6, fixed_draws_loss=True)
+# the default Model A with the yaml's recipe (cutmix only, no label
+# smoothing) and the N=64 grids of stage 0 through #12
+A_BASE = ModelCase(
+    "a_base", "configs/cifar100_model_a.yaml", A_BASE_MODEL_CFG,
+    A_BASE_PARAMS, 32, (0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761),
+    4, {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
+        "min_lr": 1e-6, "label_smoothing": 0.0, "mixup_alpha": 0.0,
+        "cutmix_alpha": 1.0, "mix_prob": 0.5}, 6, True, attn_nhwc=True)
+CASES = (FLAGSHIP, TIN, MODEL_B, MODEL_B_V, MODEL_B_O, A7M_DWB, A7M_48,
+         A_BASE)
 OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch",
                    "fused_outlook": "outlook_softmax"}
 # Every outlooker shape of the three configurations: (H=W, C, heads).
@@ -316,15 +364,40 @@ SOURCES = {
          "dwconv3x3_t backward (#10, :211, variant t)",
          "outgridvit_tpu/ops/experimental/dwconv_bwd_pallas.py:201 "
          "dwconv3x3 backward (#11, :170, variant bwd)"]),
+    "grid_mhsa_packed": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas.py:183",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:183 grid_mhsa_pallas "
+         "(#6, forward :202)"]),
+    "grid_mhsa_packed_bwd": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas.py:244",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
+         "backward (#6, :244)"]),
+    "attn_branch_nhwc": (
+        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        "outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127",
+        ["outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127 "
+         "attn_branch_nhwc_pallas (#12, forward :158)"]),
+    "attn_branch_nhwc_bwd": (
+        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        "outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:188",
+        ["outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:178 "
+         "attn_branch_nhwc_pallas backward (#12, :188)"]),
 }
 FWD = ("grid_mhsa", "attn_branch", "mlp_branch", "outlook_agg",
-       "outlook_branch", "outlook_softmax", "dwconv3x3")
+       "outlook_branch", "outlook_softmax", "dwconv3x3", "grid_mhsa_packed",
+       "attn_branch_nhwc")
 # #9 has no backward kernel (its backward is autograd of plain PyTorch)
 BWD = tuple(name + "_bwd" for name in FWD if name + "_bwd" in SOURCES)
 OUTLOOK = ("outlook_agg", "outlook_branch")
 # the case whose forward / train step each kernel's ms are taken on
 TIMED_ON = {"outlook_agg": "model_b", "outlook_branch": "model_b",
-            "outlook_softmax": "model_b_o", "dwconv3x3": "model_b_o"}
+            "outlook_softmax": "model_b_o", "dwconv3x3": "model_b_o",
+            "grid_mhsa_packed": "a7m_48", "attn_branch_nhwc": "a_base"}
+# the kernel each kind of grid attention (stage_shapes' "attn") launches
+ATTN_KERNEL = {"grid": "grid_mhsa", "packed": "grid_mhsa_packed",
+               "branch": "attn_branch", "nhwc": "attn_branch_nhwc"}
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -355,7 +428,10 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     and the JAX kernels the port's dispatch stands for (as
     ``models/blocks.py`` and ``models/layers.py`` pick them)."""
     from outgridvit_tpu_torch.ops.attn_branch import MIN_TOKENS
-    from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
+    from outgridvit_tpu_torch.ops.grid_attention import (
+        MAX_TOKENS,
+        grid_mhsa_variant,
+    )
     from outgridvit_tpu_torch.ops.mlp_branch import mlp_branch_variant
 
     out = []
@@ -370,7 +446,9 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
             "G": batch * g * g, "N": N, "heads": s["num_heads"],
             "M": batch * hw * hw, "H_outlook": 2 * C, "H_block": 4 * C,
             "mid": 4 * C,
-            "attn": "branch" if N >= MIN_TOKENS else "grid",
+            "g": g,
+            "attn": ("nhwc" if case.attn_nhwc else "branch")
+            if N >= MIN_TOKENS else "packed" if N > MAX_TOKENS else "grid",
             "grid_variant": grid_mhsa_variant(N, C),
             "mlp_variant": mlp_branch_variant(hw * hw, C),
         })
@@ -387,8 +465,7 @@ def launch_plan(case, shapes, backward=False):
         variants["dwconv3x3_bwd"] = {}
     for sh in shapes:
         n = sh["blocks"]
-        todo = [("attn_branch" if sh["attn"] == "branch" else "grid_mhsa", n,
-                 sh["grid_variant"]),
+        todo = [(ATTN_KERNEL[sh["attn"]], n, sh["grid_variant"]),
                 ("mlp_branch", n + sh["outlook"], sh["mlp_variant"])]
         if case.outlook_kernel:
             todo.append((case.outlook_kernel, sh["outlook"], None))
@@ -422,6 +499,27 @@ def time_ms(fn, args, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
+def nhwc_via_tokens(args, backward):
+    """#12's function (``attn_branch_nhwc`` or its backward, on their
+    arguments) computed as partition -> #5 -> unpartition, the two copies
+    included."""
+    from outgridvit_tpu_torch.ops.attn_branch import (
+        _tokens,
+        _untokens,
+        attn_branch,
+        attn_branch_backward,
+    )
+
+    g = args[-1]
+    x, meta = _tokens(args[0], g)
+    if not backward:  # x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, heads, g
+        return _untokens(attn_branch(x, *args[1:8]), meta)
+    # x, ..., bp, dy, heads, g
+    dx, *grads = attn_branch_backward(x, *args[1:7], _tokens(args[7], g)[0],
+                                      args[8])
+    return (_untokens(dx, meta), *grads)
+
+
 def work(name, args, outs):
     """(bytes, matrix-product flop, other flop) of one launch: each input
     read once and each output written once; the operations the function
@@ -434,15 +532,20 @@ def work(name, args, outs):
                  for t in (*args, *outs) if torch.is_tensor(t))
     base, bwd = name.removesuffix("_bwd"), name.endswith("_bwd")
     x = args[0]
-    if base == "grid_mhsa":  # softmax(q.k^T).v per head
+    if base in ("grid_mhsa", "grid_mhsa_packed"):  # softmax(q.k^T).v
         G, N, C = x.shape[0], x.shape[1], x.shape[2] // 3
         return nbytes, (10 if bwd else 4) * G * N * N * C, \
             5 * G * args[-1] * N * N
-    if base == "attn_branch":  # + LN, the qkv and output projections
-        G, N, C = x.shape
+    if base in ("attn_branch", "attn_branch_nhwc"):  # + LN, projections
+        if base == "attn_branch":
+            (G, N, C), heads = x.shape, args[-1]
+        else:  # x [B, H, W, C], ..., heads, g
+            heads, g = args[-2], args[-1]
+            G, N, C = (x.shape[0] * g * g, x.shape[1] * x.shape[2] // g // g,
+                       x.shape[3])
         return nbytes, ((22 if bwd else 8) * G * N * C * C
                         + (10 if bwd else 4) * G * N * N * C), \
-            5 * G * args[-1] * N * N + 10 * G * N * C
+            5 * G * heads * N * N + 10 * G * N * C
     if base == "mlp_branch":  # LN, fc1, activation, fc2
         M, C = x.shape
         H = args[3].shape[1]
@@ -489,7 +592,7 @@ def library_call(name, args):
         G, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
         q, k, v = (t.contiguous() for t in qkv.reshape(
             G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4))
-        if name == "grid_mhsa":
+        if not name.endswith("_bwd"):
             return lambda: F.scaled_dot_product_attention(q, k, v)
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(q, k, v)
@@ -546,11 +649,20 @@ class Smoke:
             "dwconv3x3": (dw.dwconv3x3, dw.dwconv3x3_reference),
             "dwconv3x3_bwd": (dw.dwconv3x3_backward,
                               dw.dwconv3x3_backward_reference),
+            "grid_mhsa_packed": (ga.grid_mhsa_packed,
+                                 ga.grid_mhsa_packed_reference),
+            "grid_mhsa_packed_bwd": (ga.grid_mhsa_packed_backward,
+                                     ga.grid_mhsa_packed_backward_reference),
+            "attn_branch_nhwc": (ab.attn_branch_nhwc,
+                                 ab.attn_branch_nhwc_reference),
+            "attn_branch_nhwc_bwd": (ab.attn_branch_nhwc_backward,
+                                     ab.attn_branch_nhwc_backward_reference),
         }
         self.max_err = {n: 0.0 for n in SOURCES}
         self.launches = {n: {} for n in SOURCES}   # name -> {path: count}
         self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
         self.ms = {}                               # name -> timings
+        self.ab = {}                     # #12 vs #5 + copies, per pass
 
     # -- launch counters --------------------------------------------------
     def reset_counts(self):
@@ -622,15 +734,19 @@ class Smoke:
         if name in OUTLOOK:
             return self.outlook_args(name, sh["batch"], sh["H_img"], C,
                                      sh["outlook_heads"], dtype, backward)
-        if name == "grid_mhsa":
+        if name in ("grid_mhsa", "grid_mhsa_packed"):
             return (r(G, N, 3 * C).to(dtype), heads)
         ln = (r(C, scale=0.1, shift=1.0), r(C, scale=0.1))
-        if name == "attn_branch":
-            return (r(G, N, C).to(dtype), *ln,
+        if name in ("attn_branch", "attn_branch_nhwc"):
+            hw = sh["H_img"]
+            x = (r(G, N, C) if name == "attn_branch"
+                 else r(sh["batch"], hw, hw, C))
+            return (x.to(dtype), *ln,
                     r(C, 3 * C, scale=C ** -0.5).to(dtype),
                     r(3 * C, scale=0.02).to(dtype),
                     r(C, C, scale=C ** -0.5).to(dtype),
-                    r(C, scale=0.02).to(dtype), heads)
+                    r(C, scale=0.02).to(dtype), heads) \
+                + (() if name == "attn_branch" else (sh["g"],))
         M = sh["M"]
         return (r(M, C).to(dtype), *ln, r(C, H, scale=C ** -0.5).to(dtype),
                 r(H, scale=0.02).to(dtype),
@@ -644,11 +760,12 @@ class Smoke:
         if base in OUTLOOK or base == "dwconv3x3":
             # (v, a, wp, g) / (x, a, wv, bv, wp, g) / (x, w9, dy)
             return args
-        if base == "grid_mhsa":
+        if base in ("grid_mhsa", "grid_mhsa_packed"):
             dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
             return (args[0], dout, args[1])
-        if base == "attn_branch":
-            return (*args[:7], self.randn(*args[0].shape).to(dtype), args[7])
+        if base in ("attn_branch", "attn_branch_nhwc"):
+            return (*args[:7], self.randn(*args[0].shape).to(dtype),
+                    *args[7:])
         return (*args[:7], self.randn(*args[0].shape, scale=0.01).to(dtype),
                 *args[7:])
 
@@ -663,8 +780,7 @@ class Smoke:
         sfx = "_bwd" if backward else ""
         for sh in shapes:
             tag = f"stage{sh['stage']}"
-            attn = "attn_branch" if sh["attn"] == "branch" else "grid_mhsa"
-            names = [(attn, None, sh["blocks"]),
+            names = [(ATTN_KERNEL[sh["attn"]], None, sh["blocks"]),
                      ("mlp_branch", sh["H_outlook"], sh["outlook"]),
                      ("mlp_branch", sh["H_block"], sh["blocks"])] \
                 if core else []
@@ -692,6 +808,9 @@ class Smoke:
                              f"heads={sh['heads']}")
                     if base == "grid_mhsa":
                         label += f" variant={sh['grid_variant']}"
+                    if base == "attn_branch_nhwc":
+                        label += (f" (B={sh['batch']} H=W={sh['H_img']} "
+                                  f"g={sh['g']})")
                 out.append((name, make(name, sh, dtype, H), label, sh, count))
         return out
 
@@ -749,6 +868,8 @@ class Smoke:
                     del args
                 if case is MODEL_B:
                     self.compare_outlook(backward, batch, dtype)
+            if case is A_BASE:
+                self.compare_nhwc_with_tokens(shapes[0], backward)
             if case is FLAGSHIP:  # every activation and the no-LN form
                 sh = shapes[0]
                 name = "mlp_branch" + ("_bwd" if backward else "")
@@ -759,6 +880,71 @@ class Smoke:
                                                 sh["H_block"], act, False),
                                      dtype, f"{case.tag} stage0 M={sh['M']} "
                                      f"C={sh['C']} act={act} ln=False")
+
+    def compare_nhwc_with_tokens(self, sh, backward):
+        """#12 against #5 on the same inputs, partitioned: the forward bit
+        for bit; dx bit for bit and the parameter grads within WGRAD_TOL
+        (the windows are walked in partition order, so they are expected
+        bitwise too; the line says whether they are)."""
+        import torch
+
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[-1]
+            name = "attn_branch_nhwc" + ("_bwd" if backward else "")
+            args = (self.bwd_args if backward else self.fwd_args)(
+                name, sh, dtype)
+            got = self.kernels[name][0](*args)
+            want = nhwc_via_tokens(args, backward)
+            if not backward:
+                require(torch.equal(got, want),
+                        f"{name} a_base stage0 {dt}: not bitwise equal to "
+                        "partition -> attn_branch -> unpartition")
+                print(f"[compare] {name} a_base stage0 {dt} vs partition -> "
+                      "attn_branch -> unpartition: bitwise equal")
+                continue
+            require(torch.equal(got[0], want[0]),
+                    f"{name} {dt}: dx differs from attn_branch_backward's")
+            rel = [((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30)).item()
+                   for g, w in zip(got[1:], want[1:])]
+            bitwise = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+            require(max(rel) <= WGRAD_TOL[dt],
+                    f"{name} {dt}: param grads off attn_branch_backward's by "
+                    f"{rel}")
+            print(f"[compare] {name} a_base stage0 {dt} vs attn_branch_"
+                  f"backward on the partitioned inputs: dx bitwise equal; "
+                  f"param grads max rel {max(rel):.1e} (tol "
+                  f"{WGRAD_TOL[dt]:g}), bitwise equal: {bitwise}")
+
+    def ab_nhwc(self, iters=20):
+        """The switch's A/B at ``a_base`` stage 0 in bf16: #12 against
+        partition -> #5 -> unpartition (the two copies included), forward
+        at the serving batch and backward at the train batch, timed in
+        turns (#12, #5, #5, #12) in this process."""
+        import torch
+
+        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
+            sh = stage_shapes(A_BASE, batch)[0]
+            name = "attn_branch_nhwc" + ("_bwd" if backward else "")
+            args = (self.bwd_args if backward else self.fwd_args)(
+                name, sh, torch.bfloat16)
+            fns = {"nhwc": lambda: self.kernels[name][0](*args),
+                   "tokens": lambda: nhwc_via_tokens(args, backward)}
+            runs = {"nhwc": [], "tokens": []}
+            for which in ("nhwc", "tokens", "tokens", "nhwc"):
+                runs[which].append(time_ms(fns[which], (), iters=iters,
+                                           warmup=3))
+            res = {k: sum(v) / len(v) for k, v in runs.items()}
+            self.ab[name] = dict(
+                res, per_launch=True, batch=batch,
+                runs={k: [round(t, 6) for t in v] for k, v in runs.items()})
+            print(f"[ab] a_base stage0 {name} B={batch} bf16, per launch: "
+                  f"#12 {res['nhwc']:.4f} ms ({runs['nhwc'][0]:.4f}, "
+                  f"{runs['nhwc'][1]:.4f}) vs partition + #5 + unpartition "
+                  f"{res['tokens']:.4f} ms ({runs['tokens'][0]:.4f}, "
+                  f"{runs['tokens'][1]:.4f}): #12/#5+copies "
+                  f"{res['nhwc'] / res['tokens']:.3f} [{self.gpu}]")
+            del args
 
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
@@ -827,6 +1013,9 @@ class Smoke:
         for name, args, label, sh, count in self.cases(
                 shapes, backward, torch.bfloat16, outlook, dw=new,
                 core=not new):
+            if (case in (A7M_48, A_BASE) and TIMED_ON.get(
+                    name.removesuffix("_bwd")) != case.tag):
+                continue  # the kernels of the path timed on another case
             kern, plain = self.kernels[name]
             k_ms = time_ms(kern, args, iters=iters, warmup=2)
             p_ms = time_ms(plain, args, iters=iters, warmup=2)
@@ -878,7 +1067,8 @@ class Smoke:
         img, classes = case.img, case.model["num_classes"]
         pred = build_predictor(case.model, batch_size=BATCH, img_size=img,
                                mean=case.mean, std=case.std, device=self.dev,
-                               seed=SEED, dwconv=case.dwconv)
+                               seed=SEED, dwconv=case.dwconv,
+                               attn_nhwc=case.attn_nhwc)
         n_params = sum(p.numel() for p in pred.model.parameters())
         print(f"[predictor] {case.tag} ({case.config}) params={n_params} "
               f"batch={BATCH} img={img} dtype={pred.model.dtype}")
@@ -934,7 +1124,8 @@ class Smoke:
 
         def model(dtype, use_kernels):
             m = build_model(case.model, dtype=dtype, use_kernels=use_kernels,
-                            device=self.dev, dwconv=case.dwconv)
+                            device=self.dev, dwconv=case.dwconv,
+                            attn_nhwc=case.attn_nhwc)
             m.load_state_dict(state)
             return m
 
@@ -1020,7 +1211,8 @@ class Smoke:
         def new_state(dtype, use_kernels, lr=bench_lr):
             model = build_model(case.model, dtype=dtype,
                                 use_kernels=use_kernels, device=dev,
-                                seed=SEED, dwconv=case.dwconv)
+                                seed=SEED, dwconv=case.dwconv,
+                                attn_nhwc=case.attn_nhwc)
             return TrainState.create(model, AdamW(
                 lr, T["weight_decay"], T["grad_clip_norm"]))
 
@@ -1123,7 +1315,7 @@ class Smoke:
                           ("plain path", new_state(torch.bfloat16, False))):
             def one(st=st):
                 step(st, (images, labels), draws)
-            ms = time_ms(one, (), iters=10, warmup=3)
+            ms = time_ms(one, (), iters=6, warmup=2)
             print(f"[time] {case.tag} train step bs{TRAIN_BATCH} bf16 "
                   f"{label} (uint8 in, augment + mix + fwd + bwd + AdamW; "
                   f"draws sampled beforehand): {ms:.3f} ms/step, "
@@ -1173,6 +1365,9 @@ class Smoke:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "ms_per": t["per"],
             })
+            if name in self.ab:
+                out[-1]["ab_vs_partition_attn_branch_unpartition_ms"] = \
+                    self.ab[name]
         return out
 
 
@@ -1213,10 +1408,12 @@ def main() -> int:
         if case is not A7M_DWB:
             smoke.serve(case)
         if full:
-            smoke.time_kernels(case, backward=False, iters=20)
+            smoke.time_kernels(case, backward=False, iters=12)
         smoke.train(case)
         if case is not MODEL_B_V:
-            smoke.time_kernels(case, backward=True, iters=10)
+            smoke.time_kernels(case, backward=True, iters=6)
+        if case is A_BASE:
+            smoke.ab_nhwc()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

@@ -1,9 +1,22 @@
 // Fused pre-LN grid-attention branch y = proj(MHSA(qkv(LN(x)))) for grids
-// of N >= 64 tokens, forward and backward.
+// of N >= 64 tokens, forward and backward, on tokens or on an NHWC map.
 //
-// Replaces the TPU kernel outgridvit_tpu/ops/attn_branch_pallas.py:
-// attn_branch_pallas: `_fwd_kernel` / `_rows_fwd` (attn_branch_fwd here) and
-// `_bwd_kernel` / `_rows_bwd` (attn_branch_bwd), with their rounding points
+// Replaces two TPU kernels that share their branch math (`_rows_fwd` /
+// `_rows_bwd`):
+// - outgridvit_tpu/ops/attn_branch_pallas.py:attn_branch_pallas (#5):
+//   `_fwd_kernel` (attn_branch_fwd here) and `_bwd_kernel` (attn_branch_bwd)
+//   on tokens x [G, N, C] (ogvt_attn_branch, ogvt_attn_branch_bwd);
+// - outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:
+//   attn_branch_nhwc_pallas (#12): the same on the raw map x [B, H, W, C],
+//   the dilated grid partition folded into the loads and stores
+//   (ogvt_attn_branch_nhwc, ogvt_attn_branch_nhwc_bwd). Token n = i*Wg + j
+//   of window w = (b*g + gy)*g + gx sits at pixel (b, i*g + gy, j*g + gx)
+//   (Geom::token); the windows are numbered in the partition's order
+//   (ops/grid.py), so the per-block partials below, and with them the
+//   parameter grads, are the same as #5's on the partitioned tokens, bit for
+//   bit. Each token's C channels stay contiguous, so a row load stays
+//   coalesced; only the stride between tokens changes.
+// Both with the rounding points
 // (round() is the cast to the compute type, common.cuh:round_to):
 //   forward:  xn = round(LN(x)) (fp32 statistics, fast variance clamped at
 //             0); qkv = round(xn.Wqkv + bqkv); per head, logits = q.k^T
@@ -54,6 +67,19 @@ constexpr int kMaxBwdBlocks = 264;                     // 2 per SM on 132 SMs
 constexpr long long kMaxWorkspaceFloats = 16ll << 20;  // 64 MB of partials
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// Where token n of window w starts: tokens [G, N, C] when g == 0, else the
+// pixel of an NHWC map [B, Hg*g, Wg*g, C] that window w's token n is.
+struct Geom {
+  int g, Hg, Wg;
+
+  __device__ size_t token(int w, int n, int N, int C) const {
+    if (g == 0) return (static_cast<size_t>(w) * N + n) * C;
+    const int b = w / (g * g), gy = (w / g) % g, gx = w % g;
+    const int row = (n / Wg) * g + gy, col = (n % Wg) * g + gx;
+    return ((static_cast<size_t>(b) * Hg * g + row) * Wg * g + col) * C;
+  }
+};
+
 // LayerNorm over the C columns of rows [0, R) of s_x (row stride ld), one
 // warp per row, with flax's numerics: fp32 statistics, fast variance clamped
 // at 0. Writes round(LN(x)) to s_xn (may alias s_x); when s_rstd is given
@@ -84,30 +110,6 @@ __device__ void layernorm_rows(float* s_x, float* s_xn, int ld, int R, int C,
   }
 }
 
-// Softmax over the N columns of rows [0, R) of s (row stride ld), one warp
-// per row: fp32, max subtracted, divided by the sum; cast to T when `round`
-// (the forward's P.V operand).
-template <typename T>
-__device__ void softmax_rows(float* s, int ld, int R, int N, bool round) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < R; r += blockDim.x / 32) {
-    float* row = s + r * ld;
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
-    mx = warp_max(mx);
-    float den = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      row[m] = expf(row[m] - mx);
-      den += row[m];
-    }
-    den = warp_sum(den);
-    for (int m = lane; m < N; m += 32) {
-      const float p = row[m] / den;
-      row[m] = round ? round_to<T>(p) : p;
-    }
-  }
-}
-
 // Shared-memory floats of one block; the Python wrapper
 // (ops/attn_branch.py:smem_bytes) mirrors both.
 size_t fwd_smem_floats(int N, int C) {
@@ -125,8 +127,8 @@ __global__ void __launch_bounds__(kFwdThreads)
 attn_branch_fwd(const T* __restrict__ x, const float* __restrict__ ls,
                 const float* __restrict__ lb, const T* __restrict__ wqkv,
                 const T* __restrict__ bqkv, const T* __restrict__ wp,
-                const T* __restrict__ bp, T* __restrict__ y, int N, int C,
-                int heads, float scale, float eps, int apply_ln) {
+                const T* __restrict__ bp, T* __restrict__ y, Geom geo, int N,
+                int C, int heads, float scale, float eps, int apply_ln) {
   constexpr int RT = 8;
   extern __shared__ float smem[];
   const int C3 = 3 * C, hd = C / heads;
@@ -135,10 +137,9 @@ attn_branch_fwd(const T* __restrict__ x, const float* __restrict__ ls,
   float* s_qkv = s_x + N * lx;  // [N, lq] q | k | v, heads contiguous
   float* s_p = s_qkv + N * lq;  // [N, lp] one head's logits, then round(a)
 
-  const size_t g = blockIdx.x;
-  const T* xg = x + g * N * C;
+  const int w = blockIdx.x;
   for (int i = threadIdx.x; i < N * C; i += blockDim.x) {
-    s_x[(i / C) * lx + i % C] = to_f32(xg[i]);
+    s_x[(i / C) * lx + i % C] = to_f32(x[geo.token(w, i / C, N, C) + i % C]);
   }
   __syncthreads();
   if (apply_ln) {
@@ -168,10 +169,10 @@ attn_branch_fwd(const T* __restrict__ x, const float* __restrict__ ls,
                           });
     __syncthreads();
   }
-  T* yg = y + g * N * C;
   block_gemm<RT, float>(s_x, lx, 1, N, C, wp, C, 1, C,
                         [&](int n, int j, float acc) {
-                          yg[n * C + j] = from_f32<T>(acc + to_f32(bp[j]));
+                          y[geo.token(w, n, N, C) + j] =
+                              from_f32<T>(acc + to_f32(bp[j]));
                         });
 }
 
@@ -187,8 +188,9 @@ attn_branch_bwd(const T* __restrict__ x, const float* __restrict__ ls,
                 const float* __restrict__ lb, const T* __restrict__ wqkv,
                 const T* __restrict__ bqkv, const float* __restrict__ wqkvt,
                 const float* __restrict__ wpt, const T* __restrict__ dy,
-                T* __restrict__ dx, float* __restrict__ part, int G, int N,
-                int C, int heads, float scale, float eps, int apply_ln) {
+                T* __restrict__ dx, float* __restrict__ part, Geom geo, int G,
+                int N, int C, int heads, float scale, float eps,
+                int apply_ln) {
   constexpr int RT = 4;
   extern __shared__ float smem[];
   const int C3 = 3 * C, hd = C / heads;
@@ -213,12 +215,12 @@ attn_branch_bwd(const T* __restrict__ x, const float* __restrict__ ls,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  for (int g = blockIdx.x; g < G; g += gridDim.x) {
-    const size_t off = static_cast<size_t>(g) * N * C;
+  for (int w = blockIdx.x; w < G; w += gridDim.x) {
     for (int i = tid; i < N * C; i += blockDim.x) {
       const int e = (i / C) * lx + i % C;
-      s_x[e] = s_xn[e] = to_f32(x[off + i]);
-      s_dy[e] = to_f32(dy[off + i]);
+      const size_t src = geo.token(w, i / C, N, C) + i % C;
+      s_x[e] = s_xn[e] = to_f32(x[src]);
+      s_dy[e] = to_f32(dy[src]);
     }
     __syncthreads();
     if (apply_ln) {
@@ -322,7 +324,6 @@ attn_branch_bwd(const T* __restrict__ x, const float* __restrict__ ls,
                           });
     __syncthreads();
 
-    T* dxg = dx + off;
     if (apply_ln) {
       for (int c = tid; c < C; c += blockDim.x) {
         float sls = 0.f, slb = 0.f;
@@ -343,14 +344,15 @@ attn_branch_bwd(const T* __restrict__ x, const float* __restrict__ ls,
           s2 = fmaf(dxhat, xh[c], s2);
         }
         const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+        T* dxr = dx + geo.token(w, r, N, C);
         for (int c = lane; c < C; c += 32) {
-          dxg[r * C + c] =
-              from_f32<T>(s_rstd[r] * (d[c] * ls[c] - m1 - xh[c] * m2));
+          dxr[c] = from_f32<T>(s_rstd[r] * (d[c] * ls[c] - m1 - xh[c] * m2));
         }
       }
     } else {
       for (int i = tid; i < N * C; i += blockDim.x) {
-        dxg[i] = from_f32<T>(s_dy[(i / C) * lx + i % C]);
+        dx[geo.token(w, i / C, N, C) + i % C] =
+            from_f32<T>(s_dy[(i / C) * lx + i % C]);
       }
     }
     __syncthreads();  // before the next grid overwrites shared memory
@@ -381,9 +383,9 @@ bool shape_ok(int G, int N, int C, int heads) {
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* ls, const void* lb,
                        const void* wqkv, const void* bqkv, const void* wp,
-                       const void* bp, void* y, int G, int N, int C,
-                       int heads, float scale, float eps, int apply_ln,
-                       cudaStream_t stream) {
+                       const void* bp, void* y, Geom geo, int G, int N,
+                       int C, int heads, float scale, float eps,
+                       int apply_ln, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(N, C) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(attn_branch_fwd<T>, smem);
@@ -392,8 +394,8 @@ cudaError_t launch_fwd(const void* x, const void* ls, const void* lb,
       static_cast<const T*>(x), static_cast<const float*>(ls),
       static_cast<const float*>(lb), static_cast<const T*>(wqkv),
       static_cast<const T*>(bqkv), static_cast<const T*>(wp),
-      static_cast<const T*>(bp), static_cast<T*>(y), N, C, heads, scale, eps,
-      apply_ln);
+      static_cast<const T*>(bp), static_cast<T*>(y), geo, N, C, heads, scale,
+      eps, apply_ln);
   return cudaGetLastError();
 }
 
@@ -401,6 +403,7 @@ struct BwdArgs {
   const void *x, *ls, *lb, *wqkv, *bqkv, *wp, *dy;
   void *dx, *dls, *dlb, *dwqkv, *dbqkv, *dwp, *dbp;
   float* ws;
+  Geom geo;
   int G, N, C, heads;
   float scale, eps;
   int apply_ln;
@@ -425,8 +428,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.x), static_cast<const float*>(a.ls),
       static_cast<const float*>(a.lb), static_cast<const T*>(a.wqkv),
       static_cast<const T*>(a.bqkv), wqkvt, wpt, static_cast<const T*>(a.dy),
-      static_cast<T*>(a.dx), part, a.G, a.N, C, a.heads, a.scale, a.eps,
-      a.apply_ln);
+      static_cast<T*>(a.dx), part, a.geo, a.G, a.N, C, a.heads, a.scale,
+      a.eps, a.apply_ln);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const long long stride = partial_floats(C);
@@ -450,6 +453,50 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return reduce<float>(part + o_dlb, p.P, stride, C, a.dlb, stream);
 }
 
+int fwd(const void* x, const void* ln_scale, const void* ln_bias,
+        const void* wqkv, const void* bqkv, const void* wp, const void* bp,
+        void* y, Geom geo, int G, int N, int C, int heads, float scale,
+        float eps, int apply_ln, int dtype, void* stream) {
+  if (!shape_ok(G, N, C, heads)) return cudaErrorInvalidValue;
+  if (G == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_fwd<float>(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y,
+                               geo, G, N, C, heads, scale, eps, apply_ln, s);
+    case kBFloat16:
+      return launch_fwd<__nv_bfloat16>(x, ln_scale, ln_bias, wqkv, bqkv, wp,
+                                       bp, y, geo, G, N, C, heads, scale, eps,
+                                       apply_ln, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int bwd(const BwdArgs& a, int dtype, void* stream) {
+  if (!shape_ok(a.G, a.N, a.C, a.heads) || a.G == 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_bwd<float>(a, s);
+    case kBFloat16:
+      return launch_bwd<__nv_bfloat16>(a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The windows of an NHWC map [B, H, W, C] with grid size g, or false.
+bool nhwc_geom(int B, int H, int W, int g, Geom* geo, int* G, int* N) {
+  if (B < 0 || g < 1 || H < g || W < g || H % g || W % g) return false;
+  *geo = Geom{g, H / g, W / g};
+  *G = B * g * g;
+  *N = geo->Hg * geo->Wg;
+  return true;
+}
+
 }  // namespace
 
 // x, y [G, N, C]; wqkv [C, 3C]; bqkv [3C]; wp [C, C]; bp [C]: contiguous,
@@ -460,20 +507,24 @@ extern "C" int ogvt_attn_branch(const void* x, const void* ln_scale,
                                 const void* bp, void* y, int G, int N, int C,
                                 int heads, float scale, float eps,
                                 int apply_ln, int dtype, void* stream) {
-  if (!shape_ok(G, N, C, heads)) return cudaErrorInvalidValue;
-  if (G == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_fwd<float>(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, G,
-                               N, C, heads, scale, eps, apply_ln, s);
-    case kBFloat16:
-      return launch_fwd<__nv_bfloat16>(x, ln_scale, ln_bias, wqkv, bqkv, wp,
-                                       bp, y, G, N, C, heads, scale, eps,
-                                       apply_ln, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fwd(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, Geom{0, 0, 0}, G,
+             N, C, heads, scale, eps, apply_ln, dtype, stream);
+}
+
+// The same on x, y [B, H, W, C] with grid size g (H and W divisible by g):
+// the B*g*g windows of (H/g)*(W/g) tokens each.
+extern "C" int ogvt_attn_branch_nhwc(const void* x, const void* ln_scale,
+                                     const void* ln_bias, const void* wqkv,
+                                     const void* bqkv, const void* wp,
+                                     const void* bp, void* y, int B, int H,
+                                     int W, int C, int g, int heads,
+                                     float scale, float eps, int apply_ln,
+                                     int dtype, void* stream) {
+  Geom geo;
+  int G, N;
+  if (!nhwc_geom(B, H, W, g, &geo, &G, &N)) return cudaErrorInvalidValue;
+  return fwd(x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, geo, G, N, C, heads,
+             scale, eps, apply_ln, dtype, stream);
 }
 
 // Floats of fp32 workspace ogvt_attn_branch_bwd needs for these shapes.
@@ -493,18 +544,28 @@ extern "C" int ogvt_attn_branch_bwd(
     void* dx, void* dln_scale, void* dln_bias, void* dwqkv, void* dbqkv,
     void* dwp, void* dbp, void* ws, int G, int N, int C, int heads,
     float scale, float eps, int apply_ln, int dtype, void* stream) {
-  if (!shape_ok(G, N, C, heads) || G == 0) return cudaErrorInvalidValue;
-  const BwdArgs a{x,     ln_scale, ln_bias, wqkv, bqkv, wp,
-                  dy,    dx,       dln_scale, dln_bias, dwqkv, dbqkv,
-                  dwp,   dbp,      static_cast<float*>(ws), G, N, C, heads,
-                  scale, eps,      apply_ln};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_bwd<float>(a, s);
-    case kBFloat16:
-      return launch_bwd<__nv_bfloat16>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const BwdArgs a{x, ln_scale, ln_bias, wqkv, bqkv, wp, dy,
+                  dx, dln_scale, dln_bias, dwqkv, dbqkv, dwp, dbp,
+                  static_cast<float*>(ws), Geom{0, 0, 0}, G, N, C, heads,
+                  scale, eps, apply_ln};
+  return bwd(a, dtype, stream);
+}
+
+// The same on x, dy, dx [B, H, W, C] with grid size g; ws:
+// ogvt_attn_branch_bwd_workspace(B*g*g, C) floats.
+extern "C" int ogvt_attn_branch_nhwc_bwd(
+    const void* x, const void* ln_scale, const void* ln_bias,
+    const void* wqkv, const void* bqkv, const void* wp, const void* dy,
+    void* dx, void* dln_scale, void* dln_bias, void* dwqkv, void* dbqkv,
+    void* dwp, void* dbp, void* ws, int B, int H, int W, int C, int g,
+    int heads, float scale, float eps, int apply_ln, int dtype,
+    void* stream) {
+  Geom geo;
+  int G, N;
+  if (!nhwc_geom(B, H, W, g, &geo, &G, &N)) return cudaErrorInvalidValue;
+  const BwdArgs a{x, ln_scale, ln_bias, wqkv, bqkv, wp, dy,
+                  dx, dln_scale, dln_bias, dwqkv, dbqkv, dwp, dbp,
+                  static_cast<float*>(ws), geo, G, N, C, heads,
+                  scale, eps, apply_ln};
+  return bwd(a, dtype, stream);
 }

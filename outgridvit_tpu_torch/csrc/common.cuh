@@ -1,10 +1,11 @@
 // Shared helpers for the OutGridViT CUDA kernels: element-type conversion,
 // the dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16), warp
-// reductions, the block-wide product from shared memory and the dynamic
-// shared-memory opt-in.
+// reductions, the block-wide product from shared memory, the row softmax and
+// the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <cuda_runtime.h>
 
 namespace ogvt {
@@ -76,6 +77,30 @@ __device__ __forceinline__ void block_gemm(const float* A, int asr, int ask,
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       if (r0 + i < R) epi(r0 + i, j, acc[i]);
+    }
+  }
+}
+
+// Softmax over the N columns of rows [0, R) of s (row stride ld), one warp
+// per row: fp32, max subtracted, divided by the sum; cast to T when `round`
+// (the P.V operand of the fused branch and of the block-packed core).
+template <typename T>
+__device__ void softmax_rows(float* s, int ld, int R, int N, bool round) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < R; r += blockDim.x / 32) {
+    float* row = s + r * ld;
+    float mx = -INFINITY;
+    for (int m = lane; m < N; m += 32) mx = fmaxf(mx, row[m]);
+    mx = warp_max(mx);
+    float den = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      row[m] = expf(row[m] - mx);
+      den += row[m];
+    }
+    den = warp_sum(den);
+    for (int m = lane; m < N; m += 32) {
+      const float p = row[m] / den;
+      row[m] = round ? round_to<T>(p) : p;
     }
   }
 }

@@ -23,12 +23,14 @@ from outgridvit_tpu_torch.models.layers import (
 from outgridvit_tpu_torch.ops.attn_branch import (
     MIN_TOKENS,
     attn_branch_autograd,
+    attn_branch_nhwc_autograd,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import (
     MAX_TOKENS,
     grid_mhsa_autograd,
+    grid_mhsa_packed_autograd,
     grid_mhsa_reference,
     grid_mhsa_variant,
 )
@@ -58,11 +60,12 @@ class OutlookAttention2d(nn.Module):
     takes the ``"xla"`` path); ``"fused_outlook"`` (#9, any K) fuses the
     softmax of the raw logits with the aggregate and projects apart. A
     fused mode runs the CUDA kernels with ``use_kernels`` and their plain
-    versions without: one function either way."""
+    versions without: one function either way. ``xla`` as in
+    :class:`~outgridvit_tpu_torch.models.layers.Dense`."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  dtype=torch.float32, device=None, mode: str = "xla",
-                 use_kernels: bool = False):
+                 use_kernels: bool = False, xla: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
@@ -74,9 +77,10 @@ class OutlookAttention2d(nn.Module):
         self.heads, self.k = num_heads, kernel_size
         self.mode, self.use_kernels = mode, use_kernels
         kk = kernel_size * kernel_size
-        self.attn = Dense(dim, num_heads * kk, dtype=dtype, device=device)
-        self.v = Dense(dim, dim, dtype=dtype, device=device)
-        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.attn = Dense(dim, num_heads * kk, dtype=dtype, device=device,
+                          xla=xla)
+        self.v = Dense(dim, dim, dtype=dtype, device=device, xla=xla)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device, xla=xla)
 
     def forward(self, x):
         B, H, W, _ = x.shape
@@ -109,55 +113,78 @@ class MultiHeadSelfAttention(nn.Module):
     The JAX dispatch by grid size N (``outgridvit_tpu/models/blocks.py:
     259-373``), on the kernel path and the plain path alike:
 
-    - N >= 64: the fused branch :func:`attn_branch_autograd` (LN, qkv,
-      attention and proj in one kernel, norm2's LN passed in);
+    - N >= 64: the fused branch :func:`attn_branch_autograd` (#5: LN, qkv,
+      attention and proj in one kernel, norm2's LN passed in), or with
+      ``attn_nhwc`` :func:`attn_branch_nhwc_autograd` (#12: the same on the
+      NHWC map, the partition folded into the kernel; the JAX package's
+      ``OUTGRIDVIT_FUSED_ATTN_NHWC=1``, which the port does not read);
     - N <= 16: LN and qkv, the core :func:`grid_mhsa_autograd` (tagged
       ``"t"`` or ``"th"`` by :func:`grid_mhsa_variant`), proj;
-    - 16 < N < 64: the block-packed core, kernel #6 (``grid_mhsa_pallas``),
-      not ported: the kernel path raises, the plain path computes its math
-      (probabilities cast to the compute dtype before P.V).
+    - 16 < N < 64: LN and qkv, the block-packed core
+      :func:`grid_mhsa_packed_autograd` (#6), proj.
+
+    ``xla`` takes the JAX package's XLA-only path instead (``use_pallas:
+    false``, ``outgridvit_tpu/models/blocks.py:375-398``) at every N: LN
+    cast to the compute dtype, ``qkv = x@W`` and ``+ b`` each rounded,
+    fp32 logits and softmax, the probabilities cast before P.V, ``out@Wp``
+    and ``+ bp`` each rounded; plain PyTorch under autograd, no kernel.
 
     qkv's last axis is laid out (3, heads, hd)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
-                 use_kernels: bool = False, device=None):
+                 use_kernels: bool = False, device=None, xla: bool = False,
+                 attn_nhwc: bool = False):
         super().__init__()
         if dim <= 0 or num_heads <= 0 or dim % num_heads:
             raise ValueError(
                 f"dim ({dim}) must be > 0 and divisible by num_heads "
                 f"({num_heads})")
         self.heads, self.use_kernels = num_heads, use_kernels
-        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
-        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.xla, self.attn_nhwc = xla, attn_nhwc
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device, xla=xla)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device, xla=xla)
+
+    def _branch_weights(self):
+        dt = self.qkv.dtype
+        return (self.qkv.weight.to(dt).t().contiguous(), self.qkv.bias.to(dt),
+                self.proj.weight.to(dt).t().contiguous(),
+                self.proj.bias.to(dt))
 
     def forward(self, x, ln: LayerNorm, grid_size: int):
+        B, H, W, C = x.shape
+        N = (H // grid_size) * (W // grid_size)
+        dt = self.qkv.dtype
+        if N >= MIN_TOKENS and self.attn_nhwc and not self.xla:
+            return attn_branch_nhwc_autograd(
+                x.to(dt).contiguous(), ln.weight, ln.bias,
+                *self._branch_weights(), self.heads, grid_size, ln.eps, True,
+                self.use_kernels)
         grids, meta = grid_partition(x, grid_size)
-        G, Hg, Wg, C = grids.shape
-        N = Hg * Wg
+        G, Hg, Wg, _ = grids.shape
         tokens = grids.reshape(G, N, C)
-        if N >= MIN_TOKENS:
-            dt = self.qkv.dtype
+        if self.xla:
+            out = self._xla(tokens, ln)
+        elif N >= MIN_TOKENS:
             out = attn_branch_autograd(
                 tokens.to(dt).contiguous(), ln.weight, ln.bias,
-                self.qkv.weight.to(dt).t().contiguous(), self.qkv.bias.to(dt),
-                self.proj.weight.to(dt).t().contiguous(),
-                self.proj.bias.to(dt), self.heads, ln.eps, True,
+                *self._branch_weights(), self.heads, ln.eps, True,
                 self.use_kernels)
         else:
-            if N > MAX_TOKENS and self.use_kernels:
-                raise NotImplementedError(
-                    f"grid attention with {MAX_TOKENS} < N={N} < {MIN_TOKENS} "
-                    "tokens runs the block-packed kernel #6 "
-                    "(grid_mhsa_pallas), not ported yet (ROADMAP §2)")
             t = layernorm_fp32(tokens, ln.weight, ln.bias, ln.eps)
             qkv = self.qkv(t).contiguous()
             if N > MAX_TOKENS:
-                core = grid_mhsa_reference(qkv, self.heads, round_probs=True)
+                core = grid_mhsa_packed_autograd(qkv, self.heads,
+                                                 self.use_kernels)
             else:
                 core = grid_mhsa_autograd(qkv, self.heads, self.use_kernels,
                                           grid_mhsa_variant(N, C))
             out = self.proj(core)
         return grid_unpartition(out.reshape(G, Hg, Wg, C), meta)
+
+    def _xla(self, tokens, ln: LayerNorm):
+        qkv = self.qkv(layernorm_fp32(tokens, ln.weight, ln.bias, ln.eps))
+        return self.proj(grid_mhsa_reference(qkv, self.heads,
+                                             round_probs=True))
 
 
 class GridAttention2D(nn.Module):
@@ -166,11 +193,12 @@ class GridAttention2D(nn.Module):
     which the weight bridge maps key for key."""
 
     def __init__(self, dim: int, num_heads: int, grid_size: int,
-                 dtype=torch.float32, use_kernels: bool = False, device=None):
+                 dtype=torch.float32, use_kernels: bool = False, device=None,
+                 xla: bool = False, attn_nhwc: bool = False):
         super().__init__()
         self.grid_size = grid_size
         self.mhsa = MultiHeadSelfAttention(dim, num_heads, dtype, use_kernels,
-                                           device)
+                                           device, xla, attn_nhwc)
 
     def forward(self, x, ln: LayerNorm):
         if x.dim() != 4:
@@ -186,14 +214,15 @@ class OutlookerBlock2d(nn.Module):
                  mlp_ratio: float = 2.0, act: str = "gelu",
                  norm_eps: float = 1e-6, drop_path: float = 0.0,
                  dtype=torch.float32, use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla"):
+                 outlook_mode: str = "xla", xla: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps, device)
         self.attn = OutlookAttention2d(dim, num_heads, kernel_size, dtype,
-                                       device, outlook_mode, use_kernels)
+                                       device, outlook_mode, use_kernels, xla)
         self.dp1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps, device)
-        self.mlp = ChannelMLP(dim, mlp_ratio, act, dtype, use_kernels, device)
+        self.mlp = ChannelMLP(dim, mlp_ratio, act, dtype, use_kernels, device,
+                              xla)
         self.dp2 = DropPath(drop_path)
 
     def forward(self, x, masks: Optional[DropPathMasks] = None):
@@ -209,11 +238,14 @@ class OutGridBlock(nn.Module):
     ``num_heads == 0`` and ``use_mbconv=False`` skip their branch. The grid
     and MLP norms use eps 1e-5. ``outlook_mode`` as in
     :class:`OutlookAttention2d`, ``dwconv`` as in
-    :class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`."""
+    :class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`, ``xla``
+    and ``attn_nhwc`` as in :class:`MultiHeadSelfAttention` (``xla`` also
+    for the MLPs, :class:`~outgridvit_tpu_torch.models.layers.ChannelMLP`)."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
                  use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla", dwconv: str = "xla"):
+                 outlook_mode: str = "xla", dwconv: str = "xla",
+                 xla: bool = False, attn_nhwc: bool = False):
         super().__init__()
         C = cfg.dim
         self.dropout = {"attn_drop": cfg.attn_drop,
@@ -221,22 +253,23 @@ class OutGridBlock(nn.Module):
         self.outlook = (OutlookerBlock2d(
             C, cfg.outlook_heads, cfg.outlook_kernel, cfg.outlook_mlp_ratio,
             cfg.mlp_act, drop_path=cfg.drop_path, dtype=dtype,
-            use_kernels=use_kernels, device=device, outlook_mode=outlook_mode)
-            if cfg.outlook_heads > 0 else None)
+            use_kernels=use_kernels, device=device, outlook_mode=outlook_mode,
+            xla=xla) if cfg.outlook_heads > 0 else None)
         self.mbconv = (MBConv(C, C, 1, MBConvConfig(
             expand_ratio=cfg.mbconv_expand_ratio, se_ratio=cfg.mbconv_se_ratio,
             act=cfg.mbconv_act, use_bn=cfg.use_bn), dtype, device, dwconv,
-            use_kernels) if cfg.use_mbconv else None)
+            use_kernels, xla) if cfg.use_mbconv else None)
         if cfg.num_heads > 0:
             self.norm2 = LayerNorm(C, 1e-5, device)
             self.grid_attn = GridAttention2D(C, cfg.num_heads, cfg.grid_size,
-                                             dtype, use_kernels, device)
+                                             dtype, use_kernels, device, xla,
+                                             attn_nhwc)
             self.dp2 = DropPath(cfg.drop_path)
         else:
             self.norm2 = self.grid_attn = self.dp2 = None
         self.norm3 = LayerNorm(C, 1e-5, device)
         self.mlp = ChannelMLP(C, cfg.mlp_ratio, cfg.mlp_act, dtype,
-                              use_kernels, device)
+                              use_kernels, device, xla)
         self.dp3 = DropPath(cfg.drop_path)
 
     def forward(self, x, masks: Optional[DropPathMasks] = None):
@@ -261,6 +294,7 @@ class GridOnlyBlock(OutGridBlock):
     outlooker; the submodule and drop-path names are the same."""
 
     def __init__(self, cfg: StageCfg, dtype=torch.float32,
-                 use_kernels: bool = False, device=None, dwconv: str = "xla"):
+                 use_kernels: bool = False, device=None, dwconv: str = "xla",
+                 xla: bool = False, attn_nhwc: bool = False):
         super().__init__(cfg.replace(outlook_heads=0), dtype, use_kernels,
-                         device, dwconv=dwconv)
+                         device, dwconv=dwconv, xla=xla, attn_nhwc=attn_nhwc)

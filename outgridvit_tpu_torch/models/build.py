@@ -23,9 +23,8 @@ _REMAT_OFF = ("off", "none", "false", "0", "")
 def outlook_mode(use_pallas: Any) -> str:
     """The outlook path ``model.use_pallas`` asks for
     (``outgridvit_tpu/models/blocks.py:89-156``): ``"xla"`` for None or a
-    boolean (the kernels are then ``use_kernels``'s choice), or the fused
-    mode it names (``fused_agg`` #7, ``fused_agg_v`` #8, ``fused_outlook``
-    #9); any other string is refused."""
+    boolean, or the fused mode it names (``fused_agg`` #7, ``fused_agg_v``
+    #8, ``fused_outlook`` #9); any other string is refused."""
     if use_pallas is None or isinstance(use_pallas, bool):
         return "xla"
     fused = OUTLOOK_MODES[1:]
@@ -45,7 +44,7 @@ def _check_remat(remat: Any) -> None:
 
 def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
                 use_kernels: Optional[bool] = None, device="cuda",
-                seed: int = 0, dwconv: str = "xla"
+                seed: int = 0, dwconv: str = "xla", attn_nhwc: bool = False
                 ) -> Union[MaxOutNet, OutlookerFrontGridNet]:
     """Build a model in eval mode with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (skipped on the ``meta``
@@ -54,16 +53,31 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
     ``use_kernels``: None runs the CUDA kernels iff ``device`` is CUDA;
     False runs their plain PyTorch versions; True on a non-CUDA device
     raises. ``model.use_pallas`` picks the outlook path
-    (:func:`outlook_mode`); ``model.remat`` other than off raises.
+    (:func:`outlook_mode`); ``false`` is the JAX package's XLA-only path
+    (``outgridvit_tpu/models/build.py:28-32``): no kernel runs, whatever
+    ``use_kernels`` says, and the grid attention and the MLPs take the XLA
+    rounding points (``xla`` of
+    :class:`~outgridvit_tpu_torch.models.blocks.MultiHeadSelfAttention` and
+    :class:`~outgridvit_tpu_torch.models.layers.ChannelMLP`).
+    ``model.remat`` other than off raises.
 
     ``dwconv`` picks every MBConv's depthwise 3x3, the port's one switch
     for the family that the JAX package opts into with ``OUTGRIDVIT_DW_T``
     and ``OUTGRIDVIT_DW_BWD`` (neither env var is read): ``"xla"`` the
     grouped conv, ``"t"`` TPU kernel #10's forward and backward, ``"bwd"``
     the conv forward and #11's backward
-    (:class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`)."""
+    (:class:`~outgridvit_tpu_torch.models.layers.DepthwiseConv3x3`).
+
+    ``attn_nhwc`` runs the grids of N >= 64 tokens through TPU kernel #12,
+    the fused branch on the NHWC map with the partition folded in, in place
+    of partition -> #5 -> unpartition: the port's switch for the JAX
+    package's ``OUTGRIDVIT_FUSED_ATTN_NHWC=1`` (not read). Off by default,
+    as in JAX."""
     device = torch.device(device)
-    if use_kernels is None:
+    xla = model_cfg.get("use_pallas") is False
+    if xla:
+        use_kernels = False
+    elif use_kernels is None:
         use_kernels = device.type == "cuda"
     elif use_kernels and device.type != "cuda":
         raise ValueError(
@@ -80,7 +94,7 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         down_cfg=DownsampleConfig.from_dict(model_cfg.get("downsample", {})
                                             or {}),
         dtype=dtype, use_kernels=use_kernels, device=device,
-        outlook_mode=mode, dwconv=dwconv)
+        outlook_mode=mode, dwconv=dwconv, xla=xla, attn_nhwc=attn_nhwc)
     if model_type in _MODEL_A_ALIASES:
         model = MaxOutNet(**common)
     elif model_type in _MODEL_B_ALIASES:

@@ -5,7 +5,10 @@ and MBConv.
 
 Parameters are fp32 in PyTorch's layouts (Linear [out, in], Conv OIHW,
 depthwise [C, 1, 3, 3]) and are cast to the module's compute ``dtype`` per
-call, as the JAX package casts its fp32 params. Submodule names follow the
+call, as the JAX package casts its fp32 params. ``xla`` (the JAX package's
+``use_pallas: false`` path) rounds as XLA evaluates the same ops: a dense
+layer's product and bias add apart, the activations op by op
+(:func:`~outgridvit_tpu_torch.ops.activations.make_activation`). Submodule names follow the
 reference torch ``state_dict`` keys (``stem.stem.0/1``, ``mbconv.expand.0/1``,
 ``downs.i.op.0/1``), so ``outgridvit_tpu/utils/port_torch.py`` maps them onto
 the JAX tree unchanged.
@@ -105,12 +108,13 @@ class DropPath(nn.Module):
 
 class Dense(nn.Module):
     """``nn.Dense`` over the last axis: fp32 ``weight`` [out, in] and
-    optional ``bias``, computed in ``dtype``."""
+    optional ``bias``, computed in ``dtype``; with ``xla`` the product and
+    the bias add are rounded apart (``x @ w + b`` in the JAX package)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, xla: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.xla = dtype, xla
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
@@ -119,6 +123,9 @@ class Dense(nn.Module):
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
+        if self.xla:
+            y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+            return y if b is None else y + b
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
@@ -187,20 +194,30 @@ class ChannelMLP(nn.Module):
     kernels forward and backward, otherwise their plain versions. Launches
     are tagged with the JAX kernel the shape picks
     (:func:`mlp_branch_variant`, ``outgridvit_tpu/models/layers.py:237-241``);
-    the math is the same."""
+    the math is the same.
+
+    ``xla`` takes the JAX package's unfused XLA path instead (``use_pallas:
+    false``, ``outgridvit_tpu/models/layers.py:297-305``): LN cast to the
+    compute dtype, ``x@w1`` and ``+ b1`` each rounded, the activation op
+    by op in the compute dtype, ``@w2`` and ``+ b2`` each rounded; plain
+    PyTorch under autograd, no kernel."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, act: str = "gelu",
-                 dtype=torch.float32, use_kernels: bool = False, device=None):
+                 dtype=torch.float32, use_kernels: bool = False, device=None,
+                 xla: bool = False):
         super().__init__()
         hidden = max(1, int(dim * mlp_ratio))
         self.act = act.lower()
         make_activation(self.act)  # validate the name
-        self.dtype, self.use_kernels = dtype, use_kernels
-        self.fc1 = Dense(dim, hidden, dtype=dtype, device=device)
-        self.fc2 = Dense(hidden, dim, dtype=dtype, device=device)
+        self.dtype, self.use_kernels, self.xla = dtype, use_kernels, xla
+        self.fc1 = Dense(dim, hidden, dtype=dtype, device=device, xla=xla)
+        self.fc2 = Dense(hidden, dim, dtype=dtype, device=device, xla=xla)
 
     def forward(self, x, ln: LayerNorm):
         dt = self.dtype
+        if self.xla:
+            h = self.fc1(layernorm_fp32(x, ln.weight, ln.bias, ln.eps))
+            return self.fc2(make_activation(self.act, xla=True)(h))
         spatial = math.prod(x.shape[1:-1])
         return mlp_branch_autograd(
             x.to(dt).contiguous(), ln.weight, ln.bias,
@@ -215,14 +232,15 @@ class SqueezeExcite(nn.Module):
     sigmoid."""
 
     def __init__(self, channels: int, se_ratio: float = 0.25,
-                 act: str = "silu", dtype=torch.float32, device=None):
+                 act: str = "silu", dtype=torch.float32, device=None,
+                 xla: bool = False):
         super().__init__()
         if not 0.0 < se_ratio <= 1.0:
             raise ValueError("se_ratio must be in (0, 1].")
         hidden = max(1, int(channels * se_ratio))
-        self.act = make_activation(act)
-        self.fc1 = Dense(channels, hidden, dtype=dtype, device=device)
-        self.fc2 = Dense(hidden, channels, dtype=dtype, device=device)
+        self.act = make_activation(act, xla)
+        self.fc1 = Dense(channels, hidden, dtype=dtype, device=device, xla=xla)
+        self.fc2 = Dense(hidden, channels, dtype=dtype, device=device, xla=xla)
 
     def forward(self, x):
         s = x.float().mean(dim=(1, 2), keepdim=True).to(x.dtype)
@@ -238,26 +256,29 @@ class MBConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
                  cfg: MBConvConfig = MBConvConfig(), dtype=torch.float32,
-                 device=None, dwconv: str = "xla", use_kernels: bool = False):
+                 device=None, dwconv: str = "xla", use_kernels: bool = False,
+                 xla: bool = False):
         super().__init__()
         if in_ch <= 0 or out_ch <= 0:
             raise ValueError("in_ch and out_ch must be > 0")
         if stride not in (1, 2):
             raise ValueError("stride must be 1 or 2")
-        self.act = make_activation(cfg.act)
+        self.act = make_activation(cfg.act, xla)
         self.residual = stride == 1 and in_ch == out_ch
         bn = cfg.use_bn
         mid = max(1, int(round(in_ch * cfg.expand_ratio)))
         self.expand = (_conv_bn(Dense(in_ch, mid, bias=not bn, dtype=dtype,
-                                      device=device), mid, bn, device)
+                                      device=device, xla=xla), mid, bn,
+                                device)
                        if mid != in_ch else None)
         self.depthwise = _conv_bn(
             DepthwiseConv3x3(mid, stride, not bn, dtype, device, dwconv,
                              use_kernels), mid, bn, device)
-        self.se = (SqueezeExcite(mid, cfg.se_ratio, cfg.act, dtype, device)
-                   if cfg.se_ratio > 0 else None)
+        self.se = (SqueezeExcite(mid, cfg.se_ratio, cfg.act, dtype, device,
+                                 xla) if cfg.se_ratio > 0 else None)
         self.project = _conv_bn(Dense(mid, out_ch, bias=not bn, dtype=dtype,
-                                      device=device), out_ch, bn, device)
+                                      device=device, xla=xla), out_ch, bn,
+                                device)
 
     def forward(self, x):
         out = x
@@ -275,13 +296,13 @@ class Downsample(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int,
                  cfg: DownsampleConfig = DownsampleConfig(),
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, xla: bool = False):
         super().__init__()
         if cfg.kind != "conv":
             raise NotImplementedError(
                 f"downsample kind '{cfg.kind}' is not ported yet (ROADMAP "
                 "§1); only 'conv' is")
-        self.act = make_activation(cfg.act)
+        self.act = make_activation(cfg.act, xla)
         self.op = _conv_bn(ConvNHWC(in_ch, out_ch, 3, 2, bias=not cfg.use_bn,
                                     dtype=dtype, device=device),
                            out_ch, cfg.use_bn, device)
@@ -294,14 +315,15 @@ class ConvStem(nn.Module):
     """3x3 stride-1 stem -> BN -> SiLU."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32,
-                 device=None):
+                 device=None, xla: bool = False):
         super().__init__()
         self.stem = nn.Sequential(
             ConvNHWC(in_ch, out_ch, 3, dtype=dtype, device=device),
             BatchNorm(out_ch, device=device))
+        self.act = make_activation("silu", xla)
 
     def forward(self, x):
-        return F.silu(self.stem(x))
+        return self.act(self.stem(x))
 
 
 def init_parameters(model: nn.Module, generator: Optional[torch.Generator]):

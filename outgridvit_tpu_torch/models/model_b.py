@@ -37,14 +37,15 @@ class OutlookerFrontGridNet(nn.Module):
                  outlooker_front_depth: int = 2, dpr_max: float = 0.1,
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None,
-                 outlook_mode: str = "xla", dwconv: str = "xla"):
+                 outlook_mode: str = "xla", dwconv: str = "xla",
+                 xla: bool = False, attn_nhwc: bool = False):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
         self.dtype = dtype
-        self.stem = ConvStem(in_ch, stem_dim, dtype, device)
+        self.stem = ConvStem(in_ch, stem_dim, dtype, device, xla)
         self.proj_in = (Dense(stem_dim, stages[0].dim, dtype=dtype,
-                              device=device)
+                              device=device, xla=xla)
                         if stem_dim != stages[0].dim else None)
         dprs = iter(make_dpr(
             outlooker_front_depth + sum(s.depth for s in stages), dpr_max))
@@ -54,17 +55,18 @@ class OutlookerFrontGridNet(nn.Module):
                              f.outlook_mlp_ratio, f.mlp_act,
                              drop_path=next(dprs), dtype=dtype,
                              use_kernels=use_kernels, device=device,
-                             outlook_mode=outlook_mode)
+                             outlook_mode=outlook_mode, xla=xla)
             for _ in range(outlooker_front_depth))
         self.dropout = {"attn_drop": f.attn_drop, "proj_drop": f.proj_drop,
                         "ffn_drop": f.ffn_drop}
         self.stages = nn.ModuleList(
             nn.ModuleList(GridOnlyBlock(s.replace(drop_path=next(dprs)),
-                                        dtype, use_kernels, device, dwconv)
+                                        dtype, use_kernels, device, dwconv,
+                                        xla, attn_nhwc)
                           for _ in range(s.depth))
             for s in stages)
         self.downs = nn.ModuleList(
-            Downsample(a.dim, b.dim, down_cfg, dtype, device)
+            Downsample(a.dim, b.dim, down_cfg, dtype, device, xla)
             for a, b in zip(stages[:-1], stages[1:]))
         self.head_norm = BatchNorm(stages[-1].dim, device=device)
         self.classifier = Dense(stages[-1].dim, num_classes,

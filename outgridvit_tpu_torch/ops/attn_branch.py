@@ -19,6 +19,13 @@ compute dtype before P.V; P.V summed in fp32 and cast once;
 The backward (:func:`attn_branch_backward_reference`, ``_rows_bwd``) saves
 only the inputs and recomputes the rest. :func:`attn_branch_autograd` is the
 differentiable branch the model calls.
+
+The NHWC variant (twin of ``outgridvit_tpu/ops/experimental/
+attn_branch_nhwc_pallas.py:attn_branch_nhwc_pallas``, TPU kernel #12)
+computes ``grid_unpartition(branch(grid_partition(x, g)))`` on the raw map
+x ``[B, H, W, C]``: its kernels are the same ones with the partition folded
+into their loads and stores (:func:`attn_branch_nhwc`,
+:func:`attn_branch_nhwc_backward`, :func:`attn_branch_nhwc_autograd`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import ctypes
 import torch
 
 from outgridvit_tpu_torch.ops import kernel_build
+from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_reference
 from outgridvit_tpu_torch.ops.mlp_branch import layernorm_fp32
 
@@ -133,9 +141,10 @@ def smem_bytes(N: int, C: int, heads: int, backward: bool) -> int:
 
 
 def _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                  heads, backward):
-    """Validate what the kernels take; returns (G, N, C)."""
-    G, N, C = _check(x, heads)
+                  heads, backward, shape=None):
+    """Validate what the kernels take; returns (G, N, C), of the tokens x
+    or, for an NHWC x, of its windows ``shape``."""
+    G, N, C = shape or _check(x, heads)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in kernel_build.DTYPE_CODES:
@@ -156,6 +165,8 @@ def _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                 f"{name}: {tname} must be contiguous on {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
+    if heads <= 0 or C % heads:
+        raise ValueError(f"{name}: C={C} must be divisible by heads={heads}")
     if smem_bytes(N, C, heads, backward) > _MAX_SMEM:
         raise ValueError(f"{name}: a grid of N={N}, C={C}, heads={heads} "
                          "exceeds shared memory")
@@ -203,12 +214,7 @@ def attn_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy,
                                               eps, apply_ln)
     G, N, C = _check_launch("attn_branch_backward", x, ln_scale, ln_bias,
                             wqkv, bqkv, wproj, bproj, heads, True)
-    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
-            or not dy.is_contiguous()):
-        raise ValueError(
-            f"attn_branch_backward: dy is {tuple(dy.shape)} {dy.dtype} on "
-            f"{dy.device}; expected contiguous {tuple(x.shape)} {x.dtype} "
-            f"on {x.device}")
+    _check_dy("attn_branch_backward", x, dy)
     lib = kernel_build.load()
     ws = torch.empty(lib.ogvt_attn_branch_bwd_workspace(G, C),
                      dtype=torch.float32, device=x.device)
@@ -230,6 +236,14 @@ def attn_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy,
 
 
 attn_branch_backward.launches = 0
+
+
+def _check_dy(name, x, dy):
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(
+            f"{name}: dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}; "
+            f"expected contiguous {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
 class _AttnBranch(torch.autograd.Function):
@@ -262,3 +276,167 @@ def attn_branch_autograd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     versions, both ways."""
     return _AttnBranch.apply(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                              heads, eps, apply_ln, use_kernels)
+
+
+# ---- #12: the same branch on an NHWC map ---------------------------------
+
+def _windows(x: torch.Tensor, heads: int, grid_size: int):
+    """(G, N, C) of the grid windows of x [B, H, W, C]."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C]; got {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    g = grid_size
+    if g <= 0 or H % g or W % g:
+        raise ValueError(
+            f"H and W must be divisible by grid_size; got {H}x{W}, g={g}")
+    if heads <= 0 or C % heads:
+        raise ValueError(f"C={C} must be divisible by heads={heads}")
+    return B * g * g, (H // g) * (W // g), C
+
+
+def _tokens(x: torch.Tensor, grid_size: int):
+    grids, meta = grid_partition(x, grid_size)
+    G, Hg, Wg, C = grids.shape
+    return grids.reshape(G, Hg * Wg, C), meta
+
+
+def _untokens(t: torch.Tensor, meta):
+    B, H, W, C, g = meta
+    return grid_unpartition(t.reshape(B * g * g, H // g, W // g, C), meta)
+
+
+def attn_branch_nhwc_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                               bproj, heads: int, grid_size: int,
+                               eps: float = 1e-5, apply_ln: bool = True):
+    """Plain PyTorch version of #12: x [B, H, W, C] -> [B, H, W, C],
+    partition -> :func:`attn_branch_reference` -> unpartition."""
+    _windows(x, heads, grid_size)
+    tokens, meta = _tokens(x, grid_size)
+    return _untokens(attn_branch_reference(
+        tokens, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, eps,
+        apply_ln), meta)
+
+
+def attn_branch_nhwc_backward_reference(x, ln_scale, ln_bias, wqkv, bqkv,
+                                        wproj, bproj, dy, heads: int,
+                                        grid_size: int, eps: float = 1e-5,
+                                        apply_ln: bool = True):
+    """Plain PyTorch version of #12's backward: x and dy partitioned,
+    :func:`attn_branch_backward_reference`, dx unpartitioned. Returns
+    ``(dx, dln_scale, dln_bias, dwqkv, dbqkv, dwproj, dbproj)``."""
+    _windows(x, heads, grid_size)
+    tokens, meta = _tokens(x, grid_size)
+    dx, *grads = attn_branch_backward_reference(
+        tokens, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+        _tokens(dy, grid_size)[0], heads, eps, apply_ln)
+    return (_untokens(dx, meta), *grads)
+
+
+def attn_branch_nhwc(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                     heads: int, grid_size: int, eps: float = 1e-5,
+                     apply_ln: bool = True):
+    """#12's forward, x [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches
+    the kernel (or raises); a CPU tensor takes
+    :func:`attn_branch_nhwc_reference`."""
+    if x.device.type == "cpu":
+        return attn_branch_nhwc_reference(x, ln_scale, ln_bias, wqkv, bqkv,
+                                          wproj, bproj, heads, grid_size, eps,
+                                          apply_ln)
+    shape = _windows(x, heads, grid_size)
+    _check_launch("attn_branch_nhwc", x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                  bproj, heads, False, shape)
+    B, H, W, C = x.shape
+    y = torch.empty_like(x)
+    lib = kernel_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_attn_branch_nhwc(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            bproj.data_ptr(), y.data_ptr(), B, H, W, C, grid_size, heads,
+            ctypes.c_float((C // heads) ** -0.5), float(eps),
+            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "attn_branch_nhwc launch")
+    attn_branch_nhwc.launches += 1
+    return y
+
+
+attn_branch_nhwc.launches = 0
+
+
+def attn_branch_nhwc_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                              dy, heads: int, grid_size: int,
+                              eps: float = 1e-5, apply_ln: bool = True):
+    """#12's gradients ``(dx, dln_scale, dln_bias, dwqkv, dbqkv, dwproj,
+    dbproj)`` for dy [B, H, W, C]. A CUDA tensor launches the kernels (or
+    raises); a CPU tensor takes :func:`attn_branch_nhwc_backward_reference`.
+    The windows are walked in partition order, so the parameter grads equal
+    :func:`attn_branch_backward`'s on the partitioned tokens, bit for
+    bit."""
+    if x.device.type == "cpu":
+        return attn_branch_nhwc_backward_reference(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy, heads,
+            grid_size, eps, apply_ln)
+    shape = _windows(x, heads, grid_size)
+    G, _, C = _check_launch("attn_branch_nhwc_backward", x, ln_scale,
+                            ln_bias, wqkv, bqkv, wproj, bproj, heads, True,
+                            shape)
+    _check_dy("attn_branch_nhwc_backward", x, dy)
+    B, H, W, _ = x.shape
+    lib = kernel_build.load()
+    ws = torch.empty(lib.ogvt_attn_branch_bwd_workspace(G, C),
+                     dtype=torch.float32, device=x.device)
+    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
+             torch.empty_like(ln_bias), torch.empty_like(wqkv),
+             torch.empty_like(bqkv), torch.empty_like(wproj),
+             torch.empty_like(bproj))
+    with torch.cuda.device(x.device):
+        err = lib.ogvt_attn_branch_nhwc_bwd(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), dy.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), B, H, W, C,
+            grid_size, heads, ctypes.c_float((C // heads) ** -0.5),
+            float(eps), int(bool(apply_ln)),
+            kernel_build.DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "attn_branch_nhwc_backward launch")
+    attn_branch_nhwc_backward.launches += 1
+    return grads
+
+
+attn_branch_nhwc_backward.launches = 0
+
+
+class _AttnBranchNHWC(torch.autograd.Function):
+    """#12, recompute style as ``_nhwc_fwd``/``_nhwc_bwd``: saves only the
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads,
+                grid_size, eps, apply_ln, use_kernels):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
+        ctx.cfg = (heads, grid_size, eps, apply_ln, use_kernels)
+        fn = attn_branch_nhwc if use_kernels else attn_branch_nhwc_reference
+        return fn(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads,
+                  grid_size, eps, apply_ln)
+
+    @staticmethod
+    def backward(ctx, dy):
+        heads, grid_size, eps, apply_ln, use_kernels = ctx.cfg
+        fn = (attn_branch_nhwc_backward if use_kernels
+              else attn_branch_nhwc_backward_reference)
+        grads = fn(*ctx.saved_tensors, dy.contiguous(), heads, grid_size, eps,
+                   apply_ln)
+        return (*grads, None, None, None, None, None)
+
+
+def attn_branch_nhwc_autograd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                              heads: int, grid_size: int, eps: float = 1e-5,
+                              apply_ln: bool = True,
+                              use_kernels: bool = False):
+    """Differentiable #12 branch on x [B, H, W, C]: the kernels
+    (:func:`attn_branch_nhwc`, :func:`attn_branch_nhwc_backward`) with
+    ``use_kernels``, else their plain versions, both ways."""
+    return _AttnBranchNHWC.apply(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                 bproj, heads, grid_size, eps, apply_ln,
+                                 use_kernels)

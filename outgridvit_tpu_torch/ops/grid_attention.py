@@ -18,8 +18,18 @@ used by every JAX path for grids of N > 16 tokens (the XLA path,
 the probabilities are normalized by division and cast to the compute dtype
 before P.V.
 
-:func:`grid_mhsa_autograd` is the differentiable core the model calls: a
-``torch.autograd.Function`` that saves only qkv.
+The block-packed TPU kernel ``outgridvit_tpu/ops/grid_attention_pallas.py:
+grid_mhsa_pallas`` (#6, grids of 16 < N < 64 tokens) computes that
+forward; its backward recomputes the probabilities by division and keeps
+them in fp32 (:func:`grid_mhsa_packed_backward_reference`). It packs
+``32 // N`` grids of N < 16 tokens block-diagonally under a -1e30 mask,
+a layout device only: ``exp`` of a masked logit is exactly 0 in fp32. Its
+Hopper kernel ``csrc/grid_mhsa_packed.cu`` (:func:`grid_mhsa_packed`,
+:func:`grid_mhsa_packed_backward`) packs nothing and takes 1 <= N < 64.
+
+:func:`grid_mhsa_autograd` and :func:`grid_mhsa_packed_autograd` are the
+differentiable cores the model calls: ``torch.autograd.Function``s that
+save only qkv.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 from outgridvit_tpu_torch.ops import kernel_build
 
 MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
+PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64
 _MAX_SMEM = 227 * 1024
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
 
@@ -78,18 +89,20 @@ def grid_mhsa_reference(qkv: torch.Tensor, heads: int,
 
 
 def grid_mhsa_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
-                                 heads: int) -> torch.Tensor:
+                                 heads: int, divide: bool = False
+                                 ) -> torch.Tensor:
     """Plain PyTorch version of the backward: (qkv [G, N, 3C], dout
     [G, N, C]) -> dqkv [G, N, 3C], with the rounding points of the Pallas
-    ``_bwd_kernel``: fp32 q, k, v and dO; recomputed probabilities a;
-    ``dp = dO.v^T``; ``ds = a * (dp - sum_m dp*a)``; dq and dk multiplied by
-    the scale before the single cast, dv cast once."""
+    ``_bwd_kernel``: fp32 q, k, v and dO; recomputed fp32 probabilities a
+    (normalized by division with ``divide``, as #6 does); ``dp = dO.v^T``;
+    ``ds = a * (dp - sum_m dp*a)``; dq and dk multiplied by the scale before
+    the single cast, dv cast once."""
     G, N, C = _check(qkv, heads)
     hd = C // heads
     scale = hd**-0.5
     q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
     g = dout.float().reshape(G, N, heads, hd)
-    a = _probs(q, k, hd)
+    a = _probs(q, k, hd, divide)
     dp = torch.einsum("gnhd,gmhd->ghnm", g, v)
     ds = a * (dp - (dp * a).sum(-1, keepdim=True))
     dq = torch.einsum("ghnm,gmhd->gnhd", ds, k) * scale
@@ -98,24 +111,51 @@ def grid_mhsa_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
     return torch.stack([dq, dk, dv], 2).to(qkv.dtype).reshape(G, N, 3 * C)
 
 
+def grid_mhsa_packed_reference(qkv: torch.Tensor,
+                               heads: int) -> torch.Tensor:
+    """Plain PyTorch version of #6's forward (``grid_attention_pallas.py:
+    _attn_tile``): ``grid_mhsa_reference(..., round_probs=True)``."""
+    return grid_mhsa_reference(qkv, heads, round_probs=True)
+
+
+def grid_mhsa_packed_backward_reference(qkv: torch.Tensor,
+                                        dout: torch.Tensor,
+                                        heads: int) -> torch.Tensor:
+    """Plain PyTorch version of #6's backward (``grid_attention_pallas.py:
+    _bwd_kernel``): :func:`grid_mhsa_backward_reference` with the
+    probabilities recomputed by division and kept in fp32 (dv sees the
+    unrounded a, unlike autograd of the forward)."""
+    return grid_mhsa_backward_reference(qkv, dout, heads, divide=True)
+
+
 def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
-                  variant: str):
+                  variant=None, max_tokens: int = MAX_TOKENS):
     G, N, C = _check(qkv, heads)
-    kernel_build.check_variant(name, variant, VARIANTS)
+    if variant is not None:
+        kernel_build.check_variant(name, variant, VARIANTS)
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     if qkv.dtype not in kernel_build.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {qkv.dtype} is not float32/bfloat16")
     if not qkv.is_contiguous():
         raise ValueError(f"{name}: qkv must be contiguous")
-    if not 1 <= N <= MAX_TOKENS:
+    if not 1 <= N <= max_tokens:
         raise ValueError(
             f"{name}: N={N} tokens per grid; the kernel takes "
-            f"1..{MAX_TOKENS}")
+            f"1..{max_tokens}")
     if smem_floats(N, C) * 4 > _MAX_SMEM:
-        raise ValueError(f"{name}: grid of N={N}, C={C} exceeds shared "
-                         "memory")
+        raise ValueError(f"{name}: grid of N={N}, C={C}, heads={heads} "
+                         "exceeds shared memory")
     return G, N, C
+
+
+def _check_dout(name, qkv, dout, G, N, C):
+    if (dout.shape != (G, N, C) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous()):
+        raise ValueError(
+            f"{name}: dout is {tuple(dout.shape)} {dout.dtype} "
+            f"on {dout.device}; expected contiguous {(G, N, C)} {qkv.dtype} "
+            f"on {qkv.device}")
 
 
 def grid_mhsa(qkv: torch.Tensor, heads: int,
@@ -155,12 +195,7 @@ def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     G, N, C = _check_launch("grid_mhsa_backward", qkv, heads,
                             lambda N, C: N * 4 * C + 2 * heads * N * N,
                             variant)
-    if (dout.shape != (G, N, C) or dout.dtype != qkv.dtype
-            or dout.device != qkv.device or not dout.is_contiguous()):
-        raise ValueError(
-            f"grid_mhsa_backward: dout is {tuple(dout.shape)} {dout.dtype} "
-            f"on {dout.device}; expected contiguous {(G, N, C)} {qkv.dtype} "
-            f"on {qkv.device}")
+    _check_dout("grid_mhsa_backward", qkv, dout, G, N, C)
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
     with torch.cuda.device(qkv.device):
@@ -206,3 +241,95 @@ def grid_mhsa_autograd(qkv: torch.Tensor, heads: int, use_kernels: bool,
     :func:`grid_mhsa_backward`) with ``use_kernels``, else the plain
     versions, both ways."""
     return _GridMHSA.apply(qkv, heads, use_kernels, variant)
+
+
+def packed_smem_floats(N: int, C: int, heads: int, backward: bool) -> int:
+    """Shared-memory floats of one block of ``csrc/grid_mhsa_packed.cu``:
+    one head's q, k, v (and dO) rows and its [N, N] probabilities (and ds),
+    rows padded by one float."""
+    hd = C // heads
+    if backward:
+        return 4 * N * (hd + 1) + 2 * N * (N + 1)
+    return 3 * N * (hd + 1) + N * (N + 1)
+
+
+def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """#6's forward, qkv [G, N, 3C] -> [G, N, C]: probabilities divided by
+    their sum and cast to qkv's dtype before P.V. A CUDA tensor launches the
+    kernel (or raises); a CPU tensor takes
+    :func:`grid_mhsa_packed_reference`."""
+    if qkv.device.type == "cpu":
+        return grid_mhsa_packed_reference(qkv, heads)
+    G, N, C = _check_launch(
+        "grid_mhsa_packed", qkv, heads,
+        lambda N, C: packed_smem_floats(N, C, heads, False),
+        max_tokens=PACKED_MAX_TOKENS)
+    out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
+    lib = kernel_build.load()
+    with torch.cuda.device(qkv.device):
+        err = lib.ogvt_grid_mhsa_packed(
+            qkv.data_ptr(), out.data_ptr(), G, N, C, heads,
+            ctypes.c_float((C // heads) ** -0.5),
+            kernel_build.DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "grid_mhsa_packed launch")
+    grid_mhsa_packed.launches += 1
+    return out
+
+
+grid_mhsa_packed.launches = 0
+
+
+def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
+                              heads: int) -> torch.Tensor:
+    """#6's backward, (qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C].
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+    :func:`grid_mhsa_packed_backward_reference`."""
+    if qkv.device.type == "cpu":
+        return grid_mhsa_packed_backward_reference(qkv, dout, heads)
+    G, N, C = _check_launch(
+        "grid_mhsa_packed_backward", qkv, heads,
+        lambda N, C: packed_smem_floats(N, C, heads, True),
+        max_tokens=PACKED_MAX_TOKENS)
+    _check_dout("grid_mhsa_packed_backward", qkv, dout, G, N, C)
+    dqkv = torch.empty_like(qkv)
+    lib = kernel_build.load()
+    with torch.cuda.device(qkv.device):
+        err = lib.ogvt_grid_mhsa_packed_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C, heads,
+            ctypes.c_float((C // heads) ** -0.5),
+            kernel_build.DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, "grid_mhsa_packed_backward launch")
+    grid_mhsa_packed_backward.launches += 1
+    return dqkv
+
+
+grid_mhsa_packed_backward.launches = 0
+
+
+class _GridMHSAPacked(torch.autograd.Function):
+    """#6, recompute style as ``_fwd_vjp``/``_bwd_vjp``: saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, use_kernels):
+        ctx.save_for_backward(qkv)
+        ctx.cfg = (heads, use_kernels)
+        fn = grid_mhsa_packed if use_kernels else grid_mhsa_packed_reference
+        return fn(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        heads, use_kernels = ctx.cfg
+        fn = (grid_mhsa_packed_backward if use_kernels
+              else grid_mhsa_packed_backward_reference)
+        return fn(qkv, dout.contiguous(), heads), None, None
+
+
+def grid_mhsa_packed_autograd(qkv: torch.Tensor, heads: int,
+                              use_kernels: bool) -> torch.Tensor:
+    """Differentiable #6 core: the kernels (:func:`grid_mhsa_packed`,
+    :func:`grid_mhsa_packed_backward`) with ``use_kernels``, else their
+    plain versions, both ways."""
+    return _GridMHSAPacked.apply(qkv, heads, use_kernels)

@@ -67,6 +67,20 @@ _SIGNATURES = {
                                            _P), _I),
     # G, C -> floats of workspace
     "ogvt_attn_branch_bwd_workspace": ((_I, _I), ctypes.c_longlong),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, B, H, W, C, g, heads,
+    # scale, eps, apply_ln, dtype, stream
+    "ogvt_attn_branch_nhwc": ((_P,) * 8 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+                              _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wp, dy, dx, dln_scale, dln_bias,
+    # dwqkv, dbqkv, dwp, dbp, workspace, B, H, W, C, g, heads, scale, eps,
+    # apply_ln, dtype, stream
+    "ogvt_attn_branch_nhwc_bwd": ((_P,) * 15 + (_I,) * 6 + (_F, _F, _I, _I,
+                                                           _P), _I),
+    # qkv, out, G, N, C, heads, scale, dtype, stream
+    "ogvt_grid_mhsa_packed": ((_P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    # qkv, dout, dqkv, G, N, C, heads, scale, dtype, stream
+    "ogvt_grid_mhsa_packed_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+                                  _I),
     # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
     # stream
     "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),

@@ -95,14 +95,16 @@ def build_predictor(
     device="cuda",
     seed: int = 0,
     dwconv: str = "xla",
+    attn_nhwc: bool = False,
 ) -> Predictor:
     """Build a predictor from a model config and either the JAX package's
     ``variables`` (numpy tree, loaded by
     :func:`~outgridvit_tpu_torch.utils.port_jax.load_flax_variables`) or
-    random weights from ``seed``. ``use_kernels`` and ``dwconv`` as in
-    :func:`~outgridvit_tpu_torch.models.build_model`."""
+    random weights from ``seed``. ``use_kernels``, ``dwconv`` and
+    ``attn_nhwc`` as in :func:`~outgridvit_tpu_torch.models.build_model`."""
     model = build_model(model_cfg, dtype=dtype, use_kernels=use_kernels,
-                        device=device, seed=seed, dwconv=dwconv)
+                        device=device, seed=seed, dwconv=dwconv,
+                        attn_nhwc=attn_nhwc)
     if variables is not None:
         from outgridvit_tpu_torch.utils.port_jax import load_flax_variables
 

@@ -13,8 +13,9 @@ same numpy inputs (CPU).
   step's own draws.
 - The bf16 P.V rounding point of grids with N > 16, pinned against the JAX
   XLA path (``outgridvit_tpu/models/blocks.py:394``).
-- The dispatch by grid size (16 < N < 64 raises on the kernel path, naming
-  kernel #6), the launch tags at the full Tiny-ImageNet widths,
+- The dispatch by grid size (16 < N < 64 takes kernel #6's core on the
+  kernel path, against the JAX #6 in interpret mode), the launch tags at the
+  full Tiny-ImageNet widths,
   ``chip_smoke.py``'s configuration, the parameter count and the weight and
   optimizer-state bridge of the full 64px tree.
 
@@ -379,7 +380,7 @@ def test_bf16_grid_attention_rounds_probabilities_like_jax():
 
 # ---- the dispatch by grid size ---------------------------------------------
 
-def test_grids_between_16_and_64_tokens():
+def test_grids_between_16_and_64_tokens(monkeypatch):
     # 12x12 map, grid 2: grids of N=36 tokens (kernel #6 in the JAX package)
     rng = np.random.default_rng(3)
     C = 16
@@ -404,9 +405,24 @@ def test_grids_between_16_and_64_tokens():
         got = port(_t(x), LayerNorm(C, 1e-5))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+    # the kernel path runs #6's core (its plain version on a CPU tensor),
+    # as JAX runs grid_mhsa_pallas at this N
+    calls = []
+    packed = tblocks.grid_mhsa_packed_autograd
+    monkeypatch.setattr(
+        tblocks, "grid_mhsa_packed_autograd",
+        lambda q, h, k: calls.append((tuple(q.shape), k)) or packed(q, h, k))
     port.mhsa.use_kernels = True
-    with pytest.raises(NotImplementedError, match="#6"):
-        port(_t(x), LayerNorm(C, 1e-5))
+    with pltpu.force_tpu_interpret_mode():
+        want6 = jblocks.GridAttention2D(dim=C, num_heads=2, grid_size=2,
+                                        use_pallas=True).apply(
+            {"params": params}, jnp.asarray(x),
+            ln=(jnp.ones(C), jnp.zeros(C), 1e-5))
+    with torch.no_grad():
+        got = port(_t(x), LayerNorm(C, 1e-5))
+    assert calls == [((8, 36, 3 * C), True)]
+    np.testing.assert_allclose(_np(got), np.asarray(want6), atol=1e-5,
+                               rtol=1e-5)
 
 
 def test_launch_tags_at_the_tiny_imagenet_widths(monkeypatch):

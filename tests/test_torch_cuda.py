@@ -12,7 +12,12 @@ ragged last tile, the fused outlook softmax (#9) and the depthwise kernels
 hd = 24, C not a multiple of the vector width), plus tiny models (Model A,
 Model B in the fused outlook modes, Model B with the depthwise mode "t" and
 Model A with "bwd") through the kernels against the plain path, forward and
-one train step.
+one train step; the block-packed grid core (#6) at the 48 px 7M stage-0
+shape and edge shapes (N = 1, 17, 63; hd = 56, 64), the NHWC fused branch
+(#12) at the default Model A stage-0 shape and rectangular maps, against its
+plain version and bit for bit against partition -> #5 -> unpartition, tiny
+models through both, and ``model.use_pallas: false``, which launches no
+kernel.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -34,6 +39,10 @@ from outgridvit_tpu_torch.ops.attn_branch import (
     attn_branch,
     attn_branch_backward,
     attn_branch_backward_reference,
+    attn_branch_nhwc,
+    attn_branch_nhwc_backward,
+    attn_branch_nhwc_backward_reference,
+    attn_branch_nhwc_reference,
     attn_branch_reference,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
@@ -43,10 +52,15 @@ from outgridvit_tpu_torch.ops.dwconv import (
     dwconv3x3_backward_reference,
     dwconv3x3_reference,
 )
+from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa,
     grid_mhsa_backward,
     grid_mhsa_backward_reference,
+    grid_mhsa_packed,
+    grid_mhsa_packed_backward,
+    grid_mhsa_packed_backward_reference,
+    grid_mhsa_packed_reference,
     grid_mhsa_reference,
 )
 from outgridvit_tpu_torch.ops.mlp_branch import (
@@ -671,3 +685,137 @@ def test_tiny_model_depthwise_modes_kernel_path_matches_plain_path(
         [t.norm() for t in gp.values()])).item()
     for k in gp:
         assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * gnorm, k
+
+
+# ---- #6, the block-packed grid core ----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,N,C,heads", [
+    (8192, 36, 48, 2),   # Model A-7M at 48 px, stage 0, train batch 128
+    (4, 1, 8, 1), (7, 17, 40, 5), (3, 63, 64, 1), (5, 25, 448, 8)])
+def test_grid_mhsa_packed_kernels_match_plain(dev, dtype, G, N, C, heads):
+    g = torch.Generator().manual_seed(G + N + C)
+    qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    n = (grid_mhsa_packed.launches, grid_mhsa_packed_backward.launches)
+    got = grid_mhsa_packed(qkv, heads)
+    dqkv = grid_mhsa_packed_backward(qkv, dout, heads)
+    again = grid_mhsa_packed_backward(qkv, dout, heads)
+    torch.cuda.synchronize()
+    assert (grid_mhsa_packed.launches, grid_mhsa_packed_backward.launches) \
+        == (n[0] + 1, n[1] + 2)
+    assert torch.equal(dqkv, again)
+    _assert_close(got, grid_mhsa_packed_reference(qkv, heads), dtype)
+    _assert_close(dqkv, grid_mhsa_packed_backward_reference(qkv, dout, heads),
+                  dtype)
+
+
+# ---- #12, the fused branch on the NHWC map ---------------------------------
+
+def _windows(t, g):
+    grids, meta = grid_partition(t, g)
+    G, Hg, Wg, C = grids.shape
+    return grids.reshape(G, Hg * Wg, C).contiguous(), meta, (G, Hg, Wg, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads,g", [
+    (128, 32, 32, 80, 2, 4),  # cifar100_model_a stage 0, train batch 128
+    (2, 16, 16, 64, 2, 2), (2, 8, 16, 48, 2, 4), (3, 12, 20, 24, 4, 2)])
+def test_attn_branch_nhwc_kernels_match_plain_and_attn_branch(
+        dev, dtype, B, H, W, C, heads, g):
+    gen = torch.Generator().manual_seed(B + H + W + C)
+    args = _branch_args(gen, B, H * W, C, dev, dtype)
+    args = (args[0].reshape(B, H, W, C), *args[1:])
+    dy = torch.randn(B, H, W, C, generator=gen).to(dev, dtype)
+    n = (attn_branch_nhwc.launches, attn_branch_nhwc_backward.launches)
+    got = attn_branch_nhwc(*args, heads, g)
+    grads = attn_branch_nhwc_backward(*args, dy, heads, g)
+    again = attn_branch_nhwc_backward(*args, dy, heads, g)
+    torch.cuda.synchronize()
+    assert (attn_branch_nhwc.launches, attn_branch_nhwc_backward.launches) \
+        == (n[0] + 1, n[1] + 2)
+    _assert_close(got, attn_branch_nhwc_reference(*args, heads, g), dtype)
+    want = attn_branch_nhwc_backward_reference(*args, dy, heads, g)
+    for name, a, b, w in zip(BRANCH_GRADS, grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+    # #5 on the partitioned tokens: the same blocks in the same order
+    x, meta, shape = _windows(args[0], g)
+    tokens = attn_branch(x, *args[1:], heads)
+    assert torch.equal(got, grid_unpartition(tokens.reshape(shape), meta))
+    tgrads = attn_branch_backward(x, *args[1:], _windows(dy, g)[0], heads)
+    assert torch.equal(grads[0],
+                       grid_unpartition(tgrads[0].reshape(shape), meta))
+    for name, a, t in zip(BRANCH_GRADS[1:], grads[1:], tgrads[1:]):
+        assert torch.equal(a, t), name
+
+
+def test_packed_and_nhwc_wrappers_reject_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError, match="N=64"):
+        grid_mhsa_packed(torch.randn(2, 64, 48, device=dev), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_mhsa_packed(torch.randn(2, 63, 3 * 1024, device=dev), 1)
+    with pytest.raises(ValueError, match="dout"):
+        grid_mhsa_packed_backward(torch.randn(2, 36, 48, device=dev),
+                                  torch.randn(2, 36, 8, device=dev), 2)
+    args = _branch_args(torch.Generator().manual_seed(1), 2, 64, 16, dev,
+                        torch.float32)
+    x = args[0].reshape(2, 8, 8, 16)
+    with pytest.raises(ValueError, match="divisible by grid_size"):
+        attn_branch_nhwc(x, *args[1:], 2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_branch_nhwc(x.transpose(1, 2), *args[1:], 2, 2)
+    with pytest.raises(ValueError, match="dy"):
+        attn_branch_nhwc_backward(x, *args[1:], x[:1], 2, 2)
+
+
+@pytest.mark.parametrize("img,kernel,attn_nhwc", [
+    (12, grid_mhsa_packed, False), (16, attn_branch_nhwc, True)])
+def test_tiny_models_through_packed_and_nhwc_match_plain_path(
+        dev, img, kernel, attn_nhwc):
+    # grid 2: stage 0 has grids of N=36 (12 px, #6) or N=64 (16 px, #12)
+    cfg = {"type": "model_a", "num_classes": 10, "stem_dim": 8,
+           "dpr_max": 0.0, "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 4}]}
+    x = torch.randn(4, img, img, 3, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for use_kernels in (True, False):
+        model = build_model(cfg, use_kernels=use_kernels, device=dev, seed=5,
+                            attn_nhwc=attn_nhwc).train()
+        before = kernel.launches
+        logits = model(x.to(dev))
+        assert kernel.launches - before == (1 if use_kernels else 0)
+        logits.square().sum().backward()
+        out[use_kernels] = (logits.detach(), {
+            k: p.grad.clone() for k, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = out[True], out[False]
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for k in gp:
+        scale = gp[k].abs().max().item()
+        assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * max(scale, 1.0), k
+
+
+def test_use_pallas_false_launches_no_kernel(dev):
+    cfg = {"type": "model_a", "num_classes": 10, "stem_dim": 8,
+           "use_pallas": False, "stages": [
+               {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 2},
+               {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                "outlook_heads": 4}]}
+    counters = (grid_mhsa, grid_mhsa_packed, attn_branch, attn_branch_nhwc,
+                mlp_branch)
+    for img in (8, 12, 16):  # N = 16, 36, 64 at stage 0
+        model = build_model(cfg, use_kernels=True, device=dev,
+                            attn_nhwc=True)
+        before = [c.launches for c in counters]
+        with torch.inference_mode():
+            logits = model(torch.randn(2, img, img, 3, device=dev))
+        assert [c.launches for c in counters] == before
+        assert torch.isfinite(logits).all()
