@@ -48,8 +48,11 @@ path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
 configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
 (K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
-depthwise shape of the three configurations; ``a7m_48`` and ``a_base``
-time only their new kernels.
+depthwise shape of the five configurations, and times the depthwise
+backward against ``aten.convolution_backward`` (cuDNN) in turns at the
+MBConv shapes of Model B and the 7M model and at the Tiny-ImageNet stage 0
+(per shape and per train step, with its share of the bound); ``a7m_48``
+and ``a_base`` time only their new kernels.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -499,6 +502,32 @@ def time_ms(fn, args, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, iters=20):
+    """Mean device ms per call: ``iters`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host time lies between the
+    launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
 def nhwc_via_tokens(args, backward):
     """#12's function (``attn_branch_nhwc`` or its backward, on their
     arguments) computed as partition -> #5 -> unpartition, the two copies
@@ -663,6 +692,7 @@ class Smoke:
         self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
+        self.ab_dw = {}                  # dwconv3x3_bwd vs cuDNN, per shape
 
     # -- launch counters --------------------------------------------------
     def reset_counts(self):
@@ -946,6 +976,67 @@ class Smoke:
                   f"{res['nhwc'] / res['tokens']:.3f} [{self.gpu}]")
             del args
 
+    def ab_dwconv(self, iters=20):
+        """The depthwise backward kernel against ``aten.convolution_backward``
+        (cuDNN) on the same inputs, bf16, at the train batch: Model B's and
+        the 7M model's four MBConv shapes and the Tiny-ImageNet stage 0. In
+        turns (kernel, cuDNN, cuDNN, kernel) in this process: device time
+        (``iters`` calls in one CUDA graph, :func:`graph_ms`), then eager
+        time (CUDA events around ``iters`` calls, host time included);
+        summed per ``model_b_o`` and ``a7m_dwb`` train step."""
+        import torch
+
+        name = "dwconv3x3_bwd"
+        kernel = self.kernels[name][0]
+        res = {}
+        for case in (MODEL_B_O, A7M_DWB, TIN):
+            shapes = stage_shapes(case, TRAIN_BATCH)
+            step = {}
+            for sh in (shapes[:1] if case is TIN else shapes):
+                args = self.dw_args(TRAIN_BATCH, sh["H_img"], sh["mid"],
+                                    torch.bfloat16, backward=True)
+                fns = {"kernel": lambda: kernel(*args),
+                       "cudnn": library_call(name, args)}
+                bound = max(bound_ms(name, args, kernel(*args),
+                                     torch.bfloat16))
+                label = (f"{case.tag} stage{sh['stage']} B={TRAIN_BATCH} "
+                         f"H=W={sh['H_img']} C={sh['mid']}")
+                res[label] = {"bound_ms": bound}
+                for how, timer in (("device", graph_ms), ("eager", lambda f,
+                                   iters: time_ms(f, (), iters, warmup=3))):
+                    runs = {"kernel": [], "cudnn": []}
+                    for which in ("kernel", "cudnn", "cudnn", "kernel"):
+                        runs[which].append(timer(fns[which], iters))
+                    k, c = (sum(v) / len(v) for v in runs.values())
+                    res[label][how] = {"kernel_ms": k, "cudnn_ms": c, "runs": {
+                        w: [round(t, 6) for t in v] for w, v in runs.items()}}
+                    print(f"[ab] {name} {label} bf16 {how}, per launch: "
+                          f"kernel {k * 1e3:.1f} us ("
+                          f"{runs['kernel'][0] * 1e3:.1f}, "
+                          f"{runs['kernel'][1] * 1e3:.1f}) vs cuDNN "
+                          f"{c * 1e3:.1f} us ({runs['cudnn'][0] * 1e3:.1f}, "
+                          f"{runs['cudnn'][1] * 1e3:.1f}): kernel/cuDNN "
+                          f"{k / c:.3f}; bound {bound * 1e3:.2f} us, kernel "
+                          f"at {bound / k:.1%} of it, cuDNN at "
+                          f"{bound / c:.1%} [{self.gpu}]")
+                    for key, t in (("kernel", k), ("cudnn", c)):
+                        step[f"{how}_{key}"] = (step.get(f"{how}_{key}", 0.0)
+                                                + sh["blocks"] * t)
+                step["bound"] = step.get("bound", 0.0) + sh["blocks"] * bound
+                del args, fns
+            if case is TIN:
+                continue
+            res[f"{case.tag} train step"] = step
+            for how in ("device", "eager"):
+                k, c = step[f"{how}_kernel"], step[f"{how}_cudnn"]
+                print(f"[ab] {name} per {case.tag} train step "
+                      f"({sum(sh['blocks'] for sh in shapes)} launches, "
+                      f"bf16, B={TRAIN_BATCH}) {how}: kernel {k:.4f} ms vs "
+                      f"cuDNN {c:.4f} ms: {k / c:.3f}; bound "
+                      f"{step['bound']:.4f} ms, kernel at "
+                      f"{step['bound'] / k:.1%} [{self.gpu}]")
+        self.ab_dw = res
+
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
         outlooker shape of the three configurations."""
@@ -976,14 +1067,14 @@ class Smoke:
 
     def compare_dwconv(self):
         """The depthwise kernels against their plain versions at every
-        MBConv depthwise shape of the three configurations: forward at the
+        MBConv depthwise shape of the five configurations: forward at the
         serving batch, backward at the train batch."""
         import torch
 
         for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
             name = "dwconv3x3" + ("_bwd" if backward else "")
             for dtype in (torch.float32, torch.bfloat16):
-                for case in (FLAGSHIP, TIN, MODEL_B):
+                for case in (FLAGSHIP, TIN, MODEL_B, A7M_48, A_BASE):
                     for sh in stage_shapes(case, batch):
                         args = self.dw_args(batch, sh["H_img"], sh["mid"],
                                             dtype, backward)
@@ -1368,6 +1459,8 @@ class Smoke:
             if name in self.ab:
                 out[-1]["ab_vs_partition_attn_branch_unpartition_ms"] = \
                     self.ab[name]
+            if name == "dwconv3x3_bwd" and self.ab_dw:
+                out[-1]["ab_vs_convolution_backward_ms"] = self.ab_dw
         return out
 
 
@@ -1394,7 +1487,8 @@ def main() -> int:
     print(f"[build] nvcc {kernel_build.find_nvcc()} built={build.built} "
           f"seconds={build.seconds:.2f} -> {build.path.name}")
     for line in build.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                or "spill" in line):
             print(f"[build] {line.strip()}")
 
     smoke = Smoke(dev, gpu)
@@ -1414,6 +1508,8 @@ def main() -> int:
             smoke.time_kernels(case, backward=True, iters=6)
         if case is A_BASE:
             smoke.ab_nhwc()
+        if case is MODEL_B_O:
+            smoke.ab_dwconv()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

@@ -36,6 +36,8 @@ Rounding points (the module casts the weight to the compute dtype first,
 from __future__ import annotations
 
 from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +100,118 @@ def dwconv3x3_backward_reference(x, w9, dy):
     dw = torch.stack([(xs * dy32).sum((0, 1, 2))
                       for xs in _shifted(x.float())])
     return dx.to(x.dtype), dw.to(w9.dtype)
+
+
+# ---- the backward's launch plan -------------------------------------------
+
+BWD_THREADS = 256            # threads per block (csrc/dwconv.cu: kThreads)
+BWD_CV = 2                   # channels per thread (kCV)
+BWD_ROWS = 16                # the tallest band
+BWD_SMEM_BUDGET = 110 * 1024  # both tile buffers: two blocks fit on an SM
+BWD_TARGET_BLOCKS = 2 * 132  # one wave: two blocks on each of 132 SMs
+BWD_PARTIALS_SHARE = 0.10    # dw partials, written + read, vs x, dy, dx
+
+
+class BwdPlan(NamedTuple):
+    """How ``ogvt_dwconv3x3_bwd`` cuts one call. A band is ``rows`` output
+    rows of one image (the last band of an image may be shorter); a stage is
+    ``bands`` consecutive bands, staged together in shared memory; block
+    ``(chunk, part)`` owns ``chunk`` channels and the part-th run of stages,
+    and writes one fp32 dw partial (or dw itself when ``parts`` is 1)."""
+    rows: int
+    chunk: int
+    bands: int
+    parts: int
+    chunks: int
+    stages: int
+    smem_bytes: int
+    workspace_floats: int
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.parts
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_smem_bytes(W: int, rows: int, chunk: int, bands: int,
+                   itemsize: int) -> int:
+    """Shared memory of one block: two stage buffers, each ``bands`` halo
+    tiles of dy ``[rows + 2, W + 2, chunk]`` and tiles of x ``[rows, W,
+    chunk]``; at least the block's dw sums ``[threads, 9, BWD_CV]`` fp32,
+    which reuse it after the last stage."""
+    tiles = 2 * bands * ((rows + 2) * (W + 2) + rows * W) * chunk * itemsize
+    return max(tiles, BWD_THREADS * 9 * BWD_CV * 4)
+
+
+@lru_cache(maxsize=None)
+def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
+                            itemsize: int) -> BwdPlan:
+    """The backward kernel's launch plan for x ``[B, H, W, C]`` of
+    ``itemsize``-byte elements. Searched over the channel chunk (a power of
+    two of BWD_CV-channel groups, at least 64 bytes of a pixel where C
+    allows), the band height (balanced, at most BWD_ROWS, the tallest whose
+    two buffers fit BWD_SMEM_BUDGET) and the bands per stage; it keeps the
+    plan with at least 132 blocks where the (band, chunk) tiles allow that
+    many, then the least wasted work (idle threads, padded channels, halo
+    rows of dy read twice) at the occupancy it reaches. Blocks per chunk
+    fill at most BWD_TARGET_BLOCKS in all (one wave: at ~104 registers a
+    thread two blocks fit an SM, and a block more would start a second
+    wave), capped further so the dw partials' bytes stay
+    within BWD_PARTIALS_SHARE of x, dy and dx; one block per chunk writes
+    dw directly. Cached: the wrapper asks for it at every launch."""
+    if min(B, H, W, C) < 1:
+        raise ValueError(f"empty shape {(B, H, W, C)}")
+    groups = _cdiv(C, BWD_CV)
+    gmax = min(BWD_THREADS, 1 << (groups - 1).bit_length())
+    gmin = min(gmax, max(1, 64 // (BWD_CV * itemsize)))
+    launch_bytes = 3 * B * H * W * C * itemsize
+    max_parts = int(BWD_PARTIALS_SHARE * launch_bytes) // (72 * C)
+    best, best_key = None, None
+    g = gmin
+    while g <= gmax:
+        chunk = g * BWD_CV
+        chunks = _cdiv(C, chunk)
+        for rmax in range(min(H, BWD_ROWS), 0, -1):
+            rows = _cdiv(H, _cdiv(H, rmax))
+            if bwd_smem_bytes(W, rows, chunk, 1, itemsize) <= BWD_SMEM_BUDGET:
+                break
+        else:
+            g *= 2
+            continue
+        nsub = B * _cdiv(H, rows)
+        units = B * H * W * C / (rows * W * chunk)
+        # dy's halo rows come from device memory twice unless a band is a
+        # whole image (its halo is the zero padding)
+        byte_eff = 1.0 if rows == H else 3 / (2 + (rows + 2) / rows)
+        bands = 1
+        while (bands <= nsub and bwd_smem_bytes(W, rows, chunk, bands,
+                                                itemsize) <= BWD_SMEM_BUDGET
+               and (bands == 1 or bands * W * g <= 4 * BWD_THREADS)):
+            items = bands * W * g
+            stages = _cdiv(nsub, bands)
+            parts = min(stages, max(1, BWD_TARGET_BLOCKS // chunks))
+            if parts > 1 and parts > max_parts:
+                parts = max(1, max_parts)
+            blocks = chunks * parts
+            eff = (C / (chunks * chunk)) * byte_eff * items / (
+                BWD_THREADS * _cdiv(items, BWD_THREADS))
+            key = (blocks >= 132 or units < 132,
+                   round(eff * min(1.0, blocks / BWD_TARGET_BLOCKS), 3),
+                   -bands)
+            if best_key is None or key > best_key:
+                smem = bwd_smem_bytes(W, rows, chunk, bands, itemsize)
+                best_key = key
+                best = BwdPlan(rows, chunk, bands, parts, chunks, stages, smem,
+                               9 * C * parts if parts > 1 else 0)
+            bands += 1
+        g *= 2
+    if best is None:
+        raise ValueError(f"dwconv3x3_backward: no tile of a {W}-wide map "
+                         f"fits {BWD_SMEM_BUDGET} bytes of shared memory")
+    return best
 
 
 # ---- the CUDA kernels -----------------------------------------------------
@@ -164,14 +278,16 @@ def dwconv3x3_backward(x, w9, dy, variant: str = "t"):
     _check_launch("dwconv3x3_backward", x, w9, dy)
     B, H, W, C = x.shape
     dx, dw = torch.empty_like(x), torch.empty_like(w9)
-    vec = _vec(8, C, x, w9, dy, dx)
+    plan = dwconv3x3_backward_plan(B, H, W, C, x.element_size())
+    vecio = _vec(16, C, x, dy, dx) > 1
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                     device=x.device)
     lib = kernel_build.load()
-    ws = torch.empty(lib.ogvt_dwconv3x3_bwd_workspace(B, H, W, C, vec),
-                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ogvt_dwconv3x3_bwd(
             x.data_ptr(), w9.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dw.data_ptr(), ws.data_ptr(), B, H, W, C, vec,
+            dw.data_ptr(), ws.data_ptr(), B, H, W, C, plan.rows, plan.chunk,
+            plan.bands, plan.parts, plan.smem_bytes, int(vecio),
             kernel_build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "dwconv3x3_backward launch")

@@ -592,6 +592,10 @@ def test_outlook_softmax_kernel_matches_plain(dev, dtype, B, H, W, C, heads,
     (128, 32, 32, 192),   # Model A-7M stage 0 at the train batch
     (128, 64, 64, 256),   # Tiny-ImageNet stage 0
     (128, 4, 4, 1536),    # Model B stage 3
+    (128, 4, 4, 1792),    # a_base stage 3
+    (128, 6, 6, 1024),    # a7m_48 stage 3
+    (2, 13, 9, 64),       # H not a multiple of the backward plan's rows
+    (1, 32, 32, 256),     # B = 1
     (3, 5, 7, 20),        # C not a multiple of the vector width, H != W
 ])
 def test_dwconv_kernels_match_plain(dev, dtype, B, H, W, C):
@@ -612,6 +616,30 @@ def test_dwconv_kernels_match_plain(dev, dtype, B, H, W, C):
         assert torch.equal(a, b), f"{name} differs between two calls"
     _assert_close(grads[0], want[0], dtype)
     _assert_close_to_max(grads[1], want[1], dtype, "dw")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwconv_backward_takes_a_pointer_off_by_one_element(dev, dtype):
+    """x, dy and dx one element past a 16-byte boundary (slices of larger
+    buffers): the backward runs its one-element copy path and matches."""
+    B, H, W, C = 4, 8, 8, 64
+    g = torch.Generator().manual_seed(7)
+    n = B * H * W * C
+
+    def sliced(scale=1.0):
+        buf = (torch.randn(n + 1, generator=g) * scale).to(dev, dtype)
+        return buf[1:].view(B, H, W, C)
+
+    x, dy = sliced(), sliced()
+    w9 = (torch.randn(9, C, generator=g) / 3).to(dev, dtype)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    launches = dwconv3x3_backward.launches
+    dx, dw = dwconv3x3_backward(x, w9, dy, "t")
+    torch.cuda.synchronize()
+    assert dwconv3x3_backward.launches == launches + 1
+    want = dwconv3x3_backward_reference(x, w9, dy)
+    _assert_close(dx, want[0], dtype)
+    _assert_close_to_max(dw, want[1], dtype, "dw")
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
