@@ -36,6 +36,12 @@ from a seed:
   unpartition on the same inputs and times the two, interleaved (the A/B
   of the switch).
 
+The grid core's bf16 "th" launches (Tiny-ImageNet's and ``a_base``'s
+stages 1-3) run ``csrc/grid_mhsa_th.cu``, every other ``csrc/grid_mhsa.cu``;
+the served and trained main paths must launch them through the matching C
+entry points. Phase ``ab_grid_th`` (after the depthwise A/B) times
+``grid_mhsa_th.cu`` against SDPA at those six shapes in turns.
+
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
 128, fp32 and bf16; each backward twice, bitwise equal), requests through
@@ -287,10 +293,13 @@ STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STAT_TOL = (
 # significant digits through the blocks).
 BF16_LOSS_TOL = 3e-2
 
-# name -> (source, the TPU kernel it replaces, the JAX entry points it covers)
+# name -> (source, or sources, the TPU kernel it replaces, the JAX entry
+# points it covers). grid_mhsa: csrc/grid_mhsa.cu for "t" launches (#1) and
+# fp32 "th" ones, csrc/grid_mhsa_th.cu for bf16 "th" launches (#3).
 SOURCES = {
     "grid_mhsa": (
-        "outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+        ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_th.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas_t.py:270",
         ["outgridvit_tpu/ops/grid_attention_pallas_t.py:270 "
          "grid_mhsa_pallas_t (#1, variant t)",
@@ -309,7 +318,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/attn_branch_pallas.py:324 attn_branch_pallas "
          "(#5, forward :349)"]),
     "grid_mhsa_bwd": (
-        "outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+        ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_th.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas_t.py:319",
         ["outgridvit_tpu/ops/grid_attention_pallas_t.py:319 "
          "grid_mhsa_pallas_t backward (#1)",
@@ -502,20 +512,21 @@ def time_ms(fn, args, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
-def graph_ms(fn, iters=20):
+def graph_ms(fn, iters=20, stream=None):
     """Mean device ms per call: ``iters`` calls captured in one CUDA graph
     and replayed between CUDA events, so no host time lies between the
-    launches."""
+    launches. ``stream``: the one to warm up and capture on (that of an
+    autograd graph whose backward ``fn`` runs), else a new one."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -687,12 +698,21 @@ class Smoke:
             "attn_branch_nhwc_bwd": (ab.attn_branch_nhwc_backward,
                                      ab.attn_branch_nhwc_backward_reference),
         }
+        # the grid core's launches take the variant the models' dispatch
+        # picks for the shape (models/blocks.py), which picks the kernel
+        self.launch = {
+            name: (lambda *a, fn=fn: fn(*a, ga.grid_mhsa_variant(
+                a[0].shape[1], a[0].shape[2] // 3)))
+            for name, fn in (("grid_mhsa", ga.grid_mhsa),
+                             ("grid_mhsa_bwd", ga.grid_mhsa_backward))}
         self.max_err = {n: 0.0 for n in SOURCES}
         self.launches = {n: {} for n in SOURCES}   # name -> {path: count}
         self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
         self.ab_dw = {}                  # dwconv3x3_bwd vs cuDNN, per shape
+        self.ab_th = {}                  # grid_mhsa[_bwd] "th" vs SDPA
+        self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
     # -- launch counters --------------------------------------------------
     def reset_counts(self):
@@ -700,11 +720,17 @@ class Smoke:
             fn.launches = 0
             if hasattr(fn, "by_variant"):
                 fn.by_variant.clear()
+            if hasattr(fn, "by_entry"):
+                fn.by_entry.clear()
 
     def read_counts(self):
         return ({n: fn.launches for n, (fn, _) in self.kernels.items()},
                 {n: dict(fn.by_variant) for n, (fn, _) in self.kernels.items()
                  if hasattr(fn, "by_variant")})
+
+    def read_entries(self):
+        return {n: dict(fn.by_entry) for n, (fn, _) in self.kernels.items()
+                if hasattr(fn, "by_entry")}
 
     def record(self, path, counts, variants):
         for n, c in counts.items():
@@ -713,6 +739,26 @@ class Smoke:
         for n, v in variants.items():
             for k, c in v.items():
                 self.variants[n][k] = self.variants[n].get(k, 0) + c
+        for n, v in self.read_entries().items():
+            for k, c in v.items():
+                self.entries[n][k] = self.entries[n].get(k, 0) + c
+
+    def require_th_entries(self, what, variants, times=1):
+        """Every bf16 "th" launch of the grid core went through the
+        head-chunked kernel's entry points (csrc/grid_mhsa_th.cu), every
+        other through csrc/grid_mhsa.cu's."""
+        got = self.read_entries()
+        for name, th_entry, t_entry in (
+                ("grid_mhsa", "ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
+                ("grid_mhsa_bwd", "ogvt_grid_mhsa_th_bwd",
+                 "ogvt_grid_mhsa_bwd")):
+            if name not in variants:
+                continue
+            want = {entry: variants[name][tag] * times
+                    for entry, tag in ((th_entry, "th"), (t_entry, "t"))
+                    if variants[name].get(tag)}
+            require(got[name] == want, f"{what}: {name} launches by entry "
+                    f"point {got[name]}, expected {want}")
 
     # -- inputs -----------------------------------------------------------
     def randn(self, *shape, scale=1.0, shift=0.0):
@@ -848,7 +894,8 @@ class Smoke:
     def compare(self, name, args, dtype, label):
         import torch
 
-        kernel, plain = self.kernels[name]
+        plain = self.kernels[name][1]
+        kernel = self.launch.get(name, self.kernels[name][0])
         dt = str(dtype).split(".")[-1]
         backward = name.endswith("_bwd")
         got = kernel(*args)
@@ -1037,6 +1084,88 @@ class Smoke:
                       f"{step['bound'] / k:.1%} [{self.gpu}]")
         self.ab_dw = res
 
+    def ab_grid_th(self, iters=20):
+        """The head-chunked grid core (``csrc/grid_mhsa_th.cu``, the bf16
+        "th" launches) against SDPA on the same inputs (and SDPA's autograd
+        backward), at the six "th" shapes: Tiny-ImageNet's and ``a_base``'s
+        stages 1-3, the forward at the serving batch, the backward at the
+        train batch. In turns (kernel, SDPA, SDPA, kernel) in this process:
+        device time (``iters`` calls in one CUDA graph, :func:`graph_ms`),
+        then eager time (CUDA events around ``iters`` calls, host time
+        included), each with its share of the bound; summed per forward and
+        per train step of each model."""
+        import torch
+
+        res = {"grid_mhsa": {}, "grid_mhsa_bwd": {}}
+        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
+            name = "grid_mhsa" + ("_bwd" if backward else "")
+            call = self.launch[name]
+            per = "train step" if backward else "forward"
+            for case in (TIN, A_BASE):
+                shapes = [sh for sh in stage_shapes(case, batch)
+                          if sh["attn"] == "grid" and sh["grid_variant"] == "th"]
+                total = {"bound": 0.0}
+                for sh in shapes:
+                    args = (self.bwd_args if backward else self.fwd_args)(
+                        name, sh, torch.bfloat16)
+                    # SDPA's forward on the stream its backward is captured
+                    # on: autograd runs a backward on its forward's stream
+                    stream = torch.cuda.Stream()
+                    stream.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(stream):
+                        sdpa = library_call(name, args)
+                    torch.cuda.current_stream().wait_stream(stream)
+                    fns = {"kernel": lambda: call(*args), "sdpa": sdpa}
+                    streams = {"kernel": None, "sdpa": stream}
+                    bound = max(bound_ms(name, args, call(*args),
+                                         torch.bfloat16))
+                    label = (f"{case.tag} stage{sh['stage']} B={batch} "
+                             f"G={sh['G']} C={sh['C']} heads={sh['heads']}")
+                    res[name][label] = {"bound_ms": bound,
+                                        "launches": sh["blocks"]}
+                    for how, timer in (
+                            ("device", lambda f, w: graph_ms(
+                                f, iters, streams[w])),
+                            ("eager", lambda f, w: time_ms(f, (), iters,
+                                                           warmup=3))):
+                        runs = {"kernel": [], "sdpa": []}
+                        for which in ("kernel", "sdpa", "sdpa", "kernel"):
+                            runs[which].append(timer(fns[which], which))
+                        k, l = (sum(v) / len(v) for v in runs.values())
+                        res[name][label][how] = {
+                            "kernel_ms": k, "sdpa_ms": l,
+                            "kernel_bound_share": bound / k,
+                            "sdpa_bound_share": bound / l,
+                            "runs": {w: [round(t, 6) for t in v]
+                                     for w, v in runs.items()}}
+                        print(f"[ab] {name} {label} bf16 {how}, per launch: "
+                              f"kernel {k * 1e3:.1f} us ("
+                              f"{runs['kernel'][0] * 1e3:.1f}, "
+                              f"{runs['kernel'][1] * 1e3:.1f}) vs SDPA "
+                              f"{l * 1e3:.1f} us ({runs['sdpa'][0] * 1e3:.1f}, "
+                              f"{runs['sdpa'][1] * 1e3:.1f}): kernel/SDPA "
+                              f"{k / l:.3f}; bound {bound * 1e3:.2f} us, kernel "
+                              f"at {bound / k:.1%} of it, SDPA at "
+                              f"{bound / l:.1%} [{self.gpu}]")
+                        for key, t in (("kernel", k), ("sdpa", l)):
+                            total[f"{how}_{key}"] = (
+                                total.get(f"{how}_{key}", 0.0)
+                                + sh["blocks"] * t)
+                    total["bound"] += sh["blocks"] * bound
+                    del args, fns, sdpa
+                res[name][f"{case.tag} {per}"] = total
+                for how in ("device", "eager"):
+                    k, l = total[f"{how}_kernel"], total[f"{how}_sdpa"]
+                    print(f"[ab] {name} per {case.tag} {per} "
+                          f"({sum(sh['blocks'] for sh in shapes)} launches, "
+                          f"bf16, B={batch}) {how}: kernel {k:.4f} ms vs "
+                          f"SDPA {l:.4f} ms: {k / l:.3f}; bound "
+                          f"{total['bound']:.4f} ms, kernel at "
+                          f"{total['bound'] / k:.1%}, SDPA at "
+                          f"{total['bound'] / l:.1%} [{self.gpu}]")
+            torch.cuda.empty_cache()
+        self.ab_th = res
+
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
         outlooker shape of the three configurations."""
@@ -1107,7 +1236,8 @@ class Smoke:
             if (case in (A7M_48, A_BASE) and TIMED_ON.get(
                     name.removesuffix("_bwd")) != case.tag):
                 continue  # the kernels of the path timed on another case
-            kern, plain = self.kernels[name]
+            plain = self.kernels[name][1]
+            kern = self.launch.get(name, self.kernels[name][0])
             k_ms = time_ms(kern, args, iters=iters, warmup=2)
             p_ms = time_ms(plain, args, iters=iters, warmup=2)
             lib = library_call(name, args)
@@ -1201,6 +1331,7 @@ class Smoke:
                     for k, vs in variants.items()},
                 f"launches by variant {by_variant}, expected {variants} x "
                 f"{total}")
+        self.require_th_entries(f"{case.tag} serve", variants, total)
         self.record(f"{case.tag} serve", counts, by_variant)
         full_l, full_p = results["full batch"]
         rag_l, rag_p = results["ragged 3"]
@@ -1380,6 +1511,7 @@ class Smoke:
             require({k: by_variant[k] for k in pvar} == pvar,
                     f"step {i}: launches by variant {by_variant}, expected "
                     f"{pvar}")
+            self.require_th_entries(f"{case.tag} step {i}", pvar)
             losses.append(m["loss"].item())
             require(m["nonfinite"].item() == 0.0
                     and math.isfinite(losses[-1]),
@@ -1445,8 +1577,9 @@ class Smoke:
         for name, (source, replaces, covers) in SOURCES.items():
             by_path = self.launches[name]
             t = self.ms[name]
+            sources = (source,) if isinstance(source, str) else source
             out.append({
-                "name": name, "route": "cuda", "source": source,
+                "name": name, "route": "cuda", "source": sources[0],
                 "replaces": replaces, "covers": covers,
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -1461,6 +1594,11 @@ class Smoke:
                     self.ab[name]
             if name == "dwconv3x3_bwd" and self.ab_dw:
                 out[-1]["ab_vs_convolution_backward_ms"] = self.ab_dw
+            if len(sources) > 1:
+                out[-1]["sources"] = list(sources)
+                out[-1]["launches_by_entry"] = self.entries[name]
+            if self.ab_th.get(name):
+                out[-1]["ab_vs_sdpa_ms"] = self.ab_th[name]
         return out
 
 
@@ -1510,6 +1648,7 @@ def main() -> int:
             smoke.ab_nhwc()
         if case is MODEL_B_O:
             smoke.ab_dwconv()
+            smoke.ab_grid_th()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

@@ -1,10 +1,17 @@
-"""Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa.cu``
-(forward and backward) and their plain PyTorch versions. One kernel stands
-for two TPU kernels of ``outgridvit_tpu/ops/grid_attention_pallas_t.py``
-that compute the same math in different VMEM layouts: ``grid_mhsa_pallas_t``
-(#1, variant ``"t"``) and the head-chunked ``grid_mhsa_pallas_th`` (#3,
-variant ``"th"``, the wide-C N=16 grids of the 64px configs). The variant
-only tags the launch count (``grid_mhsa.by_variant``).
+"""Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa.cu`` and
+``csrc/grid_mhsa_th.cu`` (forward and backward) and their plain PyTorch
+versions. They stand for two TPU kernels of
+``outgridvit_tpu/ops/grid_attention_pallas_t.py`` that compute the same math
+in different VMEM layouts: ``grid_mhsa_pallas_t`` (#1, variant ``"t"``) and
+the head-chunked ``grid_mhsa_pallas_th`` (#3, variant ``"th"``, the wide-C
+N=16 grids of the 64px configs and the default Model A). The variant picks
+the kernel: ``"t"`` launches ``grid_mhsa.cu`` (one block per grid, fp32
+staging); ``"th"`` in bf16 launches ``grid_mhsa_th.cu`` (one warp per grid
+and head on ``mma.sync`` tiles, launch plan :func:`grid_mhsa_th_plan`),
+which takes N = 16 and a head width that is a multiple of 8 up to 64 and
+raises on anything else; ``"th"`` in fp32 (the parity path) keeps
+``grid_mhsa.cu``. Launches are counted per variant
+(``grid_mhsa.by_variant``) and per C entry point (``grid_mhsa.by_entry``).
 
 Forward, per grid and head: ``softmax(q.k^T * hd^-1/2) v`` with the q.k sum
 in fp32 scaled after the sum, an fp32 softmax with max subtraction, and the
@@ -36,6 +43,8 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +54,72 @@ MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
 PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64
 _MAX_SMEM = 227 * 1024
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
+
+
+# ---- the "th" kernel's launch plan (csrc/grid_mhsa_th.cu) -----------------
+
+TH_TOKENS = 16       # tokens per grid: the M of one mma tile (kN)
+TH_WARPS = 4         # warps per block, one (grid, head) unit each (kWarps)
+TH_MAX_HD = 64       # widest head (the accumulators' registers)
+# the kernels' register caps (__launch_bounds__(128, 8) and, for the
+# backward at hd > 32, (128, 6))
+TH_REGS = {"fwd": 64, "bwd": 64, "bwd_wide": 80}
+# one H100 SM: shared memory (each block reserves 1 KB more), registers,
+# threads and blocks
+SM_SMEM, SM_BLOCK_RESERVED = 228 * 1024, 1024
+SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+
+
+class ThPlan(NamedTuple):
+    """How ``ogvt_grid_mhsa_th[_bwd]`` cuts one call: ``warps`` per block,
+    each one (grid, head) unit (``grids_per_block`` grids' worth),
+    ``blocks`` in all; ``smem_bytes`` of a block (``tiles`` staged
+    ``[16, hd]`` bf16 tiles a warp, rows ``row_bytes`` apart); and what one
+    SM holds at the kernel's register cap ``regs``: ``blocks_per_sm``
+    blocks, ``grids_in_flight`` grids' worth of units."""
+    warps: int
+    blocks: int
+    grids_per_block: float
+    tiles: int
+    row_bytes: int
+    smem_bytes: int
+    regs: int
+    blocks_per_sm: int
+    grids_in_flight: float
+
+
+def th_row_bytes(hd: int) -> int:
+    """Row stride of a staged tile: hd / 8 16-byte units made odd, so the 8
+    rows one ldmatrix reads fall in 8 distinct bank groups."""
+    return 16 * ((hd // 8) | 1)
+
+
+@lru_cache(maxsize=None)
+def grid_mhsa_th_plan(G: int, N: int, C: int, heads: int,
+                      backward: bool) -> ThPlan:
+    """The "th" kernel's launch plan for qkv ``[G, N, 3C]`` in bf16, or a
+    ValueError naming the shape it does not take (N other than 16, a head
+    width that is not a multiple of 8 in [8, 64]). Cached: the wrapper asks
+    at every launch."""
+    if G < 0 or heads <= 0 or C % heads:
+        raise ValueError(f"grid_mhsa_th: G={G}, N={N}, C={C}, heads={heads}")
+    hd = C // heads
+    if N != TH_TOKENS or hd % 8 or not 8 <= hd <= TH_MAX_HD:
+        raise ValueError(
+            f"grid_mhsa_th: N={N}, C={C}, heads={heads} (hd={hd}); the "
+            f"kernel takes N={TH_TOKENS} and hd a multiple of 8 up to "
+            f"{TH_MAX_HD}")
+    tiles = 4 if backward else 3
+    row = th_row_bytes(hd)
+    smem = TH_WARPS * tiles * TH_TOKENS * row
+    regs = TH_REGS["bwd_wide" if hd > 32 else "bwd"] if backward \
+        else TH_REGS["fwd"]
+    threads = 32 * TH_WARPS
+    per_sm = min(SM_REGS // (regs * threads),
+                 SM_SMEM // (smem + SM_BLOCK_RESERVED),
+                 SM_THREADS // threads, SM_BLOCKS)
+    return ThPlan(TH_WARPS, -(-G * heads // TH_WARPS), TH_WARPS / heads,
+                  tiles, row, smem, regs, per_sm, per_sm * TH_WARPS / heads)
 
 
 def grid_mhsa_variant(N: int, C: int) -> str:
@@ -143,7 +218,7 @@ def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
         raise ValueError(
             f"{name}: N={N} tokens per grid; the kernel takes "
             f"1..{max_tokens}")
-    if smem_floats(N, C) * 4 > _MAX_SMEM:
+    if smem_floats is not None and smem_floats(N, C) * 4 > _MAX_SMEM:
         raise ValueError(f"{name}: grid of N={N}, C={C}, heads={heads} "
                          "exceeds shared memory")
     return G, N, C
@@ -158,59 +233,105 @@ def _check_dout(name, qkv, dout, G, N, C):
             f"on {qkv.device}")
 
 
+def _takes_th(qkv: torch.Tensor, variant: str) -> bool:
+    """Whether a launch takes ``csrc/grid_mhsa_th.cu``: bf16 and ``"th"``;
+    every other takes ``csrc/grid_mhsa.cu``."""
+    return variant == "th" and qkv.dtype == torch.bfloat16
+
+
+def _th_plan(name: str, qkv: torch.Tensor, heads: int, backward: bool,
+             *others) -> ThPlan:
+    """The "th" kernel's plan for qkv, its tensors (qkv and ``others``,
+    (label, tensor) pairs) 16-byte aligned, or a ValueError."""
+    G, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    plan = grid_mhsa_th_plan(G, N, C, heads, backward)
+    for label, t in (("qkv", qkv), *others):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} of shape {tuple(t.shape)} at "
+                f"{t.data_ptr():#x} is not 16-byte aligned; the th kernel "
+                "copies 16 bytes at a time")
+    return plan
+
+
 def grid_mhsa(qkv: torch.Tensor, heads: int,
               variant: str = "t") -> torch.Tensor:
-    """qkv [G, N, 3C] -> [G, N, C]. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes :func:`grid_mhsa_reference`. ``variant``
-    names the JAX kernel the launch stands for (:data:`VARIANTS`)."""
+    """qkv [G, N, 3C] -> [G, N, C]. A CUDA tensor launches a kernel (or
+    raises): ``csrc/grid_mhsa_th.cu`` for a bf16 ``"th"`` launch, else
+    ``csrc/grid_mhsa.cu``; a CPU tensor takes :func:`grid_mhsa_reference`.
+    ``variant`` names the JAX kernel the launch stands for
+    (:data:`VARIANTS`)."""
     if qkv.device.type == "cpu":
         return grid_mhsa_reference(qkv, heads)
-    G, N, C = _check_launch("grid_mhsa", qkv, heads,
-                            lambda N, C: N * 3 * C + heads * N * N, variant)
+    th = _takes_th(qkv, variant)
+    G, N, C = _check_launch(
+        "grid_mhsa", qkv, heads,
+        None if th else lambda N, C: N * 3 * C + heads * N * N, variant)
+    plan = _th_plan("grid_mhsa", qkv, heads, False) if th else None
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
+    scale = ctypes.c_float((C // heads) ** -0.5)
+    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
     with torch.cuda.device(qkv.device):
-        err = lib.ogvt_grid_mhsa(
-            qkv.data_ptr(), out.data_ptr(), G, N, C, heads,
-            ctypes.c_float((C // heads) ** -0.5),
-            kernel_build.DTYPE_CODES[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "grid_mhsa launch")
-    kernel_build.count_launch(grid_mhsa, variant)
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            entry = "ogvt_grid_mhsa"
+            err = lib.ogvt_grid_mhsa(qkv.data_ptr(), out.data_ptr(), G, N, C,
+                                     heads, scale, dtype, stream)
+        else:
+            entry = "ogvt_grid_mhsa_th"
+            err = lib.ogvt_grid_mhsa_th(
+                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
+                plan.warps, plan.smem_bytes, dtype, stream)
+    kernel_build.check(err, f"grid_mhsa launch ({entry})")
+    kernel_build.count_launch(grid_mhsa, variant, entry)
     return out
 
 
 grid_mhsa.launches = 0
 grid_mhsa.by_variant = Counter()
+grid_mhsa.by_entry = Counter()
 
 
 def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                        variant: str = "t") -> torch.Tensor:
     """(qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C]. A CUDA tensor
-    launches the kernel (or raises); a CPU tensor takes
-    :func:`grid_mhsa_backward_reference`. ``variant`` as in
+    launches a kernel (or raises), chosen as in :func:`grid_mhsa`; a CPU
+    tensor takes :func:`grid_mhsa_backward_reference`. ``variant`` as in
     :func:`grid_mhsa`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_backward_reference(qkv, dout, heads)
-    G, N, C = _check_launch("grid_mhsa_backward", qkv, heads,
-                            lambda N, C: N * 4 * C + 2 * heads * N * N,
-                            variant)
+    th = _takes_th(qkv, variant)
+    G, N, C = _check_launch(
+        "grid_mhsa_backward", qkv, heads,
+        None if th else lambda N, C: N * 4 * C + 2 * heads * N * N, variant)
     _check_dout("grid_mhsa_backward", qkv, dout, G, N, C)
+    plan = (_th_plan("grid_mhsa_backward", qkv, heads, True, ("dout", dout))
+            if th else None)
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
+    scale = ctypes.c_float((C // heads) ** -0.5)
+    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
     with torch.cuda.device(qkv.device):
-        err = lib.ogvt_grid_mhsa_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C, heads,
-            ctypes.c_float((C // heads) ** -0.5),
-            kernel_build.DTYPE_CODES[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "grid_mhsa_backward launch")
-    kernel_build.count_launch(grid_mhsa_backward, variant)
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            entry = "ogvt_grid_mhsa_bwd"
+            err = lib.ogvt_grid_mhsa_bwd(
+                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
+                heads, scale, dtype, stream)
+        else:
+            entry = "ogvt_grid_mhsa_th_bwd"
+            err = lib.ogvt_grid_mhsa_th_bwd(
+                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
+                heads, scale, plan.warps, plan.smem_bytes, dtype, stream)
+    kernel_build.check(err, f"grid_mhsa_backward launch ({entry})")
+    kernel_build.count_launch(grid_mhsa_backward, variant, entry)
     return dqkv
 
 
 grid_mhsa_backward.launches = 0
 grid_mhsa_backward.by_variant = Counter()
+grid_mhsa_backward.by_entry = Counter()
 
 
 class _GridMHSA(torch.autograd.Function):

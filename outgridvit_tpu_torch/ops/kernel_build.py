@@ -46,6 +46,11 @@ _SIGNATURES = {
     "ogvt_grid_mhsa": ((_P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     # qkv, dout, dqkv, G, N, C, heads, scale, dtype, stream
     "ogvt_grid_mhsa_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    # qkv, out, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_th": ((_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P), _I),
+    # qkv, dout, dqkv, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_th_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                               _P), _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, C, H, act, eps, apply_ln,
     # dtype, stream
     "ogvt_mlp_branch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -204,11 +209,14 @@ def check_variant(name: str, variant: str, variants) -> None:
                          f"{variants}")
 
 
-def count_launch(fn, variant: str) -> None:
-    """Count one kernel launch on the wrapper ``fn``: ``fn.launches`` and
-    ``fn.by_variant[variant]``, the JAX kernel the launch stands for."""
+def count_launch(fn, variant: str, entry: Optional[str] = None) -> None:
+    """Count one kernel launch on the wrapper ``fn``: ``fn.launches``,
+    ``fn.by_variant[variant]``, the JAX kernel the launch stands for, and,
+    for a wrapper with more than one C entry point, ``fn.by_entry[entry]``."""
     fn.launches += 1
     fn.by_variant[variant] += 1
+    if entry is not None:
+        fn.by_entry[entry] += 1
 
 
 def check(err: int, what: str) -> None:

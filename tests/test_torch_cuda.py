@@ -5,7 +5,11 @@ ragged last token tile, a hidden width that is not a multiple of the 64-unit
 chunk, a grid whose staging needs more than 48 KB of shared memory) and at
 the full Tiny-ImageNet-200 stage shapes (train batch 128: the fused
 attention branch at N=64, the head-chunked grid shapes at C=128/256/384, the
-row-layout MLP shapes at M=524,288), the fused outlook kernels (#7, #8) at
+row-layout MLP shapes at M=524,288), the head-chunked grid kernel
+(``csrc/grid_mhsa_th.cu``) also at the default Model A's shapes (C =
+160/320/448), at G = 1 and 3, at every head width it takes, through its own
+entry points in bf16, and its refusals (a pointer off 16 bytes, N != 16, hd
+not a multiple of 8 up to 64), the fused outlook kernels (#7, #8) at
 a Model B front shape, a 64 x 64 shape and an hd=24 shape with H != W and a
 ragged last tile, the fused outlook softmax (#9) and the depthwise kernels
 (#10, #11) at one shape of each configuration and at edge shapes (K = 5,
@@ -247,25 +251,78 @@ def test_attn_branch_kernels_match_plain(dev, dtype, G, N, C, heads,
             _assert_close_to_max(a, w, dtype, name)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,C,heads", [(8192, 128, 4), (2048, 256, 8),
-                                       (512, 384, 6)])
-def test_grid_mhsa_kernels_at_the_64px_shapes(dev, dtype, G, C, heads):
-    # Tiny-ImageNet stages 1-3 at train batch 128: N=16, the shapes of the
-    # head-chunked TPU kernel #3 (hd 32 and 64; up to 108 KB of staging)
-    g = torch.Generator().manual_seed(C)
+def _th_entries():
+    return (grid_mhsa.by_entry["ogvt_grid_mhsa_th"],
+            grid_mhsa_backward.by_entry["ogvt_grid_mhsa_th_bwd"],
+            grid_mhsa.by_entry["ogvt_grid_mhsa"],
+            grid_mhsa_backward.by_entry["ogvt_grid_mhsa_bwd"])
+
+
+def _check_th(dev, dtype, G, C, heads, seed):
+    """Both "th" launches against their plain versions, the backward twice
+    bitwise equal; bf16 through csrc/grid_mhsa_th.cu's entry points, fp32
+    through csrc/grid_mhsa.cu's."""
+    g = torch.Generator().manual_seed(seed)
     qkv = torch.randn(G, 16, 3 * C, generator=g).to(dev, dtype)
     dout = torch.randn(G, 16, C, generator=g).to(dev, dtype)
     n = (grid_mhsa.by_variant["th"], grid_mhsa_backward.by_variant["th"])
+    entries = _th_entries()
     got = grid_mhsa(qkv, heads, "th")
     dqkv = grid_mhsa_backward(qkv, dout, heads, "th")
     again = grid_mhsa_backward(qkv, dout, heads, "th")
     torch.cuda.synchronize()
     assert (grid_mhsa.by_variant["th"],
             grid_mhsa_backward.by_variant["th"]) == (n[0] + 1, n[1] + 2)
+    step = (1, 2, 0, 0) if dtype == torch.bfloat16 else (0, 0, 1, 2)
+    assert _th_entries() == tuple(a + b for a, b in zip(entries, step))
     assert torch.equal(dqkv, again)
     _assert_close(got, grid_mhsa_reference(qkv, heads), dtype)
     _assert_close(dqkv, grid_mhsa_backward_reference(qkv, dout, heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,heads", [
+    (8192, 128, 4), (2048, 256, 8), (512, 384, 6),
+    (2048, 160, 5), (512, 320, 10), (128, 448, 8),
+    (1, 160, 5), (3, 384, 6), (1, 320, 10), (3, 448, 8)])
+def test_grid_mhsa_kernels_at_the_64px_shapes(dev, dtype, G, C, heads):
+    # the shapes of the head-chunked TPU kernel #3 at train batch 128, N=16:
+    # Tiny-ImageNet stages 1-3 (hd 32 and 64) and the default Model A's
+    # (C = 160/320/448, hd 32/32/56); then G = 1 and 3, whose (grid, head)
+    # units leave the last block of the bf16 kernel part empty
+    _check_th(dev, dtype, G, C, heads, C + G)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 24, 40, 48, 64])
+def test_grid_mhsa_th_at_every_head_width(dev, hd):
+    # every instantiation of csrc/grid_mhsa_th.cu: the k8 tail at odd hd/8
+    _check_th(dev, torch.bfloat16, 7, 3 * hd, 3, hd)
+
+
+def test_grid_mhsa_th_refuses_what_it_does_not_take(dev):
+    def buf(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.randn(n + 1, device=dev).bfloat16()[1:].view(*shape)
+
+    qkv, dout = buf(4, 16, 3 * 128), buf(4, 16, 128)
+    assert qkv.data_ptr() % 16 and qkv.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        grid_mhsa(qkv, 4, "th")
+    with pytest.raises(ValueError, match="dout .*16-byte aligned"):
+        grid_mhsa_backward(qkv.clone(), dout, 4, "th")
+    # fp32 "th" launches take csrc/grid_mhsa.cu, which copies elementwise
+    q32 = torch.randn(4 * 16 * 3 * 128 + 1, device=dev)[1:].view(4, 16, 384)
+    _assert_close(grid_mhsa(q32, 4, "th"), grid_mhsa_reference(q32, 4),
+                  torch.float32)
+    for G, N, C, heads in ((2, 9, 3 * 128, 4), (2, 16, 100, 5),
+                           (2, 16, 144, 2)):
+        x = torch.randn(G, N, 3 * C, device=dev).bfloat16()
+        with pytest.raises(ValueError, match=f"N={N}, C={C}"):
+            grid_mhsa(x, heads, "th")
+        with pytest.raises(ValueError, match=f"N={N}, C={C}"):
+            grid_mhsa_backward(x, x[..., :C].contiguous(), heads, "th")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
