@@ -38,9 +38,10 @@ from a seed:
 
 The grid core's bf16 "th" launches (Tiny-ImageNet's and ``a_base``'s
 stages 1-3) run ``csrc/grid_mhsa_th.cu``, every other ``csrc/grid_mhsa.cu``;
-the served and trained main paths must launch them through the matching C
-entry points. Phase ``ab_grid_th`` (after the depthwise A/B) times
-``grid_mhsa_th.cu`` against SDPA at those six shapes in turns.
+the block-packed core's bf16 launches (``a7m_48``'s stage 0) run
+``csrc/grid_mhsa_packed_mma.cu``, its fp32 ones ``csrc/grid_mhsa_packed.cu``.
+The served and trained main paths (bf16) must launch them through the
+matching C entry points.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -54,11 +55,17 @@ path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
 configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
 (K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
-depthwise shape of the five configurations, and times the depthwise
-backward against ``aten.convolution_backward`` (cuDNN) in turns at the
-MBConv shapes of Model B and the 7M model and at the Tiny-ImageNet stage 0
-(per shape and per train step, with its share of the bound); ``a7m_48``
-and ``a_base`` time only their new kernels.
+depthwise shape of the five configurations; ``a7m_48`` and ``a_base`` time
+only their new kernels. Phase ``ab_vs_library`` (after the
+``fused_outlook`` phase) times kernels against the one PyTorch call that
+computes the same function, in turns, in device time (CUDA graphs) and
+eager, with their shares of the bound (``AB_LIBRARY``): the depthwise
+backward against ``aten.convolution_backward`` (cuDNN) at the MBConv shapes
+of Model B and the 7M model and at the Tiny-ImageNet stage 0, the
+depthwise forward against ``F.conv2d(groups=C)`` at Model B's, #3 against
+SDPA at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
+(forward at batch 64 and 128, backward at 128); per shape and per forward
+or train step.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -296,6 +303,8 @@ BF16_LOSS_TOL = 3e-2
 # name -> (source, or sources, the TPU kernel it replaces, the JAX entry
 # points it covers). grid_mhsa: csrc/grid_mhsa.cu for "t" launches (#1) and
 # fp32 "th" ones, csrc/grid_mhsa_th.cu for bf16 "th" launches (#3).
+# grid_mhsa_packed: csrc/grid_mhsa_packed_mma.cu for bf16 launches, the main
+# paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones.
 SOURCES = {
     "grid_mhsa": (
         ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
@@ -378,12 +387,14 @@ SOURCES = {
          "outgridvit_tpu/ops/experimental/dwconv_bwd_pallas.py:201 "
          "dwconv3x3 backward (#11, :170, variant bwd)"]),
     "grid_mhsa_packed": (
-        "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu",
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_packed_mma.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas.py:183",
         ["outgridvit_tpu/ops/grid_attention_pallas.py:183 grid_mhsa_pallas "
          "(#6, forward :202)"]),
     "grid_mhsa_packed_bwd": (
-        "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu",
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_packed_mma.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_packed.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas.py:244",
         ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
          "backward (#6, :244)"]),
@@ -411,6 +422,30 @@ TIMED_ON = {"outlook_agg": "model_b", "outlook_branch": "model_b",
 # the kernel each kind of grid attention (stage_shapes' "attn") launches
 ATTN_KERNEL = {"grid": "grid_mhsa", "packed": "grid_mhsa_packed",
                "branch": "attn_branch", "nhwc": "attn_branch_nhwc"}
+# The A/Bs of Smoke.ab_vs_library: (kernel, case, batch, which of the
+# case's stage shapes), in this order, and the key of each kernel's A/B in
+# the kernels line.
+AB_SHAPES = {
+    "all": lambda sh: True,
+    "stage0": lambda sh: sh["stage"] == 0,
+    "th": lambda sh: sh["attn"] == "grid" and sh["grid_variant"] == "th",
+    "packed": lambda sh: sh["attn"] == "packed",
+}
+AB_LIBRARY = (
+    ("dwconv3x3_bwd", MODEL_B_O, TRAIN_BATCH, "all"),
+    ("dwconv3x3_bwd", A7M_DWB, TRAIN_BATCH, "all"),
+    ("dwconv3x3_bwd", TIN, TRAIN_BATCH, "stage0"),
+    ("dwconv3x3", MODEL_B_O, BATCH, "all"),
+    ("grid_mhsa", TIN, BATCH, "th"), ("grid_mhsa", A_BASE, BATCH, "th"),
+    ("grid_mhsa_bwd", TIN, TRAIN_BATCH, "th"),
+    ("grid_mhsa_bwd", A_BASE, TRAIN_BATCH, "th"),
+    ("grid_mhsa_packed", A7M_48, BATCH, "packed"),
+    ("grid_mhsa_packed", A7M_48, TRAIN_BATCH, "packed"),
+    ("grid_mhsa_packed_bwd", A7M_48, TRAIN_BATCH, "packed"),
+)
+AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
+          "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
+LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -710,8 +745,7 @@ class Smoke:
         self.variants = {n: {} for n in SOURCES}   # name -> {variant: count}
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
-        self.ab_dw = {}                  # dwconv3x3_bwd vs cuDNN, per shape
-        self.ab_th = {}                  # grid_mhsa[_bwd] "th" vs SDPA
+        self.ab_lib = {}                 # kernel vs library call, per shape
         self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
     # -- launch counters --------------------------------------------------
@@ -743,11 +777,21 @@ class Smoke:
             for k, c in v.items():
                 self.entries[n][k] = self.entries[n].get(k, 0) + c
 
-    def require_th_entries(self, what, variants, times=1):
-        """Every bf16 "th" launch of the grid core went through the
-        head-chunked kernel's entry points (csrc/grid_mhsa_th.cu), every
-        other through csrc/grid_mhsa.cu's."""
+    def require_entries(self, what, plan, variants, times=1):
+        """On a bf16 main path: every "th" launch of the grid core went
+        through the head-chunked kernel's entry points
+        (csrc/grid_mhsa_th.cu), every other through csrc/grid_mhsa.cu's;
+        every #6 launch through csrc/grid_mhsa_packed_mma.cu's. ``plan``
+        and ``variants``: launches per forward or step (:func:`launch_plan`)
+        and ``times`` of them."""
         got = self.read_entries()
+        for name, entry in (("grid_mhsa_packed", "ogvt_grid_mhsa_packed_mma"),
+                            ("grid_mhsa_packed_bwd",
+                             "ogvt_grid_mhsa_packed_mma_bwd")):
+            want = {entry: plan[name] * times} if plan.get(name) else {}
+            if name in plan:
+                require(got[name] == want, f"{what}: {name} launches by "
+                        f"entry point {got[name]}, expected {want}")
         for name, th_entry, t_entry in (
                 ("grid_mhsa", "ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
                 ("grid_mhsa_bwd", "ogvt_grid_mhsa_th_bwd",
@@ -1023,148 +1067,95 @@ class Smoke:
                   f"{res['nhwc'] / res['tokens']:.3f} [{self.gpu}]")
             del args
 
-    def ab_dwconv(self, iters=20):
-        """The depthwise backward kernel against ``aten.convolution_backward``
-        (cuDNN) on the same inputs, bf16, at the train batch: Model B's and
-        the 7M model's four MBConv shapes and the Tiny-ImageNet stage 0. In
-        turns (kernel, cuDNN, cuDNN, kernel) in this process: device time
-        (``iters`` calls in one CUDA graph, :func:`graph_ms`), then eager
-        time (CUDA events around ``iters`` calls, host time included);
-        summed per ``model_b_o`` and ``a7m_dwb`` train step."""
+    def ab_vs_library(self, iters=20):
+        """Kernels against the one PyTorch call computing the same function
+        (:func:`library_call`) on the same inputs, bf16, at the shapes of
+        ``AB_LIBRARY``: the depthwise backward vs
+        ``aten.convolution_backward`` (cuDNN) and the depthwise forward vs
+        ``F.conv2d(groups=C)``; the grid cores vs SDPA (and its autograd
+        backward): #3 ("th" launches, ``csrc/grid_mhsa_th.cu``) and #6
+        (``csrc/grid_mhsa_packed_mma.cu``). Per shape in turns (kernel,
+        library, library, kernel) in this process: device time (``iters``
+        calls in one CUDA graph, :func:`graph_ms`), then eager time (CUDA
+        events around ``iters`` calls, host time included), each with its
+        share of the bound; summed per forward or train step of the case."""
         import torch
 
-        name = "dwconv3x3_bwd"
-        kernel = self.kernels[name][0]
-        res = {}
-        for case in (MODEL_B_O, A7M_DWB, TIN):
-            shapes = stage_shapes(case, TRAIN_BATCH)
-            step = {}
-            for sh in (shapes[:1] if case is TIN else shapes):
-                args = self.dw_args(TRAIN_BATCH, sh["H_img"], sh["mid"],
-                                    torch.bfloat16, backward=True)
-                fns = {"kernel": lambda: kernel(*args),
-                       "cudnn": library_call(name, args)}
-                bound = max(bound_ms(name, args, kernel(*args),
+        for name, case, batch, which in AB_LIBRARY:
+            backward = name.endswith("_bwd")
+            call = self.launch.get(name, self.kernels[name][0])
+            lib = "cudnn" if name.startswith("dwconv") else "sdpa"
+            shapes = [sh for sh in stage_shapes(case, batch)
+                      if AB_SHAPES[which](sh)]
+            res = self.ab_lib.setdefault(name, {})
+            total = {"bound": 0.0}
+            for sh in shapes:
+                args = (self.bwd_args if backward else self.fwd_args)(
+                    name, sh, torch.bfloat16)
+                # the library call made on the stream its graph is captured
+                # on: autograd runs a backward on its forward's stream
+                stream = torch.cuda.Stream()
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    fns = {"kernel": lambda: call(*args),
+                           lib: library_call(name, args)}
+                torch.cuda.current_stream().wait_stream(stream)
+                streams = {"kernel": None, lib: stream}
+                bound = max(bound_ms(name, args, call(*args),
                                      torch.bfloat16))
-                label = (f"{case.tag} stage{sh['stage']} B={TRAIN_BATCH} "
-                         f"H=W={sh['H_img']} C={sh['mid']}")
-                res[label] = {"bound_ms": bound}
-                for how, timer in (("device", graph_ms), ("eager", lambda f,
-                                   iters: time_ms(f, (), iters, warmup=3))):
-                    runs = {"kernel": [], "cudnn": []}
-                    for which in ("kernel", "cudnn", "cudnn", "kernel"):
-                        runs[which].append(timer(fns[which], iters))
-                    k, c = (sum(v) / len(v) for v in runs.values())
-                    res[label][how] = {"kernel_ms": k, "cudnn_ms": c, "runs": {
-                        w: [round(t, 6) for t in v] for w, v in runs.items()}}
+                label = (f"{case.tag} stage{sh['stage']} B={batch} "
+                         + (f"H=W={sh['H_img']} C={sh['mid']}"
+                            if lib == "cudnn" else
+                            f"G={sh['G']} N={sh['N']} C={sh['C']} "
+                            f"heads={sh['heads']}"))
+                res[label] = {"bound_ms": bound, "launches": sh["blocks"]}
+                for how, timer in (
+                        ("device", lambda f, w: graph_ms(f, iters,
+                                                         streams[w])),
+                        ("eager", lambda f, w: time_ms(f, (), iters,
+                                                       warmup=3))):
+                    runs = {"kernel": [], lib: []}
+                    for w in ("kernel", lib, lib, "kernel"):
+                        runs[w].append(timer(fns[w], w))
+                    k, l = (sum(v) / len(v) for v in runs.values())
+                    res[label][how] = {
+                        "kernel_ms": k, f"{lib}_ms": l,
+                        "kernel_bound_share": bound / k,
+                        f"{lib}_bound_share": bound / l,
+                        "runs": {w: [round(t, 6) for t in v]
+                                 for w, v in runs.items()}}
                     print(f"[ab] {name} {label} bf16 {how}, per launch: "
                           f"kernel {k * 1e3:.1f} us ("
                           f"{runs['kernel'][0] * 1e3:.1f}, "
-                          f"{runs['kernel'][1] * 1e3:.1f}) vs cuDNN "
-                          f"{c * 1e3:.1f} us ({runs['cudnn'][0] * 1e3:.1f}, "
-                          f"{runs['cudnn'][1] * 1e3:.1f}): kernel/cuDNN "
-                          f"{k / c:.3f}; bound {bound * 1e3:.2f} us, kernel "
-                          f"at {bound / k:.1%} of it, cuDNN at "
-                          f"{bound / c:.1%} [{self.gpu}]")
-                    for key, t in (("kernel", k), ("cudnn", c)):
-                        step[f"{how}_{key}"] = (step.get(f"{how}_{key}", 0.0)
-                                                + sh["blocks"] * t)
-                step["bound"] = step.get("bound", 0.0) + sh["blocks"] * bound
+                          f"{runs['kernel'][1] * 1e3:.1f}) vs "
+                          f"{LIBRARY[lib]} {l * 1e3:.1f} us "
+                          f"({runs[lib][0] * 1e3:.1f}, "
+                          f"{runs[lib][1] * 1e3:.1f}): kernel/"
+                          f"{LIBRARY[lib]} {k / l:.3f}; bound "
+                          f"{bound * 1e3:.2f} us, kernel at {bound / k:.1%} "
+                          f"of it, {LIBRARY[lib]} at {bound / l:.1%} "
+                          f"[{self.gpu}]")
+                    for key, t in (("kernel", k), (lib, l)):
+                        total[f"{how}_{key}"] = (total.get(f"{how}_{key}",
+                                                           0.0)
+                                                 + sh["blocks"] * t)
+                total["bound"] += sh["blocks"] * bound
                 del args, fns
-            if case is TIN:
+            if which == "stage0":  # one stage: no total
                 continue
-            res[f"{case.tag} train step"] = step
+            per = (f"{case.tag} {'train step' if backward else 'forward'} "
+                   f"B={batch}")
+            res[per] = total
             for how in ("device", "eager"):
-                k, c = step[f"{how}_kernel"], step[f"{how}_cudnn"]
-                print(f"[ab] {name} per {case.tag} train step "
+                k, l = total[f"{how}_kernel"], total[f"{how}_{lib}"]
+                print(f"[ab] {name} per {per} "
                       f"({sum(sh['blocks'] for sh in shapes)} launches, "
-                      f"bf16, B={TRAIN_BATCH}) {how}: kernel {k:.4f} ms vs "
-                      f"cuDNN {c:.4f} ms: {k / c:.3f}; bound "
-                      f"{step['bound']:.4f} ms, kernel at "
-                      f"{step['bound'] / k:.1%} [{self.gpu}]")
-        self.ab_dw = res
-
-    def ab_grid_th(self, iters=20):
-        """The head-chunked grid core (``csrc/grid_mhsa_th.cu``, the bf16
-        "th" launches) against SDPA on the same inputs (and SDPA's autograd
-        backward), at the six "th" shapes: Tiny-ImageNet's and ``a_base``'s
-        stages 1-3, the forward at the serving batch, the backward at the
-        train batch. In turns (kernel, SDPA, SDPA, kernel) in this process:
-        device time (``iters`` calls in one CUDA graph, :func:`graph_ms`),
-        then eager time (CUDA events around ``iters`` calls, host time
-        included), each with its share of the bound; summed per forward and
-        per train step of each model."""
-        import torch
-
-        res = {"grid_mhsa": {}, "grid_mhsa_bwd": {}}
-        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
-            name = "grid_mhsa" + ("_bwd" if backward else "")
-            call = self.launch[name]
-            per = "train step" if backward else "forward"
-            for case in (TIN, A_BASE):
-                shapes = [sh for sh in stage_shapes(case, batch)
-                          if sh["attn"] == "grid" and sh["grid_variant"] == "th"]
-                total = {"bound": 0.0}
-                for sh in shapes:
-                    args = (self.bwd_args if backward else self.fwd_args)(
-                        name, sh, torch.bfloat16)
-                    # SDPA's forward on the stream its backward is captured
-                    # on: autograd runs a backward on its forward's stream
-                    stream = torch.cuda.Stream()
-                    stream.wait_stream(torch.cuda.current_stream())
-                    with torch.cuda.stream(stream):
-                        sdpa = library_call(name, args)
-                    torch.cuda.current_stream().wait_stream(stream)
-                    fns = {"kernel": lambda: call(*args), "sdpa": sdpa}
-                    streams = {"kernel": None, "sdpa": stream}
-                    bound = max(bound_ms(name, args, call(*args),
-                                         torch.bfloat16))
-                    label = (f"{case.tag} stage{sh['stage']} B={batch} "
-                             f"G={sh['G']} C={sh['C']} heads={sh['heads']}")
-                    res[name][label] = {"bound_ms": bound,
-                                        "launches": sh["blocks"]}
-                    for how, timer in (
-                            ("device", lambda f, w: graph_ms(
-                                f, iters, streams[w])),
-                            ("eager", lambda f, w: time_ms(f, (), iters,
-                                                           warmup=3))):
-                        runs = {"kernel": [], "sdpa": []}
-                        for which in ("kernel", "sdpa", "sdpa", "kernel"):
-                            runs[which].append(timer(fns[which], which))
-                        k, l = (sum(v) / len(v) for v in runs.values())
-                        res[name][label][how] = {
-                            "kernel_ms": k, "sdpa_ms": l,
-                            "kernel_bound_share": bound / k,
-                            "sdpa_bound_share": bound / l,
-                            "runs": {w: [round(t, 6) for t in v]
-                                     for w, v in runs.items()}}
-                        print(f"[ab] {name} {label} bf16 {how}, per launch: "
-                              f"kernel {k * 1e3:.1f} us ("
-                              f"{runs['kernel'][0] * 1e3:.1f}, "
-                              f"{runs['kernel'][1] * 1e3:.1f}) vs SDPA "
-                              f"{l * 1e3:.1f} us ({runs['sdpa'][0] * 1e3:.1f}, "
-                              f"{runs['sdpa'][1] * 1e3:.1f}): kernel/SDPA "
-                              f"{k / l:.3f}; bound {bound * 1e3:.2f} us, kernel "
-                              f"at {bound / k:.1%} of it, SDPA at "
-                              f"{bound / l:.1%} [{self.gpu}]")
-                        for key, t in (("kernel", k), ("sdpa", l)):
-                            total[f"{how}_{key}"] = (
-                                total.get(f"{how}_{key}", 0.0)
-                                + sh["blocks"] * t)
-                    total["bound"] += sh["blocks"] * bound
-                    del args, fns, sdpa
-                res[name][f"{case.tag} {per}"] = total
-                for how in ("device", "eager"):
-                    k, l = total[f"{how}_kernel"], total[f"{how}_sdpa"]
-                    print(f"[ab] {name} per {case.tag} {per} "
-                          f"({sum(sh['blocks'] for sh in shapes)} launches, "
-                          f"bf16, B={batch}) {how}: kernel {k:.4f} ms vs "
-                          f"SDPA {l:.4f} ms: {k / l:.3f}; bound "
-                          f"{total['bound']:.4f} ms, kernel at "
-                          f"{total['bound'] / k:.1%}, SDPA at "
-                          f"{total['bound'] / l:.1%} [{self.gpu}]")
+                      f"bf16) {how}: kernel {k:.4f} ms vs {LIBRARY[lib]} "
+                      f"{l:.4f} ms: {k / l:.3f}; bound {total['bound']:.4f} "
+                      f"ms, kernel at {total['bound'] / k:.1%}, "
+                      f"{LIBRARY[lib]} at {total['bound'] / l:.1%} "
+                      f"[{self.gpu}]")
             torch.cuda.empty_cache()
-        self.ab_th = res
 
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
@@ -1331,7 +1322,7 @@ class Smoke:
                     for k, vs in variants.items()},
                 f"launches by variant {by_variant}, expected {variants} x "
                 f"{total}")
-        self.require_th_entries(f"{case.tag} serve", variants, total)
+        self.require_entries(f"{case.tag} serve", plan, variants, total)
         self.record(f"{case.tag} serve", counts, by_variant)
         full_l, full_p = results["full batch"]
         rag_l, rag_p = results["ragged 3"]
@@ -1511,7 +1502,7 @@ class Smoke:
             require({k: by_variant[k] for k in pvar} == pvar,
                     f"step {i}: launches by variant {by_variant}, expected "
                     f"{pvar}")
-            self.require_th_entries(f"{case.tag} step {i}", pvar)
+            self.require_entries(f"{case.tag} step {i}", plan, pvar)
             losses.append(m["loss"].item())
             require(m["nonfinite"].item() == 0.0
                     and math.isfinite(losses[-1]),
@@ -1592,13 +1583,12 @@ class Smoke:
             if name in self.ab:
                 out[-1]["ab_vs_partition_attn_branch_unpartition_ms"] = \
                     self.ab[name]
-            if name == "dwconv3x3_bwd" and self.ab_dw:
-                out[-1]["ab_vs_convolution_backward_ms"] = self.ab_dw
+            if name in self.ab_lib:
+                out[-1][AB_KEY.get(name, "ab_vs_sdpa_ms")] = \
+                    self.ab_lib[name]
             if len(sources) > 1:
                 out[-1]["sources"] = list(sources)
                 out[-1]["launches_by_entry"] = self.entries[name]
-            if self.ab_th.get(name):
-                out[-1]["ab_vs_sdpa_ms"] = self.ab_th[name]
         return out
 
 
@@ -1647,8 +1637,7 @@ def main() -> int:
         if case is A_BASE:
             smoke.ab_nhwc()
         if case is MODEL_B_O:
-            smoke.ab_dwconv()
-            smoke.ab_grid_th()
+            smoke.ab_vs_library()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

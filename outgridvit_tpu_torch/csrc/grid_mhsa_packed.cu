@@ -1,28 +1,29 @@
 // Grid multi-head self-attention core for grids of 16 < N < 64 tokens
-// (takes 1 <= N <= 63), forward and backward.
+// (takes 1 <= N <= 63) in fp32, forward and backward: the parity path. bf16
+// launches take csrc/grid_mhsa_packed_mma.cu.
 //
 // Replaces the TPU kernel outgridvit_tpu/ops/grid_attention_pallas.py:
 // grid_mhsa_pallas (#6): `_fwd_kernel` / `_attn_tile` (packed_fwd here) and
 // `_bwd_kernel` (packed_bwd), with their rounding points:
 //   forward:  per grid and head, logits = q.k^T summed in fp32, then scaled;
-//             a = softmax (max subtracted, divided by the sum); out =
-//             round(round(a).v), P.V summed in fp32 (round() is the cast to
-//             the compute type, common.cuh:round_to);
+//             a = softmax (max subtracted, divided by the sum); out = a.v,
+//             P.V summed in fp32 (in fp32 the cast of a to the compute type
+//             before P.V is exact);
 //   backward: a recomputed by division and kept in fp32; dv = a^T.dO;
 //             dp = dO.v^T; ds = a * (dp - sum_m dp*a); dq = scale * ds.k,
-//             dk = scale * ds^T.q; each cast once.
+//             dk = scale * ds^T.q.
 // The TPU kernel packs 32 // N grids of N < 16 tokens block-diagonally under
 // a -1e30 mask to widen its matrix-unit products. exp of a masked logit is
 // exactly 0 in fp32, so packing changes the layout and not the result; this
 // kernel packs nothing.
 //
 // What bounds it on the H100: memory. Per grid it reads N*3C elements and
-// writes N*C (forward) for about 4*N*N*C flops: N/2 flop/byte in bf16, 18 at
-// N = 36, below the fp32 FMA pipe's ~20 and far below the tensor cores'
-// ~295. The floor is the qkv read plus the out write at HBM rate.
+// writes N*C (forward) for about 4*N*N*C flops: N/4 flop/byte in fp32, 9 at
+// N = 36, below the fp32 FMA pipe's ~20. The floor is the qkv read plus the
+// out write at HBM rate.
 //
 // What the design does about it: one block per grid reads its rows once, one
-// head at a time, into shared memory as fp32 (rows padded by one float so
+// head at a time, into shared memory (rows padded by one float so
 // that column walks do not collide in one bank), and writes each head's
 // output columns once. Staging one head rather than all (as csrc/grid_mhsa.cu
 // does for N <= 16) keeps the block within the 227 KB of shared memory at
@@ -53,8 +54,7 @@ size_t bwd_smem_floats(int N, int hd) {
 
 // Copy head h's columns of `parts` consecutive C-wide parts of each of the N
 // rows of src (row stride ld_src) into parts [N, ld] fp32 tiles.
-template <typename T>
-__device__ void load_head(const T* __restrict__ src, int ld_src, int N,
+__device__ void load_head(const float* __restrict__ src, int ld_src, int N,
                           int C, int hd, int h, int parts, float* dst,
                           int ld) {
   const int per = N * hd;
@@ -62,13 +62,12 @@ __device__ void load_head(const T* __restrict__ src, int ld_src, int N,
     const int part = i / per, r = i % per;
     const int n = r / hd, d = r % hd;
     dst[part * N * ld + n * ld + d] =
-        to_f32(src[static_cast<size_t>(n) * ld_src + part * C + h * hd + d]);
+        src[static_cast<size_t>(n) * ld_src + part * C + h * hd + d];
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-packed_fwd(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
+packed_fwd(const float* __restrict__ qkv, float* __restrict__ out, int N, int C,
            int heads, float scale) {
   extern __shared__ float smem[];
   const int C3 = 3 * C, hd = C / heads;
@@ -76,11 +75,11 @@ packed_fwd(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
   float* s_q = smem;           // [N, ld] one head's q | k | v
   float* s_k = s_q + N * ld;
   float* s_v = s_k + N * ld;
-  float* s_p = s_v + N * ld;   // [N, lp] logits, then round(a)
+  float* s_p = s_v + N * ld;   // [N, lp] logits, then a
 
   const size_t g = blockIdx.x;
-  const T* src = qkv + g * N * C3;
-  T* dst = out + g * N * C;
+  const float* src = qkv + g * N * C3;
+  float* dst = out + g * N * C;
   for (int h = 0; h < heads; ++h) {
     load_head(src, C3, N, C, hd, h, 3, s_q, ld);
     __syncthreads();
@@ -89,20 +88,19 @@ packed_fwd(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
                              s_p[n * lp + m] = acc * scale;
                            });
     __syncthreads();
-    softmax_rows<T>(s_p, lp, N, N, true);
+    softmax_rows<float>(s_p, lp, N, N, false);
     __syncthreads();
     block_gemm<kRT, float>(s_p, lp, 1, N, N, s_v, ld, 1, hd,
                            [&](int n, int d, float acc) {
-                             dst[n * C + h * hd + d] = from_f32<T>(acc);
+                             dst[n * C + h * hd + d] = acc;
                            });
     __syncthreads();  // before the next head overwrites the tiles
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-packed_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
-           T* __restrict__ dqkv, int N, int C, int heads, float scale) {
+packed_bwd(const float* __restrict__ qkv, const float* __restrict__ dout,
+           float* __restrict__ dqkv, int N, int C, int heads, float scale) {
   extern __shared__ float smem[];
   const int C3 = 3 * C, hd = C / heads;
   const int ld = hd + 1, lp = N + 1;
@@ -115,9 +113,9 @@ packed_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const size_t g = blockIdx.x;
-  const T* src = qkv + g * N * C3;
-  const T* gsrc = dout + g * N * C;
-  T* dst = dqkv + g * N * C3;
+  const float* src = qkv + g * N * C3;
+  const float* gsrc = dout + g * N * C;
+  float* dst = dqkv + g * N * C3;
   for (int h = 0; h < heads; ++h) {
     load_head(src, C3, N, C, hd, h, 3, s_q, ld);
     load_head(gsrc, C, N, C, hd, h, 1, s_do, ld);
@@ -131,7 +129,7 @@ packed_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
                              s_ds[n * lp + m] = acc;
                            });
     __syncthreads();
-    softmax_rows<T>(s_a, lp, N, N, false);
+    softmax_rows<float>(s_a, lp, N, N, false);
     __syncthreads();
     // ds = a * (dp - sum_m dp*a), one warp per row
     for (int r = warp; r < N; r += blockDim.x / 32) {
@@ -147,16 +145,16 @@ packed_bwd(const T* __restrict__ qkv, const T* __restrict__ dout,
     // dv = a^T.dO, dq = scale * ds.k, dk = scale * ds^T.q
     block_gemm<kRT, float>(s_a, 1, lp, N, N, s_do, ld, 1, hd,
                            [&](int m, int d, float acc) {
-                             dst[m * C3 + 2 * C + o + d] = from_f32<T>(acc);
+                             dst[m * C3 + 2 * C + o + d] = acc;
                            });
     block_gemm<kRT, float>(s_ds, lp, 1, N, N, s_k, ld, 1, hd,
                            [&](int n, int d, float acc) {
-                             dst[n * C3 + o + d] = from_f32<T>(acc * scale);
+                             dst[n * C3 + o + d] = acc * scale;
                            });
     block_gemm<kRT, float>(s_ds, 1, lp, N, N, s_q, ld, 1, hd,
                            [&](int m, int d, float acc) {
                              dst[m * C3 + C + o + d] =
-                                 from_f32<T>(acc * scale);
+                                 acc * scale;
                            });
     __syncthreads();  // before the next head overwrites the tiles
   }
@@ -167,53 +165,46 @@ bool shape_ok(int G, int N, int C, int heads) {
          C % heads == 0;
 }
 
-template <typename T>
 cudaError_t launch_fwd(const void* qkv, void* out, int G, int N, int C,
                        int heads, float scale, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(N, C / heads) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(packed_fwd<T>, smem);
+  cudaError_t err = set_smem(packed_fwd, smem);
   if (err != cudaSuccess) return err;
-  packed_fwd<T><<<G, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, heads, scale);
+  packed_fwd<<<G, kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), N, C, heads,
+      scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_bwd(const void* qkv, const void* dout, void* dqkv, int G,
                        int N, int C, int heads, float scale,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem_floats(N, C / heads) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(packed_bwd<T>, smem);
+  cudaError_t err = set_smem(packed_bwd, smem);
   if (err != cudaSuccess) return err;
-  packed_bwd<T><<<G, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
-      static_cast<T*>(dqkv), N, C, heads, scale);
+  packed_bwd<<<G, kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
+      static_cast<float*>(dqkv), N, C, heads, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv [G, N, 3C] -> out [G, N, C], both contiguous, of type `dtype`.
+// qkv [G, N, 3C] -> out [G, N, C], both contiguous fp32 (`dtype` 0).
 extern "C" int ogvt_grid_mhsa_packed(const void* qkv, void* out, int G, int N,
                                      int C, int heads, float scale, int dtype,
                                      void* stream) {
   if (!shape_ok(G, N, C, heads)) return cudaErrorInvalidValue;
   if (G == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_fwd<float>(qkv, out, G, N, C, heads, scale, s);
-    case kBFloat16:
-      return launch_fwd<__nv_bfloat16>(qkv, out, G, N, C, heads, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype != kFloat32) return cudaErrorInvalidValue;
+  return launch_fwd(qkv, out, G, N, C, heads, scale, s);
 }
 
-// qkv [G, N, 3C], dout [G, N, C] -> dqkv [G, N, 3C], all contiguous, of type
-// `dtype`.
+// qkv [G, N, 3C], dout [G, N, C] -> dqkv [G, N, 3C], all contiguous fp32
+// (`dtype` 0).
 extern "C" int ogvt_grid_mhsa_packed_bwd(const void* qkv, const void* dout,
                                          void* dqkv, int G, int N, int C,
                                          int heads, float scale, int dtype,
@@ -221,13 +212,6 @@ extern "C" int ogvt_grid_mhsa_packed_bwd(const void* qkv, const void* dout,
   if (!shape_ok(G, N, C, heads)) return cudaErrorInvalidValue;
   if (G == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_bwd<float>(qkv, dout, dqkv, G, N, C, heads, scale, s);
-    case kBFloat16:
-      return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, G, N, C, heads,
-                                       scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype != kFloat32) return cudaErrorInvalidValue;
+  return launch_bwd(qkv, dout, dqkv, G, N, C, heads, scale, s);
 }

@@ -50,6 +50,7 @@
 #include <initializer_list>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace ogvt;
 
@@ -61,104 +62,8 @@ constexpr int kN = 16;      // tokens per grid: the M of one mma tile
 constexpr int kWarps = 4;   // (grid, head) units per block, one per warp
 constexpr int kThreads = 32 * kWarps;
 
-// Row stride of a staged [16, hd] tile, in 16-byte units: hd / 8 made odd.
-__host__ __device__ constexpr int row16(int nt) { return nt | 1; }
 __host__ __device__ constexpr int tile_bytes(int nt) {
   return kN * row16(nt) * 16;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(unsigned addr, unsigned (&r)[2]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a.b on an m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4],
-                                        unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a.b on an m16n8k8 tile (the k tail of hd % 16 == 8).
-__device__ __forceinline__ void mma_k8(float (&d)[4], const unsigned (&a)[2],
-                                       unsigned b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-// The transpose of an 8 x 8 bf16 matrix held as an mma fragment.
-__device__ __forceinline__ unsigned transpose8(unsigned x) {
-  unsigned y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(y)
-               : "r"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x0, x1) as two bf16 pairs whose sum is x to about 2^-17 relative:
-// hi = bf16(x), lo = bf16(x - hi) (x - hi is exact in fp32).
-__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
-                                       unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // Copy the [16, hd] slice of 16 rows `ld` elements apart at `src` into the
@@ -280,24 +185,6 @@ __device__ __forceinline__ void softmax16(float (&s)[2][4], float scale) {
   }
 }
 
-// The A fragments (hi and lo terms) of the 16 x 16 matrix held in s.
-__device__ __forceinline__ void to_a(const float (&s)[2][4], unsigned (&hi)[4],
-                                     unsigned (&lo)[4]) {
-  split2(s[0][0], s[0][1], hi[0], lo[0]);  // rows 0-7, k 0-7
-  split2(s[0][2], s[0][3], hi[1], lo[1]);  // rows 8-15, k 0-7
-  split2(s[1][0], s[1][1], hi[2], lo[2]);  // rows 0-7, k 8-15
-  split2(s[1][2], s[1][3], hi[3], lo[3]);  // rows 8-15, k 8-15
-}
-
-// The A fragment of the transpose of the matrix whose A fragment is a.
-__device__ __forceinline__ void transpose_a(const unsigned (&a)[4],
-                                            unsigned (&t)[4]) {
-  t[0] = transpose8(a[0]);
-  t[1] = transpose8(a[2]);
-  t[2] = transpose8(a[1]);
-  t[3] = transpose8(a[3]);
-}
-
 // acc * scale cast to bf16 into the tile (row g: acc[j][0..1], row g + 8:
 // acc[j][2..3], columns 8j + 2t).
 template <int NT>
@@ -343,7 +230,7 @@ th_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out, int units,
   product_t<NT>(s, sq, sk, lane);
   softmax16(s, scale);
   unsigned hi[4], lo[4];
-  to_a(s, hi, lo);
+  to_a(s[0], s[1], hi, lo);
   cp_async_wait<0>();
   __syncwarp();
   float acc[NT][4];
@@ -404,13 +291,13 @@ th_bwd(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 
   unsigned hi[4], lo[4], thi[4], tlo[4];
   float acc[NT][4];
-  to_a(a, hi, lo);
+  to_a(a[0], a[1], hi, lo);
   transpose_a(hi, thi);
   transpose_a(lo, tlo);
   product<NT>(acc, thi, tlo, sd, lane);  // dv = a^T.dO
   __syncwarp();                          // every lane is done with v (dp)
   put<NT>(tv, acc, 1.f, lane);
-  to_a(ds, hi, lo);
+  to_a(ds[0], ds[1], hi, lo);
   transpose_a(hi, thi);
   transpose_a(lo, tlo);
   product<NT>(acc, thi, tlo, sq, lane);  // ds^T.q

@@ -31,8 +31,14 @@ forward; its backward recomputes the probabilities by division and keeps
 them in fp32 (:func:`grid_mhsa_packed_backward_reference`). It packs
 ``32 // N`` grids of N < 16 tokens block-diagonally under a -1e30 mask,
 a layout device only: ``exp`` of a masked logit is exactly 0 in fp32. Its
-Hopper kernel ``csrc/grid_mhsa_packed.cu`` (:func:`grid_mhsa_packed`,
-:func:`grid_mhsa_packed_backward`) packs nothing and takes 1 <= N < 64.
+Hopper kernels (:func:`grid_mhsa_packed`, :func:`grid_mhsa_packed_backward`)
+pack nothing and take 1 <= N < 64: a bf16 launch runs
+``csrc/grid_mhsa_packed_mma.cu`` (one warp per grid and head on
+``mma.sync`` tiles, launch plan :func:`grid_mhsa_packed_plan`), which takes
+a head width that is a multiple of 8 up to 64 and raises on any other; an
+fp32 launch (the parity path) runs ``csrc/grid_mhsa_packed.cu`` (one block
+per grid, fp32 staging). Launches are counted per C entry point
+(``grid_mhsa_packed.by_entry``).
 
 :func:`grid_mhsa_autograd` and :func:`grid_mhsa_packed_autograd` are the
 differentiable cores the model calls: ``torch.autograd.Function``s that
@@ -52,7 +58,6 @@ from outgridvit_tpu_torch.ops import kernel_build
 
 MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
 PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64
-_MAX_SMEM = 227 * 1024
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
 
 
@@ -65,9 +70,18 @@ TH_MAX_HD = 64       # widest head (the accumulators' registers)
 # backward at hd > 32, (128, 6))
 TH_REGS = {"fwd": 64, "bwd": 64, "bwd_wide": 80}
 # one H100 SM: shared memory (each block reserves 1 KB more), registers,
-# threads and blocks
+# threads and blocks; the most one block may ask for; the SMs of an H100 SXM
 SM_SMEM, SM_BLOCK_RESERVED = 228 * 1024, 1024
 SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+BLOCK_SMEM, SMS = 227 * 1024, 132
+
+
+def blocks_per_sm(warps: int, smem: int, regs: int) -> int:
+    """Blocks of ``warps`` warps, ``smem`` shared bytes and ``regs``
+    registers a thread that one H100 SM holds at once."""
+    return min(SM_REGS // (regs * 32 * warps),
+               SM_SMEM // (smem + SM_BLOCK_RESERVED),
+               SM_THREADS // (32 * warps), SM_BLOCKS)
 
 
 class ThPlan(NamedTuple):
@@ -114,12 +128,93 @@ def grid_mhsa_th_plan(G: int, N: int, C: int, heads: int,
     smem = TH_WARPS * tiles * TH_TOKENS * row
     regs = TH_REGS["bwd_wide" if hd > 32 else "bwd"] if backward \
         else TH_REGS["fwd"]
-    threads = 32 * TH_WARPS
-    per_sm = min(SM_REGS // (regs * threads),
-                 SM_SMEM // (smem + SM_BLOCK_RESERVED),
-                 SM_THREADS // threads, SM_BLOCKS)
+    per_sm = blocks_per_sm(TH_WARPS, smem, regs)
     return ThPlan(TH_WARPS, -(-G * heads // TH_WARPS), TH_WARPS / heads,
                   tiles, row, smem, regs, per_sm, per_sm * TH_WARPS / heads)
+
+
+# ---- #6's bf16 kernel's launch plan (csrc/grid_mhsa_packed_mma.cuh) -------
+
+PACKED_WARPS = 4     # the most warps a block, one (grid, head) unit each
+PACKED_MAX_HD = 64   # widest head (the accumulators' registers)
+PACKED_ACC_TILE = 32 * 16  # one m16n8 fp32 accumulator tile, a float4 a lane
+
+
+class PackedPlan(NamedTuple):
+    """How ``ogvt_grid_mhsa_packed_mma[_bwd]`` cuts one call: ``warps`` per
+    block, each one (grid, head) unit, ``blocks`` in all; ``row_tiles`` m16
+    tiles of query rows and ``key_tiles`` n8 tiles of keys staged, rows
+    ``row_bytes`` apart, ``smem_bytes`` a block (the backward's with its
+    dv and dk accumulators); and, at the kernel's register cap ``regs``,
+    what one SM holds (``blocks_per_sm`` blocks, ``units_per_sm`` units)
+    and the ``waves`` of units the card's SMs take for the call."""
+    warps: int
+    blocks: int
+    row_tiles: int
+    key_tiles: int
+    row_bytes: int
+    smem_bytes: int
+    regs: int
+    blocks_per_sm: int
+    units_per_sm: int
+    waves: float
+
+
+def packed_regs(key_tiles: int, nt: int, per_warp: int,
+                backward: bool) -> int:
+    """The register cap of the kernel instantiation for ``key_tiles`` n8
+    tiles of keys, hd = 8 * ``nt`` and ``per_warp`` shared bytes a warp:
+    ``__launch_bounds__(128, sm_blocks)`` of
+    csrc/grid_mhsa_packed_mma.cuh, the blocks of 4 warps one SM holds by
+    shared memory and by the fp32 values a lane keeps live, fitted so that
+    ptxas spills at none (change the two together)."""
+    if backward:
+        live = 16 * -(-key_tiles // 2) + 8 * nt
+        by_regs = 6 if live <= 40 else 4 if live <= 72 else 3
+    else:
+        live = 4 * key_tiles + 4 * nt + (8 if nt == 1 else 0)
+        by_regs = 8 if live <= 32 else 6 if live <= 48 else 5
+    by_smem = SM_SMEM // (PACKED_WARPS * per_warp + SM_BLOCK_RESERVED)
+    blocks = max(1, min(by_smem, by_regs))
+    return min(255, SM_REGS // (32 * PACKED_WARPS * blocks) // 8 * 8)
+
+
+@lru_cache(maxsize=None)
+def grid_mhsa_packed_plan(G: int, N: int, C: int, heads: int,
+                          backward: bool) -> PackedPlan:
+    """#6's bf16 kernel's launch plan for qkv ``[G, N, 3C]``, or a
+    ValueError naming the shape it does not take (N outside 1..63, a head
+    width that is not a multiple of 8 in [8, 64]). Of 1 to 4 warps a block,
+    the one that keeps the most units on an SM (the most warps on a tie).
+    Cached: the wrapper asks at every launch."""
+    if G < 0 or heads <= 0 or C % heads:
+        raise ValueError(
+            f"grid_mhsa_packed: G={G}, N={N}, C={C}, heads={heads}")
+    hd = C // heads
+    if not 1 <= N <= PACKED_MAX_TOKENS or hd % 8 or \
+            not 8 <= hd <= PACKED_MAX_HD:
+        raise ValueError(
+            f"grid_mhsa_packed: N={N}, C={C}, heads={heads} (hd={hd}); the "
+            f"bf16 kernel takes 1 <= N <= {PACKED_MAX_TOKENS} and hd a "
+            f"multiple of 8 up to {PACKED_MAX_HD}")
+    kt8 = -(-N // 8)
+    mt, nt, row = -(-kt8 // 2), hd // 8, th_row_bytes(hd)
+    # q (and dO) rows, k and v rows; the backward's fp32 dv and dk
+    per_warp = (((2 if backward else 1) * 16 * mt + 16 * kt8) * row
+                + (2 * mt * nt * PACKED_ACC_TILE if backward else 0))
+    regs = packed_regs(kt8, nt, per_warp, backward)
+    best = None
+    for warps in range(PACKED_WARPS, 0, -1):
+        if warps * per_warp > BLOCK_SMEM:
+            continue
+        per_sm = blocks_per_sm(warps, warps * per_warp, regs)
+        if best is None or per_sm * warps > best[1] * best[0]:
+            best = (warps, per_sm)
+    warps, per_sm = best
+    units = G * heads
+    return PackedPlan(warps, -(-units // warps), mt, kt8, row,
+                      warps * per_warp, regs, per_sm, per_sm * warps,
+                      units / (per_sm * warps * SMS))
 
 
 def grid_mhsa_variant(N: int, C: int) -> str:
@@ -218,7 +313,7 @@ def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
         raise ValueError(
             f"{name}: N={N} tokens per grid; the kernel takes "
             f"1..{max_tokens}")
-    if smem_floats is not None and smem_floats(N, C) * 4 > _MAX_SMEM:
+    if smem_floats is not None and smem_floats(N, C) * 4 > BLOCK_SMEM:
         raise ValueError(f"{name}: grid of N={N}, C={C}, heads={heads} "
                          "exceeds shared memory")
     return G, N, C
@@ -239,17 +334,19 @@ def _takes_th(qkv: torch.Tensor, variant: str) -> bool:
     return variant == "th" and qkv.dtype == torch.bfloat16
 
 
-def _th_plan(name: str, qkv: torch.Tensor, heads: int, backward: bool,
-             *others) -> ThPlan:
-    """The "th" kernel's plan for qkv, its tensors (qkv and ``others``,
-    (label, tensor) pairs) 16-byte aligned, or a ValueError."""
+def _mma_plan(name: str, planner, qkv: torch.Tensor, heads: int,
+              backward: bool, *others):
+    """The plan of an ``mma.sync`` kernel (``planner``:
+    :func:`grid_mhsa_th_plan` or :func:`grid_mhsa_packed_plan`) for qkv,
+    its tensors (qkv and ``others``, (label, tensor) pairs) 16-byte aligned,
+    or a ValueError."""
     G, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
-    plan = grid_mhsa_th_plan(G, N, C, heads, backward)
+    plan = planner(G, N, C, heads, backward)
     for label, t in (("qkv", qkv), *others):
         if t.data_ptr() % 16:
             raise ValueError(
                 f"{name}: {label} of shape {tuple(t.shape)} at "
-                f"{t.data_ptr():#x} is not 16-byte aligned; the th kernel "
+                f"{t.data_ptr():#x} is not 16-byte aligned; the kernel "
                 "copies 16 bytes at a time")
     return plan
 
@@ -267,7 +364,8 @@ def grid_mhsa(qkv: torch.Tensor, heads: int,
     G, N, C = _check_launch(
         "grid_mhsa", qkv, heads,
         None if th else lambda N, C: N * 3 * C + heads * N * N, variant)
-    plan = _th_plan("grid_mhsa", qkv, heads, False) if th else None
+    plan = (_mma_plan("grid_mhsa", grid_mhsa_th_plan, qkv, heads, False)
+            if th else None)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
@@ -306,8 +404,8 @@ def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         "grid_mhsa_backward", qkv, heads,
         None if th else lambda N, C: N * 4 * C + 2 * heads * N * N, variant)
     _check_dout("grid_mhsa_backward", qkv, dout, G, N, C)
-    plan = (_th_plan("grid_mhsa_backward", qkv, heads, True, ("dout", dout))
-            if th else None)
+    plan = (_mma_plan("grid_mhsa_backward", grid_mhsa_th_plan, qkv, heads,
+                      True, ("dout", dout)) if th else None)
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
@@ -365,68 +463,100 @@ def grid_mhsa_autograd(qkv: torch.Tensor, heads: int, use_kernels: bool,
 
 
 def packed_smem_floats(N: int, C: int, heads: int, backward: bool) -> int:
-    """Shared-memory floats of one block of ``csrc/grid_mhsa_packed.cu``:
-    one head's q, k, v (and dO) rows and its [N, N] probabilities (and ds),
-    rows padded by one float."""
+    """Shared-memory floats of one block of ``csrc/grid_mhsa_packed.cu``
+    (the fp32 launches): one head's q, k, v (and dO) rows and its [N, N]
+    probabilities (and ds), rows padded by one float."""
     hd = C // heads
     if backward:
         return 4 * N * (hd + 1) + 2 * N * (N + 1)
     return 3 * N * (hd + 1) + N * (N + 1)
 
 
+def _packed_launch(name: str, qkv: torch.Tensor, heads: int, backward: bool,
+                   *others):
+    """(G, N, C, plan) of a #6 launch: the bf16 kernel's plan for a bf16
+    qkv, None for fp32 (whose block must fit shared memory); or a
+    ValueError."""
+    bf16 = qkv.dtype == torch.bfloat16
+    G, N, C = _check_launch(
+        name, qkv, heads,
+        None if bf16 else lambda N, C: packed_smem_floats(N, C, heads,
+                                                          backward),
+        max_tokens=PACKED_MAX_TOKENS)
+    if backward:
+        _check_dout(name, qkv, others[0][1], G, N, C)
+    plan = (_mma_plan(name, grid_mhsa_packed_plan, qkv, heads, backward,
+                      *others) if bf16 else None)
+    return G, N, C, plan
+
+
 def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """#6's forward, qkv [G, N, 3C] -> [G, N, C]: probabilities divided by
-    their sum and cast to qkv's dtype before P.V. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes
+    their sum and cast to qkv's dtype before P.V. A CUDA tensor launches a
+    kernel (or raises): ``csrc/grid_mhsa_packed_mma.cu`` in bf16,
+    ``csrc/grid_mhsa_packed.cu`` in fp32; a CPU tensor takes
     :func:`grid_mhsa_packed_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_reference(qkv, heads)
-    G, N, C = _check_launch(
-        "grid_mhsa_packed", qkv, heads,
-        lambda N, C: packed_smem_floats(N, C, heads, False),
-        max_tokens=PACKED_MAX_TOKENS)
+    G, N, C, plan = _packed_launch("grid_mhsa_packed", qkv, heads, False)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
+    scale = ctypes.c_float((C // heads) ** -0.5)
+    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
     with torch.cuda.device(qkv.device):
-        err = lib.ogvt_grid_mhsa_packed(
-            qkv.data_ptr(), out.data_ptr(), G, N, C, heads,
-            ctypes.c_float((C // heads) ** -0.5),
-            kernel_build.DTYPE_CODES[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "grid_mhsa_packed launch")
-    grid_mhsa_packed.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            entry = "ogvt_grid_mhsa_packed"
+            err = lib.ogvt_grid_mhsa_packed(
+                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale, dtype,
+                stream)
+        else:
+            entry = "ogvt_grid_mhsa_packed_mma"
+            err = lib.ogvt_grid_mhsa_packed_mma(
+                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
+                plan.warps, plan.smem_bytes, dtype, stream)
+    kernel_build.check(err, f"grid_mhsa_packed launch ({entry})")
+    kernel_build.count_launch(grid_mhsa_packed, None, entry)
     return out
 
 
 grid_mhsa_packed.launches = 0
+grid_mhsa_packed.by_entry = Counter()
 
 
 def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
                               heads: int) -> torch.Tensor:
     """#6's backward, (qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C].
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+    A CUDA tensor launches a kernel (or raises), chosen as in
+    :func:`grid_mhsa_packed`; a CPU tensor takes
     :func:`grid_mhsa_packed_backward_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_backward_reference(qkv, dout, heads)
-    G, N, C = _check_launch(
-        "grid_mhsa_packed_backward", qkv, heads,
-        lambda N, C: packed_smem_floats(N, C, heads, True),
-        max_tokens=PACKED_MAX_TOKENS)
-    _check_dout("grid_mhsa_packed_backward", qkv, dout, G, N, C)
+    G, N, C, plan = _packed_launch("grid_mhsa_packed_backward", qkv, heads,
+                                   True, ("dout", dout))
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
+    scale = ctypes.c_float((C // heads) ** -0.5)
+    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
     with torch.cuda.device(qkv.device):
-        err = lib.ogvt_grid_mhsa_packed_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C, heads,
-            ctypes.c_float((C // heads) ** -0.5),
-            kernel_build.DTYPE_CODES[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "grid_mhsa_packed_backward launch")
-    grid_mhsa_packed_backward.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            entry = "ogvt_grid_mhsa_packed_bwd"
+            err = lib.ogvt_grid_mhsa_packed_bwd(
+                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
+                heads, scale, dtype, stream)
+        else:
+            entry = "ogvt_grid_mhsa_packed_mma_bwd"
+            err = lib.ogvt_grid_mhsa_packed_mma_bwd(
+                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
+                heads, scale, plan.warps, plan.smem_bytes, dtype, stream)
+    kernel_build.check(err, f"grid_mhsa_packed_backward launch ({entry})")
+    kernel_build.count_launch(grid_mhsa_packed_backward, None, entry)
     return dqkv
 
 
 grid_mhsa_packed_backward.launches = 0
+grid_mhsa_packed_backward.by_entry = Counter()
 
 
 class _GridMHSAPacked(torch.autograd.Function):

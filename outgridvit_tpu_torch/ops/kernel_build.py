@@ -86,6 +86,12 @@ _SIGNATURES = {
     # qkv, dout, dqkv, G, N, C, heads, scale, dtype, stream
     "ogvt_grid_mhsa_packed_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
                                   _I),
+    # qkv, out, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_packed_mma": ((_P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                                   _P), _I),
+    # qkv, dout, dqkv, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_packed_mma_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                       _I, _I, _P), _I),
     # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
     # stream
     "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),
@@ -209,12 +215,15 @@ def check_variant(name: str, variant: str, variants) -> None:
                          f"{variants}")
 
 
-def count_launch(fn, variant: str, entry: Optional[str] = None) -> None:
-    """Count one kernel launch on the wrapper ``fn``: ``fn.launches``,
-    ``fn.by_variant[variant]``, the JAX kernel the launch stands for, and,
-    for a wrapper with more than one C entry point, ``fn.by_entry[entry]``."""
+def count_launch(fn, variant: Optional[str],
+                 entry: Optional[str] = None) -> None:
+    """Count one kernel launch on the wrapper ``fn``: ``fn.launches``;
+    ``fn.by_variant[variant]``, the JAX kernel the launch stands for, for a
+    wrapper that stands for more than one; ``fn.by_entry[entry]`` for a
+    wrapper with more than one C entry point."""
     fn.launches += 1
-    fn.by_variant[variant] += 1
+    if variant is not None:
+        fn.by_variant[variant] += 1
     if entry is not None:
         fn.by_entry[entry] += 1
 

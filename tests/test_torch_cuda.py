@@ -17,11 +17,14 @@ hd = 24, C not a multiple of the vector width), plus tiny models (Model A,
 Model B in the fused outlook modes, Model B with the depthwise mode "t" and
 Model A with "bwd") through the kernels against the plain path, forward and
 one train step; the block-packed grid core (#6) at the 48 px 7M stage-0
-shape and edge shapes (N = 1, 17, 63; hd = 56, 64), the NHWC fused branch
-(#12) at the default Model A stage-0 shape and rectangular maps, against its
-plain version and bit for bit against partition -> #5 -> unpartition, tiny
-models through both, and ``model.use_pallas: false``, which launches no
-kernel.
+shapes (serving and train batch) and edge shapes (N = 1, 17, 63; hd = 56,
+64), its bf16 kernel (``csrc/grid_mhsa_packed_mma.cu``) at N = 17, 33, 48,
+49, 63 times hd = 8, 24, 56, 64 through its own entry points (fp32 through
+``csrc/grid_mhsa_packed.cu``'s) and its refusal of hd = 12, the NHWC fused
+branch (#12) at the default Model A stage-0 shape and rectangular maps,
+against its plain version and bit for bit against partition -> #5 ->
+unpartition, tiny models through both, and ``model.use_pallas: false``,
+which launches no kernel.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -774,25 +777,65 @@ def test_tiny_model_depthwise_modes_kernel_path_matches_plain_path(
 
 # ---- #6, the block-packed grid core ----------------------------------------
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,N,C,heads", [
-    (8192, 36, 48, 2),   # Model A-7M at 48 px, stage 0, train batch 128
-    (4, 1, 8, 1), (7, 17, 40, 5), (3, 63, 64, 1), (5, 25, 448, 8)])
-def test_grid_mhsa_packed_kernels_match_plain(dev, dtype, G, N, C, heads):
-    g = torch.Generator().manual_seed(G + N + C)
+def _packed_entries():
+    bwd = grid_mhsa_packed_backward.by_entry
+    return (grid_mhsa_packed.by_entry["ogvt_grid_mhsa_packed_mma"],
+            bwd["ogvt_grid_mhsa_packed_mma_bwd"],
+            grid_mhsa_packed.by_entry["ogvt_grid_mhsa_packed"],
+            bwd["ogvt_grid_mhsa_packed_bwd"])
+
+
+def _check_packed(dev, dtype, G, N, C, heads, seed):
+    """Both #6 launches against their plain versions, the backward twice
+    bitwise equal; bf16 through csrc/grid_mhsa_packed_mma.cu's entry
+    points, fp32 through csrc/grid_mhsa_packed.cu's."""
+    g = torch.Generator().manual_seed(seed)
     qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, dtype)
     dout = torch.randn(G, N, C, generator=g).to(dev, dtype)
     n = (grid_mhsa_packed.launches, grid_mhsa_packed_backward.launches)
+    entries = _packed_entries()
     got = grid_mhsa_packed(qkv, heads)
     dqkv = grid_mhsa_packed_backward(qkv, dout, heads)
     again = grid_mhsa_packed_backward(qkv, dout, heads)
     torch.cuda.synchronize()
     assert (grid_mhsa_packed.launches, grid_mhsa_packed_backward.launches) \
         == (n[0] + 1, n[1] + 2)
+    step = (1, 2, 0, 0) if dtype == torch.bfloat16 else (0, 0, 1, 2)
+    assert _packed_entries() == tuple(a + b for a, b in zip(entries, step))
     assert torch.equal(dqkv, again)
     _assert_close(got, grid_mhsa_packed_reference(qkv, heads), dtype)
     _assert_close(dqkv, grid_mhsa_packed_backward_reference(qkv, dout, heads),
                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,N,C,heads", [
+    (8192, 36, 48, 2),   # Model A-7M at 48 px, stage 0, train batch 128
+    (4096, 36, 48, 2),   # and serving batch 64
+    (4, 1, 8, 1), (7, 17, 40, 5), (3, 63, 64, 1), (5, 25, 448, 8)])
+def test_grid_mhsa_packed_kernels_match_plain(dev, dtype, G, N, C, heads):
+    _check_packed(dev, dtype, G, N, C, heads, G + N + C)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 56, 64])
+@pytest.mark.parametrize("N", [17, 33, 48, 49, 63])
+def test_grid_mhsa_packed_mma_at_every_row_tiling(dev, N, hd):
+    # 2, 3 and 4 m16 row tiles; a key tail of 8 (N = 17, 33, 49) or none
+    # (48); the hd k8 tail at hd 24 and 56; 3 heads, so a block's units
+    # span grids
+    _check_packed(dev, torch.bfloat16, 11, N, 3 * hd, 3, N * hd)
+
+
+def test_grid_mhsa_packed_mma_refuses_what_it_does_not_take(dev):
+    x = torch.randn(2, 36, 3 * 24, device=dev).bfloat16()  # hd = 12
+    with pytest.raises(ValueError, match="N=36, C=24, heads=2"):
+        grid_mhsa_packed(x, 2)
+    with pytest.raises(ValueError, match="N=36, C=24, heads=2"):
+        grid_mhsa_packed_backward(x, x[..., :24].contiguous(), 2)
+    # fp32 takes csrc/grid_mhsa_packed.cu, which takes any head width
+    x = x.float()
+    _assert_close(grid_mhsa_packed(x, 2), grid_mhsa_packed_reference(x, 2),
+                  torch.float32)
 
 
 # ---- #12, the fused branch on the NHWC map ---------------------------------
