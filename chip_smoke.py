@@ -34,14 +34,21 @@ from a seed:
   wide N=16 grids (C = 160/320/448) of ``grid_mhsa`` tagged "th". The same
   phase holds ``attn_branch_nhwc`` against partition -> ``attn_branch`` ->
   unpartition on the same inputs and times the two, interleaved (the A/B
-  of the switch).
+  of the switch);
+- Model A-7M at 96 px (``a7m_96``, crop pad 12): stage 0 has grids of
+  N=144 (C=48, 2 heads) that the fused branch cannot hold, so they run the
+  block-packed core's kernel for long grids (``grid_mhsa_long``), as the
+  JAX model falls back to its #6 there; stages 1-3 the N=36 grids of
+  ``grid_mhsa_packed`` at C = 96/192/256.
 
 The grid core's bf16 "th" launches (Tiny-ImageNet's and ``a_base``'s
 stages 1-3) run ``csrc/grid_mhsa_th.cu``, every other ``csrc/grid_mhsa.cu``;
-the block-packed core's bf16 launches (``a7m_48``'s stage 0) run
-``csrc/grid_mhsa_packed_mma.cu``, its fp32 ones ``csrc/grid_mhsa_packed.cu``.
-The served and trained main paths (bf16) must launch them through the
-matching C entry points.
+the block-packed core's bf16 launches of N <= 63 (``a7m_48``'s stage 0,
+``a7m_96``'s stages 1-3) run ``csrc/grid_mhsa_packed_mma.cu``, its fp32
+ones ``csrc/grid_mhsa_packed.cu``, and its launches of 64 <= N <= 256 in
+both dtypes ``csrc/grid_mhsa_long.cu`` (the kernels line's
+``grid_mhsa_long`` row). The served and trained main paths (bf16) must
+launch them through the matching C entry points.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -64,15 +71,16 @@ backward against ``aten.convolution_backward`` (cuDNN) at the MBConv shapes
 of Model B and the 7M model and at the Tiny-ImageNet stage 0, the
 depthwise forward against ``F.conv2d(groups=C)`` at Model B's, #3 against
 SDPA at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
-(forward at batch 64 and 128, backward at 128); per shape and per forward
-or train step.
+and, for long grids, at ``a7m_96``'s (forward at batch 64 and 128,
+backward at 128); per shape and per forward or train step.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
 train step for the backward ones, of Tiny-ImageNet for the grid and MLP
-kernels, of Model B for the outlook and depthwise ones, of ``a7m_48`` and
-``a_base`` for the block-packed core and the NHWC branch: the kernel, its
+kernels, of Model B for the outlook and depthwise ones, of ``a7m_48``,
+``a7m_96`` and ``a_base`` for the block-packed core, its kernel for long
+grids and the NHWC branch: the kernel, its
 plain version, one
 PyTorch call computing the same function where there is one, and the bound
 from the bytes and operations of the same launches), then the last line
@@ -257,8 +265,12 @@ A_BASE = ModelCase(
     4, {"lr": 5e-4, "weight_decay": 0.05, "grad_clip_norm": 1.0,
         "min_lr": 1e-6, "label_smoothing": 0.0, "mixup_alpha": 0.0,
         "cutmix_alpha": 1.0, "mix_prob": 0.5}, 6, True, attn_nhwc=True)
+# the 7M model at 96 px: grids of N=144 at stage 0 that #5 cannot hold
+# (#6 for long grids), N=36 at stages 1-3 (#6); the crop pad of
+# scripts/bench_config.py:75-76 at that size
+A7M_96 = dataclasses.replace(FLAGSHIP, tag="a7m_96", img=96, crop_pad=12)
 CASES = (FLAGSHIP, TIN, MODEL_B, MODEL_B_V, MODEL_B_O, A7M_DWB, A7M_48,
-         A_BASE)
+         A_BASE, A7M_96)
 OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch",
                    "fused_outlook": "outlook_softmax"}
 # Every outlooker shape of the three configurations: (H=W, C, heads).
@@ -304,7 +316,9 @@ BF16_LOSS_TOL = 3e-2
 # points it covers). grid_mhsa: csrc/grid_mhsa.cu for "t" launches (#1) and
 # fp32 "th" ones, csrc/grid_mhsa_th.cu for bf16 "th" launches (#3).
 # grid_mhsa_packed: csrc/grid_mhsa_packed_mma.cu for bf16 launches, the main
-# paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones.
+# paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
+# grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
+# JAX falls back to it from #5), csrc/grid_mhsa_long.cu in both dtypes.
 SOURCES = {
     "grid_mhsa": (
         ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
@@ -398,6 +412,17 @@ SOURCES = {
         "outgridvit_tpu/ops/grid_attention_pallas.py:244",
         ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
          "backward (#6, :244)"]),
+    "grid_mhsa_long": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa_long.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas.py:183",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:183 grid_mhsa_pallas "
+         "(#6, forward :202) at N >= 64, where "
+         "outgridvit_tpu/models/blocks.py:283-291 falls back to it"]),
+    "grid_mhsa_long_bwd": (
+        "outgridvit_tpu_torch/csrc/grid_mhsa_long.cu",
+        "outgridvit_tpu/ops/grid_attention_pallas.py:244",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
+         "backward (#6, :244) at N >= 64"]),
     "attn_branch_nhwc": (
         "outgridvit_tpu_torch/csrc/attn_branch.cu",
         "outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127",
@@ -411,17 +436,25 @@ SOURCES = {
 }
 FWD = ("grid_mhsa", "attn_branch", "mlp_branch", "outlook_agg",
        "outlook_branch", "outlook_softmax", "dwconv3x3", "grid_mhsa_packed",
-       "attn_branch_nhwc")
+       "attn_branch_nhwc", "grid_mhsa_long")
 # #9 has no backward kernel (its backward is autograd of plain PyTorch)
 BWD = tuple(name + "_bwd" for name in FWD if name + "_bwd" in SOURCES)
 OUTLOOK = ("outlook_agg", "outlook_branch")
+GRID_CORES = ("grid_mhsa", "grid_mhsa_packed", "grid_mhsa_long")
 # the case whose forward / train step each kernel's ms are taken on
 TIMED_ON = {"outlook_agg": "model_b", "outlook_branch": "model_b",
             "outlook_softmax": "model_b_o", "dwconv3x3": "model_b_o",
-            "grid_mhsa_packed": "a7m_48", "attn_branch_nhwc": "a_base"}
+            "grid_mhsa_packed": "a7m_48", "attn_branch_nhwc": "a_base",
+            "grid_mhsa_long": "a7m_96"}
 # the kernel each kind of grid attention (stage_shapes' "attn") launches
 ATTN_KERNEL = {"grid": "grid_mhsa", "packed": "grid_mhsa_packed",
-               "branch": "attn_branch", "nhwc": "attn_branch_nhwc"}
+               "branch": "attn_branch", "nhwc": "attn_branch_nhwc",
+               "long": "grid_mhsa_long"}
+# rows of the kernels line whose launches go through another row's wrapper,
+# told apart by C entry point: row -> (the wrapper's row, its entry point)
+ENTRY_ROWS = {"grid_mhsa_long": ("grid_mhsa_packed", "ogvt_grid_mhsa_long"),
+              "grid_mhsa_long_bwd": ("grid_mhsa_packed_bwd",
+                                     "ogvt_grid_mhsa_long_bwd")}
 # The A/Bs of Smoke.ab_vs_library: (kernel, case, batch, which of the
 # case's stage shapes), in this order, and the key of each kernel's A/B in
 # the kernels line.
@@ -430,6 +463,7 @@ AB_SHAPES = {
     "stage0": lambda sh: sh["stage"] == 0,
     "th": lambda sh: sh["attn"] == "grid" and sh["grid_variant"] == "th",
     "packed": lambda sh: sh["attn"] == "packed",
+    "long": lambda sh: sh["attn"] == "long",
 }
 AB_LIBRARY = (
     ("dwconv3x3_bwd", MODEL_B_O, TRAIN_BATCH, "all"),
@@ -442,6 +476,9 @@ AB_LIBRARY = (
     ("grid_mhsa_packed", A7M_48, BATCH, "packed"),
     ("grid_mhsa_packed", A7M_48, TRAIN_BATCH, "packed"),
     ("grid_mhsa_packed_bwd", A7M_48, TRAIN_BATCH, "packed"),
+    ("grid_mhsa_long", A7M_96, BATCH, "long"),
+    ("grid_mhsa_long", A7M_96, TRAIN_BATCH, "long"),
+    ("grid_mhsa_long_bwd", A7M_96, TRAIN_BATCH, "long"),
 )
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
@@ -475,9 +512,13 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     ``H_block``, ``blocks`` MBConvs whose depthwise 3x3 is ``mid`` wide),
     and the JAX kernels the port's dispatch stands for (as
     ``models/blocks.py`` and ``models/layers.py`` pick them)."""
-    from outgridvit_tpu_torch.ops.attn_branch import MIN_TOKENS
+    from outgridvit_tpu_torch.ops.attn_branch import (
+        MIN_TOKENS,
+        attn_branch_fits,
+    )
     from outgridvit_tpu_torch.ops.grid_attention import (
         MAX_TOKENS,
+        PACKED_MAX_TOKENS,
         grid_mhsa_variant,
     )
     from outgridvit_tpu_torch.ops.mlp_branch import mlp_branch_variant
@@ -485,18 +526,21 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
     out = []
     for si, s in enumerate(case.model["stages"]):
         hw = case.img >> si
-        g, C = s["grid_size"], s["dim"]
+        g, C, heads = s["grid_size"], s["dim"], s["num_heads"]
         N = (hw // g) ** 2
+        if N >= MIN_TOKENS and attn_branch_fits(N, C, heads):
+            attn = "nhwc" if case.attn_nhwc else "branch"
+        else:
+            attn = ("long" if N > PACKED_MAX_TOKENS else "packed"
+                    if N > MAX_TOKENS else "grid")
         out.append({
             "stage": si, "batch": batch, "blocks": s["depth"], "C": C,
             "outlook": (case.front if si == 0 else 0) if case.front
             else s["depth"], "H_img": hw, "outlook_heads": s["outlook_heads"],
-            "G": batch * g * g, "N": N, "heads": s["num_heads"],
+            "G": batch * g * g, "N": N, "heads": heads,
             "M": batch * hw * hw, "H_outlook": 2 * C, "H_block": 4 * C,
             "mid": 4 * C,
-            "g": g,
-            "attn": ("nhwc" if case.attn_nhwc else "branch")
-            if N >= MIN_TOKENS else "packed" if N > MAX_TOKENS else "grid",
+            "g": g, "attn": attn,
             "grid_variant": grid_mhsa_variant(N, C),
             "mlp_variant": mlp_branch_variant(hw * hw, C),
         })
@@ -607,7 +651,7 @@ def work(name, args, outs):
                  for t in (*args, *outs) if torch.is_tensor(t))
     base, bwd = name.removesuffix("_bwd"), name.endswith("_bwd")
     x = args[0]
-    if base in ("grid_mhsa", "grid_mhsa_packed"):  # softmax(q.k^T).v
+    if base in GRID_CORES:  # softmax(q.k^T).v
         G, N, C = x.shape[0], x.shape[1], x.shape[2] // 3
         return nbytes, (10 if bwd else 4) * G * N * N * C, \
             5 * G * args[-1] * N * N
@@ -728,6 +772,10 @@ class Smoke:
                                  ga.grid_mhsa_packed_reference),
             "grid_mhsa_packed_bwd": (ga.grid_mhsa_packed_backward,
                                      ga.grid_mhsa_packed_backward_reference),
+            "grid_mhsa_long": (ga.grid_mhsa_packed,
+                               ga.grid_mhsa_packed_reference),
+            "grid_mhsa_long_bwd": (ga.grid_mhsa_packed_backward,
+                                   ga.grid_mhsa_packed_backward_reference),
             "attn_branch_nhwc": (ab.attn_branch_nhwc,
                                  ab.attn_branch_nhwc_reference),
             "attn_branch_nhwc_bwd": (ab.attn_branch_nhwc_backward,
@@ -758,13 +806,21 @@ class Smoke:
                 fn.by_entry.clear()
 
     def read_counts(self):
-        return ({n: fn.launches for n, (fn, _) in self.kernels.items()},
+        counts = {n: fn.launches for n, (fn, _) in self.kernels.items()}
+        for row, (owner, entry) in ENTRY_ROWS.items():
+            counts[row] = self.kernels[row][0].by_entry[entry]
+            counts[owner] -= counts[row]
+        return (counts,
                 {n: dict(fn.by_variant) for n, (fn, _) in self.kernels.items()
                  if hasattr(fn, "by_variant")})
 
     def read_entries(self):
-        return {n: dict(fn.by_entry) for n, (fn, _) in self.kernels.items()
-                if hasattr(fn, "by_entry")}
+        got = {n: dict(fn.by_entry) for n, (fn, _) in self.kernels.items()
+               if hasattr(fn, "by_entry")}
+        for row, (owner, entry) in ENTRY_ROWS.items():
+            n = got[owner].pop(entry, 0)
+            got[row] = {entry: n} if n else {}
+        return got
 
     def record(self, path, counts, variants):
         for n, c in counts.items():
@@ -781,13 +837,17 @@ class Smoke:
         """On a bf16 main path: every "th" launch of the grid core went
         through the head-chunked kernel's entry points
         (csrc/grid_mhsa_th.cu), every other through csrc/grid_mhsa.cu's;
-        every #6 launch through csrc/grid_mhsa_packed_mma.cu's. ``plan``
-        and ``variants``: launches per forward or step (:func:`launch_plan`)
-        and ``times`` of them."""
+        every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
+        of N >= 64 through csrc/grid_mhsa_long.cu's. ``plan`` and
+        ``variants``: launches per forward or step (:func:`launch_plan`) and
+        ``times`` of them."""
         got = self.read_entries()
         for name, entry in (("grid_mhsa_packed", "ogvt_grid_mhsa_packed_mma"),
                             ("grid_mhsa_packed_bwd",
-                             "ogvt_grid_mhsa_packed_mma_bwd")):
+                             "ogvt_grid_mhsa_packed_mma_bwd"),
+                            ("grid_mhsa_long", "ogvt_grid_mhsa_long"),
+                            ("grid_mhsa_long_bwd",
+                             "ogvt_grid_mhsa_long_bwd")):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
@@ -854,7 +914,7 @@ class Smoke:
         if name in OUTLOOK:
             return self.outlook_args(name, sh["batch"], sh["H_img"], C,
                                      sh["outlook_heads"], dtype, backward)
-        if name in ("grid_mhsa", "grid_mhsa_packed"):
+        if name in GRID_CORES:
             return (r(G, N, 3 * C).to(dtype), heads)
         ln = (r(C, scale=0.1, shift=1.0), r(C, scale=0.1))
         if name in ("attn_branch", "attn_branch_nhwc"):
@@ -880,7 +940,7 @@ class Smoke:
         if base in OUTLOOK or base == "dwconv3x3":
             # (v, a, wp, g) / (x, a, wv, bv, wp, g) / (x, w9, dy)
             return args
-        if base in ("grid_mhsa", "grid_mhsa_packed"):
+        if base in GRID_CORES:
             dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
             return (args[0], dout, args[1])
         if base in ("attn_branch", "attn_branch_nhwc"):
@@ -1224,7 +1284,7 @@ class Smoke:
         for name, args, label, sh, count in self.cases(
                 shapes, backward, torch.bfloat16, outlook, dw=new,
                 core=not new):
-            if (case in (A7M_48, A_BASE) and TIMED_ON.get(
+            if (case in (A7M_48, A_BASE, A7M_96) and TIMED_ON.get(
                     name.removesuffix("_bwd")) != case.tag):
                 continue  # the kernels of the path timed on another case
             plain = self.kernels[name][1]

@@ -23,6 +23,7 @@ from outgridvit_tpu_torch.models.layers import (
 from outgridvit_tpu_torch.ops.attn_branch import (
     MIN_TOKENS,
     attn_branch_autograd,
+    attn_branch_fits,
     attn_branch_nhwc_autograd,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
@@ -113,15 +114,17 @@ class MultiHeadSelfAttention(nn.Module):
     The JAX dispatch by grid size N (``outgridvit_tpu/models/blocks.py:
     259-373``), on the kernel path and the plain path alike:
 
-    - N >= 64: the fused branch :func:`attn_branch_autograd` (#5: LN, qkv,
-      attention and proj in one kernel, norm2's LN passed in), or with
-      ``attn_nhwc`` :func:`attn_branch_nhwc_autograd` (#12: the same on the
-      NHWC map, the partition folded into the kernel; the JAX package's
+    - N >= 64 where the fused branch's kernels hold the grid
+      (:func:`attn_branch_fits`, JAX's ``attn_branch_feasible``):
+      :func:`attn_branch_autograd` (#5: LN, qkv, attention and proj in one
+      kernel, norm2's LN passed in), or with ``attn_nhwc``
+      :func:`attn_branch_nhwc_autograd` (#12: the same on the NHWC map, the
+      partition folded into the kernel; the JAX package's
       ``OUTGRIDVIT_FUSED_ATTN_NHWC=1``, which the port does not read);
     - N <= 16: LN and qkv, the core :func:`grid_mhsa_autograd` (tagged
       ``"t"`` or ``"th"`` by :func:`grid_mhsa_variant`), proj;
-    - 16 < N < 64: LN and qkv, the block-packed core
-      :func:`grid_mhsa_packed_autograd` (#6), proj.
+    - 16 < N < 64, and N >= 64 where #5 does not fit: LN and qkv, the
+      block-packed core :func:`grid_mhsa_packed_autograd` (#6), proj.
 
     ``xla`` takes the JAX package's XLA-only path instead (``use_pallas:
     false``, ``outgridvit_tpu/models/blocks.py:375-398``) at every N: LN
@@ -154,7 +157,8 @@ class MultiHeadSelfAttention(nn.Module):
         B, H, W, C = x.shape
         N = (H // grid_size) * (W // grid_size)
         dt = self.qkv.dtype
-        if N >= MIN_TOKENS and self.attn_nhwc and not self.xla:
+        branch = N >= MIN_TOKENS and attn_branch_fits(N, C, self.heads)
+        if branch and self.attn_nhwc and not self.xla:
             return attn_branch_nhwc_autograd(
                 x.to(dt).contiguous(), ln.weight, ln.bias,
                 *self._branch_weights(), self.heads, grid_size, ln.eps, True,
@@ -164,7 +168,7 @@ class MultiHeadSelfAttention(nn.Module):
         tokens = grids.reshape(G, N, C)
         if self.xla:
             out = self._xla(tokens, ln)
-        elif N >= MIN_TOKENS:
+        elif branch:
             out = attn_branch_autograd(
                 tokens.to(dt).contiguous(), ln.weight, ln.bias,
                 *self._branch_weights(), self.heads, ln.eps, True,

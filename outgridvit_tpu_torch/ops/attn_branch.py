@@ -140,6 +140,17 @@ def smem_bytes(N: int, C: int, heads: int, backward: bool) -> int:
     return 4 * floats
 
 
+def attn_branch_fits(N: int, C: int, heads: int) -> bool:
+    """Whether the fused branch's kernels take grids of N tokens, C channels
+    and ``heads`` heads: the forward's and the backward's blocks both within
+    shared memory. The counterpart of ``outgridvit_tpu/ops/
+    attn_branch_pallas.py:attn_branch_feasible``, which probes the forward
+    and the backward together; a shape only, never the device, so that the
+    plain path and the card, a forward and a train step, route alike."""
+    return all(smem_bytes(N, C, heads, bwd) <= _MAX_SMEM
+               for bwd in (False, True))
+
+
 def _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                   heads, backward, shape=None):
     """Validate what the kernels take; returns (G, N, C), of the tokens x

@@ -26,19 +26,27 @@ the probabilities are normalized by division and cast to the compute dtype
 before P.V.
 
 The block-packed TPU kernel ``outgridvit_tpu/ops/grid_attention_pallas.py:
-grid_mhsa_pallas`` (#6, grids of 16 < N < 64 tokens) computes that
-forward; its backward recomputes the probabilities by division and keeps
-them in fp32 (:func:`grid_mhsa_packed_backward_reference`). It packs
-``32 // N`` grids of N < 16 tokens block-diagonally under a -1e30 mask,
-a layout device only: ``exp`` of a masked logit is exactly 0 in fp32. Its
-Hopper kernels (:func:`grid_mhsa_packed`, :func:`grid_mhsa_packed_backward`)
-pack nothing and take 1 <= N < 64: a bf16 launch runs
-``csrc/grid_mhsa_packed_mma.cu`` (one warp per grid and head on
-``mma.sync`` tiles, launch plan :func:`grid_mhsa_packed_plan`), which takes
-a head width that is a multiple of 8 up to 64 and raises on any other; an
-fp32 launch (the parity path) runs ``csrc/grid_mhsa_packed.cu`` (one block
-per grid, fp32 staging). Launches are counted per C entry point
-(``grid_mhsa_packed.by_entry``).
+grid_mhsa_pallas`` (#6) computes that forward; its backward recomputes the
+probabilities by division and keeps them in fp32
+(:func:`grid_mhsa_packed_backward_reference`). The JAX model runs it for
+grids of 16 < N < 64 tokens, and for grids of N >= 64 that the fused branch
+(#5) cannot hold. It packs ``32 // N`` grids of N < 16 tokens
+block-diagonally under a -1e30 mask, a layout device only: ``exp`` of a
+masked logit is exactly 0 in fp32. Its Hopper kernels
+(:func:`grid_mhsa_packed`, :func:`grid_mhsa_packed_backward`) pack nothing
+and take 1 <= N <= 256, in three C sources by N and dtype:
+
+- 1 <= N <= 63, bf16: ``csrc/grid_mhsa_packed_mma.cu`` (one warp per grid
+  and head on ``mma.sync`` tiles, launch plan :func:`grid_mhsa_packed_plan`);
+- 1 <= N <= 63, fp32 (the parity path): ``csrc/grid_mhsa_packed.cu`` (one
+  block per grid, fp32 staging);
+- 64 <= N <= 256, both dtypes: ``csrc/grid_mhsa_long.cu`` (one block per
+  grid and head that streams the key tiles in exact passes, bf16 on
+  ``mma.sync`` tiles, launch plan :func:`grid_mhsa_long_plan`).
+
+The bf16 kernels and the long one take a head width that is a multiple of 8
+up to 64 and raise on any other, as on N > 256. Launches are counted per C
+entry point (``grid_mhsa_packed.by_entry``).
 
 :func:`grid_mhsa_autograd` and :func:`grid_mhsa_packed_autograd` are the
 differentiable cores the model calls: ``torch.autograd.Function``s that
@@ -49,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import torch
@@ -57,7 +65,8 @@ import torch
 from outgridvit_tpu_torch.ops import kernel_build
 
 MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
-PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64
+PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64 (and N >= 64 past #5)
+LONG_MAX_TOKENS = 256  # csrc/grid_mhsa_long.cu takes 64 <= N <= 256
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
 
 
@@ -217,6 +226,69 @@ def grid_mhsa_packed_plan(G: int, N: int, C: int, heads: int,
                       units / (per_sm * warps * SMS))
 
 
+# ---- #6's kernel for 64 <= N <= 256 (csrc/grid_mhsa_long.cu) -------------
+
+LONG_MAX_HD = 64     # widest head (the accumulators' registers)
+LONG_F32_WARPS = 4   # an fp32 block: 128 threads, two a row
+# the kernels' register caps: bf16 __launch_bounds__(512, 2), 64 registers,
+# for the forward at hd <= 32 and the backward at hd <= 16, (512, 1) above
+# (csrc/grid_mhsa_long.cu:sm_blocks; change the two together); fp32 (128)
+LONG_REGS = {"bfloat16": 64, "bfloat16_wide": 128, "float32": 255}
+
+
+class LongPlan(NamedTuple):
+    """How ``ogvt_grid_mhsa_long[_bwd]`` cuts one call: one block per
+    (grid, head) unit, ``blocks`` in all, of ``warps`` warps (bf16: one per
+    m16 tile of query rows, ``rows`` rows of q, k and v staged, ``row_bytes``
+    apart; fp32: 4, two threads a row, nothing staged); ``smem_bytes`` a
+    block (bf16: the staged tiles, and the backward's dO and dq tiles and
+    four fp32 statistics a row; fp32: the backward's three); and, at
+    the kernel's register cap ``regs``, the ``blocks_per_sm`` one SM holds
+    at least."""
+    warps: int
+    blocks: int
+    rows: int
+    row_bytes: int
+    smem_bytes: int
+    regs: int
+    blocks_per_sm: int
+
+
+@lru_cache(maxsize=None)
+def grid_mhsa_long_plan(G: int, N: int, C: int, heads: int, backward: bool,
+                        dtype: str = "bfloat16") -> LongPlan:
+    """#6's kernel for long grids, its launch plan for qkv ``[G, N, 3C]`` of
+    ``dtype`` ("bfloat16" or "float32"), or a ValueError naming the shape it
+    does not take (N outside 64..256, a head width that is not a multiple of
+    8 in [8, 64]). Cached: the wrapper asks at every launch."""
+    if G < 0 or heads <= 0 or C % heads:
+        raise ValueError(f"grid_mhsa_long: G={G}, N={N}, C={C}, "
+                         f"heads={heads}")
+    hd = C // heads
+    if not PACKED_MAX_TOKENS < N <= LONG_MAX_TOKENS or hd % 8 or \
+            not 8 <= hd <= LONG_MAX_HD:
+        raise ValueError(
+            f"grid_mhsa_long: N={N}, C={C}, heads={heads} (hd={hd}); the "
+            f"kernel takes {PACKED_MAX_TOKENS + 1} <= N <= {LONG_MAX_TOKENS} "
+            f"and hd a multiple of 8 up to {LONG_MAX_HD} (ROADMAP.md §2)")
+    if dtype == "bfloat16":
+        warps = -(-N // 16)
+        rows, row = 16 * warps, th_row_bytes(hd)
+        smem = (5 if backward else 3) * rows * row + \
+            (4 * 4 * rows if backward else 0)
+    elif dtype == "float32":
+        warps, rows, row = LONG_F32_WARPS, 0, 0
+        smem = 3 * 4 * N if backward else 0
+    else:
+        raise ValueError(f"grid_mhsa_long: dtype {dtype!r} is not bfloat16 "
+                         "or float32")
+    wide = hd > (16 if backward else 32)
+    regs = LONG_REGS["bfloat16_wide" if dtype == "bfloat16" and wide
+                     else dtype]
+    return LongPlan(warps, G * heads, rows, row, smem, regs,
+                    blocks_per_sm(warps, smem, regs))
+
+
 def grid_mhsa_variant(N: int, C: int) -> str:
     """The JAX kernel a grid shape stands for: the head-chunked ``"th"`` for
     the wide-C N=16 grids whose full-C TPU blocks overflow VMEM (the 64px
@@ -299,7 +371,8 @@ def grid_mhsa_packed_backward_reference(qkv: torch.Tensor,
 
 
 def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
-                  variant=None, max_tokens: int = MAX_TOKENS):
+                  variant=None, max_tokens: int = MAX_TOKENS,
+                  beyond: str = ""):
     G, N, C = _check(qkv, heads)
     if variant is not None:
         kernel_build.check_variant(name, variant, VARIANTS)
@@ -312,7 +385,7 @@ def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
     if not 1 <= N <= max_tokens:
         raise ValueError(
             f"{name}: N={N} tokens per grid; the kernel takes "
-            f"1..{max_tokens}")
+            f"1..{max_tokens}{beyond}")
     if smem_floats is not None and smem_floats(N, C) * 4 > BLOCK_SMEM:
         raise ValueError(f"{name}: grid of N={N}, C={C}, heads={heads} "
                          "exceeds shared memory")
@@ -474,31 +547,41 @@ def packed_smem_floats(N: int, C: int, heads: int, backward: bool) -> int:
 
 def _packed_launch(name: str, qkv: torch.Tensor, heads: int, backward: bool,
                    *others):
-    """(G, N, C, plan) of a #6 launch: the bf16 kernel's plan for a bf16
-    qkv, None for fp32 (whose block must fit shared memory); or a
-    ValueError."""
+    """(G, N, C, entry, plan) of a #6 launch: the C entry point by N and
+    dtype and its launch plan (None for the fp32 kernel of N <= 63, whose
+    block must fit shared memory); or a ValueError."""
     bf16 = qkv.dtype == torch.bfloat16
+    long = _check(qkv, heads)[1] > PACKED_MAX_TOKENS
     G, N, C = _check_launch(
         name, qkv, heads,
-        None if bf16 else lambda N, C: packed_smem_floats(N, C, heads,
-                                                          backward),
-        max_tokens=PACKED_MAX_TOKENS)
+        None if bf16 or long else
+        lambda N, C: packed_smem_floats(N, C, heads, backward),
+        max_tokens=LONG_MAX_TOKENS, beyond=" (ROADMAP.md §2)")
     if backward:
         _check_dout(name, qkv, others[0][1], G, N, C)
-    plan = (_mma_plan(name, grid_mhsa_packed_plan, qkv, heads, backward,
-                      *others) if bf16 else None)
-    return G, N, C, plan
+    sfx = "_bwd" if backward else ""
+    if long:
+        planner = partial(grid_mhsa_long_plan,
+                          dtype=str(qkv.dtype).removeprefix("torch."))
+        return G, N, C, "ogvt_grid_mhsa_long" + sfx, _mma_plan(
+            name, planner, qkv, heads, backward, *others)
+    if bf16:
+        return G, N, C, "ogvt_grid_mhsa_packed_mma" + sfx, _mma_plan(
+            name, grid_mhsa_packed_plan, qkv, heads, backward, *others)
+    return G, N, C, "ogvt_grid_mhsa_packed" + sfx, None
 
 
 def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """#6's forward, qkv [G, N, 3C] -> [G, N, C]: probabilities divided by
     their sum and cast to qkv's dtype before P.V. A CUDA tensor launches a
-    kernel (or raises): ``csrc/grid_mhsa_packed_mma.cu`` in bf16,
-    ``csrc/grid_mhsa_packed.cu`` in fp32; a CPU tensor takes
+    kernel (or raises): for N <= 63 ``csrc/grid_mhsa_packed_mma.cu`` in
+    bf16, ``csrc/grid_mhsa_packed.cu`` in fp32; for 64 <= N <= 256
+    ``csrc/grid_mhsa_long.cu``; a CPU tensor takes
     :func:`grid_mhsa_packed_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_reference(qkv, heads)
-    G, N, C, plan = _packed_launch("grid_mhsa_packed", qkv, heads, False)
+    G, N, C, entry, plan = _packed_launch("grid_mhsa_packed", qkv, heads,
+                                          False)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
@@ -506,13 +589,11 @@ def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan is None:
-            entry = "ogvt_grid_mhsa_packed"
             err = lib.ogvt_grid_mhsa_packed(
                 qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale, dtype,
                 stream)
         else:
-            entry = "ogvt_grid_mhsa_packed_mma"
-            err = lib.ogvt_grid_mhsa_packed_mma(
+            err = getattr(lib, entry)(
                 qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
                 plan.warps, plan.smem_bytes, dtype, stream)
     kernel_build.check(err, f"grid_mhsa_packed launch ({entry})")
@@ -532,8 +613,8 @@ def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
     :func:`grid_mhsa_packed_backward_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_backward_reference(qkv, dout, heads)
-    G, N, C, plan = _packed_launch("grid_mhsa_packed_backward", qkv, heads,
-                                   True, ("dout", dout))
+    G, N, C, entry, plan = _packed_launch(
+        "grid_mhsa_packed_backward", qkv, heads, True, ("dout", dout))
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
@@ -541,13 +622,11 @@ def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan is None:
-            entry = "ogvt_grid_mhsa_packed_bwd"
             err = lib.ogvt_grid_mhsa_packed_bwd(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
                 heads, scale, dtype, stream)
         else:
-            entry = "ogvt_grid_mhsa_packed_mma_bwd"
-            err = lib.ogvt_grid_mhsa_packed_mma_bwd(
+            err = getattr(lib, entry)(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
                 heads, scale, plan.warps, plan.smem_bytes, dtype, stream)
     kernel_build.check(err, f"grid_mhsa_packed_backward launch ({entry})")

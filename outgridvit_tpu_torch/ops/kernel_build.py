@@ -92,6 +92,12 @@ _SIGNATURES = {
     # qkv, dout, dqkv, G, N, C, heads, scale, warps, smem, dtype, stream
     "ogvt_grid_mhsa_packed_mma_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I,
                                        _I, _I, _P), _I),
+    # qkv, out, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_long": ((_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+                            _I),
+    # qkv, dout, dqkv, G, N, C, heads, scale, warps, smem, dtype, stream
+    "ogvt_grid_mhsa_long_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                                 _P), _I),
     # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
     # stream
     "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),

@@ -41,7 +41,8 @@ import pytest
 import torch
 
 from outgridvit_tpu_torch.models import build_model
-from outgridvit_tpu_torch.models.layers import DropPath
+from outgridvit_tpu_torch.models.blocks import MultiHeadSelfAttention
+from outgridvit_tpu_torch.models.layers import DropPath, LayerNorm
 from outgridvit_tpu_torch.ops.attn_branch import (
     attn_branch,
     attn_branch_backward,
@@ -838,6 +839,89 @@ def test_grid_mhsa_packed_mma_refuses_what_it_does_not_take(dev):
                   torch.float32)
 
 
+# ---- #6 for 64 <= N <= 256: csrc/grid_mhsa_long.cu ------------------------
+
+LONG_ENTRIES = ("ogvt_grid_mhsa_long", "ogvt_grid_mhsa_long_bwd")
+
+
+def _entries_of(fwd_entry, bwd_entry):
+    return (grid_mhsa_packed.by_entry[fwd_entry],
+            grid_mhsa_packed_backward.by_entry[bwd_entry])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 24, 32, 64])
+@pytest.mark.parametrize("N", [64, 65, 100, 144, 200, 256])
+def test_grid_mhsa_long_kernels_match_plain(dev, dtype, N, hd):
+    """Both launches of csrc/grid_mhsa_long.cu against their plain versions
+    (2 heads, so a block's unit is one head of a grid; 3 grids), the
+    backward twice bitwise equal, each through the long entry points."""
+    g = torch.Generator().manual_seed(N * 100 + hd)
+    C = 2 * hd
+    qkv = torch.randn(3, N, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(3, N, C, generator=g).to(dev, dtype)
+    before = _entries_of(*LONG_ENTRIES)
+    got = grid_mhsa_packed(qkv, 2)
+    dqkv = grid_mhsa_packed_backward(qkv, dout, 2)
+    again = grid_mhsa_packed_backward(qkv, dout, 2)
+    torch.cuda.synchronize()
+    assert _entries_of(*LONG_ENTRIES) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(dqkv, again)
+    _assert_close(got, grid_mhsa_packed_reference(qkv, 2), dtype)
+    _assert_close(dqkv, grid_mhsa_packed_backward_reference(qkv, dout, 2),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [36, 63, 64, 144, 256])
+def test_grid_mhsa_packed_entry_point_by_n(dev, dtype, N):
+    """N <= 63 takes csrc/grid_mhsa_packed_mma.cu (bf16) or
+    csrc/grid_mhsa_packed.cu (fp32), N >= 64 csrc/grid_mhsa_long.cu."""
+    short = ("ogvt_grid_mhsa_packed_mma", "ogvt_grid_mhsa_packed_mma_bwd") \
+        if dtype == torch.bfloat16 else ("ogvt_grid_mhsa_packed",
+                                         "ogvt_grid_mhsa_packed_bwd")
+    want = LONG_ENTRIES if N >= 64 else short
+    other = short if N >= 64 else LONG_ENTRIES
+    qkv = torch.randn(2, N, 3 * 48, device=dev).to(dtype)
+    before, before_other = _entries_of(*want), _entries_of(*other)
+    grid_mhsa_packed(qkv, 2)
+    grid_mhsa_packed_backward(qkv, qkv[..., :48].contiguous(), 2)
+    assert _entries_of(*want) == (before[0] + 1, before[1] + 1)
+    assert _entries_of(*other) == before_other
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_past_the_fused_branch_trains_on_the_card(dev, dtype):
+    """The 7M model's stage 0 at 96 px: grids of N = 144, C = 48, 2 heads,
+    which #5 cannot hold (its backward needs 406,656 shared bytes). The
+    module routes them to #6's long kernel both ways, and its output and
+    gradients match the plain path's."""
+    x = torch.randn(2, 96, 96, 48, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for use_kernels in (True, False):
+        mhsa = MultiHeadSelfAttention(48, 2, dtype=dtype,
+                                      use_kernels=use_kernels, device=dev)
+        ln = LayerNorm(48, 1e-5, device=dev)
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for p in (*mhsa.parameters(), *ln.parameters()):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        before = _entries_of(*LONG_ENTRIES)
+        xin = x.to(dev, dtype).requires_grad_(True)
+        y = mhsa(xin, ln, 8)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert _entries_of(*LONG_ENTRIES) == (
+            (before[0] + 1, before[1] + 1) if use_kernels else before)
+        out[use_kernels] = [y.detach(), xin.grad] + [
+            p.grad for p in (*mhsa.parameters(), *ln.parameters())]
+    for got, want in zip(out[True], out[False]):
+        assert torch.isfinite(got.float()).all()
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(scale, 1.0), (err, scale)
+
+
 # ---- #12, the fused branch on the NHWC map ---------------------------------
 
 def _windows(t, g):
@@ -883,8 +967,8 @@ def test_attn_branch_nhwc_kernels_match_plain_and_attn_branch(
 
 
 def test_packed_and_nhwc_wrappers_reject_what_the_kernels_do_not_take(dev):
-    with pytest.raises(ValueError, match="N=64"):
-        grid_mhsa_packed(torch.randn(2, 64, 48, device=dev), 2)
+    with pytest.raises(ValueError, match="N=257"):
+        grid_mhsa_packed(torch.randn(2, 257, 48, device=dev), 2)
     with pytest.raises(ValueError, match="shared memory"):
         grid_mhsa_packed(torch.randn(2, 63, 3 * 1024, device=dev), 1)
     with pytest.raises(ValueError, match="dout"):
