@@ -62,15 +62,18 @@ path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
 configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
 (K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
-depthwise shape of the five configurations; ``a7m_48`` and ``a_base`` time
+depthwise shape of the five configurations and of ``a7m_96`` (the
+forward bit for bit); ``a7m_48`` and ``a_base`` time
 only their new kernels. Phase ``ab_vs_library`` (after the
 ``fused_outlook`` phase) times kernels against the one PyTorch call that
 computes the same function, in turns, in device time (CUDA graphs) and
 eager, with their shares of the bound (``AB_LIBRARY``): the depthwise
 backward against ``aten.convolution_backward`` (cuDNN) at the MBConv shapes
 of Model B and the 7M model and at the Tiny-ImageNet stage 0, the
-depthwise forward against ``F.conv2d(groups=C)`` at Model B's, #3 against
-SDPA at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
+depthwise forward against ``F.conv2d(groups=C)`` at Model B's and at the
+stage 0 of Tiny-ImageNet and ``a7m_96``, #1 against SDPA at the "t"
+shapes of the 7M model and Model B (forward at batch 64, backward at 128),
+#3 at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
 and, for long grids, at ``a7m_96``'s (forward at batch 64 and 128,
 backward at 128); per shape and per forward or train step.
 
@@ -461,6 +464,7 @@ ENTRY_ROWS = {"grid_mhsa_long": ("grid_mhsa_packed", "ogvt_grid_mhsa_long"),
 AB_SHAPES = {
     "all": lambda sh: True,
     "stage0": lambda sh: sh["stage"] == 0,
+    "t": lambda sh: sh["attn"] == "grid" and sh["grid_variant"] == "t",
     "th": lambda sh: sh["attn"] == "grid" and sh["grid_variant"] == "th",
     "packed": lambda sh: sh["attn"] == "packed",
     "long": lambda sh: sh["attn"] == "long",
@@ -470,6 +474,11 @@ AB_LIBRARY = (
     ("dwconv3x3_bwd", A7M_DWB, TRAIN_BATCH, "all"),
     ("dwconv3x3_bwd", TIN, TRAIN_BATCH, "stage0"),
     ("dwconv3x3", MODEL_B_O, BATCH, "all"),
+    ("dwconv3x3", TIN, BATCH, "stage0"),
+    ("dwconv3x3", A7M_96, BATCH, "stage0"),
+    ("grid_mhsa", FLAGSHIP, BATCH, "t"), ("grid_mhsa", MODEL_B, BATCH, "t"),
+    ("grid_mhsa_bwd", FLAGSHIP, TRAIN_BATCH, "t"),
+    ("grid_mhsa_bwd", MODEL_B, TRAIN_BATCH, "t"),
     ("grid_mhsa", TIN, BATCH, "th"), ("grid_mhsa", A_BASE, BATCH, "th"),
     ("grid_mhsa_bwd", TIN, TRAIN_BATCH, "th"),
     ("grid_mhsa_bwd", A_BASE, TRAIN_BATCH, "th"),
@@ -483,6 +492,8 @@ AB_LIBRARY = (
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
+# kernels whose outputs equal their plain versions bit for bit on the card
+BITWISE = ("dwconv3x3",)
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -1010,6 +1021,9 @@ class Smoke:
                             for t in (got, again, want))
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"{name} {label}: two calls differ")
+        if name in BITWISE:
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{name} {label}: not bitwise equal to the plain version")
         worst = []
         for i, (g, w) in enumerate(zip(got, want)):
             require(torch.isfinite(g.float()).all().item(),
@@ -1031,7 +1045,8 @@ class Smoke:
         print(f"[compare] {name} {label} {dt} " + " ".join(worst)
               + f" (tol {KERNEL_TOL[dt]:g} abs+rel; param grads rel to max, "
               f"tol {WGRAD_TOL[dt]:g})"
-              + (" deterministic ok" if backward else ""))
+              + (" deterministic ok" if backward else "")
+              + (" bitwise ok" if name in BITWISE else ""))
 
     def compare_all(self, case: ModelCase):
         import torch
@@ -1133,12 +1148,14 @@ class Smoke:
         ``AB_LIBRARY``: the depthwise backward vs
         ``aten.convolution_backward`` (cuDNN) and the depthwise forward vs
         ``F.conv2d(groups=C)``; the grid cores vs SDPA (and its autograd
-        backward): #3 ("th" launches, ``csrc/grid_mhsa_th.cu``) and #6
-        (``csrc/grid_mhsa_packed_mma.cu``). Per shape in turns (kernel,
-        library, library, kernel) in this process: device time (``iters``
-        calls in one CUDA graph, :func:`graph_ms`), then eager time (CUDA
-        events around ``iters`` calls, host time included), each with its
-        share of the bound; summed per forward or train step of the case."""
+        backward): #1 ("t" launches, ``csrc/grid_mhsa.cu``), #3 ("th"
+        launches, ``csrc/grid_mhsa_th.cu``) and #6
+        (``csrc/grid_mhsa_packed_mma.cu``, ``csrc/grid_mhsa_long.cu``). Per
+        shape in turns (kernel, library, library, kernel) in this process:
+        device time (``iters`` calls in one CUDA graph, :func:`graph_ms`),
+        then eager time (CUDA events around ``iters`` calls, host time
+        included), each with its share of the bound; summed per forward or
+        train step of the case."""
         import torch
 
         for name, case, batch, which in AB_LIBRARY:
@@ -1247,14 +1264,15 @@ class Smoke:
 
     def compare_dwconv(self):
         """The depthwise kernels against their plain versions at every
-        MBConv depthwise shape of the five configurations: forward at the
-        serving batch, backward at the train batch."""
+        MBConv depthwise shape of the five configurations and the 7M model
+        at 96 px (W = 96, the widest rows either plan tiles): forward at the
+        serving batch, bit for bit; backward at the train batch."""
         import torch
 
         for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
             name = "dwconv3x3" + ("_bwd" if backward else "")
             for dtype in (torch.float32, torch.bfloat16):
-                for case in (FLAGSHIP, TIN, MODEL_B, A7M_48, A_BASE):
+                for case in (FLAGSHIP, TIN, MODEL_B, A7M_48, A_BASE, A7M_96):
                     for sh in stage_shapes(case, batch):
                         args = self.dw_args(batch, sh["H_img"], sh["mid"],
                                             dtype, backward)

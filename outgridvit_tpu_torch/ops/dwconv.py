@@ -35,6 +35,7 @@ Rounding points (the module casts the weight to the compute dtype first,
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from functools import lru_cache
 from typing import NamedTuple
@@ -102,22 +103,46 @@ def dwconv3x3_backward_reference(x, w9, dy):
     return dx.to(x.dtype), dw.to(w9.dtype)
 
 
-# ---- the backward's launch plan -------------------------------------------
+# ---- the launch plans -----------------------------------------------------
 
-BWD_THREADS = 256            # threads per block (csrc/dwconv.cu: kThreads)
-BWD_CV = 2                   # channels per thread (kCV)
-BWD_ROWS = 16                # the tallest band
+THREADS = 256                # threads per block (csrc/dwconv.cu: kThreads)
+CV = 2                       # channels per thread (kCV)
+MAX_ROWS = 16                # the tallest band
+SMS = 132                    # streaming multiprocessors of an H100 SXM
 BWD_SMEM_BUDGET = 110 * 1024  # both tile buffers: two blocks fit on an SM
-BWD_TARGET_BLOCKS = 2 * 132  # one wave: two blocks on each of 132 SMs
+BWD_TARGET_BLOCKS = 2 * SMS  # one wave: two blocks on each SM
 BWD_PARTIALS_SHARE = 0.10    # dw partials, written + read, vs x, dy, dx
+SMEM_PER_SM = 233_472        # an H100 SM's shared memory, 1 KiB of it
+                             # reserved per block
+FWD_SMEM_BUDGET = 110 * 1024  # both tile buffers: two blocks fit on an SM
+FWD_BLOCKS_PER_SM = 3        # at most, by registers (~80 a thread)
+FWD_MIN_TW = 8               # the narrowest band tried where W allows
+
+
+class FwdPlan(NamedTuple):
+    """How ``ogvt_dwconv3x3`` cuts one call. A band is ``rows`` output rows
+    of one image by ``tw`` columns (the last band of an image may be
+    shorter, and the last of a row of bands narrower); a stage is ``bands``
+    consecutive bands, staged together in shared memory; block ``(chunk,
+    part)`` owns ``chunk`` channels and the part-th run of stages."""
+    rows: int
+    tw: int
+    chunk: int
+    bands: int
+    parts: int
+    chunks: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.parts
 
 
 class BwdPlan(NamedTuple):
-    """How ``ogvt_dwconv3x3_bwd`` cuts one call. A band is ``rows`` output
-    rows of one image (the last band of an image may be shorter); a stage is
-    ``bands`` consecutive bands, staged together in shared memory; block
-    ``(chunk, part)`` owns ``chunk`` channels and the part-th run of stages,
-    and writes one fp32 dw partial (or dw itself when ``parts`` is 1)."""
+    """How ``ogvt_dwconv3x3_bwd`` cuts one call: as :class:`FwdPlan` with
+    bands that span the width, and each block writes one fp32 dw partial
+    (or dw itself when ``parts`` is 1)."""
     rows: int
     chunk: int
     bands: int
@@ -136,14 +161,109 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def fwd_smem_bytes(tw: int, rows: int, chunk: int, bands: int,
+                   itemsize: int) -> int:
+    """Shared memory of one forward block: two stage buffers, each
+    ``bands`` halo tiles of x ``[rows + 2, tw + 2, chunk]``."""
+    return 2 * bands * (rows + 2) * (tw + 2) * chunk * itemsize
+
+
 def bwd_smem_bytes(W: int, rows: int, chunk: int, bands: int,
                    itemsize: int) -> int:
-    """Shared memory of one block: two stage buffers, each ``bands`` halo
-    tiles of dy ``[rows + 2, W + 2, chunk]`` and tiles of x ``[rows, W,
-    chunk]``; at least the block's dw sums ``[threads, 9, BWD_CV]`` fp32,
-    which reuse it after the last stage."""
+    """Shared memory of one backward block: two stage buffers, each
+    ``bands`` halo tiles of dy ``[rows + 2, W + 2, chunk]`` and tiles of x
+    ``[rows, W, chunk]``; at least the block's dw sums ``[threads, 9, CV]``
+    fp32, which reuse it after the last stage."""
     tiles = 2 * bands * ((rows + 2) * (W + 2) + rows * W) * chunk * itemsize
-    return max(tiles, BWD_THREADS * 9 * BWD_CV * 4)
+    return max(tiles, THREADS * 9 * CV * 4)
+
+
+def _piece_eff(nbytes: int) -> float:
+    """The plan's model of the device-memory efficiency of a block reading
+    ``nbytes`` of each pixel (strided by the pixel): it grows with the
+    piece's width, steeply up to 128 bytes and a little past it (fitted,
+    with the other terms of :func:`dwconv3x3_forward_plan`, to a sweep of
+    the forward's plans on an H100)."""
+    if nbytes >= 128:
+        return min(1.0, 0.85 + 0.05 * math.log2(min(nbytes, 512) / 128))
+    return 0.85 - 0.11 * math.log2(128 / nbytes)
+
+
+@lru_cache(maxsize=None)
+def dwconv3x3_forward_plan(B: int, H: int, W: int, C: int,
+                           itemsize: int) -> FwdPlan:
+    """The forward kernel's launch plan for x ``[B, H, W, C]`` of
+    ``itemsize``-byte elements. Searched over the channel chunk (a power of
+    two of CV-channel groups, at least 64 bytes of a pixel where C allows),
+    the band width (W cut into equal tiles, down to FWD_MIN_TW), the band
+    height (balanced, at most MAX_ROWS) and the bands per stage, with two
+    buffers within FWD_SMEM_BUDGET; blocks fill one wave of as many blocks
+    an SM as shared memory and FWD_BLOCKS_PER_SM allow. Keeps the plan with
+    at least SMS blocks where the (band, chunk) tiles allow that many, then
+    the highest product of: the chunk's device-memory efficiency
+    (:func:`_piece_eff`), the halo (rows and columns a band reads twice,
+    against the bytes of x and y), the walk's start-up down each column
+    (about a row), a stage's fixed cost (about two rows a thread), idle
+    threads, padded channels and columns, and the blocks' share of two an
+    SM. Fitted to a sweep of plans on an H100 at the shipped shapes. Raises,
+    naming the shape, where no tile fits. Cached: the wrapper asks for it at
+    every launch."""
+    if min(B, H, W, C) < 1:
+        raise ValueError(f"dwconv3x3: empty shape {(B, H, W, C)}")
+    groups = _cdiv(C, CV)
+    gmax = min(THREADS, 1 << (groups - 1).bit_length())
+    gmin = min(gmax, max(1, 64 // (CV * itemsize)))
+    widths = sorted({W} | {_cdiv(W, n) for n in range(2, W + 1)
+                           if _cdiv(W, n - 1) > FWD_MIN_TW})
+    heights = sorted({_cdiv(H, _cdiv(H, r))
+                      for r in range(1, min(H, MAX_ROWS) + 1)})
+    best, best_key = None, None
+    g = gmin
+    while g <= gmax:
+        chunk = g * CV
+        chunks = _cdiv(C, chunk)
+        piece = _piece_eff(chunk * itemsize) * C / (chunks * chunk)
+        for tw in widths:
+            for rows in heights:
+                nsub = B * _cdiv(H, rows) * _cdiv(W, tw)
+                if nsub >= 1 << 31:  # bands are ints in the kernel
+                    continue
+                units = B * H * W * C / (rows * tw * chunk)
+                # halo rows and columns a band reads twice (unless it spans
+                # the image that way), and the walk's start-up
+                reads = ((rows + 2 * (rows < H)) * (tw + 2 * (tw < W))
+                         / (rows * tw))
+                eff = (piece * 2 / (1 + reads) * rows / (rows + 1)
+                       * W / (_cdiv(W, tw) * tw))
+                bands = 1
+                while bands <= nsub and (bands == 1
+                                         or bands * tw * g <= 4 * THREADS):
+                    smem = fwd_smem_bytes(tw, rows, chunk, bands, itemsize)
+                    if smem > FWD_SMEM_BUDGET:
+                        break
+                    per_sm = min(FWD_BLOCKS_PER_SM,
+                                 SMEM_PER_SM // (smem + 1024))
+                    items = bands * tw * g
+                    passes = _cdiv(items, THREADS)
+                    work = passes * (rows + 1)
+                    stages = _cdiv(nsub, bands)
+                    parts = min(stages, max(1, per_sm * SMS // chunks))
+                    blocks = chunks * parts
+                    score = (eff * items / (THREADS * passes) * work
+                             / (work + 2) * min(1.0, blocks / (2 * SMS)))
+                    key = (blocks >= SMS or units < SMS, round(score, 4),
+                           -bands)
+                    if best_key is None or key > best_key:
+                        best_key = key
+                        best = FwdPlan(rows, tw, chunk, bands, parts, chunks,
+                                       stages, smem)
+                    bands += 1
+        g *= 2
+    if best is None:
+        raise ValueError(f"dwconv3x3: no tile of x {(B, H, W, C)} "
+                         f"({itemsize}-byte elements) fits {FWD_SMEM_BUDGET} "
+                         "bytes of shared memory in fewer than 2**31 bands")
+    return best
 
 
 @lru_cache(maxsize=None)
@@ -151,8 +271,8 @@ def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
                             itemsize: int) -> BwdPlan:
     """The backward kernel's launch plan for x ``[B, H, W, C]`` of
     ``itemsize``-byte elements. Searched over the channel chunk (a power of
-    two of BWD_CV-channel groups, at least 64 bytes of a pixel where C
-    allows), the band height (balanced, at most BWD_ROWS, the tallest whose
+    two of CV-channel groups, at least 64 bytes of a pixel where C
+    allows), the band height (balanced, at most MAX_ROWS, the tallest whose
     two buffers fit BWD_SMEM_BUDGET) and the bands per stage; it keeps the
     plan with at least 132 blocks where the (band, chunk) tiles allow that
     many, then the least wasted work (idle threads, padded channels, halo
@@ -164,17 +284,17 @@ def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
     dw directly. Cached: the wrapper asks for it at every launch."""
     if min(B, H, W, C) < 1:
         raise ValueError(f"empty shape {(B, H, W, C)}")
-    groups = _cdiv(C, BWD_CV)
-    gmax = min(BWD_THREADS, 1 << (groups - 1).bit_length())
-    gmin = min(gmax, max(1, 64 // (BWD_CV * itemsize)))
+    groups = _cdiv(C, CV)
+    gmax = min(THREADS, 1 << (groups - 1).bit_length())
+    gmin = min(gmax, max(1, 64 // (CV * itemsize)))
     launch_bytes = 3 * B * H * W * C * itemsize
     max_parts = int(BWD_PARTIALS_SHARE * launch_bytes) // (72 * C)
     best, best_key = None, None
     g = gmin
     while g <= gmax:
-        chunk = g * BWD_CV
+        chunk = g * CV
         chunks = _cdiv(C, chunk)
-        for rmax in range(min(H, BWD_ROWS), 0, -1):
+        for rmax in range(min(H, MAX_ROWS), 0, -1):
             rows = _cdiv(H, _cdiv(H, rmax))
             if bwd_smem_bytes(W, rows, chunk, 1, itemsize) <= BWD_SMEM_BUDGET:
                 break
@@ -189,7 +309,7 @@ def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
         bands = 1
         while (bands <= nsub and bwd_smem_bytes(W, rows, chunk, bands,
                                                 itemsize) <= BWD_SMEM_BUDGET
-               and (bands == 1 or bands * W * g <= 4 * BWD_THREADS)):
+               and (bands == 1 or bands * W * g <= 4 * THREADS)):
             items = bands * W * g
             stages = _cdiv(nsub, bands)
             parts = min(stages, max(1, BWD_TARGET_BLOCKS // chunks))
@@ -197,7 +317,7 @@ def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
                 parts = max(1, max_parts)
             blocks = chunks * parts
             eff = (C / (chunks * chunk)) * byte_eff * items / (
-                BWD_THREADS * _cdiv(items, BWD_THREADS))
+                THREADS * _cdiv(items, THREADS))
             key = (blocks >= 132 or units < 132,
                    round(eff * min(1.0, blocks / BWD_TARGET_BLOCKS), 3),
                    -bands)
@@ -216,12 +336,10 @@ def dwconv3x3_backward_plan(B: int, H: int, W: int, C: int,
 
 # ---- the CUDA kernels -----------------------------------------------------
 
-def _vec(nbytes: int, C: int, *tensors) -> int:
-    """Channels per thread: ``nbytes`` worth where C and every pointer
-    allow the wide loads, else 1."""
-    vec = nbytes // tensors[0].element_size()
-    ok = C % vec == 0 and all(t.data_ptr() % nbytes == 0 for t in tensors)
-    return vec if ok else 1
+def _vecio(C: int, *tensors) -> bool:
+    """Whether C and every pointer allow the kernels' 16-byte copies."""
+    vec = 16 // tensors[0].element_size()
+    return C % vec == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_launch(name, x, w9, dy=None):
@@ -252,11 +370,13 @@ def dwconv3x3(x, w9):
     _check_launch("dwconv3x3", x, w9)
     B, H, W, C = x.shape
     y = torch.empty_like(x)
+    plan = dwconv3x3_forward_plan(B, H, W, C, x.element_size())
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
         err = lib.ogvt_dwconv3x3(
-            x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C,
-            _vec(16, C, x, w9, y), kernel_build.DTYPE_CODES[x.dtype],
+            x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C, plan.rows,
+            plan.tw, plan.chunk, plan.bands, plan.parts, plan.smem_bytes,
+            int(_vecio(C, x, y)), kernel_build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     kernel_build.check(err, "dwconv3x3 launch")
     dwconv3x3.launches += 1
@@ -279,7 +399,7 @@ def dwconv3x3_backward(x, w9, dy, variant: str = "t"):
     B, H, W, C = x.shape
     dx, dw = torch.empty_like(x), torch.empty_like(w9)
     plan = dwconv3x3_backward_plan(B, H, W, C, x.element_size())
-    vecio = _vec(16, C, x, dy, dx) > 1
+    vecio = _vecio(C, x, dy, dx)
     ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                      device=x.device)
     lib = kernel_build.load()

@@ -108,8 +108,9 @@ _SIGNATURES = {
     "ogvt_outlook_agg_bwd_workspace": ((_I,) * 8, ctypes.c_longlong),
     # v, logits, out, B, H, W, C, heads, k, dtype, stream
     "ogvt_outlook_softmax": ((_P,) * 3 + (_I,) * 7 + (_P,), _I),
-    # x, w9, y, B, H, W, C, vec, dtype, stream
-    "ogvt_dwconv3x3": ((_P,) * 3 + (_I,) * 6 + (_P,), _I),
+    # x, w9, y, B, H, W, C, rows, tw, chunk, bands, parts, smem, vecio, dtype,
+    # stream
+    "ogvt_dwconv3x3": ((_P,) * 3 + (_I,) * 12 + (_P,), _I),
     # x, w9, dy, dx, dw, workspace, B, H, W, C, rows, chunk, bands, parts,
     # smem, vecio, dtype, stream
     "ogvt_dwconv3x3_bwd": ((_P,) * 6 + (_I,) * 11 + (_P,), _I),

@@ -43,6 +43,7 @@ import torch
 from outgridvit_tpu_torch.models import build_model
 from outgridvit_tpu_torch.models.blocks import MultiHeadSelfAttention
 from outgridvit_tpu_torch.models.layers import DropPath, LayerNorm
+from outgridvit_tpu_torch.ops import kernel_build
 from outgridvit_tpu_torch.ops.attn_branch import (
     attn_branch,
     attn_branch_backward,
@@ -58,6 +59,7 @@ from outgridvit_tpu_torch.ops.dwconv import (
     dwconv3x3,
     dwconv3x3_backward,
     dwconv3x3_backward_reference,
+    dwconv3x3_forward_plan,
     dwconv3x3_reference,
 )
 from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
@@ -658,8 +660,13 @@ def test_outlook_softmax_kernel_matches_plain(dev, dtype, B, H, W, C, heads,
     (2, 13, 9, 64),       # H not a multiple of the backward plan's rows
     (1, 32, 32, 256),     # B = 1
     (3, 5, 7, 20),        # C not a multiple of the vector width, H != W
+    (128, 96, 96, 192),   # a7m_96 stage 0: the widest rows either plan tiles
+    (64, 12, 12, 1024),   # a7m_96 stage 3 at the serving batch
 ])
 def test_dwconv_kernels_match_plain(dev, dtype, B, H, W, C):
+    """The forward bit for bit (each product and sum rounded as the plain
+    version rounds it), the backward within the tolerances and bitwise
+    across two calls."""
     g = torch.Generator().manual_seed(B + H + C)
     x = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
     w9 = (torch.randn(9, C, generator=g) / 3).to(dev, dtype)
@@ -671,7 +678,7 @@ def test_dwconv_kernels_match_plain(dev, dtype, B, H, W, C):
     torch.cuda.synchronize()
     assert (dwconv3x3.launches, dwconv3x3_backward.by_variant["bwd"]) == \
         (n[0] + 1, n[1] + 2)
-    _assert_close(got, dwconv3x3_reference(x, w9), dtype)
+    assert torch.equal(got, dwconv3x3_reference(x, w9))
     want = dwconv3x3_backward_reference(x, w9, dy)
     for name, a, b in zip(("dx", "dw"), grads, again):
         assert torch.equal(a, b), f"{name} differs between two calls"
@@ -701,6 +708,51 @@ def test_dwconv_backward_takes_a_pointer_off_by_one_element(dev, dtype):
     want = dwconv3x3_backward_reference(x, w9, dy)
     _assert_close(dx, want[0], dtype)
     _assert_close_to_max(dw, want[1], dtype, "dw")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwconv_forward_takes_a_pointer_off_by_one_element(dev, dtype):
+    """x and y one element past a 16-byte boundary (slices of larger
+    buffers): the forward runs its one-element copy path and matches the
+    plain version bit for bit."""
+    B, H, W, C = 4, 8, 8, 64
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(B * H * W * C + 1, generator=g).to(dev, dtype)[1:] \
+        .view(B, H, W, C)
+    w9 = (torch.randn(9, C, generator=g) / 3).to(dev, dtype)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    launches = dwconv3x3.launches
+    got = dwconv3x3(x, w9)
+    torch.cuda.synchronize()
+    assert dwconv3x3.launches == launches + 1
+    assert torch.equal(got, dwconv3x3_reference(x, w9))
+
+
+def test_dwconv_forward_entry_refuses_a_plan_it_cannot_take(dev):
+    """``ogvt_dwconv3x3`` checks the plan it is handed: shared bytes that
+    are not the plan's, a band taller or wider than the map, a chunk of
+    channels that is not a power of two of threads, 16-byte copies of a C
+    or a pointer that does not allow them."""
+    B, H, W, C = 2, 8, 8, 64
+    x = torch.randn(B, H, W, C, device=dev, dtype=torch.bfloat16)
+    w9 = torch.randn(9, C, device=dev, dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    p = dwconv3x3_forward_plan(B, H, W, C, 2)
+    lib = kernel_build.load()
+
+    def call(x=x, y=y, C=C, rows=p.rows, tw=p.tw, chunk=p.chunk,
+             smem=p.smem_bytes, vecio=1):
+        err = lib.ogvt_dwconv3x3(
+            x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C, rows, tw,
+            chunk, p.bands, p.parts, smem, vecio, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return err
+
+    assert call() == 0
+    for bad in ({"smem": p.smem_bytes + 2}, {"rows": H + 1}, {"tw": W + 1},
+                {"chunk": 48}, {"C": 60}, {"y": y.view(-1)[1:]}):
+        assert call(**bad) != 0, bad
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):

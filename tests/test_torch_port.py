@@ -3,7 +3,9 @@ independence from JAX, kernel dispatch rules, the kernel build's cache key,
 and chip_smoke.py's flagship config and its refusal to run without a
 card."""
 
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -293,3 +295,44 @@ def test_jax_train_state_loads_and_the_next_step_matches():
         np.testing.assert_allclose(port.opt_state.mu[k].numpy(), v,
                                    atol=1e-5, rtol=1e-5, err_msg=k)
     assert port.step == int(state.step) == 3
+
+
+def _c_entry_points():
+    """name -> (return type, parameter types) of every ``extern "C"``
+    function in the kernel sources."""
+    out = {}
+    for src in sorted(kernel_build.CSRC_DIR.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" ([\w ]+?\**)\s*(ogvt_\w+)\(([^)]*)\)',
+                             text):
+            params = [p.strip() for p in m.group(3).split(",") if p.strip()]
+            out[m.group(2)] = (m.group(1).strip(), params)
+    return out
+
+
+_CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+          "float": ctypes.c_float, "long long": ctypes.c_longlong,
+          "char*": ctypes.c_char_p}
+
+
+def _ctype(decl: str):
+    """The ctypes type a C declaration ``const void* x`` / ``int B`` is
+    passed or returned as."""
+    decl = decl.replace("const ", "")
+    if "*" in decl:
+        return _CTYPE["char*" if decl.startswith("char") else "void*"]
+    return _CTYPE[" ".join(decl.split()[:2]) if decl.startswith("long long")
+                  else decl.split()[0]]
+
+
+@pytest.mark.parametrize("name", sorted(kernel_build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each entry point's ctypes argtypes and restype against its C
+    declaration in csrc/ (a call with a parameter too few or too many
+    would pass a pointer where an int is read, with no error)."""
+    entries = _c_entry_points()
+    assert name in entries, f"{name}: no extern \"C\" definition in csrc/"
+    ret, params = entries[name]
+    argtypes, restype = kernel_build._SIGNATURES[name]
+    assert [_ctype(p) for p in params] == list(argtypes), (name, params)
+    assert _ctype(ret) == restype, (name, ret)
