@@ -1,11 +1,14 @@
 """Build and load the package's CUDA kernels.
 
-All sources under ``outgridvit_tpu_torch/csrc/`` are compiled by ``nvcc``
-for ``sm_90a`` (one process per source, in parallel) into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use (never at import), into
-``outgridvit_tpu_torch/_build/``, under a name keyed on a hash of the
-sources, so an edit to any source rebuilds.
+All ``.cu`` sources under ``outgridvit_tpu_torch/csrc/`` are compiled by
+``nvcc`` for ``sm_90a`` (one process per source, in parallel) into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+``.cpp`` sources, plain C++ that answers the launch plans' questions about a
+kernel's layout from the header the kernel itself includes, are compiled
+by the host's ``c++`` into a second library (:func:`load_layouts`), so that
+a plan is also made where there is no nvcc or card. Each build runs at
+first use (never at import), into ``outgridvit_tpu_torch/_build/``, under a
+name keyed on a hash of its sources, so an edit to any source rebuilds.
 
 C entry points return a ``cudaError_t`` from ``cudaGetLastError()`` after
 their launch; :func:`check` turns a non-zero code into an exception.
@@ -32,6 +35,7 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
 
 # element types the kernels take (enum DType in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +65,13 @@ _SIGNATURES = {
                             _I),
     # M, C, H -> floats of workspace
     "ogvt_mlp_branch_bwd_workspace": ((_I, _I, _I), ctypes.c_longlong),
+    # the same pointers, M, C, H, act, eps, apply_ln, dtype; the plan:
+    # t_split, t_buffers, t_blocks, t_smem, w_units, w_rows, w_mt,
+    # w_buffers, w_splits, w_smem; stream
+    "ogvt_mlp_branch_bwd_mma": ((_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I)
+                                + (_I,) * 10 + (_P,), _I),
+    # M, C, H, t_blocks, w_splits -> floats of workspace
+    "ogvt_mlp_branch_bwd_mma_workspace": ((_I,) * 5, ctypes.c_longlong),
     # x, ln_scale, ln_bias, wqkv, bqkv, wp, bp, y, G, N, C, heads, scale, eps,
     # apply_ln, dtype, stream
     "ogvt_attn_branch": ((_P,) * 8 + (_I, _I, _I, _I, _F, _F, _I, _I, _P),
@@ -116,6 +127,14 @@ _SIGNATURES = {
     "ogvt_dwconv3x3_bwd": ((_P,) * 6 + (_I,) * 11 + (_P,), _I),
     "ogvt_error_string": ((_I,), ctypes.c_char_p),
 }
+# The same for the layout library's functions (csrc/*.cpp): 0, or 1 where
+# the kernel does not take the layout.
+_HOST_SIGNATURES = {
+    # C, split, weight buffers, int out[5]
+    "ogvt_mlp_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
+    # C, units, rows, buffers, int out[4]
+    "ogvt_mlp_branch_bwd_mma_weights_layout": ((_I, _I, _I, _I, _P), _I),
+}
 
 
 @dataclass(frozen=True)
@@ -126,18 +145,21 @@ class BuildResult:
     log: str  # nvcc's output (ptxas register / shared-memory report)
 
 
-def _sources():
-    return sorted(p for p in CSRC_DIR.iterdir()
-                  if p.suffix in (".cu", ".cuh"))
+def _sources(suffixes=(".cu", ".cuh", ".h")):
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in suffixes)
+
+
+def _keyed(stem: str, sources, flags) -> Path:
+    h = hashlib.sha256()
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def library_path() -> Path:
-    h = hashlib.sha256()
-    for p in _sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    return BUILD_DIR / f"libogvt_kernels_{h.hexdigest()[:16]}.so"
+    return _keyed("libogvt_kernels", _sources(), NVCC_FLAGS + LINK_FLAGS)
 
 
 def find_nvcc() -> str:
@@ -214,6 +236,39 @@ def load() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+_layouts: Optional[ctypes.CDLL] = None
+
+
+def load_layouts() -> ctypes.CDLL:
+    """The loaded layout library: the ``.cpp`` sources, built first if
+    needed by one ``c++`` call (``$CXX``, else ``c++`` on ``PATH``)."""
+    global _layouts
+    if _layouts is None:
+        out = _keyed("libogvt_layouts", _sources((".cpp", ".h")), HOST_FLAGS)
+        if not out.exists():
+            cxx = os.environ.get("CXX") or shutil.which("c++")
+            if not cxx:
+                raise RuntimeError("no C++ compiler ($CXX, or c++ on PATH); "
+                                   "the kernels' layouts cannot be built")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [cxx, *HOST_FLAGS, "-o", str(tmp),
+                   *map(str, _sources((".cpp",)))]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"c++ failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _layouts = lib
+    return _layouts
 
 
 def check_variant(name: str, variant: str, variants) -> None:

@@ -7,6 +7,15 @@ variant ``"t"``) and the row-layout
 ``outgridvit_tpu/ops/mlp_branch_pallas.py:mlp_branch_pallas`` (#4, variant
 ``"row"``). The variant only tags the launch count (``mlp_branch.by_variant``).
 
+The backward has two kernels, picked by dtype and shape before launch: a
+bf16 launch whose C and H are multiples of 16 (every shipped shape) runs
+``csrc/mlp_branch_bwd_mma.cu`` (``ogvt_mlp_branch_bwd_mma``: all five
+products on ``mma.sync`` tensor-core tiles, launch plan
+:func:`mlp_branch_backward_plan`); fp32 launches, and the bf16 shapes that
+plan refuses, run ``csrc/mlp_branch_bwd.cu`` (``ogvt_mlp_branch_bwd``, the
+fp32 FMA pipe). Launches are counted per C entry point
+(``mlp_branch_backward.by_entry``).
+
 ``y = fc2(act(fc1(LN(x))))`` per token with the kernel's rounding points:
 LN with fp32 statistics cast to x.dtype; ``xn.w1`` summed in fp32, ``+ b1``,
 cast; ``act`` in fp32, cast; ``a.w2`` summed in fp32, ``+ b2``, cast.
@@ -18,7 +27,10 @@ that saves only its inputs).
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -109,6 +121,182 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
             dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
+# ---- the bf16 tensor-core backward's launch plan (csrc/mlp_branch_bwd_mma.cu)
+
+MMA_UNITS = (256, 128, 64, 32)  # hidden units a weights block may own
+MMA_ROWS = (128, 64, 32)        # tokens a weights tile may take
+# one H100 SM: shared memory (each block reserves 1 KB more), registers;
+# the SMs of an H100 SXM
+SM_SMEM, SM_BLOCK_RESERVED, SM_REGS, SMS = 228 * 1024, 1024, 65536, 132
+MMA_MAX_TOKEN_BLOCKS = 1056  # the token partials summed in order
+MMA_MAX_WORKSPACE = 16 << 20  # floats of weight partials (64 MB)
+
+
+def _layout(kind: str, *args: int) -> Optional[tuple]:
+    """The kernel's own answer (``csrc/mlp_branch_bwd_mma_layout.cpp``) for
+    one layout: ``kind`` "tokens" (C, split, weight buffers) gives (threads,
+    shared bytes, register cap, tokens a tile, units a chunk), "weights"
+    (C, units, rows, buffers) gives (threads, shared bytes, register cap,
+    m16 tiles a warp); None where the kernel does not take it."""
+    out = (ctypes.c_int * (5 if kind == "tokens" else 4))()
+    fn = getattr(kernel_build.load_layouts(),
+                 f"ogvt_mlp_branch_bwd_mma_{kind}_layout")
+    return None if fn(*args, out) else tuple(out)
+
+
+def _per_sm(threads: int, smem: int, regs: int) -> int:
+    """Blocks of ``threads`` threads, ``smem`` shared bytes and ``regs``
+    registers a thread that one H100 SM holds (at least one)."""
+    return max(1, min(SM_REGS // (regs * threads),
+                      SM_SMEM // (smem + SM_BLOCK_RESERVED)))
+
+
+def _splits(tiles: int, slabs: int, slots: int, most: int) -> int:
+    """Token splits of the weights kernel: the fewest that minimise its
+    waves of ``slabs * splits`` blocks over the card's ``slots`` resident
+    blocks times the tiles each block walks (at most ``most``, the
+    workspace's cap)."""
+    return min(range(1, min(tiles, most) + 1),
+               key=lambda s: (-(-slabs * s // slots) * -(-tiles // s), s))
+
+
+class MlpBwdPlan(NamedTuple):
+    """How ``ogvt_mlp_branch_bwd_mma`` cuts one call. Tokens kernel:
+    ``t_split`` warps share each 16-row tile (C / t_split dxn columns
+    each), so a tile is ``t_rows`` tokens; H is walked in chunks of
+    ``t_chunk`` units, ``t_buffers`` of them staged at once; ``t_blocks``
+    blocks of ``t_smem`` shared bytes walk the ``t_tiles`` tiles, at most
+    ``t_blocks_per_sm`` an SM at the register cap ``t_regs``. Weights
+    kernel: a block owns ``w_units`` hidden units (``w_slabs`` slabs) and
+    one of ``w_splits`` contiguous runs of ``w_tiles_per_split`` tiles of
+    ``w_rows`` tokens (``w_buffers`` staged at once); a warp holds
+    ``w_mt`` m16 tiles of C (the kernel's template) of each slab; ``w_smem``
+    shared bytes, ``w_blocks_per_sm`` an SM at ``w_regs``. ``ws_floats``:
+    the fp32 workspace of both kernels' partials."""
+    t_split: int
+    t_rows: int
+    t_chunk: int
+    t_buffers: int
+    t_tiles: int
+    t_blocks: int
+    t_smem: int
+    t_regs: int
+    t_blocks_per_sm: int
+    w_units: int
+    w_rows: int
+    w_mt: int
+    w_buffers: int
+    w_slabs: int
+    w_splits: int
+    w_tiles_per_split: int
+    w_smem: int
+    w_regs: int
+    w_blocks_per_sm: int
+    ws_floats: int
+
+    def args(self):
+        """The plan's arguments of ``ogvt_mlp_branch_bwd_mma``, in order."""
+        return (self.t_split, self.t_buffers, self.t_blocks, self.t_smem,
+                self.w_units, self.w_rows, self.w_mt, self.w_buffers,
+                self.w_splits, self.w_smem)
+
+
+def _takes(M: int, C: int, H: int, dtype: torch.dtype) -> bool:
+    """Whether the dtype and the shapes are ones the tensor-core kernel
+    can take at all: bf16, C and H multiples of 16, M >= 1."""
+    return (dtype == torch.bfloat16 and M >= 1 and C >= 16 and H >= 16
+            and not C % 16 and not H % 16)
+
+
+@lru_cache(maxsize=None)
+def _fit(M: int, C: int, H: int):
+    """The plan for bf16 x ``[M, C]`` and hidden width H, or why there is
+    none (a str): no tokens-kernel or weights-kernel layout the kernel
+    takes (``_layout``)."""
+    # tokens kernel: of the splits the kernel takes, the smallest (the
+    # tallest tiles), then the layout that keeps the most blocks on an SM,
+    # then two weight buffers; two waves of blocks (a sweep of the layouts
+    # at the shipped shapes on the card)
+    tokens = []
+    for split in (1, 2, 4):
+        for buffers in (2, 1):
+            got = _layout("tokens", C, split, buffers)
+            if got is not None:
+                threads, smem, regs, rows, chunk = got
+                per_sm = _per_sm(threads, smem, regs)
+                tokens.append(((-split, per_sm, buffers), split, buffers,
+                               rows, chunk, smem, regs, per_sm))
+    if not tokens:
+        return ("the dxn columns do not split over 1, 2 or 4 warps in "
+                "multiples of 16 within one block's shared memory")
+    _, split, buffers, t_rows, chunk, t_smem, t_regs, t_per_sm = max(tokens)
+    t_tiles = -(-M // t_rows)
+    t_blocks = min(t_tiles, 2 * SMS * t_per_sm, MMA_MAX_TOKEN_BLOCKS)
+
+    best = None
+    for units in MMA_UNITS:
+        if units > 32 * -(-H // 32):
+            continue
+        for rows in MMA_ROWS:
+            for wbuf in (2, 1):
+                got = _layout("weights", C, units, rows, wbuf)
+                if got is None:
+                    continue
+                threads, smem, regs, mt = got
+                # the widest slab (the fewest reads of x and dy), then tiles
+                # of 64 tokens, then 128, then x and dy staged ahead (a
+                # sweep of every layout at the shipped shapes on the card)
+                key = (units, rows == 64, rows, wbuf)
+                if best is None or key > best[0]:
+                    best = (key, units, rows, mt, wbuf, smem, regs,
+                            _per_sm(threads, smem, regs))
+    if best is None:
+        return "no weights-kernel layout fits one block's shared memory"
+    _, units, rows, w_mt, wbuf, w_smem, w_regs, w_per_sm = best
+    slabs = -(-H // units)
+    w_tiles = -(-M // rows)
+    per_split = 2 * C * H + H
+    splits = _splits(w_tiles, slabs, SMS * w_per_sm,
+                     max(1, MMA_MAX_WORKSPACE // per_split))
+    tiles_per_split = -(-w_tiles // splits)
+    splits = -(-w_tiles // tiles_per_split)
+    return MlpBwdPlan(split, t_rows, chunk, buffers, t_tiles, t_blocks,
+                      t_smem, t_regs, t_per_sm, units, rows, w_mt, wbuf,
+                      slabs, splits, tiles_per_split, w_smem, w_regs,
+                      w_per_sm, 3 * C * t_blocks + per_split * splits)
+
+
+def mlp_branch_backward_plan(M: int, C: int, H: int,
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> MlpBwdPlan:
+    """The tensor-core backward's launch plan for x ``[M, C]`` and hidden
+    width H, or a ValueError naming the shape it does not take: fp32 (the
+    FMA kernel's), C or H not a multiple of 16, C whose dxn columns do not
+    split over 1, 2 or 4 warps in multiples of 16 up to 128, and layouts
+    that do not fit an H100 block's shared memory, as the kernel's own
+    layout says (``_layout``). Cached: the wrapper asks at every launch."""
+    where = f"mlp_branch_backward (mma): M={M}, C={C}, H={H}, {dtype}"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    if not _takes(M, C, H, dtype):
+        raise ValueError(f"{where}: C and H must be multiples of 16, M >= 1")
+    plan = _fit(M, C, H)
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+def backward_entry(M: int, C: int, H: int, dtype: torch.dtype) -> str:
+    """The C entry point a backward launch of these shapes takes:
+    ``ogvt_mlp_branch_bwd_mma`` where :func:`mlp_branch_backward_plan`
+    takes the shape (bf16, C and H multiples of 16, a layout that fits),
+    else the FMA kernel's ``ogvt_mlp_branch_bwd``. Decided by dtype and
+    shape alone."""
+    if _takes(M, C, H, dtype) and not isinstance(_fit(M, C, H), str):
+        return "ogvt_mlp_branch_bwd_mma"
+    return "ogvt_mlp_branch_bwd"
+
+
 def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act, variant):
     """Validate what the kernels take; returns (M, C, H, act code)."""
     kernel_build.check_variant(name, variant, VARIANTS)
@@ -168,17 +356,35 @@ mlp_branch.launches = 0
 mlp_branch.by_variant = Counter()
 
 
+BACKWARD_ENTRIES = ("ogvt_mlp_branch_bwd_mma", "ogvt_mlp_branch_bwd")
+
+
 def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, act: str,
                         eps: float = 1e-5, apply_ln: bool = True,
                         variant: str = "t"):
     """Gradients ``(dx, dln_scale, dln_bias, dw1, db1, dw2, db2)`` of the
     branch for the output gradient ``dy``. A CUDA tensor launches the kernels
-    (or raises); a CPU tensor takes :func:`mlp_branch_backward_reference`.
-    Deterministic: two calls on the same inputs give bitwise-equal grads.
-    ``variant`` as in :func:`mlp_branch`."""
+    (or raises): ``csrc/mlp_branch_bwd_mma.cu`` where
+    :func:`backward_entry` says so (bf16, C and H multiples of 16; x, w1,
+    w2 and dy 16-byte aligned or a ValueError), else
+    ``csrc/mlp_branch_bwd.cu``; a CPU tensor takes
+    :func:`mlp_branch_backward_reference`. Deterministic: two calls on the
+    same inputs give bitwise-equal grads. ``variant`` as in
+    :func:`mlp_branch`."""
     if x.device.type == "cpu":
         return mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2,
                                              b2, dy, act, eps, apply_ln)
+    return _launch_backward(None, x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
+                            act, eps, apply_ln, variant)
+
+
+def _launch_backward(entry: Optional[str], x, ln_scale, ln_bias, w1, b1, w2,
+                     b2, dy, act: str, eps: float = 1e-5,
+                     apply_ln: bool = True, variant: str = "t"):
+    """:func:`mlp_branch_backward` on the card through the C entry point
+    ``entry`` (one of :data:`BACKWARD_ENTRIES`), or :func:`backward_entry`'s
+    where it is None. A named entry is for comparing the two kernels on
+    the same inputs (``chip_smoke.py``'s A/B, the card tests)."""
     M, C, H, code = _check_launch("mlp_branch_backward", x, ln_scale, ln_bias,
                                   w1, b1, w2, b2, act, variant)
     if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
@@ -187,27 +393,48 @@ def mlp_branch_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, dy, act: str,
             f"mlp_branch_backward: dy is {tuple(dy.shape)} {dy.dtype} on "
             f"{dy.device}; expected contiguous {tuple(x.shape)} {x.dtype} "
             f"on {x.device}")
+    if entry is None:
+        entry = backward_entry(M, C, H, x.dtype)
+    elif entry not in BACKWARD_ENTRIES:
+        raise ValueError(f"mlp_branch_backward: entry {entry!r} is not one "
+                         f"of {BACKWARD_ENTRIES}")
+    plan: Optional[MlpBwdPlan] = None
+    if entry == "ogvt_mlp_branch_bwd_mma":
+        plan = mlp_branch_backward_plan(M, C, H, x.dtype)
+        for label, t in (("x", x), ("w1", w1), ("w2", w2), ("dy", dy)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"mlp_branch_backward: {label} of shape "
+                    f"{tuple(t.shape)} at {t.data_ptr():#x} is not 16-byte "
+                    "aligned; the tensor-core kernel copies 16 bytes at a "
+                    "time")
     lib = kernel_build.load()
-    ws = torch.empty(lib.ogvt_mlp_branch_bwd_workspace(M, C, H),
-                     dtype=torch.float32, device=x.device)
+    n_ws = (lib.ogvt_mlp_branch_bwd_workspace(M, C, H) if plan is None
+            else lib.ogvt_mlp_branch_bwd_mma_workspace(M, C, H, plan.t_blocks,
+                                                       plan.w_splits))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
     grads = (torch.empty_like(x), torch.empty_like(ln_scale),
              torch.empty_like(ln_bias), torch.empty_like(w1),
              torch.empty_like(b1), torch.empty_like(w2), torch.empty_like(b2))
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_mlp_branch_bwd(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+    ptrs = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
             *(g.data_ptr() for g in grads), ws.data_ptr(), M, C, H, code,
             float(eps), int(bool(apply_ln)),
-            kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "mlp_branch_backward launch")
-    kernel_build.count_launch(mlp_branch_backward, variant)
+            kernel_build.DTYPE_CODES[x.dtype])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            err = lib.ogvt_mlp_branch_bwd(*ptrs, stream)
+        else:
+            err = lib.ogvt_mlp_branch_bwd_mma(*ptrs, *plan.args(), stream)
+    kernel_build.check(err, f"mlp_branch_backward launch ({entry})")
+    kernel_build.count_launch(mlp_branch_backward, variant, entry)
     return grads
 
 
 mlp_branch_backward.launches = 0
 mlp_branch_backward.by_variant = Counter()
+mlp_branch_backward.by_entry = Counter()
 
 
 class _MLPBranch(torch.autograd.Function):

@@ -24,7 +24,11 @@ shapes (serving and train batch) and edge shapes (N = 1, 17, 63; hd = 56,
 branch (#12) at the default Model A stage-0 shape and rectangular maps,
 against its plain version and bit for bit against partition -> #5 ->
 unpartition, tiny models through both, and ``model.use_pallas: false``,
-which launches no kernel.
+which launches no kernel; the MLP backward's bf16 tensor-core kernel
+(``csrc/mlp_branch_bwd_mma.cu``) at a ragged tile, the row-layout tag, the
+widest C and a 5-token launch without LN, with the entry point each
+launch took (fp32 and H = 100 keep ``csrc/mlp_branch_bwd.cu``), both
+kernels on request and the tensor-core entry's refusals.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -73,6 +77,7 @@ from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa_packed_reference,
     grid_mhsa_reference,
 )
+from outgridvit_tpu_torch.ops import mlp_branch as mlp_branch_mod
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
     mlp_branch_backward,
@@ -212,6 +217,134 @@ def test_mlp_branch_backward_kernel_matches_plain(dev, dtype, act, M, C, H,
             _assert_close_to_max(a, w, dtype, name)
 
 
+def _mlp_args(g, M, C, H, dev, dtype, dy_scale=1.0):
+    def r(*shape, s=1.0, b=0.0):
+        return torch.randn(*shape, generator=g) * s + b
+
+    return ((r(M, C).to(dev, dtype), r(C, s=0.1, b=1.0).to(dev),
+             r(C, s=0.1).to(dev), r(C, H, s=C ** -0.5).to(dev, dtype),
+             r(H, s=0.02).to(dev, dtype), r(H, C, s=H ** -0.5).to(dev, dtype),
+             r(C, s=0.02).to(dev, dtype)),
+            r(M, C, s=dy_scale).to(dev, dtype))
+
+
+def _mlp_entries():
+    return dict(mlp_branch_backward.by_entry)
+
+
+def _entry_delta(before):
+    return {k: v - before.get(k, 0)
+            for k, v in mlp_branch_backward.by_entry.items()
+            if v - before.get(k, 0)}
+
+
+def _check_mlp_grads(got, again, want, dtype, apply_ln):
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    for name, a, b, w in zip(names, got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        elif not apply_ln and name.startswith("dln"):
+            assert not a.any(), name
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+@pytest.mark.parametrize("M,C,H,apply_ln,variant", [
+    (37, 48, 96, True, "t"),         # one ragged tile, H past one chunk
+    (1000, 64, 256, True, "row"),    # the row-layout kernel's tag (#4)
+    (300, 448, 1792, True, "t"),     # the widest C: 4 warps a row tile
+    (5, 320, 640, False, "t")])      # 5 tokens, no LN
+def test_mlp_branch_backward_mma_matches_plain(dev, act, M, C, H, apply_ln,
+                                               variant):
+    # bf16 launches whose C and H are multiples of 16 take the tensor-core
+    # kernel, csrc/mlp_branch_bwd_mma.cu
+    args, dy = _mlp_args(torch.Generator().manual_seed(M + C + H), M, C, H,
+                         dev, torch.bfloat16)
+    before = _mlp_entries()
+    n = mlp_branch_backward.by_variant[variant]
+    got = mlp_branch_backward(*args, dy, act, 1e-5, apply_ln, variant)
+    again = mlp_branch_backward(*args, dy, act, 1e-5, apply_ln, variant)
+    torch.cuda.synchronize()
+    assert _entry_delta(before) == {"ogvt_mlp_branch_bwd_mma": 2}
+    assert mlp_branch_backward.by_variant[variant] == n + 2
+    want = mlp_branch_backward_reference(*args, dy, act, 1e-5, apply_ln)
+    _check_mlp_grads(got, again, want, torch.bfloat16, apply_ln)
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 256),
+                                     (torch.bfloat16, 100)])
+def test_mlp_branch_backward_takes_the_fma_kernel_where_mma_does_not(
+        dev, dtype, H):
+    # fp32, and bf16 at H = 100 (not a multiple of 16): csrc/mlp_branch_bwd.cu
+    M, C = 70, 48
+    args, dy = _mlp_args(torch.Generator().manual_seed(H), M, C, H, dev,
+                         dtype)
+    before = _mlp_entries()
+    got = mlp_branch_backward(*args, dy, "gelu", 1e-5, True)
+    again = mlp_branch_backward(*args, dy, "gelu", 1e-5, True)
+    torch.cuda.synchronize()
+    assert _entry_delta(before) == {"ogvt_mlp_branch_bwd": 2}
+    want = mlp_branch_backward_reference(*args, dy, "gelu", 1e-5, True)
+    _check_mlp_grads(got, again, want, dtype, True)
+
+
+def test_mlp_branch_backward_entries_on_request(dev):
+    # the A/B of chip_smoke.py: either kernel at a shape both take, each
+    # against the plain version; the mma entry refuses fp32 by name
+    launch = mlp_branch_mod._launch_backward
+    args, dy = _mlp_args(torch.Generator().manual_seed(5), 200, 64, 128, dev,
+                         torch.bfloat16)
+    want = mlp_branch_backward_reference(*args, dy, "silu", 1e-5, True)
+    for entry in ("ogvt_mlp_branch_bwd", "ogvt_mlp_branch_bwd_mma"):
+        before = _mlp_entries()
+        got = launch(entry, *args, dy, "silu", 1e-5, True, "t")
+        again = launch(entry, *args, dy, "silu", 1e-5, True, "t")
+        torch.cuda.synchronize()
+        assert _entry_delta(before) == {entry: 2}
+        _check_mlp_grads(got, again, want, torch.bfloat16, True)
+    f32 = tuple(t.float() for t in args)
+    with pytest.raises(ValueError, match="M=200, C=64, H=128"):
+        launch("ogvt_mlp_branch_bwd_mma", *f32, dy.float(), "silu", 1e-5,
+               True, "t")
+    with pytest.raises(ValueError, match="entry"):
+        launch("ogvt_nope", *args, dy, "silu", 1e-5, True, "t")
+
+
+def test_mlp_branch_backward_mma_refuses_what_it_does_not_take(dev):
+    args, dy = _mlp_args(torch.Generator().manual_seed(6), 64, 48, 96, dev,
+                         torch.bfloat16)
+    # a pointer off 16 bytes: the kernel copies 16 bytes at a time
+    off = torch.empty(64 * 48 + 1, device=dev,
+                      dtype=torch.bfloat16)[1:].view(64, 48)
+    off.copy_(dy)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    with pytest.raises(ValueError, match="dy .*16-byte aligned"):
+        mlp_branch_backward(*args, off, "gelu")
+    # the entry point checks the plan it is given against the shapes
+    plan = mlp_branch_mod.mlp_branch_backward_plan(64, 48, 96)
+    lib = kernel_build.load()
+    assert lib.ogvt_mlp_branch_bwd_mma_workspace(
+        64, 48, 96, plan.t_blocks, plan.w_splits) == plan.ws_floats
+    grads = [torch.empty_like(t) for t in args]
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=dev)
+    for bad in (dict(t_smem=plan.t_smem + 16), dict(w_smem=plan.w_smem - 16),
+                dict(t_split=3), dict(w_units=48), dict(w_mt=1),
+                dict(t_blocks=0), dict(w_splits=plan.w_splits + 5)):
+        err = lib.ogvt_mlp_branch_bwd_mma(
+            *(t.data_ptr() for t in args[:6]), dy.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), 64, 48, 96, 0,
+            1e-5, 1, 1, *plan._replace(**bad).args(),
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
+    err = lib.ogvt_mlp_branch_bwd_mma(
+        *(t.data_ptr() for t in args[:6]), dy.data_ptr(),
+        *(g.data_ptr() for g in grads), ws.data_ptr(), 64, 48, 96, 0, 1e-5, 1,
+        1, *plan.args(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+
+
 def _branch_args(g, G, N, C, dev, dtype):
     def r(*shape, s=1.0, b=0.0):
         return torch.randn(*shape, generator=g) * s + b
@@ -346,13 +479,18 @@ def test_mlp_branch_kernels_at_the_64px_row_shapes(dev, dtype, H):
             r(C, s=0.1).to(dev), r(C, H, s=C ** -0.5).to(dev, dtype),
             r(H, s=0.02).to(dev, dtype), r(H, C, s=H ** -0.5).to(dev, dtype),
             r(C, s=0.02).to(dev, dtype))
-    dy = r(M, C, s=0.01).to(dev, dtype)
+    dy = r(M, C).to(dev, dtype)
     n = mlp_branch_backward.by_variant["row"]
+    before = _mlp_entries()
     got = mlp_branch(*args, "gelu", 1e-5, True, "row")
     grads = mlp_branch_backward(*args, dy, "gelu", 1e-5, True, "row")
     again = mlp_branch_backward(*args, dy, "gelu", 1e-5, True, "row")
     torch.cuda.synchronize()
     assert mlp_branch_backward.by_variant["row"] == n + 2
+    # bf16: the tensor-core kernel; fp32: the FMA kernel
+    assert _entry_delta(before) == {
+        "ogvt_mlp_branch_bwd_mma" if dtype == torch.bfloat16
+        else "ogvt_mlp_branch_bwd": 2}
     _assert_close(got, mlp_branch_reference(*args, "gelu", 1e-5, True), dtype)
     want = mlp_branch_backward_reference(*args, dy, "gelu", 1e-5, True)
     names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")

@@ -299,9 +299,10 @@ def test_jax_train_state_loads_and_the_next_step_matches():
 
 def _c_entry_points():
     """name -> (return type, parameter types) of every ``extern "C"``
-    function in the kernel sources."""
+    function in the kernel sources and the layout sources."""
     out = {}
-    for src in sorted(kernel_build.CSRC_DIR.glob("*.cu")):
+    for src in sorted([*kernel_build.CSRC_DIR.glob("*.cu"),
+                       *kernel_build.CSRC_DIR.glob("*.cpp")]):
         text = src.read_text()
         for m in re.finditer(r'extern "C" ([\w ]+?\**)\s*(ogvt_\w+)\(([^)]*)\)',
                              text):
@@ -325,7 +326,11 @@ def _ctype(decl: str):
                   else decl.split()[0]]
 
 
-@pytest.mark.parametrize("name", sorted(kernel_build._SIGNATURES))
+_ALL_SIGNATURES = {**kernel_build._SIGNATURES,
+                   **kernel_build._HOST_SIGNATURES}
+
+
+@pytest.mark.parametrize("name", sorted(_ALL_SIGNATURES))
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """Each entry point's ctypes argtypes and restype against its C
     declaration in csrc/ (a call with a parameter too few or too many
@@ -333,6 +338,6 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
     entries = _c_entry_points()
     assert name in entries, f"{name}: no extern \"C\" definition in csrc/"
     ret, params = entries[name]
-    argtypes, restype = kernel_build._SIGNATURES[name]
+    argtypes, restype = _ALL_SIGNATURES[name]
     assert [_ctype(p) for p in params] == list(argtypes), (name, params)
     assert _ctype(ret) == restype, (name, ret)

@@ -1,0 +1,36 @@
+"""``profile_step.py``'s attribution of device kernels: each kernel of
+``csrc/`` to the source that defines it, by the function its demangled
+symbol names, and PyTorch's kernels to their kind."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import profile_step  # noqa: E402
+
+
+def test_port_kernels_names_every_mlp_kernel_source():
+    port = profile_step.port_kernels()
+    assert port["mlp_branch_fwd"] == "csrc/mlp_branch.cu"
+    assert port["tokens_kernel"] == port["weights_kernel"] == \
+        "csrc/mlp_branch_bwd_mma.cu"
+    assert port["mlp_bwd_tokens"] == "csrc/mlp_branch_bwd.cu"
+    assert port["reduce_partials"] == "csrc/partials.cuh"
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::weights_kernel<0, 4>(__nv_bfloat16 "
+     "const*, float const*)", "csrc/mlp_branch_bwd_mma.cu"),
+    ("void ogvt::reduce_partials<float>(float const*, int)",
+     "csrc/partials.cuh"),
+    ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_"
+     "impl_nocast<at::native::(anonymous namespace)::where_kernel_impl("
+     "at::TensorIteratorBase&)>", "elementwise"),
+    ("void at::native::reduce_kernel<128, 4, at::native::ReduceOp<float>>",
+     "reduction"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "gemm")])
+def test_group_attributes_a_kernel(name, want):
+    assert profile_step.group(name, profile_step.port_kernels()) == want
