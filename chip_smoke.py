@@ -47,14 +47,18 @@ the block-packed core's bf16 launches of N <= 63 (``a7m_48``'s stage 0,
 ``a7m_96``'s stages 1-3) run ``csrc/grid_mhsa_packed_mma.cu``, its fp32
 ones ``csrc/grid_mhsa_packed.cu``, and its launches of 64 <= N <= 256 in
 both dtypes ``csrc/grid_mhsa_long.cu`` (the kernels line's
-``grid_mhsa_long`` row). The MLP backward's bf16 launches (every main
-path's shapes) run ``csrc/mlp_branch_bwd_mma.cu``, its fp32 ones
-``csrc/mlp_branch_bwd.cu``. The served and trained main paths (bf16) must
-launch them through the matching C entry points.
+``grid_mhsa_long`` row). The MLP branch's bf16 launches (every main
+path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
+``csrc/mlp_branch_bwd_mma.cu`` backward, its fp32 ones
+``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``. The served and
+trained main paths (bf16) must launch them through the matching C entry
+points, and the fp32 step through the FMA ones.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
-128, fp32 and bf16; each backward twice, bitwise equal), requests through
+128, fp32 and bf16; each backward twice, bitwise equal; the bf16 MLP
+forward with at least 90% of its outputs bitwise equal to the plain
+version's), requests through
 ``Predictor`` at batch 64 with the launch counts of each forward, the kernel
 path's logits against the plain path's, one fp32 train step through the
 kernels against one through the plain path (batch 128, raw uint8 in, the
@@ -78,9 +82,10 @@ shapes of the 7M model and Model B (forward at batch 64, backward at 128),
 #3 at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
 and, for long grids, at ``a7m_96``'s (forward at batch 64 and 128,
 backward at 128); per shape and per forward or train step. Phase
-``ab_mlp_backward`` (``AB_MLP``) then times the MLP backward's tensor-core
-kernel against the FMA kernel it replaces at every MLP shape of the
-Tiny-ImageNet, Model B, 7M and ``a7m_96`` train steps, the same way.
+``ab_mlp`` (``AB_MLP``) then times the MLP branch's tensor-core kernels
+against the FMA kernels they replace at every MLP shape of the
+Tiny-ImageNet, Model B, 7M and ``a7m_96`` paths, the same way: the
+forward at batch 64, per forward, the backward at 128, per train step.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -323,9 +328,10 @@ BF16_LOSS_TOL = 3e-2
 # name -> (source, or sources, the TPU kernel it replaces, the JAX entry
 # points it covers). grid_mhsa: csrc/grid_mhsa.cu for "t" launches (#1) and
 # fp32 "th" ones, csrc/grid_mhsa_th.cu for bf16 "th" launches (#3).
-# mlp_branch_bwd: csrc/mlp_branch_bwd_mma.cu for bf16 launches whose C and
-# H are multiples of 16 (every main path's), csrc/mlp_branch_bwd.cu for
-# fp32 ones.
+# mlp_branch / mlp_branch_bwd: csrc/mlp_branch_mma.cu /
+# csrc/mlp_branch_bwd_mma.cu for bf16 launches whose C and H are multiples
+# of 16 (every main path's), csrc/mlp_branch.cu / csrc/mlp_branch_bwd.cu
+# for fp32 ones.
 # grid_mhsa_packed: csrc/grid_mhsa_packed_mma.cu for bf16 launches, the main
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
@@ -340,7 +346,8 @@ SOURCES = {
          "outgridvit_tpu/ops/grid_attention_pallas_t.py:344 "
          "grid_mhsa_pallas_th (#3, variant th)"]),
     "mlp_branch": (
-        "outgridvit_tpu_torch/csrc/mlp_branch.cu",
+        ("outgridvit_tpu_torch/csrc/mlp_branch_mma.cu",
+         "outgridvit_tpu_torch/csrc/mlp_branch.cu"),
         "outgridvit_tpu/ops/mlp_branch_pallas_t.py:182",
         ["outgridvit_tpu/ops/mlp_branch_pallas_t.py:182 mlp_branch_pallas_t "
          "(#2, variant t)",
@@ -498,14 +505,23 @@ AB_LIBRARY = (
     ("grid_mhsa_long", A7M_96, TRAIN_BATCH, "long"),
     ("grid_mhsa_long_bwd", A7M_96, TRAIN_BATCH, "long"),
 )
-# the train steps whose every MLP backward Smoke.ab_mlp_backward times, the
-# tensor-core kernel against the FMA kernel it replaces
+# the paths whose every MLP forward and backward Smoke.ab_mlp times, the
+# tensor-core kernels against the FMA kernels they replace
 AB_MLP = (TIN, MODEL_B, FLAGSHIP, A7M_96)
+# the C entry points of the MLP kernels' A/B, tensor-core side first
+MLP_ENTRIES = {"mlp_branch": ("ogvt_mlp_branch_mma", "ogvt_mlp_branch"),
+               "mlp_branch_bwd": ("ogvt_mlp_branch_bwd_mma",
+                                  "ogvt_mlp_branch_bwd")}
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
 # kernels whose outputs equal their plain versions bit for bit on the card
 BITWISE = ("dwconv3x3",)
+# the least share of a bf16 kernel's outputs that must equal its plain
+# version's bit for bit: the MLP forward's sums differ only in fp32 order,
+# which flips a rounding in well under 1% of its outputs (a wrong kernel
+# may pass KERNEL_TOL, not this)
+BITWISE_SHARE = {"mlp_branch": 0.9}
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -817,7 +833,7 @@ class Smoke:
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
         self.ab_lib = {}                 # kernel vs library call, per shape
-        self.ab_fma = {}                 # MLP backward, mma vs FMA kernel
+        self.ab_fma = {}                 # MLP kernels, mma vs FMA kernel
         self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
     # -- launch counters --------------------------------------------------
@@ -862,8 +878,9 @@ class Smoke:
         through the head-chunked kernel's entry points
         (csrc/grid_mhsa_th.cu), every other through csrc/grid_mhsa.cu's;
         every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
-        of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP backward
-        through csrc/mlp_branch_bwd_mma.cu's. ``plan`` and ``variants``:
+        of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP forward
+        and backward through csrc/mlp_branch_mma.cu's and
+        csrc/mlp_branch_bwd_mma.cu's. ``plan`` and ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
         got = self.read_entries()
@@ -873,7 +890,8 @@ class Smoke:
                             ("grid_mhsa_long", "ogvt_grid_mhsa_long"),
                             ("grid_mhsa_long_bwd",
                              "ogvt_grid_mhsa_long_bwd"),
-                            ("mlp_branch_bwd", "ogvt_mlp_branch_bwd_mma")):
+                            *((name, mma) for name, (mma, _)
+                              in MLP_ENTRIES.items())):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
@@ -1037,6 +1055,13 @@ class Smoke:
         if name in BITWISE:
             require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"{name} {label}: not bitwise equal to the plain version")
+        share = None
+        if name in BITWISE_SHARE and dt == "bfloat16":
+            share = (got[0] == want[0]).float().mean().item()
+            require(share >= BITWISE_SHARE[name],
+                    f"{name} {label}: {share:.4%} of the outputs bitwise "
+                    f"equal to the plain version's, below "
+                    f"{BITWISE_SHARE[name]:.0%}")
         worst = []
         for i, (g, w) in enumerate(zip(got, want)):
             require(torch.isfinite(g.float()).all().item(),
@@ -1059,7 +1084,9 @@ class Smoke:
               + f" (tol {KERNEL_TOL[dt]:g} abs+rel; param grads rel to max, "
               f"tol {WGRAD_TOL[dt]:g})"
               + (" deterministic ok" if backward else "")
-              + (" bitwise ok" if name in BITWISE else ""))
+              + (" bitwise ok" if name in BITWISE else "")
+              + ("" if share is None else f" bitwise equal {share:.4%} (at "
+                 f"least {BITWISE_SHARE[name]:.0%})"))
 
     def compare_all(self, case: ModelCase):
         import torch
@@ -1247,86 +1274,98 @@ class Smoke:
                       f"[{self.gpu}]")
             torch.cuda.empty_cache()
 
-    def ab_mlp_backward(self, iters=10, fma_iters=2):
-        """The MLP backward's A/B in bf16: ``csrc/mlp_branch_bwd_mma.cu``
-        (the main paths' kernel) against ``csrc/mlp_branch_bwd.cu``, the
-        FMA kernel it replaces there, on the same inputs at every MLP shape
-        of ``AB_MLP``'s train steps (batch 128; the outlooker MLPs, H = 2C,
-        and the block MLPs, H = 4C). Per shape in turns (mma, FMA, FMA,
-        mma) in this process: device time (calls in one CUDA graph,
-        :func:`graph_ms`; ``fma_iters`` of the slow kernel), then eager time
-        (host time included), each with its share of the bound; summed per
-        train step."""
+    def ab_mlp(self, iters=10, fma_iters=2):
+        """The MLP kernels' A/B in bf16: ``csrc/mlp_branch_mma.cu`` and
+        ``csrc/mlp_branch_bwd_mma.cu`` (the main paths' kernels) against
+        ``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``, the FMA
+        kernels they replace there, on the same inputs at every MLP shape of
+        ``AB_MLP``'s paths (the outlooker MLPs, H = 2C, and the block MLPs,
+        H = 4C): the forward at batch 64, the backward at the train batch
+        128. Per shape in turns (mma, FMA, FMA, mma) in this process: device
+        time (calls in one CUDA graph, :func:`graph_ms`; ``fma_iters`` of
+        the slow kernel), then eager time (host time included), each with
+        its share of the bound; summed per forward and per train step."""
         import torch
 
-        from outgridvit_tpu_torch.ops.mlp_branch import _launch_backward
+        from outgridvit_tpu_torch.ops.mlp_branch import (
+            _launch_backward,
+            _launch_forward,
+        )
 
-        call = self.kernels["mlp_branch_bwd"][0]
-        entries = {"mma": "ogvt_mlp_branch_bwd_mma",
-                   "fma": "ogvt_mlp_branch_bwd"}
-        for case in AB_MLP:
-            total = {"bound": 0.0, "launches": 0}
-            for sh in stage_shapes(case, TRAIN_BATCH):
-                for H, count in ((sh["H_outlook"], sh["outlook"]),
-                                 (sh["H_block"], sh["blocks"])):
-                    if not count:
-                        continue
-                    args = self.bwd_args("mlp_branch_bwd", sh,
-                                         torch.bfloat16, H)
-                    fns = {w: (lambda e=e: _launch_backward(
-                        e, *args, sh["mlp_variant"]))
-                           for w, e in entries.items()}
-                    n = {"mma": iters, "fma": fma_iters}
-                    for w, e in entries.items():  # each side its kernel
-                        before = call.by_entry[e]
-                        grads = fns[w]()
-                        require(call.by_entry[e] == before + 1,
-                                f"mlp_branch_bwd A/B: {w} did not launch {e}")
-                    bound = max(bound_ms("mlp_branch_bwd", args, grads,
-                                         torch.bfloat16))
-                    del grads
-                    label = (f"{case.tag} stage{sh['stage']} M={sh['M']} "
-                             f"C={sh['C']} H={H} variant={sh['mlp_variant']}")
-                    res = self.ab_fma.setdefault(case.tag, {})
-                    res[label] = {"bound_ms": bound, "launches": count}
-                    for how, timer in (
-                            ("device", lambda f, w: graph_ms(f, n[w])),
-                            ("eager", lambda f, w: time_ms(f, (), n[w],
-                                                           warmup=1))):
-                        runs = {"mma": [], "fma": []}
-                        for w in ("mma", "fma", "fma", "mma"):
-                            runs[w].append(timer(fns[w], w))
-                        k, f = (sum(v) / len(v) for v in runs.values())
-                        res[label][how] = {
-                            "mma_ms": k, "fma_ms": f,
-                            "mma_bound_share": bound / k,
-                            "fma_bound_share": bound / f,
-                            "runs": {w: [round(t, 6) for t in v]
-                                     for w, v in runs.items()}}
-                        print(f"[ab] mlp_branch_bwd {label} bf16 {how}, per "
-                              f"launch: mma {k * 1e3:.1f} us ("
-                              f"{runs['mma'][0] * 1e3:.1f}, "
-                              f"{runs['mma'][1] * 1e3:.1f}) vs the FMA kernel "
-                              f"{f * 1e3:.1f} us: mma/FMA {k / f:.4f}; bound "
-                              f"{bound * 1e3:.2f} us, mma at {bound / k:.1%} "
-                              f"of it, FMA at {bound / f:.2%} [{self.gpu}]")
-                        for key, t in (("mma", k), ("fma", f)):
-                            total[f"{how}_{key}"] = (total.get(f"{how}_{key}",
-                                                               0.0)
-                                                     + count * t)
-                    total["bound"] += count * bound
-                    total["launches"] += count
-                    del args, fns
-            res[f"{case.tag} train step B={TRAIN_BATCH}"] = total
-            for how in ("device", "eager"):
-                k, f = total[f"{how}_mma"], total[f"{how}_fma"]
-                print(f"[ab] mlp_branch_bwd per {case.tag} train step "
-                      f"B={TRAIN_BATCH} ({total['launches']} launches, bf16) "
-                      f"{how}: mma {k:.4f} ms vs the FMA kernel {f:.4f} ms: "
-                      f"{k / f:.4f}; bound {total['bound']:.4f} ms, mma at "
-                      f"{total['bound'] / k:.1%}, FMA at "
-                      f"{total['bound'] / f:.2%} [{self.gpu}]")
-            torch.cuda.empty_cache()
+        for name, batch, per, launch, make in (
+                ("mlp_branch", BATCH, f"forward B={BATCH}", _launch_forward,
+                 self.fwd_args),
+                ("mlp_branch_bwd", TRAIN_BATCH, f"train step B={TRAIN_BATCH}",
+                 _launch_backward, self.bwd_args)):
+            call = self.kernels[name][0]
+            entries = dict(zip(("mma", "fma"), MLP_ENTRIES[name]))
+            for case in AB_MLP:
+                total = {"bound": 0.0, "launches": 0}
+                res = self.ab_fma.setdefault(name, {}).setdefault(case.tag,
+                                                                  {})
+                for sh in stage_shapes(case, batch):
+                    for H, count in ((sh["H_outlook"], sh["outlook"]),
+                                     (sh["H_block"], sh["blocks"])):
+                        if not count:
+                            continue
+                        args = make(name, sh, torch.bfloat16, H)
+                        fns = {w: (lambda e=e: launch(e, *args,
+                                                      sh["mlp_variant"]))
+                               for w, e in entries.items()}
+                        n = {"mma": iters, "fma": fma_iters}
+                        for w, e in entries.items():  # each side its kernel
+                            before = call.by_entry[e]
+                            outs = fns[w]()
+                            require(call.by_entry[e] == before + 1,
+                                    f"{name} A/B: {w} did not launch {e}")
+                        bound = max(bound_ms(name, args, outs,
+                                             torch.bfloat16))
+                        del outs
+                        label = (f"{case.tag} stage{sh['stage']} "
+                                 f"M={sh['M']} C={sh['C']} H={H} "
+                                 f"variant={sh['mlp_variant']}")
+                        res[label] = {"bound_ms": bound, "launches": count}
+                        for how, timer in (
+                                ("device", lambda f, w: graph_ms(f, n[w])),
+                                ("eager", lambda f, w: time_ms(
+                                    f, (), n[w], warmup=1))):
+                            runs = {"mma": [], "fma": []}
+                            for w in ("mma", "fma", "fma", "mma"):
+                                runs[w].append(timer(fns[w], w))
+                            k, f = (sum(v) / len(v) for v in runs.values())
+                            res[label][how] = {
+                                "mma_ms": k, "fma_ms": f,
+                                "mma_bound_share": bound / k,
+                                "fma_bound_share": bound / f,
+                                "runs": {w: [round(t, 6) for t in v]
+                                         for w, v in runs.items()}}
+                            print(f"[ab] {name} {label} bf16 {how}, per "
+                                  f"launch: mma {k * 1e3:.1f} us ("
+                                  f"{runs['mma'][0] * 1e3:.1f}, "
+                                  f"{runs['mma'][1] * 1e3:.1f}) vs the FMA "
+                                  f"kernel it replaces {f * 1e3:.1f} us: "
+                                  f"mma/FMA {k / f:.4f}; bound "
+                                  f"{bound * 1e3:.2f} us, mma at "
+                                  f"{bound / k:.1%} of it, FMA at "
+                                  f"{bound / f:.2%} [{self.gpu}]")
+                            for key, t in (("mma", k), ("fma", f)):
+                                total[f"{how}_{key}"] = (
+                                    total.get(f"{how}_{key}", 0.0)
+                                    + count * t)
+                        total["bound"] += count * bound
+                        total["launches"] += count
+                        del args, fns
+                res[f"{case.tag} {per}"] = total
+                for how in ("device", "eager"):
+                    k, f = total[f"{how}_mma"], total[f"{how}_fma"]
+                    print(f"[ab] {name} per {case.tag} {per} "
+                          f"({total['launches']} launches, bf16) {how}: mma "
+                          f"{k:.4f} ms vs the FMA kernel it replaces "
+                          f"{f:.4f} ms: {k / f:.4f}; bound "
+                          f"{total['bound']:.4f} ms, mma at "
+                          f"{total['bound'] / k:.1%}, FMA at "
+                          f"{total['bound'] / f:.2%} [{self.gpu}]")
+                torch.cuda.empty_cache()
 
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
@@ -1611,8 +1650,8 @@ class Smoke:
         # one train step, kernel path vs plain path
         runs = {}
         draws = None
-        mlp_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH),
-                                backward=True)[0]["mlp_branch_bwd"]
+        mlp_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0][
+            "mlp_branch"]  # as many forwards as backwards a step
         for label, dtype, kern in (("fp32 kernel", torch.float32, True),
                                    ("fp32 plain", torch.float32, False),
                                    ("bf16 kernel", torch.bfloat16, True)):
@@ -1621,12 +1660,13 @@ class Smoke:
             self.reset_counts()
             state, m = step(state, (images, labels), draws)
             torch.cuda.synchronize()
-            if label == "fp32 kernel":  # the fp32 MLP backward: FMA kernel
-                got = self.read_entries()["mlp_branch_bwd"]
-                require(got == {"ogvt_mlp_branch_bwd": mlp_steps},
-                        f"{case.tag} fp32 step: mlp_branch_bwd launches by "
-                        f"entry point {got}, expected {mlp_steps} of "
-                        "ogvt_mlp_branch_bwd")
+            if label == "fp32 kernel":  # the fp32 MLP kernels: FMA ones
+                got = self.read_entries()
+                for name, (_, fma) in MLP_ENTRIES.items():
+                    require(got[name] == {fma: mlp_steps},
+                            f"{case.tag} fp32 step: {name} launches by "
+                            f"entry point {got[name]}, expected {mlp_steps} "
+                            f"of {fma}")
             runs[label] = (state, {k: v.item() for k, v in m.items()})
             print(f"[train-step] {case.tag} {label}: " + " ".join(
                 f"{k}={v:.6g}" for k, v in runs[label][1].items()))
@@ -1767,8 +1807,8 @@ class Smoke:
             if name in self.ab_lib:
                 out[-1][AB_KEY.get(name, "ab_vs_sdpa_ms")] = \
                     self.ab_lib[name]
-            if name == "mlp_branch_bwd" and self.ab_fma:
-                out[-1]["ab_vs_fma_kernel_ms"] = self.ab_fma
+            if name in self.ab_fma:
+                out[-1]["ab_vs_fma_kernel_ms"] = self.ab_fma[name]
             if len(sources) > 1:
                 out[-1]["sources"] = list(sources)
                 out[-1]["launches_by_entry"] = self.entries[name]
@@ -1823,7 +1863,7 @@ def main() -> int:
             smoke.ab_nhwc()
         if case is MODEL_B_O:
             smoke.ab_vs_library()
-            smoke.ab_mlp_backward()
+            smoke.ab_mlp()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

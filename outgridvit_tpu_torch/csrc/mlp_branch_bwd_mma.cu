@@ -58,14 +58,16 @@
 // rows one ldmatrix reads fall in 8 distinct bank groups. The launch plan
 // (split, buffers, blocks; slab width, tile rows, m16 tiles a warp,
 // buffers, splits) is ops/mlp_branch.py:mlp_branch_backward_plan, made from
-// the layout queries of mlp_branch_bwd_mma_layout.cpp; the layout itself is
-// mlp_branch_bwd_mma_layout.h, and the entry point refuses any plan it does
-// not match.
+// the layout queries of mlp_branch_mma_layout.cpp; the layout itself is
+// mlp_branch_mma_layout.h, and the entry point refuses any plan it does not
+// match. The staging and LayerNorm helpers are mlp_branch_mma.cuh's, shared
+// with the forward (csrc/mlp_branch_mma.cu).
 #include <stdint.h>
 
 #include "act.cuh"
 #include "common.cuh"
-#include "mlp_branch_bwd_mma_layout.h"
+#include "mlp_branch_mma.cuh"
+#include "mlp_branch_mma_layout.h"
 #include "mma.cuh"
 #include "partials.cuh"
 
@@ -75,10 +77,6 @@ using namespace ogvt::mlp_mma;
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // The tokens kernel's epilogue of one (token, hidden unit), from the fp32
 // sums h = xn.w1 and da = dy.w2^T: dh = da * act'(round(h + b1)), in fp32
@@ -96,89 +94,6 @@ __device__ __forceinline__ float epilogue_a_dh(float h, float da, float b1,
   float g;
   act_and_grad_f32<ACT>(round_bf16(h + b1), a, g);
   return da * g;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  return as_u32(__floats2bfloat162_rn(lo, hi));
-}
-
-__device__ __forceinline__ float2 unpack_bf16(unsigned v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
-// Rows [row0, row0 + TM) of a [M, C] bf16 matrix into the tile at shared
-// address `tile`, rows `rowb` bytes apart; rows past M zero-filled.
-__device__ __forceinline__ void stage_rows(unsigned tile, const bf16* src,
-                                           size_t row0, int M, int C, int TM,
-                                           int rowb) {
-  const int units = C / 8;
-  for (int i = threadIdx.x; i < TM * units; i += kThreads) {
-    const int r = i / units, u = i - r * units;
-    const bool in = row0 + r < static_cast<size_t>(M);
-    cp_async16_zfill(tile + r * rowb + u * 16,
-                     in ? src + (row0 + r) * C + u * 8 : src, in ? 16 : 0);
-  }
-}
-
-// w1[:, j0:j0 + n] ([C, n], rows `rowk` bytes apart) and w2[j0:j0 + n, :]
-// ([n, C], rows `rowc` apart) into shared memory; units past H zero-filled.
-__device__ __forceinline__ void stage_weights(unsigned t1, unsigned t2,
-                                              const bf16* w1, const bf16* w2,
-                                              int j0, int n, int C, int H,
-                                              int rowk, int rowc) {
-  const int un = n / 8, uc = C / 8;
-  for (int i = threadIdx.x; i < C * un; i += kThreads) {
-    const int c = i / un, u = i - c * un;
-    const int j = j0 + u * 8;
-    const bool in = j < H;
-    cp_async16_zfill(t1 + c * rowk + u * 16,
-                     in ? w1 + static_cast<size_t>(c) * H + j : w1,
-                     in ? 16 : 0);
-  }
-  for (int i = threadIdx.x; i < n * uc; i += kThreads) {
-    const int r = i / uc, u = i - r * uc;
-    const bool in = j0 + r < H;
-    cp_async16_zfill(t2 + r * rowc + u * 16,
-                     in ? w2 + static_cast<size_t>(j0 + r) * C + u * 8 : w2,
-                     in ? 16 : 0);
-  }
-}
-
-// LayerNorm of rows [0, rows) of the staged bf16 tile at `tile` (one warp a
-// row), in place: round(LN(x)) with fp32 statistics, fast variance clamped
-// at 0, as csrc/mlp_branch_bwd.cu:layernorm_rows. Writes mu and rstd when
-// s_mu is given.
-__device__ __forceinline__ void layernorm_tile(unsigned char* tile, int rowb,
-                                               int rows, int C,
-                                               const float* __restrict__ ls,
-                                               const float* __restrict__ lb,
-                                               float eps, float* s_mu,
-                                               float* s_rstd) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
-    unsigned* row = reinterpret_cast<unsigned*>(tile + r * rowb);
-    float s = 0.f, ss = 0.f;
-    for (int c = 2 * lane; c < C; c += 64) {
-      const float2 v = unpack_bf16(row[c / 2]);
-      s += v.x;
-      s += v.y;
-      ss = fmaf(v.x, v.x, ss);
-      ss = fmaf(v.y, v.y, ss);
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / C;
-    const float rstd = rsqrtf(fmaxf(0.f, ss / C - mu * mu) + eps);
-    if (s_mu != nullptr && lane == 0) {
-      s_mu[r] = mu;
-      s_rstd[r] = rstd;
-    }
-    for (int c = 2 * lane; c < C; c += 64) {
-      const float2 v = unpack_bf16(row[c / 2]);
-      row[c / 2] = pack_bf16((v.x - mu) * (rstd * ls[c]) + lb[c],
-                             (v.y - mu) * (rstd * ls[c + 1]) + lb[c + 1]);
-    }
-  }
 }
 
 template <int ACT, int NTX>
@@ -227,8 +142,8 @@ tokens_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
     cp_async_wait<0>();
     __syncthreads();
     if (apply_ln) {
-      layernorm_tile(smem + g.xn, g.rowC, rows, C, ls, lb, eps, s_mu,
-                     s_rstd);
+      layernorm_rows(smem + g.xn, g.rowC, warp, kWarps, rows, C, ls, lb, eps,
+                     s_mu, s_rstd);
     }
     // db2: a thread sums a column pair over every RG-th row, in order
     float* s_db2 = reinterpret_cast<float*>(smem + g.db2);  // [RG][C]
@@ -568,8 +483,8 @@ weights_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
     const int rows = min(TM, static_cast<int>(M - row0));
     const unsigned xb = base + b * g.buf, yb = xb + TM * g.rowC;
     if (apply_ln) {
-      layernorm_tile(smem + b * g.buf, g.rowC, rows, C, ls, lb, eps, nullptr,
-                     nullptr);
+      layernorm_rows(smem + b * g.buf, g.rowC, warp, kWarps, rows, C, ls, lb,
+                     eps, nullptr, nullptr);
       __syncthreads();
     }
 
@@ -793,7 +708,7 @@ bool aligned16(const void* p) {
 }
 
 // Whether the plan is one the kernels take for these shapes: layouts both
-// kernels take (mlp_branch_bwd_mma_layout.h), their shared bytes and the
+// kernels take (mlp_branch_mma_layout.h), their shared bytes and the
 // weights kernel's template, blocks and splits that cover M.
 bool plan_ok(int M, int C, int H, const Plan& p) {
   if (M <= 0 || H < 16 || H % 16 || !tok_fits(C, p.t_split, p.t_buffers) ||

@@ -1,8 +1,10 @@
-// The shared-memory layout, register caps and limits of the two kernels of
-// csrc/mlp_branch_bwd_mma.cu, in plain C++ (no CUDA), so that one copy
-// serves the kernels, their entry point's plan check and the layout queries
-// of mlp_branch_bwd_mma_layout.cpp, which the launch plan
-// (ops/mlp_branch.py:mlp_branch_backward_plan) asks on any host.
+// The shared-memory layouts, register caps and limits of the fused MLP
+// branch's bf16 tensor-core kernels: the forward of csrc/mlp_branch_mma.cu
+// and the two backward kernels of csrc/mlp_branch_bwd_mma.cu, in plain C++
+// (no CUDA), so that one copy serves the kernels, their entry points' plan
+// checks and the layout queries of mlp_branch_mma_layout.cpp, which the
+// launch plans (ops/mlp_branch.py:mlp_branch_forward_plan and
+// mlp_branch_backward_plan) ask on any host.
 #pragma once
 
 #ifdef __CUDACC__
@@ -125,6 +127,68 @@ inline bool w_fits(int C, int WC, int TM, int NB) {
   }
   const WGeom g = w_geom(C, WC, TM, NB);
   return g.MT <= 4 && g.bytes <= kMaxBlockSmem;
+}
+
+// The forward kernel's template: y n8 tiles a warp holds (8 up to 64
+// columns, else 16), and the blocks an SM holds at its register cap: two
+// for 8 (a 64-column y tile fits 128 registers; ptxas spilled at 16),
+// except for an activation that divides (SiLU, whose correctly rounded
+// division has a slow path that spilled at 128).
+OGVT_HD constexpr int fwd_nty(int C, int S) { return C / S <= 64 ? 8 : 16; }
+constexpr int fwd_blocks(int nty, bool divides) {
+  return nty == 8 && !divides ? 2 : 1;
+}
+
+// The forward kernel's shared memory for C channels, H hidden units, split S
+// and NB weight buffers (byte offsets): two x tiles (the next tile's x is
+// staged while this one computes; y leaves through this one's), then either
+// all of w1 [C, H] and w2 [H, C] (NB = 0, resident for every tile) or NB
+// buffers of w1[:, chunk] and w2[chunk, :], then the a exchange tile
+// [TM, chunk] where S warps share a row tile.
+struct FwdGeom {
+  int S, R, TM, HW, chunk, nct;  // nct: y n8 tiles a warp
+  int rowC, rowK, rowH;          // bytes between staged rows
+  int xbuf, w, w2, wbuf, ex, bytes;
+};
+
+OGVT_HD inline FwdGeom fwd_geom(int C, int H, int S, int NB) {
+  FwdGeom g;
+  g.S = S;
+  g.R = kWarps / S;
+  g.TM = 16 * g.R;
+  g.HW = S <= 2 ? 32 : 16;
+  g.chunk = S * g.HW;
+  g.nct = C / S / 8;
+  g.rowC = row_bytes(C);
+  g.rowK = row_bytes(g.chunk);
+  g.rowH = row_bytes(H);
+  g.xbuf = g.TM * g.rowC;
+  g.w = 2 * g.xbuf;
+  if (NB == 0) {
+    g.w2 = C * g.rowH;  // w2 after w1, within the weights
+    g.wbuf = g.w2 + H * g.rowC;
+  } else {
+    g.w2 = C * g.rowK;  // w2's chunk after w1's, within a buffer
+    g.wbuf = g.w2 + g.chunk * g.rowC;
+  }
+  g.ex = g.w + (NB == 0 ? 1 : NB) * g.wbuf;
+  g.bytes = g.ex + (S > 1 ? g.TM * g.rowK : 0);
+  return g;
+}
+
+// Whether the forward kernel takes C channels and H hidden units (multiples
+// of 16) at split S (C / S y columns a warp, a multiple of 16 up to kMaxY)
+// with NB weight buffers (0: the weights resident), within one block's
+// shared memory.
+constexpr int kMaxY = 128;  // y columns one warp holds
+
+inline bool fwd_fits(int C, int H, int S, int NB) {
+  if (C < 16 || H < 16 || H % 16 ||
+      (S != 1 && S != 2 && S != 4 && S != 8) || C % (16 * S) ||
+      C / S > kMaxY || NB < 0 || NB > 2) {
+    return false;
+  }
+  return fwd_geom(C, H, S, NB).bytes <= kMaxBlockSmem;
 }
 
 }  // namespace mlp_mma

@@ -59,6 +59,9 @@ _SIGNATURES = {
     # dtype, stream
     "ogvt_mlp_branch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                          _I, _I, _P), _I),
+    # the same, then the plan: split, buffers, blocks, smem; stream
+    "ogvt_mlp_branch_mma": ((_P,) * 8 + (_I, _I, _I, _I, _F, _I, _I)
+                            + (_I,) * 4 + (_P,), _I),
     # x, ln_scale, ln_bias, w1, b1, w2, dy, dx, dln_scale, dln_bias, dw1,
     # db1, dw2, db2, workspace, M, C, H, act, eps, apply_ln, dtype, stream
     "ogvt_mlp_branch_bwd": ((_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
@@ -130,6 +133,8 @@ _SIGNATURES = {
 # The same for the layout library's functions (csrc/*.cpp): 0, or 1 where
 # the kernel does not take the layout.
 _HOST_SIGNATURES = {
+    # C, H, split, weight buffers, activation code, int out[5]
+    "ogvt_mlp_branch_fwd_mma_layout": ((_I, _I, _I, _I, _I, _P), _I),
     # C, split, weight buffers, int out[5]
     "ogvt_mlp_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
     # C, units, rows, buffers, int out[4]

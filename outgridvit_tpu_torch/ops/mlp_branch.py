@@ -1,20 +1,24 @@
-"""Fused pre-LN channel-MLP branch: the CUDA kernels ``csrc/mlp_branch.cu``
-(forward) and ``csrc/mlp_branch_bwd.cu`` (backward) and their plain PyTorch
-versions. One kernel pair stands for two TPU kernels that compute the same
-math and rounding points in different VMEM layouts:
+"""Fused pre-LN channel-MLP branch: its CUDA kernels and their plain
+PyTorch versions. The kernels stand for two TPU kernels that compute the
+same math and rounding points in different VMEM layouts:
 ``outgridvit_tpu/ops/mlp_branch_pallas_t.py:mlp_branch_pallas_t`` (#2,
 variant ``"t"``) and the row-layout
 ``outgridvit_tpu/ops/mlp_branch_pallas.py:mlp_branch_pallas`` (#4, variant
 ``"row"``). The variant only tags the launch count (``mlp_branch.by_variant``).
 
-The backward has two kernels, picked by dtype and shape before launch: a
-bf16 launch whose C and H are multiples of 16 (every shipped shape) runs
-``csrc/mlp_branch_bwd_mma.cu`` (``ogvt_mlp_branch_bwd_mma``: all five
-products on ``mma.sync`` tensor-core tiles, launch plan
-:func:`mlp_branch_backward_plan`); fp32 launches, and the bf16 shapes that
-plan refuses, run ``csrc/mlp_branch_bwd.cu`` (``ogvt_mlp_branch_bwd``, the
-fp32 FMA pipe). Launches are counted per C entry point
-(``mlp_branch_backward.by_entry``).
+Each direction has two kernels, picked by dtype and shape before launch: a
+bf16 launch whose C and H are multiples of 16 (every shipped shape) runs a
+tensor-core kernel, ``csrc/mlp_branch_mma.cu`` forward
+(``ogvt_mlp_branch_mma``: fc1 and fc2 on ``mma.sync`` tiles, launch plan
+:func:`mlp_branch_forward_plan`) and ``csrc/mlp_branch_bwd_mma.cu``
+backward (``ogvt_mlp_branch_bwd_mma``: all five products, launch plan
+:func:`mlp_branch_backward_plan`); fp32 launches, and the bf16 shapes those
+plans refuse, run the fp32 FMA pipe's ``csrc/mlp_branch.cu``
+(``ogvt_mlp_branch``) and ``csrc/mlp_branch_bwd.cu``
+(``ogvt_mlp_branch_bwd``). Launches are counted per C entry point
+(``mlp_branch.by_entry``, ``mlp_branch_backward.by_entry``). Both plans ask
+the kernels' one layout, ``csrc/mlp_branch_mma_layout.h``, through
+:func:`_layout`.
 
 ``y = fc2(act(fc1(LN(x))))`` per token with the kernel's rounding points:
 LN with fp32 statistics cast to x.dtype; ``xn.w1`` summed in fp32, ``+ b1``,
@@ -121,7 +125,8 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
             dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
-# ---- the bf16 tensor-core backward's launch plan (csrc/mlp_branch_bwd_mma.cu)
+# ---- the bf16 tensor-core kernels' launch plans (csrc/mlp_branch_mma.cu,
+# csrc/mlp_branch_bwd_mma.cu)
 
 MMA_UNITS = (256, 128, 64, 32)  # hidden units a weights block may own
 MMA_ROWS = (128, 64, 32)        # tokens a weights tile may take
@@ -132,15 +137,24 @@ MMA_MAX_TOKEN_BLOCKS = 1056  # the token partials summed in order
 MMA_MAX_WORKSPACE = 16 << 20  # floats of weight partials (64 MB)
 
 
+# the layout queries of csrc/mlp_branch_mma_layout.cpp and how many ints
+# each answers
+_LAYOUTS = {"forward": ("ogvt_mlp_branch_fwd_mma_layout", 5),
+            "tokens": ("ogvt_mlp_branch_bwd_mma_tokens_layout", 5),
+            "weights": ("ogvt_mlp_branch_bwd_mma_weights_layout", 4)}
+
+
 def _layout(kind: str, *args: int) -> Optional[tuple]:
-    """The kernel's own answer (``csrc/mlp_branch_bwd_mma_layout.cpp``) for
-    one layout: ``kind`` "tokens" (C, split, weight buffers) gives (threads,
-    shared bytes, register cap, tokens a tile, units a chunk), "weights"
-    (C, units, rows, buffers) gives (threads, shared bytes, register cap,
-    m16 tiles a warp); None where the kernel does not take it."""
-    out = (ctypes.c_int * (5 if kind == "tokens" else 4))()
-    fn = getattr(kernel_build.load_layouts(),
-                 f"ogvt_mlp_branch_bwd_mma_{kind}_layout")
+    """The kernels' own answer (``csrc/mlp_branch_mma_layout.cpp``) for one
+    layout: ``kind`` "forward" (C, H, split, weight buffers, 0 for
+    resident, activation code) gives (threads, shared bytes, register cap,
+    tokens a tile, units a chunk); "tokens" (C, split, weight buffers) the
+    same for the backward's tokens kernel; "weights" (C, units, rows,
+    buffers) gives (threads, shared bytes, register cap, m16 tiles a warp);
+    None where the kernel does not take it."""
+    name, n = _LAYOUTS[kind]
+    out = (ctypes.c_int * n)()
+    fn = getattr(kernel_build.load_layouts(), name)
     return None if fn(*args, out) else tuple(out)
 
 
@@ -158,6 +172,132 @@ def _splits(tiles: int, slabs: int, slots: int, most: int) -> int:
     workspace's cap)."""
     return min(range(1, min(tiles, most) + 1),
                key=lambda s: (-(-slabs * s // slots) * -(-tiles // s), s))
+
+
+class MlpFwdPlan(NamedTuple):
+    """How ``ogvt_mlp_branch_mma`` cuts one call: ``split`` warps share each
+    16-row tile (C / split y columns each), so a tile is ``rows`` tokens;
+    H is walked in chunks of ``chunk`` units, with w1 and w2 resident in
+    shared memory (``buffers`` 0) or staged a chunk at a time in
+    ``buffers`` buffers; ``blocks`` blocks of ``smem`` shared bytes each
+    walk a contiguous run of ``tiles_per_block`` of the ``tiles`` tiles,
+    at most ``blocks_per_sm`` an SM at the register cap ``regs``."""
+    split: int
+    rows: int
+    chunk: int
+    buffers: int
+    tiles: int
+    tiles_per_block: int
+    blocks: int
+    smem: int
+    regs: int
+    blocks_per_sm: int
+
+    def args(self):
+        """The plan's arguments of ``ogvt_mlp_branch_mma``, in order."""
+        return (self.split, self.buffers, self.blocks, self.smem)
+
+
+def _fwd_layouts(C: int, H: int, act: str = "gelu"):
+    """(split, buffers, threads, shared bytes, register cap, rows, chunk)
+    of every forward layout the kernel takes at C, H and ``act``."""
+    out = []
+    for split in (1, 2, 4, 8):
+        for buffers in (0, 2, 1):
+            got = _layout("forward", C, H, split, buffers, _ACT_CODES[act])
+            if got is not None:
+                out.append((split, buffers, *got))
+    return out
+
+
+def _fwd_plan(M: int, C: int, H: int, split: int, buffers: int,
+              act: str = "gelu"):
+    """The forward plan of one layout: about one wave of blocks, each a
+    contiguous run of tiles (the last runs as long as the first but one)."""
+    lay = _layout("forward", C, H, split, buffers, _ACT_CODES[act])
+    if lay is None or M < 1:
+        raise ValueError(f"mlp_branch (mma): M={M}, C={C}, H={H}: the kernel "
+                         f"takes no layout of split {split}, buffers "
+                         f"{buffers}")
+    threads, smem, regs, rows, chunk = lay
+    per_sm = _per_sm(threads, smem, regs)
+    tiles = -(-M // rows)
+    per = -(-tiles // (SMS * per_sm))
+    blocks = -(-tiles // per)
+    return MlpFwdPlan(split, rows, chunk, buffers, tiles, -(-tiles // blocks),
+                      blocks, smem, regs, per_sm)
+
+
+# The forward plan's cost model, fitted to a sweep of every layout at the
+# shipped MLP shapes (batch 64 and 128) on the card: a block's time for a
+# token a split costs (more exchanges and fewer reuses of each B fragment
+# as the split grows), a block alone on its SM against two (0.65), and
+# the staging of the weights: resident and reused over tiles, resident
+# for one tile (staged before the first product, not behind it), two
+# buffers, one buffer.
+_SPLIT_COST = {1: 1.0, 2: 1.05, 4: 1.5, 8: 1.8}
+_ALONE = 0.65
+_STAGING = {"resident": 1.0, "resident once": 1.1, 2: 1.05, 1: 1.1}
+
+
+def _fwd_cost(p: MlpFwdPlan) -> float:
+    """The modelled device time of a forward plan, in token-steps of its
+    busiest block."""
+    alone = -(-p.blocks // SMS) == 1
+    staging = (p.buffers if p.buffers else "resident" if p.tiles_per_block > 1
+               else "resident once")
+    return (p.tiles_per_block * p.rows * _SPLIT_COST[p.split]
+            * (_ALONE if alone else 1.0) * _STAGING[staging])
+
+
+@lru_cache(maxsize=None)
+def _fit_forward(M: int, C: int, H: int, act: str = "gelu"):
+    """The forward plan for bf16 x ``[M, C]``, hidden width H and ``act``,
+    or why there is none (a str): of the layouts the kernel takes, the one
+    of the least :func:`_fwd_cost` (within 2.1% of the fastest layout at
+    every shipped shape, 0.01% over all of them, in the sweep); then
+    resident weights, two buffers, the smallest split."""
+    best = None
+    for split, buffers, *_ in _fwd_layouts(C, H, act):
+        p = _fwd_plan(M, C, H, split, buffers, act)
+        key = (_fwd_cost(p), (0, 2, 1).index(buffers), split)
+        if best is None or key < best[0]:
+            best = (key, p)
+    if best is None:
+        return ("the y columns do not split over 1, 2, 4 or 8 warps in "
+                "multiples of 16 up to 128 within one block's shared memory")
+    return best[1]
+
+
+def mlp_branch_forward_plan(M: int, C: int, H: int,
+                            dtype: torch.dtype = torch.bfloat16,
+                            act: str = "gelu") -> MlpFwdPlan:
+    """The tensor-core forward's launch plan for x ``[M, C]``, hidden width
+    H and activation ``act`` (SiLU's register cap differs), or a
+    ValueError naming the shape it does not take: fp32 (the
+    FMA kernel's), C or H not a multiple of 16, M < 1, and C whose y columns
+    fit no layout within an H100 block's shared memory, as the kernel's
+    own layout says (:func:`_layout`). Cached: the wrapper asks at every
+    launch."""
+    where = f"mlp_branch (mma): M={M}, C={C}, H={H}, {dtype}"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    if not _takes(M, C, H, dtype):
+        raise ValueError(f"{where}: C and H must be multiples of 16, M >= 1")
+    plan = _fit_forward(M, C, H, act)
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+def forward_entry(M: int, C: int, H: int, dtype: torch.dtype) -> str:
+    """The C entry point a forward launch of these shapes takes:
+    ``ogvt_mlp_branch_mma`` where :func:`mlp_branch_forward_plan` takes the
+    shape (bf16, C and H multiples of 16, a layout that fits), else the FMA
+    kernel's ``ogvt_mlp_branch``. Decided by dtype and shape alone."""
+    if _takes(M, C, H, dtype) and not isinstance(_fit_forward(M, C, H), str):
+        return "ogvt_mlp_branch_mma"
+    return "ogvt_mlp_branch"
 
 
 class MlpBwdPlan(NamedTuple):
@@ -328,32 +468,75 @@ def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act, variant):
     return x.numel() // C, C, H, _ACT_CODES[act]
 
 
+def _aligned16(name: str, **tensors) -> None:
+    """A ValueError naming the first tensor whose data is not 16-byte
+    aligned: the tensor-core kernels copy 16 bytes at a time."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} of shape {tuple(t.shape)} at "
+                f"{t.data_ptr():#x} is not 16-byte aligned; the tensor-core "
+                "kernel copies 16 bytes at a time")
+
+
+FORWARD_ENTRIES = ("ogvt_mlp_branch_mma", "ogvt_mlp_branch")
+
+
 def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
                eps: float = 1e-5, apply_ln: bool = True, variant: str = "t"):
-    """x [..., C] -> [..., C]. A CUDA tensor launches the kernel (or raises);
-    a CPU tensor takes :func:`mlp_branch_reference`. ``variant`` names the
-    JAX kernel the launch stands for (:data:`VARIANTS`)."""
+    """x [..., C] -> [..., C]. A CUDA tensor launches a kernel (or raises):
+    ``csrc/mlp_branch_mma.cu`` where :func:`forward_entry` says so (bf16, C
+    and H multiples of 16; x, w1 and w2 16-byte aligned or a ValueError),
+    else ``csrc/mlp_branch.cu``; a CPU tensor takes
+    :func:`mlp_branch_reference`. ``variant`` names the JAX kernel the
+    launch stands for (:data:`VARIANTS`)."""
     if x.device.type == "cpu":
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, act,
                                     eps, apply_ln)
+    return _launch_forward(None, x, ln_scale, ln_bias, w1, b1, w2, b2, act,
+                           eps, apply_ln, variant)
+
+
+def _launch_forward(entry: Optional[str], x, ln_scale, ln_bias, w1, b1, w2,
+                    b2, act: str, eps: float = 1e-5, apply_ln: bool = True,
+                    variant: str = "t", plan: Optional[MlpFwdPlan] = None):
+    """:func:`mlp_branch` on the card through the C entry point ``entry``
+    (one of :data:`FORWARD_ENTRIES`), or :func:`forward_entry`'s where it
+    is None. A named entry, or a ``plan`` other than
+    :func:`mlp_branch_forward_plan`'s (any of :func:`_fwd_plan`), is for
+    comparing kernels and layouts on the same inputs (``chip_smoke.py``'s
+    A/B, the card tests)."""
     M, C, H, code = _check_launch("mlp_branch", x, ln_scale, ln_bias, w1, b1,
                                   w2, b2, act, variant)
+    if entry is None:
+        entry = forward_entry(M, C, H, x.dtype)
+    elif entry not in FORWARD_ENTRIES:
+        raise ValueError(f"mlp_branch: entry {entry!r} is not one of "
+                         f"{FORWARD_ENTRIES}")
     y = torch.empty_like(x)
+    ptrs = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), M, C, H, code, float(eps), int(bool(apply_ln)),
+            kernel_build.DTYPE_CODES[x.dtype])
+    if entry == "ogvt_mlp_branch_mma":
+        plan = plan or mlp_branch_forward_plan(M, C, H, x.dtype,
+                                               act.lower())
+        _aligned16("mlp_branch", x=x, w1=w1, w2=w2)
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
-        err = lib.ogvt_mlp_branch(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), M, C, H, code, float(eps),
-            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "mlp_branch launch")
-    kernel_build.count_launch(mlp_branch, variant)
+        stream = torch.cuda.current_stream().cuda_stream
+        if entry == "ogvt_mlp_branch":
+            err = lib.ogvt_mlp_branch(*ptrs, stream)
+        else:
+            err = lib.ogvt_mlp_branch_mma(*ptrs, *plan.args(), stream)
+    kernel_build.check(err, f"mlp_branch launch ({entry})")
+    kernel_build.count_launch(mlp_branch, variant, entry)
     return y
 
 
 mlp_branch.launches = 0
 mlp_branch.by_variant = Counter()
+mlp_branch.by_entry = Counter()
 
 
 BACKWARD_ENTRIES = ("ogvt_mlp_branch_bwd_mma", "ogvt_mlp_branch_bwd")
@@ -401,13 +584,7 @@ def _launch_backward(entry: Optional[str], x, ln_scale, ln_bias, w1, b1, w2,
     plan: Optional[MlpBwdPlan] = None
     if entry == "ogvt_mlp_branch_bwd_mma":
         plan = mlp_branch_backward_plan(M, C, H, x.dtype)
-        for label, t in (("x", x), ("w1", w1), ("w2", w2), ("dy", dy)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"mlp_branch_backward: {label} of shape "
-                    f"{tuple(t.shape)} at {t.data_ptr():#x} is not 16-byte "
-                    "aligned; the tensor-core kernel copies 16 bytes at a "
-                    "time")
+        _aligned16("mlp_branch_backward", x=x, w1=w1, w2=w2, dy=dy)
     lib = kernel_build.load()
     n_ws = (lib.ogvt_mlp_branch_bwd_workspace(M, C, H) if plan is None
             else lib.ogvt_mlp_branch_bwd_mma_workspace(M, C, H, plan.t_blocks,

@@ -24,11 +24,14 @@ shapes (serving and train batch) and edge shapes (N = 1, 17, 63; hd = 56,
 branch (#12) at the default Model A stage-0 shape and rectangular maps,
 against its plain version and bit for bit against partition -> #5 ->
 unpartition, tiny models through both, and ``model.use_pallas: false``,
-which launches no kernel; the MLP backward's bf16 tensor-core kernel
-(``csrc/mlp_branch_bwd_mma.cu``) at a ragged tile, the row-layout tag, the
-widest C and a 5-token launch without LN, with the entry point each
-launch took (fp32 and H = 100 keep ``csrc/mlp_branch_bwd.cu``), both
-kernels on request and the tensor-core entry's refusals.
+which launches no kernel; the MLP forward's and backward's bf16
+tensor-core kernels (``csrc/mlp_branch_mma.cu``,
+``csrc/mlp_branch_bwd_mma.cu``) at a ragged tile, the row-layout tag, the
+widest C and a 5-token launch without LN (the forward also at the
+Tiny-ImageNet stage 0 and in every layout it takes at five shapes), with
+the entry point each launch took (fp32 and H = 100 keep
+``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``), both kernels on
+request and the tensor-core entries' refusals.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -310,6 +313,131 @@ def test_mlp_branch_backward_entries_on_request(dev):
                True, "t")
     with pytest.raises(ValueError, match="entry"):
         launch("ogvt_nope", *args, dy, "silu", 1e-5, True, "t")
+
+
+def _fwd_entries():
+    return dict(mlp_branch.by_entry)
+
+
+def _fwd_entry_delta(before):
+    return {k: v - before.get(k, 0) for k, v in mlp_branch.by_entry.items()
+            if v - before.get(k, 0)}
+
+
+def _check_mlp_forward(got, again, want):
+    """Two calls bitwise equal, the plain version within the bf16
+    tolerance, and at least 90% of y bitwise its y (only the fp32 sum order
+    differs), as chip_smoke.py holds the kernel."""
+    assert torch.equal(got, again), "y differs between two calls"
+    _assert_close(got, want, torch.bfloat16)
+    share = (got == want).float().mean().item()
+    assert share >= 0.9, f"{share:.4%} of y bitwise the plain version's"
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu"])
+@pytest.mark.parametrize("M,C,H,apply_ln,variant", [
+    (37, 48, 96, True, "t"),          # one ragged tile, H past one chunk
+    (1000, 64, 256, True, "row"),     # the row-layout kernel's tag (#4)
+    (300, 448, 1792, True, "t"),      # the widest C: 4 warps a row tile
+    (5, 320, 640, False, "t"),        # 5 tokens, no LN
+    (262_144, 64, 256, True, "row")])  # Tiny-ImageNet stage 0, batch 64
+def test_mlp_branch_mma_matches_plain(dev, act, M, C, H, apply_ln, variant):
+    # bf16 launches whose C and H are multiples of 16 take the tensor-core
+    # forward, csrc/mlp_branch_mma.cu
+    args, _ = _mlp_args(torch.Generator().manual_seed(M + C + H), M, C, H,
+                        dev, torch.bfloat16)
+    before = _fwd_entries()
+    n = mlp_branch.by_variant[variant]
+    got = mlp_branch(*args, act, 1e-5, apply_ln, variant)
+    again = mlp_branch(*args, act, 1e-5, apply_ln, variant)
+    torch.cuda.synchronize()
+    assert _fwd_entry_delta(before) == {"ogvt_mlp_branch_mma": 2}
+    assert mlp_branch.by_variant[variant] == n + 2
+    _check_mlp_forward(got, again,
+                       mlp_branch_reference(*args, act, 1e-5, apply_ln))
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 256),
+                                     (torch.bfloat16, 100)])
+def test_mlp_branch_takes_the_fma_kernel_where_mma_does_not(dev, dtype, H):
+    # fp32, and bf16 at H = 100 (not a multiple of 16): csrc/mlp_branch.cu
+    M, C = 70, 48
+    args, _ = _mlp_args(torch.Generator().manual_seed(H), M, C, H, dev,
+                        dtype)
+    before = _fwd_entries()
+    got = mlp_branch(*args, "gelu", 1e-5, True)
+    torch.cuda.synchronize()
+    assert _fwd_entry_delta(before) == {"ogvt_mlp_branch": 1}
+    _assert_close(got, mlp_branch_reference(*args, "gelu", 1e-5, True),
+                  dtype)
+
+
+@pytest.mark.parametrize("M,C,H", [(300, 48, 192), (1000, 64, 256),
+                                   (200, 128, 512), (129, 256, 1024),
+                                   (70, 384, 1536)])
+def test_mlp_branch_mma_takes_every_layout(dev, M, C, H):
+    # every layout the kernel takes at these shapes (split 1-8, the weights
+    # resident or in 1 or 2 buffers), not only the one the plan picks
+    launch = mlp_branch_mod._launch_forward
+    args, _ = _mlp_args(torch.Generator().manual_seed(M + H), M, C, H, dev,
+                        torch.bfloat16)
+    want = mlp_branch_reference(*args, "gelu", 1e-5, True)
+    layouts = mlp_branch_mod._fwd_layouts(C, H)
+    assert layouts
+    for split, buffers, *_ in layouts:
+        plan = mlp_branch_mod._fwd_plan(M, C, H, split, buffers)
+        got = launch("ogvt_mlp_branch_mma", *args, "gelu", 1e-5, True, "t",
+                     plan)
+        again = launch("ogvt_mlp_branch_mma", *args, "gelu", 1e-5, True,
+                       "t", plan)
+        torch.cuda.synchronize()
+        _check_mlp_forward(got, again, want)
+
+
+def test_mlp_branch_entries_on_request(dev):
+    # the A/B of chip_smoke.py: either forward kernel at a shape both take,
+    # each against the plain version; the mma entry refuses fp32 by name
+    launch = mlp_branch_mod._launch_forward
+    args, _ = _mlp_args(torch.Generator().manual_seed(5), 200, 64, 128, dev,
+                        torch.bfloat16)
+    want = mlp_branch_reference(*args, "silu", 1e-5, True)
+    for entry in ("ogvt_mlp_branch", "ogvt_mlp_branch_mma"):
+        before = _fwd_entries()
+        got = launch(entry, *args, "silu", 1e-5, True, "t")
+        torch.cuda.synchronize()
+        assert _fwd_entry_delta(before) == {entry: 1}
+        _assert_close(got, want, torch.bfloat16)
+    f32 = tuple(t.float() for t in args)
+    with pytest.raises(ValueError, match="M=200, C=64, H=128"):
+        launch("ogvt_mlp_branch_mma", *f32, "silu", 1e-5, True, "t")
+    with pytest.raises(ValueError, match="entry"):
+        launch("ogvt_nope", *args, "silu", 1e-5, True, "t")
+
+
+def test_mlp_branch_mma_refuses_what_it_does_not_take(dev):
+    args, _ = _mlp_args(torch.Generator().manual_seed(6), 64, 48, 96, dev,
+                        torch.bfloat16)
+    # a pointer off 16 bytes: the kernel copies 16 bytes at a time
+    off = torch.empty(64 * 48 + 1, device=dev,
+                      dtype=torch.bfloat16)[1:].view(64, 48)
+    off.copy_(args[0])
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    with pytest.raises(ValueError, match="x .*16-byte aligned"):
+        mlp_branch(off, *args[1:], "gelu")
+    # the entry point checks the plan it is given against the shapes
+    plan = mlp_branch_mod.mlp_branch_forward_plan(64, 48, 96)
+    lib = kernel_build.load()
+    y = torch.empty_like(args[0])
+    ptrs = (*(t.data_ptr() for t in args), y.data_ptr(), 64, 48, 96, 0,
+            1e-5, 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (dict(smem=plan.smem + 16), dict(split=3), dict(buffers=3),
+                dict(blocks=0), dict(blocks=plan.tiles + 1)):
+        err = lib.ogvt_mlp_branch_mma(*ptrs, *plan._replace(**bad).args(),
+                                      stream)
+        assert err != 0, bad
+    assert lib.ogvt_mlp_branch_mma(*ptrs[:-1], 0, *plan.args(), stream) != 0
+    assert lib.ogvt_mlp_branch_mma(*ptrs, *plan.args(), stream) == 0
 
 
 def test_mlp_branch_backward_mma_refuses_what_it_does_not_take(dev):

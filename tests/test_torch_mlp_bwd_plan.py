@@ -226,7 +226,7 @@ def _fma(a, b, c):
 
 
 def _ln_rows(x, ls, lb, eps):
-    """layernorm_tile's forward from the staged bf16 x [R, C]: each lane
+    """layernorm_rows's forward from the staged bf16 x [R, C]: each lane
     sums its column pairs in order, the warp's xor tree sums the lanes;
     returns (round(LN(x)), mu, rstd)."""
     R, C = x.shape

@@ -14,6 +14,7 @@ import profile_step  # noqa: E402
 def test_port_kernels_names_every_mlp_kernel_source():
     port = profile_step.port_kernels()
     assert port["mlp_branch_fwd"] == "csrc/mlp_branch.cu"
+    assert port["mlp_fwd_kernel"] == "csrc/mlp_branch_mma.cu"
     assert port["tokens_kernel"] == port["weights_kernel"] == \
         "csrc/mlp_branch_bwd_mma.cu"
     assert port["mlp_bwd_tokens"] == "csrc/mlp_branch_bwd.cu"
