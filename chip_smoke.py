@@ -50,9 +50,13 @@ both dtypes ``csrc/grid_mhsa_long.cu`` (the kernels line's
 ``grid_mhsa_long`` row). The MLP branch's bf16 launches (every main
 path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
 ``csrc/mlp_branch_bwd_mma.cu`` backward, its fp32 ones
-``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``. The served and
-trained main paths (bf16) must launch them through the matching C entry
-points, and the fp32 step through the FMA ones.
+``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``. The fused
+attention branch's bf16 backward (Tiny-ImageNet's and ``a_base``'s stage
+0) runs ``csrc/attn_branch_bwd_mma.cu``, its fp32 one and every forward
+``csrc/attn_branch.cu``. The served and trained main paths (bf16) must
+launch them through the matching C entry points, and the fp32 step
+through the FMA ones; ``attn_branch_nhwc``'s parameter grads must equal
+``attn_branch``'s on the partitioned inputs bit for bit.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
@@ -86,6 +90,11 @@ backward at 128); per shape and per forward or train step. Phase
 against the FMA kernels they replace at every MLP shape of the
 Tiny-ImageNet, Model B, 7M and ``a7m_96`` paths, the same way: the
 forward at batch 64, per forward, the backward at 128, per train step.
+Phase ``ab_attn`` (``AB_ATTN``) times the attention branch's tensor-core
+backward against the FMA backward it replaces at the stage 0 of
+Tiny-ImageNet (#5), ``a_base`` (#12) and the default Model A through #5,
+at batch 128, per launch and per train step, beside the same function
+composed of library calls (LN, linear, SDPA, linear; for scale only).
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -332,6 +341,9 @@ BF16_LOSS_TOL = 3e-2
 # csrc/mlp_branch_bwd_mma.cu for bf16 launches whose C and H are multiples
 # of 16 (every main path's), csrc/mlp_branch.cu / csrc/mlp_branch_bwd.cu
 # for fp32 ones.
+# attn_branch_bwd / attn_branch_nhwc_bwd: csrc/attn_branch_bwd_mma.cu for
+# bf16 launches at the shapes it is instantiated at (every main path's),
+# csrc/attn_branch.cu for fp32 ones (and every forward).
 # grid_mhsa_packed: csrc/grid_mhsa_packed_mma.cu for bf16 launches, the main
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
@@ -375,7 +387,8 @@ SOURCES = {
          "outgridvit_tpu/ops/mlp_branch_pallas.py:266 mlp_branch_pallas "
          "backward (#4)"]),
     "attn_branch_bwd": (
-        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        ("outgridvit_tpu_torch/csrc/attn_branch_bwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/attn_branch.cu"),
         "outgridvit_tpu/ops/attn_branch_pallas.py:396",
         ["outgridvit_tpu/ops/attn_branch_pallas.py:396 attn_branch_pallas "
          "backward (#5)"]),
@@ -448,7 +461,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127 "
          "attn_branch_nhwc_pallas (#12, forward :158)"]),
     "attn_branch_nhwc_bwd": (
-        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        ("outgridvit_tpu_torch/csrc/attn_branch_bwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/attn_branch.cu"),
         "outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:188",
         ["outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:178 "
          "attn_branch_nhwc_pallas backward (#12, :188)"]),
@@ -512,6 +526,15 @@ AB_MLP = (TIN, MODEL_B, FLAGSHIP, A7M_96)
 MLP_ENTRIES = {"mlp_branch": ("ogvt_mlp_branch_mma", "ogvt_mlp_branch"),
                "mlp_branch_bwd": ("ogvt_mlp_branch_bwd_mma",
                                   "ogvt_mlp_branch_bwd")}
+# the C entry points of the fused attention branch backward's A/B,
+# tensor-core side first, and the paths it is timed on: TIN's stage 0
+# (#5), a_base's (#12) and the default Model A's stage 0 through #5
+ATTN_BWD_ENTRIES = {
+    "attn_branch_bwd": ("ogvt_attn_branch_bwd_mma", "ogvt_attn_branch_bwd"),
+    "attn_branch_nhwc_bwd": ("ogvt_attn_branch_nhwc_bwd_mma",
+                             "ogvt_attn_branch_nhwc_bwd")}
+AB_ATTN = (("attn_branch_bwd", TIN), ("attn_branch_nhwc_bwd", A_BASE),
+           ("attn_branch_bwd", A_BASE))
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
@@ -770,6 +793,32 @@ def library_call(name, args):
     return None
 
 
+def composed_branch_backward(args, name):
+    """The fused branch's function composed of library calls on the same
+    bf16 inputs (the LN scale and bias cast to bf16): ``F.layer_norm`` ->
+    ``F.linear`` -> SDPA over the heads -> ``F.linear``, partitioned first
+    for #12; returns a no-argument callable of its autograd backward for
+    the same output gradient. For scale beside the backward's A/B only: the
+    port never calls it, and it is not the kernel's ``library_ms``."""
+    import torch
+    import torch.nn.functional as F
+
+    from outgridvit_tpu_torch.ops.attn_branch import _tokens
+
+    x, ls, lb, wqkv, bqkv, wp, bp, dy, heads = args[:9]
+    if name == "attn_branch_nhwc_bwd":
+        x, dy = _tokens(x, args[9])[0], _tokens(dy, args[9])[0]
+    leaves = [t.detach().to(x.dtype).requires_grad_(True)
+              for t in (x, ls, lb, wqkv, bqkv, wp, bp)]
+    xl, lsl, lbl, wql, bql, wpl, bpl = leaves
+    G, N, C = xl.shape
+    qkv = F.linear(F.layer_norm(xl, (C,), lsl, lbl), wql.t(), bql)
+    q, k, v = qkv.reshape(G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v)
+    y = F.linear(o.transpose(1, 2).reshape(G, N, C), wpl.t(), bpl)
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
 class Smoke:
     """The checks, counters and results of one run."""
 
@@ -880,7 +929,9 @@ class Smoke:
         every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
         of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP forward
         and backward through csrc/mlp_branch_mma.cu's and
-        csrc/mlp_branch_bwd_mma.cu's. ``plan`` and ``variants``:
+        csrc/mlp_branch_bwd_mma.cu's; every backward of the fused attention
+        branch through csrc/attn_branch_bwd_mma.cu's. ``plan`` and
+        ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
         got = self.read_entries()
@@ -891,7 +942,8 @@ class Smoke:
                             ("grid_mhsa_long_bwd",
                              "ogvt_grid_mhsa_long_bwd"),
                             *((name, mma) for name, (mma, _)
-                              in MLP_ENTRIES.items())):
+                              in (*MLP_ENTRIES.items(),
+                                  *ATTN_BWD_ENTRIES.items()))):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
@@ -1147,6 +1199,9 @@ class Smoke:
             require(max(rel) <= WGRAD_TOL[dt],
                     f"{name} {dt}: param grads off attn_branch_backward's by "
                     f"{rel}")
+            # the blocks take the same grids on both layouts
+            require(bitwise, f"{name} {dt}: param grads not bitwise equal "
+                    "to attn_branch_backward's")
             print(f"[compare] {name} a_base stage0 {dt} vs attn_branch_"
                   f"backward on the partitioned inputs: dx bitwise equal; "
                   f"param grads max rel {max(rel):.1e} (tol "
@@ -1366,6 +1421,83 @@ class Smoke:
                           f"{total['bound'] / k:.1%}, FMA at "
                           f"{total['bound'] / f:.2%} [{self.gpu}]")
                 torch.cuda.empty_cache()
+
+    def ab_attn(self, iters=10, fma_iters=2):
+        """The fused attention branch backward's A/B in bf16 at the train
+        batch: ``csrc/attn_branch_bwd_mma.cu`` (the main paths' kernel)
+        against ``csrc/attn_branch.cu``'s FMA backward it replaces there, on
+        the same inputs at the stage-0 shapes of ``AB_ATTN``. Per shape in
+        turns (mma, FMA, FMA, mma) in this process: device time (calls in
+        one CUDA graph, :func:`graph_ms`; ``fma_iters`` of the slow
+        kernel), then eager time (host time included), each with its share
+        of the bound, per launch and per train step. Beside them, for scale
+        only (no gate, not ``library_ms``): the same function composed of
+        library calls, ``F.layer_norm`` -> ``F.linear`` -> SDPA ->
+        ``F.linear``, its autograd backward timed the same ways."""
+        import torch
+
+        from outgridvit_tpu_torch.ops.attn_branch import (
+            _launch_backward,
+            _launch_nhwc_backward,
+        )
+
+        for name, case in AB_ATTN:
+            sh = stage_shapes(case, TRAIN_BATCH)[0]
+            launch = (_launch_nhwc_backward if name == "attn_branch_nhwc_bwd"
+                      else _launch_backward)
+            call = self.kernels[name][0]
+            args = self.bwd_args(name, sh, torch.bfloat16)
+            entries = dict(zip(("mma", "fma"), ATTN_BWD_ENTRIES[name]))
+            fns = {w: (lambda e=e: launch(e, *args))
+                   for w, e in entries.items()}
+            for w, e in entries.items():  # each side its kernel
+                before = call.by_entry[e]
+                outs = fns[w]()
+                require(call.by_entry[e] == before + 1,
+                        f"{name} A/B: {w} did not launch {e}")
+            bound = max(bound_ms(name, args, outs, torch.bfloat16))
+            del outs
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                composed = composed_branch_backward(args, name)
+            torch.cuda.current_stream().wait_stream(stream)
+            n, blocks = {"mma": iters, "fma": fma_iters}, sh["blocks"]
+            label = (f"{case.tag} stage0 B={TRAIN_BATCH} G={sh['G']} "
+                     f"N={sh['N']} C={sh['C']} heads={sh['heads']}")
+            res = self.ab_fma.setdefault(name, {})[label] = {
+                "bound_ms": bound, "launches": blocks,
+                "bound_per_step_ms": blocks * bound}
+            for how, timer, ctimer in (
+                    ("device", lambda f, w: graph_ms(f, n[w]),
+                     lambda f: graph_ms(f, iters, stream)),
+                    ("eager", lambda f, w: time_ms(f, (), n[w], warmup=1),
+                     lambda f: time_ms(f, (), iters, warmup=1))):
+                runs = {"mma": [], "fma": []}
+                for w in ("mma", "fma", "fma", "mma"):
+                    runs[w].append(timer(fns[w], w))
+                k, f = (sum(v) / len(v) for v in runs.values())
+                c = ctimer(composed)
+                res[how] = {
+                    "mma_ms": k, "fma_ms": f, "mma_bound_share": bound / k,
+                    "fma_bound_share": bound / f,
+                    "per_step_mma_ms": blocks * k,
+                    "per_step_fma_ms": blocks * f,
+                    "composed_library_ms": c,
+                    "runs": {w: [round(t, 6) for t in v]
+                             for w, v in runs.items()}}
+                print(f"[ab] {name} {label} bf16 {how}, per launch: mma "
+                      f"{k * 1e3:.1f} us ({runs['mma'][0] * 1e3:.1f}, "
+                      f"{runs['mma'][1] * 1e3:.1f}) vs the FMA kernel it "
+                      f"replaces {f * 1e3:.1f} us: mma/FMA {k / f:.4f}; "
+                      f"bound {bound * 1e3:.2f} us, mma at {bound / k:.2%} "
+                      f"of it, FMA at {bound / f:.2%}; per train step "
+                      f"({blocks} launches) mma {blocks * k:.4f} ms, FMA "
+                      f"{blocks * f:.4f} ms, bound {blocks * bound:.4f} ms; "
+                      f"for scale, LN -> linear -> SDPA -> linear autograd "
+                      f"backward {c * 1e3:.1f} us [{self.gpu}]")
+            del args, fns, composed
+            torch.cuda.empty_cache()
 
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
@@ -1652,6 +1784,8 @@ class Smoke:
         draws = None
         mlp_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0][
             "mlp_branch"]  # as many forwards as backwards a step
+        attn_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH),
+                                 backward=True)[0]
         for label, dtype, kern in (("fp32 kernel", torch.float32, True),
                                    ("fp32 plain", torch.float32, False),
                                    ("bf16 kernel", torch.bfloat16, True)):
@@ -1667,6 +1801,12 @@ class Smoke:
                             f"{case.tag} fp32 step: {name} launches by "
                             f"entry point {got[name]}, expected {mlp_steps} "
                             f"of {fma}")
+                for name, (_, fma) in ATTN_BWD_ENTRIES.items():
+                    want = ({fma: attn_steps[name]} if attn_steps[name]
+                            else {})
+                    require(got[name] == want,
+                            f"{case.tag} fp32 step: {name} launches by "
+                            f"entry point {got[name]}, expected {want}")
             runs[label] = (state, {k: v.item() for k, v in m.items()})
             print(f"[train-step] {case.tag} {label}: " + " ".join(
                 f"{k}={v:.6g}" for k, v in runs[label][1].items()))
@@ -1864,6 +2004,7 @@ def main() -> int:
         if case is MODEL_B_O:
             smoke.ab_vs_library()
             smoke.ab_mlp()
+            smoke.ab_attn()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

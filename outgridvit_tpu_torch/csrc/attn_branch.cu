@@ -11,11 +11,11 @@
 //   the dilated grid partition folded into the loads and stores
 //   (ogvt_attn_branch_nhwc, ogvt_attn_branch_nhwc_bwd). Token n = i*Wg + j
 //   of window w = (b*g + gy)*g + gx sits at pixel (b, i*g + gy, j*g + gx)
-//   (Geom::token); the windows are numbered in the partition's order
-//   (ops/grid.py), so the per-block partials below, and with them the
-//   parameter grads, are the same as #5's on the partitioned tokens, bit for
-//   bit. Each token's C channels stay contiguous, so a row load stays
-//   coalesced; only the stride between tokens changes.
+//   (Geom::token, attn_branch_geom.cuh); the windows are numbered in the
+//   partition's order (ops/grid.py), so the per-block partials below, and
+//   with them the parameter grads, are the same as #5's on the partitioned
+//   tokens, bit for bit. Each token's C channels stay contiguous, so a row
+//   load stays coalesced; only the stride between tokens changes.
 // Both with the rounding points
 // (round() is the cast to the compute type, common.cuh:round_to):
 //   forward:  xn = round(LN(x)) (fp32 statistics, fast variance clamped at
@@ -31,12 +31,17 @@
 //             from xhat and rstd.
 // The qkv and output projections run inside the kernels, as in the TPU one.
 //
+// Which launches run here: every forward of the branch (both dtypes), and
+// the backward in fp32 and at the bf16 shapes the tensor-core backward
+// (csrc/attn_branch_bwd_mma.cu, ogvt_attn_branch[_nhwc]_bwd_mma) does not
+// take; ops/attn_branch.py:backward_entry decides by dtype and shape.
+//
 // What bounds it on the H100: per grid of N tokens the forward does
 // 2*N*C*(4C + 2N) flops (3.1 MFLOP at N = C = 64) against 4*N*C bytes of
 // x and y in bf16 (16 KB): ~190 flop/byte, below the tensor cores' ridge
-// (~295) but far above the fp32 FMA pipe's (~20). This first version runs
-// every product on the FMA pipe (no tensor cores), fed from shared memory,
-// so it is bound by arithmetic and by the shared-memory loads that feed it.
+// (~295) but far above the fp32 FMA pipe's (~20). These kernels run every
+// product on the FMA pipe (no tensor cores), fed from shared memory, so
+// they are bound by arithmetic and by the shared-memory loads that feed it.
 //
 // What the design does about it: one block per grid (forward) keeps x, qkv
 // and one head's [N, N] probabilities in shared memory as fp32 (rows padded
@@ -51,9 +56,10 @@
 // adds its grids' contributions, in order, into its own fp32 partial in the
 // workspace, and a second pass sums the partials in block order
 // (partials.cuh). The weights' transposes are copied to the workspace as
-// fp32 first, so that every weight walk is coalesced.
+// fp32 first, so that every weight walk of this backward is coalesced.
 #include <cmath>
 
+#include "attn_branch_geom.cuh"
 #include "common.cuh"
 #include "partials.cuh"
 
@@ -66,19 +72,6 @@ constexpr int kBwdThreads = 512;
 constexpr int kMaxBwdBlocks = 264;                     // 2 per SM on 132 SMs
 constexpr long long kMaxWorkspaceFloats = 16ll << 20;  // 64 MB of partials
 constexpr size_t kMaxSmem = 227 * 1024;
-
-// Where token n of window w starts: tokens [G, N, C] when g == 0, else the
-// pixel of an NHWC map [B, Hg*g, Wg*g, C] that window w's token n is.
-struct Geom {
-  int g, Hg, Wg;
-
-  __device__ size_t token(int w, int n, int N, int C) const {
-    if (g == 0) return (static_cast<size_t>(w) * N + n) * C;
-    const int b = w / (g * g), gy = (w / g) % g, gx = w % g;
-    const int row = (n / Wg) * g + gy, col = (n % Wg) * g + gx;
-    return ((static_cast<size_t>(b) * Hg * g + row) * Wg * g + col) * C;
-  }
-};
 
 // LayerNorm over the C columns of rows [0, R) of s_x (row stride ld), one
 // warp per row, with flax's numerics: fp32 statistics, fast variance clamped
@@ -486,15 +479,6 @@ int bwd(const BwdArgs& a, int dtype, void* stream) {
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// The windows of an NHWC map [B, H, W, C] with grid size g, or false.
-bool nhwc_geom(int B, int H, int W, int g, Geom* geo, int* G, int* N) {
-  if (B < 0 || g < 1 || H < g || W < g || H % g || W % g) return false;
-  *geo = Geom{g, H / g, W / g};
-  *G = B * g * g;
-  *N = geo->Hg * geo->Wg;
-  return true;
 }
 
 }  // namespace

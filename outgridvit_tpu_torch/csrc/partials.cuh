@@ -1,6 +1,7 @@
 // Helpers of the backward kernels' deterministic parameter-gradient sums:
 // fp32 copies of transposed weights, and the in-order reduction of per-block
-// fp32 partials (no float atomics, so two calls give bitwise-equal sums).
+// fp32 partials, one output a launch or several in one (no float atomics,
+// so two calls give bitwise-equal sums).
 #pragma once
 
 #include "common.cuh"
@@ -49,6 +50,46 @@ cudaError_t reduce(const float* ws, int S, long long stride, int n, void* out,
   reduce_partials<Tout><<<(n + kPartialThreads - 1) / kPartialThreads,
                           kPartialThreads, 0, stream>>>(
       ws, S, stride, n, static_cast<Tout*>(out));
+  return cudaGetLastError();
+}
+
+// Several reductions as reduce() computes them, in one launch: output y of
+// the grid (blockIdx.y) sums the `count` partials of `src`, `stride` floats
+// apart, over its n elements, and writes them as bf16 or fp32 (f32).
+struct Seg {
+  const float* src;
+  int count;
+  long long stride;
+  int n;
+  void* out;
+  int f32;
+};
+
+template <int K>
+struct Segs {
+  Seg s[K];
+};
+
+template <int K>
+__global__ void reduce_segments_kernel(Segs<K> segs) {
+  const Seg sg = segs.s[blockIdx.y];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= sg.n) return;
+  float acc = 0.f;
+  for (int k = 0; k < sg.count; ++k) acc += sg.src[k * sg.stride + i];
+  if (sg.f32) {
+    static_cast<float*>(sg.out)[i] = acc;
+  } else {
+    static_cast<__nv_bfloat16*>(sg.out)[i] = from_f32<__nv_bfloat16>(acc);
+  }
+}
+
+// `max_n`: the longest output's n.
+template <int K>
+cudaError_t reduce_segments(const Segs<K>& segs, int max_n,
+                            cudaStream_t stream) {
+  const dim3 grid((max_n + kPartialThreads - 1) / kPartialThreads, K);
+  reduce_segments_kernel<K><<<grid, kPartialThreads, 0, stream>>>(segs);
   return cudaGetLastError();
 }
 

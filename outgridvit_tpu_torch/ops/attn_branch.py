@@ -20,6 +20,17 @@ The backward (:func:`attn_branch_backward_reference`, ``_rows_bwd``) saves
 only the inputs and recomputes the rest. :func:`attn_branch_autograd` is the
 differentiable branch the model calls.
 
+The backward has two kernels, picked by dtype and shape before launch
+(:func:`backward_entry`): a bf16 launch at a shape the tensor-core kernel
+is instantiated at (grids of 64 tokens, C = 64 with heads of 32 and C = 80
+with heads of 40: every shipped shape) runs ``csrc/attn_branch_bwd_mma.cu``
+(``ogvt_attn_branch[_nhwc]_bwd_mma``, every product on ``mma.sync`` tiles,
+launch plan :func:`attn_branch_backward_plan`); fp32 launches and other
+shapes run the FMA kernel of ``csrc/attn_branch.cu``
+(``ogvt_attn_branch[_nhwc]_bwd``), as does every forward. Launches are
+counted per C entry point (``attn_branch_backward.by_entry``,
+``attn_branch_nhwc_backward.by_entry``).
+
 The NHWC variant (twin of ``outgridvit_tpu/ops/experimental/
 attn_branch_nhwc_pallas.py:attn_branch_nhwc_pallas``, TPU kernel #12)
 computes ``grid_unpartition(branch(grid_partition(x, g)))`` on the raw map
@@ -31,12 +42,20 @@ into their loads and stores (:func:`attn_branch_nhwc`,
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
 from outgridvit_tpu_torch.ops import kernel_build
 from outgridvit_tpu_torch.ops.grid import grid_partition, grid_unpartition
 from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_reference
+from outgridvit_tpu_torch.ops.kernel_build import (
+    SMS,
+    check_aligned16,
+    sm_blocks,
+)
 from outgridvit_tpu_torch.ops.mlp_branch import layernorm_fp32
 
 MIN_TOKENS = 64  # the JAX dispatch fuses the branch for N >= 64
@@ -211,42 +230,197 @@ def attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads: int,
 attn_branch.launches = 0
 
 
+# ---- the tensor-core backward's launch plan (csrc/attn_branch_bwd_mma.cu)
+
+# the layout queries of csrc/attn_branch_bwd_mma_layout.cpp
+_BWD_LAYOUTS = {"tokens": "ogvt_attn_branch_bwd_mma_tokens_layout",
+                "weights": "ogvt_attn_branch_bwd_mma_weights_layout"}
+
+
+def _bwd_layout(kind: str, *args: int) -> Optional[tuple]:
+    """The kernels' own answer (``csrc/attn_branch_bwd_mma_layout.cpp``)
+    for one layout: ``kind`` "tokens" or "weights" at (N, C, heads) gives
+    (threads, shared bytes, register cap); None where the kernel does not
+    take it."""
+    out = (ctypes.c_int * 3)()
+    fn = getattr(kernel_build.load_layouts(), _BWD_LAYOUTS[kind])
+    return None if fn(*args, out) else tuple(out)
+
+
+class AttnBwdPlan(NamedTuple):
+    """How ``ogvt_attn_branch[_nhwc]_bwd_mma`` cuts one call of G grids.
+    Tokens kernel: ``t_blocks`` blocks of ``t_smem`` shared bytes, each a
+    contiguous run of ``t_grids`` grids (the last may run short), at most
+    ``t_blocks_per_sm`` an SM at the register cap ``t_regs``. Weights
+    kernel: ``w_splits`` blocks, each a contiguous run of ``w_grids``
+    grids, ``w_smem`` shared bytes, ``w_blocks_per_sm`` an SM at
+    ``w_regs``. The blocks depend on G alone, so #5 and #12 split the grids
+    alike."""
+    t_blocks: int
+    t_grids: int
+    t_smem: int
+    t_regs: int
+    t_blocks_per_sm: int
+    w_splits: int
+    w_grids: int
+    w_smem: int
+    w_regs: int
+    w_blocks_per_sm: int
+
+    def args(self):
+        """The plan's arguments of ``ogvt_attn_branch[_nhwc]_bwd_mma``, in
+        order."""
+        return (self.t_blocks, self.t_grids, self.t_smem, self.w_splits,
+                self.w_grids, self.w_smem)
+
+
+def _runs(G: int, slots: int):
+    """(blocks, grids a block) for G grids over ``slots`` resident blocks:
+    about one wave, each block a contiguous run of grids, none empty."""
+    per = -(-G // slots)
+    return -(-G // per), per
+
+
+@lru_cache(maxsize=None)
+def _fit_backward(G: int, N: int, C: int, heads: int):
+    """The plan for G bf16 grids of N tokens, C channels and ``heads``
+    heads, or why there is none (a str): the kernels' layouts
+    (:func:`_bwd_layout`) decide the shapes; both kernels take one wave of
+    blocks."""
+    if G < 1:
+        return "G >= 1 grids"
+    tok = _bwd_layout("tokens", N, C, heads)
+    got = _bwd_layout("weights", N, C, heads)
+    if tok is None or got is None:
+        return ("the kernels are built for grids of 64 tokens at C = 64 "
+                "with heads of 32 and C = 80 with heads of 40")
+    threads, t_smem, t_regs = tok
+    t_per_sm = sm_blocks(threads, t_smem, t_regs)
+    t_blocks, t_grids = _runs(G, SMS * t_per_sm)
+    threads, w_smem, w_regs = got
+    w_per_sm = sm_blocks(threads, w_smem, w_regs)
+    w_splits, w_grids = _runs(G, SMS * w_per_sm)
+    return AttnBwdPlan(t_blocks, t_grids, t_smem, t_regs, t_per_sm,
+                       w_splits, w_grids, w_smem, w_regs, w_per_sm)
+
+
+def attn_branch_backward_plan(G: int, N: int, C: int, heads: int,
+                              dtype: torch.dtype = torch.bfloat16
+                              ) -> AttnBwdPlan:
+    """The tensor-core backward's launch plan for G grids of N tokens, C
+    channels and ``heads`` heads, or a ValueError naming the shape it does
+    not take: fp32 (the FMA kernel's), and any shape the kernels are not
+    built for, as their own layout queries say (:func:`_bwd_layout`).
+    Cached: the wrapper asks at every launch."""
+    where = (f"attn_branch_backward (mma): G={G}, N={N}, C={C}, "
+             f"heads={heads}, {dtype}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    plan = _fit_backward(G, N, C, heads)
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+def backward_entry(G: int, N: int, C: int, heads: int,
+                   dtype: torch.dtype) -> str:
+    """The C entry point a backward launch of these shapes takes on tokens
+    (the NHWC wrapper's names add ``_nhwc``): ``ogvt_attn_branch_bwd_mma``
+    where :func:`attn_branch_backward_plan` takes the shape, else the FMA
+    kernel's ``ogvt_attn_branch_bwd``. Decided by dtype and shape alone,
+    and never raises."""
+    if (dtype == torch.bfloat16
+            and not isinstance(_fit_backward(G, N, C, heads), str)):
+        return "ogvt_attn_branch_bwd_mma"
+    return "ogvt_attn_branch_bwd"
+
+
+BACKWARD_ENTRIES = ("ogvt_attn_branch_bwd_mma", "ogvt_attn_branch_bwd")
+NHWC_BACKWARD_ENTRIES = ("ogvt_attn_branch_nhwc_bwd_mma",
+                         "ogvt_attn_branch_nhwc_bwd")
+
+
+def _nhwc_entry(entry: str) -> str:
+    """The NHWC wrapper's C entry point for a tokens one."""
+    return entry.replace("ogvt_attn_branch", "ogvt_attn_branch_nhwc", 1)
+
+
+def _backward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                   bproj, dy, G, N, C, heads, shape_args, eps, apply_ln):
+    """Launch the backward entry ``entry`` (a tokens or an NHWC one) for G
+    grids; ``shape_args``: the entry's shape arguments (G, N, C, heads, or
+    B, H, W, C, g, heads). Returns the grads."""
+    mma = entry.endswith("_mma")
+    plan = attn_branch_backward_plan(G, N, C, heads, x.dtype) if mma else None
+    if mma:
+        check_aligned16(name, x=x, wqkv=wqkv, wproj=wproj, dy=dy)
+    lib = kernel_build.load()
+    n_ws = (lib.ogvt_attn_branch_bwd_workspace(G, C) if plan is None
+            else lib.ogvt_attn_branch_bwd_mma_workspace(G, C, plan.t_blocks,
+                                                        plan.w_splits))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
+             torch.empty_like(ln_bias), torch.empty_like(wqkv),
+             torch.empty_like(bqkv), torch.empty_like(wproj),
+             torch.empty_like(bproj))
+    with torch.cuda.device(x.device):
+        err = getattr(lib, entry)(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), dy.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), *shape_args,
+            ctypes.c_float((C // heads) ** -0.5), float(eps),
+            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
+            *(plan.args() if mma else ()),
+            torch.cuda.current_stream().cuda_stream)
+    kernel_build.check(err, f"{name} launch ({entry})")
+    return grads
+
+
 def attn_branch_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy,
                          heads: int, eps: float = 1e-5,
                          apply_ln: bool = True):
     """Gradients ``(dx, dln_scale, dln_bias, dwqkv, dbqkv, dwproj,
     dbproj)`` of the branch for the output gradient ``dy``. A CUDA tensor
-    launches the kernels (or raises); a CPU tensor takes
+    launches the kernels (or raises): ``csrc/attn_branch_bwd_mma.cu`` where
+    :func:`backward_entry` says so (bf16 at the shapes it is instantiated
+    at; x, wqkv, wproj and dy 16-byte aligned or a ValueError), else
+    ``csrc/attn_branch.cu``; a CPU tensor takes
     :func:`attn_branch_backward_reference`. Deterministic: two calls on the
     same inputs give bitwise-equal grads."""
     if x.device.type == "cpu":
         return attn_branch_backward_reference(x, ln_scale, ln_bias, wqkv,
                                               bqkv, wproj, bproj, dy, heads,
                                               eps, apply_ln)
-    G, N, C = _check_launch("attn_branch_backward", x, ln_scale, ln_bias,
-                            wqkv, bqkv, wproj, bproj, heads, True)
-    _check_dy("attn_branch_backward", x, dy)
-    lib = kernel_build.load()
-    ws = torch.empty(lib.ogvt_attn_branch_bwd_workspace(G, C),
-                     dtype=torch.float32, device=x.device)
-    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
-             torch.empty_like(ln_bias), torch.empty_like(wqkv),
-             torch.empty_like(bqkv), torch.empty_like(wproj),
-             torch.empty_like(bproj))
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_attn_branch_bwd(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), dy.data_ptr(),
-            *(g.data_ptr() for g in grads), ws.data_ptr(), G, N, C, heads,
-            ctypes.c_float((C // heads) ** -0.5), float(eps),
-            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "attn_branch_backward launch")
-    attn_branch_backward.launches += 1
+    return _launch_backward(None, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                            bproj, dy, heads, eps, apply_ln)
+
+
+def _launch_backward(entry: Optional[str], x, ln_scale, ln_bias, wqkv, bqkv,
+                     wproj, bproj, dy, heads: int, eps: float = 1e-5,
+                     apply_ln: bool = True):
+    """:func:`attn_branch_backward` on the card through the C entry point
+    ``entry`` (one of :data:`BACKWARD_ENTRIES`), or
+    :func:`backward_entry`'s where it is None. A named entry is for
+    comparing the two kernels on the same inputs (``chip_smoke.py``'s A/B,
+    the card tests)."""
+    name = "attn_branch_backward"
+    G, N, C = _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                            bproj, heads, True)
+    _check_dy(name, x, dy)
+    if entry is None:
+        entry = backward_entry(G, N, C, heads, x.dtype)
+    elif entry not in BACKWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{BACKWARD_ENTRIES}")
+    grads = _backward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv,
+                           wproj, bproj, dy, G, N, C, heads,
+                           (G, N, C, heads), eps, apply_ln)
+    kernel_build.count_launch(attn_branch_backward, None, entry)
     return grads
 
 
 attn_branch_backward.launches = 0
+attn_branch_backward.by_entry = Counter()
 
 
 def _check_dy(name, x, dy):
@@ -388,34 +562,38 @@ def attn_branch_nhwc_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         return attn_branch_nhwc_backward_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, dy, heads,
             grid_size, eps, apply_ln)
+    return _launch_nhwc_backward(None, x, ln_scale, ln_bias, wqkv, bqkv,
+                                 wproj, bproj, dy, heads, grid_size, eps,
+                                 apply_ln)
+
+
+def _launch_nhwc_backward(entry: Optional[str], x, ln_scale, ln_bias, wqkv,
+                          bqkv, wproj, bproj, dy, heads: int, grid_size: int,
+                          eps: float = 1e-5, apply_ln: bool = True):
+    """:func:`attn_branch_nhwc_backward` on the card through the C entry
+    point ``entry`` (one of :data:`NHWC_BACKWARD_ENTRIES`), or
+    :func:`backward_entry`'s for the windows where it is None, as
+    :func:`_launch_backward`."""
+    name = "attn_branch_nhwc_backward"
     shape = _windows(x, heads, grid_size)
-    G, _, C = _check_launch("attn_branch_nhwc_backward", x, ln_scale,
-                            ln_bias, wqkv, bqkv, wproj, bproj, heads, True,
-                            shape)
-    _check_dy("attn_branch_nhwc_backward", x, dy)
+    G, N, C = _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                            bproj, heads, True, shape)
+    _check_dy(name, x, dy)
+    if entry is None:
+        entry = _nhwc_entry(backward_entry(G, N, C, heads, x.dtype))
+    elif entry not in NHWC_BACKWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{NHWC_BACKWARD_ENTRIES}")
     B, H, W, _ = x.shape
-    lib = kernel_build.load()
-    ws = torch.empty(lib.ogvt_attn_branch_bwd_workspace(G, C),
-                     dtype=torch.float32, device=x.device)
-    grads = (torch.empty_like(x), torch.empty_like(ln_scale),
-             torch.empty_like(ln_bias), torch.empty_like(wqkv),
-             torch.empty_like(bqkv), torch.empty_like(wproj),
-             torch.empty_like(bproj))
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_attn_branch_nhwc_bwd(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), dy.data_ptr(),
-            *(g.data_ptr() for g in grads), ws.data_ptr(), B, H, W, C,
-            grid_size, heads, ctypes.c_float((C // heads) ** -0.5),
-            float(eps), int(bool(apply_ln)),
-            kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "attn_branch_nhwc_backward launch")
-    attn_branch_nhwc_backward.launches += 1
+    grads = _backward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv,
+                           wproj, bproj, dy, G, N, C, heads,
+                           (B, H, W, C, grid_size, heads), eps, apply_ln)
+    kernel_build.count_launch(attn_branch_nhwc_backward, None, entry)
     return grads
 
 
 attn_branch_nhwc_backward.launches = 0
+attn_branch_nhwc_backward.by_entry = Counter()
 
 
 class _AttnBranchNHWC(torch.autograd.Function):

@@ -40,6 +40,28 @@ HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
 # element types the kernels take (enum DType in csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# one H100 SM: shared memory (each block reserves 1 KB more), registers;
+# the SMs of an H100 SXM
+SM_SMEM, SM_BLOCK_RESERVED, SM_REGS, SMS = 228 * 1024, 1024, 65536, 132
+
+
+def sm_blocks(threads: int, smem: int, regs: int) -> int:
+    """Blocks of ``threads`` threads, ``smem`` shared bytes and ``regs``
+    registers a thread that one H100 SM holds (at least one)."""
+    return max(1, min(SM_REGS // (regs * threads),
+                      SM_SMEM // (smem + SM_BLOCK_RESERVED)))
+
+
+def check_aligned16(name: str, **tensors) -> None:
+    """A ValueError naming the first tensor whose data is not 16-byte
+    aligned: the tensor-core kernels copy 16 bytes at a time."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} of shape {tuple(t.shape)} at "
+                f"{t.data_ptr():#x} is not 16-byte aligned; the tensor-core "
+                "kernel copies 16 bytes at a time")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -95,6 +117,16 @@ _SIGNATURES = {
     # apply_ln, dtype, stream
     "ogvt_attn_branch_nhwc_bwd": ((_P,) * 15 + (_I,) * 6 + (_F, _F, _I, _I,
                                                            _P), _I),
+    # the same pointers, G, N, C, heads, scale, eps, apply_ln, dtype; the
+    # plan: t_blocks, t_grids, t_smem, w_splits, w_grids, w_smem; stream
+    "ogvt_attn_branch_bwd_mma": ((_P,) * 15 + (_I, _I, _I, _I, _F, _F, _I,
+                                               _I) + (_I,) * 6 + (_P,), _I),
+    # the same on B, H, W, C, g, heads
+    "ogvt_attn_branch_nhwc_bwd_mma": ((_P,) * 15 + (_I,) * 6 + (_F, _F, _I,
+                                                               _I)
+                                      + (_I,) * 6 + (_P,), _I),
+    # G, C, t_blocks, w_splits -> floats of workspace
+    "ogvt_attn_branch_bwd_mma_workspace": ((_I,) * 4, ctypes.c_longlong),
     # qkv, out, G, N, C, heads, scale, dtype, stream
     "ogvt_grid_mhsa_packed": ((_P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     # qkv, dout, dqkv, G, N, C, heads, scale, dtype, stream
@@ -139,6 +171,10 @@ _HOST_SIGNATURES = {
     "ogvt_mlp_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
     # C, units, rows, buffers, int out[4]
     "ogvt_mlp_branch_bwd_mma_weights_layout": ((_I, _I, _I, _I, _P), _I),
+    # N, C, heads, int out[3]
+    "ogvt_attn_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
+    # N, C, heads, int out[3]
+    "ogvt_attn_branch_bwd_mma_weights_layout": ((_I, _I, _I, _P), _I),
 }
 
 

@@ -43,6 +43,11 @@ from outgridvit_tpu_torch.ops.activations import (
     activation_grad,
     make_activation,
 )
+from outgridvit_tpu_torch.ops.kernel_build import (
+    SMS,
+    check_aligned16,
+    sm_blocks,
+)
 
 _ACT_CODES = {"gelu": 0, "silu": 1, "relu": 2}  # enum Act in csrc/act.cuh
 _MAX_C = 4096
@@ -130,9 +135,6 @@ def mlp_branch_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, dy,
 
 MMA_UNITS = (256, 128, 64, 32)  # hidden units a weights block may own
 MMA_ROWS = (128, 64, 32)        # tokens a weights tile may take
-# one H100 SM: shared memory (each block reserves 1 KB more), registers;
-# the SMs of an H100 SXM
-SM_SMEM, SM_BLOCK_RESERVED, SM_REGS, SMS = 228 * 1024, 1024, 65536, 132
 MMA_MAX_TOKEN_BLOCKS = 1056  # the token partials summed in order
 MMA_MAX_WORKSPACE = 16 << 20  # floats of weight partials (64 MB)
 
@@ -156,13 +158,6 @@ def _layout(kind: str, *args: int) -> Optional[tuple]:
     out = (ctypes.c_int * n)()
     fn = getattr(kernel_build.load_layouts(), name)
     return None if fn(*args, out) else tuple(out)
-
-
-def _per_sm(threads: int, smem: int, regs: int) -> int:
-    """Blocks of ``threads`` threads, ``smem`` shared bytes and ``regs``
-    registers a thread that one H100 SM holds (at least one)."""
-    return max(1, min(SM_REGS // (regs * threads),
-                      SM_SMEM // (smem + SM_BLOCK_RESERVED)))
 
 
 def _splits(tiles: int, slabs: int, slots: int, most: int) -> int:
@@ -220,7 +215,7 @@ def _fwd_plan(M: int, C: int, H: int, split: int, buffers: int,
                          f"takes no layout of split {split}, buffers "
                          f"{buffers}")
     threads, smem, regs, rows, chunk = lay
-    per_sm = _per_sm(threads, smem, regs)
+    per_sm = sm_blocks(threads, smem, regs)
     tiles = -(-M // rows)
     per = -(-tiles // (SMS * per_sm))
     blocks = -(-tiles // per)
@@ -363,7 +358,7 @@ def _fit(M: int, C: int, H: int):
             got = _layout("tokens", C, split, buffers)
             if got is not None:
                 threads, smem, regs, rows, chunk = got
-                per_sm = _per_sm(threads, smem, regs)
+                per_sm = sm_blocks(threads, smem, regs)
                 tokens.append(((-split, per_sm, buffers), split, buffers,
                                rows, chunk, smem, regs, per_sm))
     if not tokens:
@@ -389,7 +384,7 @@ def _fit(M: int, C: int, H: int):
                 key = (units, rows == 64, rows, wbuf)
                 if best is None or key > best[0]:
                     best = (key, units, rows, mt, wbuf, smem, regs,
-                            _per_sm(threads, smem, regs))
+                            sm_blocks(threads, smem, regs))
     if best is None:
         return "no weights-kernel layout fits one block's shared memory"
     _, units, rows, w_mt, wbuf, w_smem, w_regs, w_per_sm = best
@@ -468,17 +463,6 @@ def _check_launch(name, x, ln_scale, ln_bias, w1, b1, w2, b2, act, variant):
     return x.numel() // C, C, H, _ACT_CODES[act]
 
 
-def _aligned16(name: str, **tensors) -> None:
-    """A ValueError naming the first tensor whose data is not 16-byte
-    aligned: the tensor-core kernels copy 16 bytes at a time."""
-    for label, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: {label} of shape {tuple(t.shape)} at "
-                f"{t.data_ptr():#x} is not 16-byte aligned; the tensor-core "
-                "kernel copies 16 bytes at a time")
-
-
 FORWARD_ENTRIES = ("ogvt_mlp_branch_mma", "ogvt_mlp_branch")
 
 
@@ -521,7 +505,7 @@ def _launch_forward(entry: Optional[str], x, ln_scale, ln_bias, w1, b1, w2,
     if entry == "ogvt_mlp_branch_mma":
         plan = plan or mlp_branch_forward_plan(M, C, H, x.dtype,
                                                act.lower())
-        _aligned16("mlp_branch", x=x, w1=w1, w2=w2)
+        check_aligned16("mlp_branch", x=x, w1=w1, w2=w2)
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -584,7 +568,7 @@ def _launch_backward(entry: Optional[str], x, ln_scale, ln_bias, w1, b1, w2,
     plan: Optional[MlpBwdPlan] = None
     if entry == "ogvt_mlp_branch_bwd_mma":
         plan = mlp_branch_backward_plan(M, C, H, x.dtype)
-        _aligned16("mlp_branch_backward", x=x, w1=w1, w2=w2, dy=dy)
+        check_aligned16("mlp_branch_backward", x=x, w1=w1, w2=w2, dy=dy)
     lib = kernel_build.load()
     n_ws = (lib.ogvt_mlp_branch_bwd_workspace(M, C, H) if plan is None
             else lib.ogvt_mlp_branch_bwd_mma_workspace(M, C, H, plan.t_blocks,

@@ -80,6 +80,7 @@ from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa_packed_reference,
     grid_mhsa_reference,
 )
+from outgridvit_tpu_torch.ops import attn_branch as attn_branch_mod
 from outgridvit_tpu_torch.ops import mlp_branch as mlp_branch_mod
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
@@ -516,6 +517,167 @@ def test_attn_branch_kernels_match_plain(dev, dtype, G, N, C, heads,
             assert not a.any(), name
         else:
             _assert_close_to_max(a, w, dtype, name)
+
+
+def _attn_bwd_entries(fn=attn_branch_backward):
+    return dict(fn.by_entry)
+
+
+def _attn_bwd_delta(before, fn=attn_branch_backward):
+    return {k: v - before.get(k, 0) for k, v in fn.by_entry.items()
+            if v - before.get(k, 0)}
+
+
+def _check_branch_grads(got, again, want, dtype, apply_ln):
+    for name, a, b, w in zip(BRANCH_GRADS, got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name == "dx":
+            _assert_close(a, w, dtype)
+        elif not apply_ln and name.startswith("dln"):
+            assert not a.any(), name
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("G,C,apply_ln", [
+    (8192, 64, True),    # Tiny-ImageNet stage 0 at train batch 128
+    (5, 80, True),       # cifar100_model_a stage 0 (hd 40), 5 grids
+    (2048, 80, False),   # the same at batch 32, no LN
+    (1, 64, False),      # one grid
+    (1, 80, True)])
+def test_attn_branch_backward_mma_matches_plain(dev, G, C, apply_ln):
+    # bf16 launches at the shapes csrc/attn_branch_bwd_mma.cu is
+    # instantiated at (N = 64; C = 64, hd 32; C = 80, hd 40) take it
+    g = torch.Generator().manual_seed(G + C)
+    args = _branch_args(g, G, 64, C, dev, torch.bfloat16)
+    dy = torch.randn(G, 64, C, generator=g).to(dev, torch.bfloat16)
+    before = _attn_bwd_entries()
+    got = attn_branch_backward(*args, dy, 2, 1e-5, apply_ln)
+    again = attn_branch_backward(*args, dy, 2, 1e-5, apply_ln)
+    torch.cuda.synchronize()
+    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd_mma": 2}
+    want = attn_branch_backward_reference(*args, dy, 2, 1e-5, apply_ln)
+    _check_branch_grads(got, again, want, torch.bfloat16, apply_ln)
+
+
+@pytest.mark.parametrize("B,H,W,C,g", [
+    (128, 32, 32, 80, 4),   # cifar100_model_a stage 0, train batch 128
+    (3, 16, 64, 64, 4)])    # a rectangular map: 4 x 16 windows of 4 x 16
+def test_attn_branch_nhwc_backward_mma_matches_plain_and_tokens(dev, B, H, W,
+                                                                C, g):
+    gen = torch.Generator().manual_seed(B + H + W + C)
+    args = _branch_args(gen, B, H * W, C, dev, torch.bfloat16)
+    args = (args[0].reshape(B, H, W, C), *args[1:])
+    dy = torch.randn(B, H, W, C, generator=gen).to(dev, torch.bfloat16)
+    before = _attn_bwd_entries(attn_branch_nhwc_backward)
+    got = attn_branch_nhwc_backward(*args, dy, 2, g)
+    again = attn_branch_nhwc_backward(*args, dy, 2, g)
+    torch.cuda.synchronize()
+    assert _attn_bwd_delta(before, attn_branch_nhwc_backward) == \
+        {"ogvt_attn_branch_nhwc_bwd_mma": 2}
+    want = attn_branch_nhwc_backward_reference(*args, dy, 2, g)
+    _check_branch_grads(got, again, want, torch.bfloat16, True)
+    # #5 on the partitioned tokens: the same blocks, the same grids each
+    x, meta, shape = _windows(args[0], g)
+    before = _attn_bwd_entries()
+    tgrads = attn_branch_backward(x, *args[1:], _windows(dy, g)[0], 2)
+    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd_mma": 1}
+    assert torch.equal(got[0],
+                       grid_unpartition(tgrads[0].reshape(shape), meta))
+    for name, a, t in zip(BRANCH_GRADS[1:], got[1:], tgrads[1:]):
+        assert torch.equal(a, t), name
+
+
+@pytest.mark.parametrize("dtype,G,N,C,heads", [
+    (torch.float32, 8, 64, 64, 2),     # fp32: the FMA kernel's
+    (torch.bfloat16, 3, 72, 48, 3),    # N other than 64
+    (torch.bfloat16, 2, 100, 24, 4),
+    (torch.bfloat16, 4, 64, 64, 4)])   # hd 16: not instantiated
+def test_attn_branch_backward_takes_the_fma_kernel_where_mma_does_not(
+        dev, dtype, G, N, C, heads):
+    g = torch.Generator().manual_seed(G + N + C + heads)
+    args = _branch_args(g, G, N, C, dev, dtype)
+    dy = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    before = _attn_bwd_entries()
+    got = attn_branch_backward(*args, dy, heads)
+    again = attn_branch_backward(*args, dy, heads)
+    torch.cuda.synchronize()
+    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd": 2}
+    want = attn_branch_backward_reference(*args, dy, heads)
+    _check_branch_grads(got, again, want, dtype, True)
+
+
+def test_attn_branch_backward_entries_on_request(dev):
+    # the A/B of chip_smoke.py: either kernel at a shape both take, each
+    # against the plain version, on tokens and on the NHWC map; the mma
+    # entry refuses fp32 by name
+    g = torch.Generator().manual_seed(9)
+    args = _branch_args(g, 64, 64, 80, dev, torch.bfloat16)
+    dy = torch.randn(64, 64, 80, generator=g).to(dev, torch.bfloat16)
+    want = attn_branch_backward_reference(*args, dy, 2)
+    for entry in attn_branch_mod.BACKWARD_ENTRIES:
+        before = _attn_bwd_entries()
+        got = attn_branch_mod._launch_backward(entry, *args, dy, 2)
+        again = attn_branch_mod._launch_backward(entry, *args, dy, 2)
+        torch.cuda.synchronize()
+        assert _attn_bwd_delta(before) == {entry: 2}
+        _check_branch_grads(got, again, want, torch.bfloat16, True)
+    xm = args[0].reshape(4, 32, 32, 80)
+    dym = dy.reshape(4, 32, 32, 80)
+    want = attn_branch_nhwc_backward_reference(xm, *args[1:], dym, 2, 4)
+    for entry in attn_branch_mod.NHWC_BACKWARD_ENTRIES:
+        before = _attn_bwd_entries(attn_branch_nhwc_backward)
+        got = attn_branch_mod._launch_nhwc_backward(entry, xm, *args[1:], dym,
+                                                    2, 4)
+        again = attn_branch_mod._launch_nhwc_backward(entry, xm, *args[1:],
+                                                      dym, 2, 4)
+        torch.cuda.synchronize()
+        assert _attn_bwd_delta(before, attn_branch_nhwc_backward) == \
+            {entry: 2}
+        _check_branch_grads(got, again, want, torch.bfloat16, True)
+    f32 = tuple(t.float() for t in args)
+    with pytest.raises(ValueError, match="G=64, N=64, C=80, heads=2"):
+        attn_branch_mod._launch_backward("ogvt_attn_branch_bwd_mma", *f32,
+                                         dy.float(), 2)
+    with pytest.raises(ValueError, match="entry"):
+        attn_branch_mod._launch_backward("ogvt_nope", *args, dy, 2)
+
+
+def test_attn_branch_backward_mma_refuses_what_it_does_not_take(dev):
+    g = torch.Generator().manual_seed(10)
+    G, C = 6, 64
+    args = _branch_args(g, G, 64, C, dev, torch.bfloat16)
+    dy = torch.randn(G, 64, C, generator=g).to(dev, torch.bfloat16)
+    # a pointer off 16 bytes: the kernels copy 16 bytes at a time
+    off = torch.empty(G * 64 * C + 1, device=dev,
+                      dtype=torch.bfloat16)[1:].view(G, 64, C)
+    off.copy_(dy)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    with pytest.raises(ValueError, match="dy .*16-byte aligned"):
+        attn_branch_backward(*args, off, 2)
+    # the entry point checks the plan it is given against the shapes
+    plan = attn_branch_mod.attn_branch_backward_plan(G, 64, C, 2)
+    lib = kernel_build.load()
+    grads = [torch.empty_like(t) for t in args]
+    ws = torch.empty(lib.ogvt_attn_branch_bwd_mma_workspace(
+        G, C, plan.t_blocks, plan.w_splits), dtype=torch.float32, device=dev)
+
+    def call(p, N=64, heads=2):
+        return lib.ogvt_attn_branch_bwd_mma(
+            *(t.data_ptr() for t in args[:6]), dy.data_ptr(),
+            *(t.data_ptr() for t in grads), ws.data_ptr(), G, N, C, heads,
+            0.125, 1e-5, 1, 1, *p.args(),
+            torch.cuda.current_stream().cuda_stream)
+
+    for bad in (dict(t_smem=plan.t_smem + 16), dict(w_smem=plan.w_smem - 16),
+                dict(t_blocks=0), dict(t_grids=plan.t_grids + 1,
+                                       t_blocks=plan.t_blocks + 1),
+                dict(w_splits=plan.w_splits + 5)):
+        assert call(plan._replace(**bad)) != 0, bad
+    assert call(plan, N=72) != 0
+    assert call(plan, heads=4) != 0
+    assert call(plan) == 0
+    torch.cuda.synchronize()
 
 
 def _th_entries():

@@ -21,6 +21,14 @@ def test_port_kernels_names_every_mlp_kernel_source():
     assert port["reduce_partials"] == "csrc/partials.cuh"
 
 
+def test_port_kernels_names_every_attention_branch_kernel_source():
+    port = profile_step.port_kernels()
+    assert port["attn_bwd_tokens"] == port["attn_bwd_weights"] == \
+        "csrc/attn_branch_bwd_mma.cu"
+    assert port["attn_branch_fwd"] == port["attn_branch_bwd"] == \
+        "csrc/attn_branch.cu"
+
+
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::weights_kernel<0, 4>(__nv_bfloat16 "
      "const*, float const*)", "csrc/mlp_branch_bwd_mma.cu"),
