@@ -51,18 +51,21 @@ both dtypes ``csrc/grid_mhsa_long.cu`` (the kernels line's
 path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
 ``csrc/mlp_branch_bwd_mma.cu`` backward, its fp32 ones
 ``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``. The fused
-attention branch's bf16 backward (Tiny-ImageNet's and ``a_base``'s stage
-0) runs ``csrc/attn_branch_bwd_mma.cu``, its fp32 one and every forward
+attention branch's bf16 launches (Tiny-ImageNet's and ``a_base``'s stage
+0) run ``csrc/attn_branch_mma.cu`` forward and
+``csrc/attn_branch_bwd_mma.cu`` backward, its fp32 ones
 ``csrc/attn_branch.cu``. The served and trained main paths (bf16) must
 launch them through the matching C entry points, and the fp32 step
-through the FMA ones; ``attn_branch_nhwc``'s parameter grads must equal
-``attn_branch``'s on the partitioned inputs bit for bit.
+through the FMA ones; ``attn_branch_nhwc``'s y and parameter grads must
+equal ``attn_branch``'s on the partitioned inputs bit for bit.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
-128, fp32 and bf16; each backward twice, bitwise equal; the bf16 MLP
-forward with at least 90% of its outputs bitwise equal to the plain
-version's), requests through
+128, fp32 and bf16; each backward and each forward of the fused
+attention branch twice, bitwise equal, through the entry point its dtype
+routes to; the bf16 MLP forward with at least 90% of its outputs bitwise
+equal to the plain version's; the share of the fused branch's bf16 y
+bitwise the plain version's reported), requests through
 ``Predictor`` at batch 64 with the launch counts of each forward, the kernel
 path's logits against the plain path's, one fp32 train step through the
 kernels against one through the plain path (batch 128, raw uint8 in, the
@@ -91,10 +94,12 @@ against the FMA kernels they replace at every MLP shape of the
 Tiny-ImageNet, Model B, 7M and ``a7m_96`` paths, the same way: the
 forward at batch 64, per forward, the backward at 128, per train step.
 Phase ``ab_attn`` (``AB_ATTN``) times the attention branch's tensor-core
-backward against the FMA backward it replaces at the stage 0 of
-Tiny-ImageNet (#5), ``a_base`` (#12) and the default Model A through #5,
-at batch 128, per launch and per train step, beside the same function
-composed of library calls (LN, linear, SDPA, linear; for scale only).
+kernels against the FMA kernels they replace at the stage 0 of
+Tiny-ImageNet (#5), ``a_base`` (#12) and the default Model A through #5:
+the forward at batch 64 per forward and at batch 128 per train step, the
+backward at batch 128 per train step, per launch too, beside the same
+function composed of library calls (LN, linear, SDPA, linear; for scale
+only).
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -341,9 +346,9 @@ BF16_LOSS_TOL = 3e-2
 # csrc/mlp_branch_bwd_mma.cu for bf16 launches whose C and H are multiples
 # of 16 (every main path's), csrc/mlp_branch.cu / csrc/mlp_branch_bwd.cu
 # for fp32 ones.
-# attn_branch_bwd / attn_branch_nhwc_bwd: csrc/attn_branch_bwd_mma.cu for
-# bf16 launches at the shapes it is instantiated at (every main path's),
-# csrc/attn_branch.cu for fp32 ones (and every forward).
+# attn_branch / attn_branch_nhwc and their _bwd: csrc/attn_branch_mma.cu and
+# csrc/attn_branch_bwd_mma.cu for bf16 launches at the shapes they are
+# instantiated at (every main path's), csrc/attn_branch.cu for fp32 ones.
 # grid_mhsa_packed: csrc/grid_mhsa_packed_mma.cu for bf16 launches, the main
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
@@ -366,7 +371,8 @@ SOURCES = {
          "outgridvit_tpu/ops/mlp_branch_pallas.py:199 mlp_branch_pallas "
          "(#4, variant row)"]),
     "attn_branch": (
-        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        ("outgridvit_tpu_torch/csrc/attn_branch_mma.cu",
+         "outgridvit_tpu_torch/csrc/attn_branch.cu"),
         "outgridvit_tpu/ops/attn_branch_pallas.py:324",
         ["outgridvit_tpu/ops/attn_branch_pallas.py:324 attn_branch_pallas "
          "(#5, forward :349)"]),
@@ -456,7 +462,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
          "backward (#6, :244) at N >= 64"]),
     "attn_branch_nhwc": (
-        "outgridvit_tpu_torch/csrc/attn_branch.cu",
+        ("outgridvit_tpu_torch/csrc/attn_branch_mma.cu",
+         "outgridvit_tpu_torch/csrc/attn_branch.cu"),
         "outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127",
         ["outgridvit_tpu/ops/experimental/attn_branch_nhwc_pallas.py:127 "
          "attn_branch_nhwc_pallas (#12, forward :158)"]),
@@ -533,8 +540,15 @@ ATTN_BWD_ENTRIES = {
     "attn_branch_bwd": ("ogvt_attn_branch_bwd_mma", "ogvt_attn_branch_bwd"),
     "attn_branch_nhwc_bwd": ("ogvt_attn_branch_nhwc_bwd_mma",
                              "ogvt_attn_branch_nhwc_bwd")}
+# the same for the forward
+ATTN_FWD_ENTRIES = {
+    "attn_branch": ("ogvt_attn_branch_mma", "ogvt_attn_branch"),
+    "attn_branch_nhwc": ("ogvt_attn_branch_nhwc_mma",
+                         "ogvt_attn_branch_nhwc")}
 AB_ATTN = (("attn_branch_bwd", TIN), ("attn_branch_nhwc_bwd", A_BASE),
            ("attn_branch_bwd", A_BASE))
+AB_ATTN_FWD = (("attn_branch", TIN), ("attn_branch_nhwc", A_BASE),
+               ("attn_branch", A_BASE))
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
@@ -545,6 +559,10 @@ BITWISE = ("dwconv3x3",)
 # which flips a rounding in well under 1% of its outputs (a wrong kernel
 # may pass KERNEL_TOL, not this)
 BITWISE_SHARE = {"mlp_branch": 0.9}
+# bf16 kernels whose share of outputs bitwise equal to the plain version's
+# is reported, not gated (they are held to KERNEL_TOL): the fused attention
+# branch's forward, whose softmax takes the card's expf
+SHARE_REPORTED = ("attn_branch", "attn_branch_nhwc")
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -793,15 +811,48 @@ def library_call(name, args):
     return None
 
 
+def _composed_branch(x, ls, lb, wqkv, bqkv, wp, bp, heads):
+    """The fused branch's y on tokens x [G, N, C] composed of library calls:
+    ``F.layer_norm`` -> ``F.linear`` -> SDPA over the heads ->
+    ``F.linear``."""
+    import torch.nn.functional as F
+
+    G, N, C = x.shape
+    qkv = F.linear(F.layer_norm(x, (C,), ls, lb), wqkv.t(), bqkv)
+    q, k, v = qkv.reshape(G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return F.linear(o.transpose(1, 2).reshape(G, N, C), wp.t(), bp)
+
+
+def composed_branch_forward(args, name):
+    """The fused branch's function composed of library calls on the same
+    bf16 inputs (the LN scale and bias cast to bf16), partitioned first for
+    #12 (:func:`_composed_branch`), as a no-argument callable. For scale
+    beside the forward's A/B only: the port never calls it, and it is not
+    the kernel's ``library_ms``."""
+    import torch
+
+    from outgridvit_tpu_torch.ops.attn_branch import _tokens
+
+    x, ls, lb, wqkv, bqkv, wp, bp, heads = args[:8]
+    if name == "attn_branch_nhwc":
+        x = _tokens(x, args[8])[0]
+    ls, lb = ls.to(x.dtype), lb.to(x.dtype)
+
+    def run():
+        with torch.no_grad():
+            return _composed_branch(x, ls, lb, wqkv, bqkv, wp, bp, heads)
+    return run
+
+
 def composed_branch_backward(args, name):
     """The fused branch's function composed of library calls on the same
-    bf16 inputs (the LN scale and bias cast to bf16): ``F.layer_norm`` ->
-    ``F.linear`` -> SDPA over the heads -> ``F.linear``, partitioned first
-    for #12; returns a no-argument callable of its autograd backward for
-    the same output gradient. For scale beside the backward's A/B only: the
-    port never calls it, and it is not the kernel's ``library_ms``."""
+    bf16 inputs (the LN scale and bias cast to bf16), partitioned first for
+    #12 (:func:`_composed_branch`); returns a no-argument callable of its
+    autograd backward for the same output gradient. For scale beside the
+    backward's A/B only: the port never calls it, and it is not the
+    kernel's ``library_ms``."""
     import torch
-    import torch.nn.functional as F
 
     from outgridvit_tpu_torch.ops.attn_branch import _tokens
 
@@ -810,12 +861,7 @@ def composed_branch_backward(args, name):
         x, dy = _tokens(x, args[9])[0], _tokens(dy, args[9])[0]
     leaves = [t.detach().to(x.dtype).requires_grad_(True)
               for t in (x, ls, lb, wqkv, bqkv, wp, bp)]
-    xl, lsl, lbl, wql, bql, wpl, bpl = leaves
-    G, N, C = xl.shape
-    qkv = F.linear(F.layer_norm(xl, (C,), lsl, lbl), wql.t(), bql)
-    q, k, v = qkv.reshape(G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
-    o = F.scaled_dot_product_attention(q, k, v)
-    y = F.linear(o.transpose(1, 2).reshape(G, N, C), wpl.t(), bpl)
+    y = _composed_branch(*leaves, heads)
     return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
 
@@ -882,7 +928,8 @@ class Smoke:
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
         self.ab_lib = {}                 # kernel vs library call, per shape
-        self.ab_fma = {}                 # MLP kernels, mma vs FMA kernel
+        self.ab_fma = {}                 # mma kernels vs the FMA kernels
+        self.share = {}                  # least share of y bitwise plain
         self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
     # -- launch counters --------------------------------------------------
@@ -929,8 +976,9 @@ class Smoke:
         every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
         of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP forward
         and backward through csrc/mlp_branch_mma.cu's and
-        csrc/mlp_branch_bwd_mma.cu's; every backward of the fused attention
-        branch through csrc/attn_branch_bwd_mma.cu's. ``plan`` and
+        csrc/mlp_branch_bwd_mma.cu's; every forward and backward of the
+        fused attention branch through csrc/attn_branch_mma.cu's and
+        csrc/attn_branch_bwd_mma.cu's. ``plan`` and
         ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
@@ -943,6 +991,7 @@ class Smoke:
                              "ogvt_grid_mhsa_long_bwd"),
                             *((name, mma) for name, (mma, _)
                               in (*MLP_ENTRIES.items(),
+                                  *ATTN_FWD_ENTRIES.items(),
                                   *ATTN_BWD_ENTRIES.items()))):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
@@ -1096,9 +1145,19 @@ class Smoke:
         kernel = self.launch.get(name, self.kernels[name][0])
         dt = str(dtype).split(".")[-1]
         backward = name.endswith("_bwd")
+        routed = ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
+        twice = backward or routed is not None
+        before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
-        again = kernel(*args) if backward else got
+        again = kernel(*args) if twice else got
         torch.cuda.synchronize()
+        if routed:  # the fused branch: the entry its dtype routes to
+            entry = routed[0 if dt == "bfloat16" else 1]
+            delta = {k: v - before.get(k, 0)
+                     for k, v in self.kernels[name][0].by_entry.items()
+                     if v - before.get(k, 0)}
+            require(delta == {entry: 2}, f"{name} {label} {dt}: launches "
+                    f"by entry point {delta}, expected {{{entry!r}: 2}}")
         want = plain(*args)
         got, again, want = ((t,) if torch.is_tensor(t) else t
                             for t in (got, again, want))
@@ -1108,8 +1167,11 @@ class Smoke:
             require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"{name} {label}: not bitwise equal to the plain version")
         share = None
-        if name in BITWISE_SHARE and dt == "bfloat16":
+        if (name in BITWISE_SHARE or name in SHARE_REPORTED) \
+                and dt == "bfloat16":
             share = (got[0] == want[0]).float().mean().item()
+            self.share[name] = min(self.share.get(name, 1.0), share)
+        if name in BITWISE_SHARE and dt == "bfloat16":
             require(share >= BITWISE_SHARE[name],
                     f"{name} {label}: {share:.4%} of the outputs bitwise "
                     f"equal to the plain version's, below "
@@ -1135,10 +1197,12 @@ class Smoke:
         print(f"[compare] {name} {label} {dt} " + " ".join(worst)
               + f" (tol {KERNEL_TOL[dt]:g} abs+rel; param grads rel to max, "
               f"tol {WGRAD_TOL[dt]:g})"
-              + (" deterministic ok" if backward else "")
+              + (" deterministic ok" if twice else "")
+              + (f" via {entry}" if routed else "")
               + (" bitwise ok" if name in BITWISE else "")
-              + ("" if share is None else f" bitwise equal {share:.4%} (at "
-                 f"least {BITWISE_SHARE[name]:.0%})"))
+              + ("" if share is None else f" bitwise equal {share:.4%}"
+                 + (f" (at least {BITWISE_SHARE[name]:.0%})"
+                    if name in BITWISE_SHARE else " (reported, not gated)")))
 
     def compare_all(self, case: ModelCase):
         import torch
@@ -1181,14 +1245,24 @@ class Smoke:
             name = "attn_branch_nhwc" + ("_bwd" if backward else "")
             args = (self.bwd_args if backward else self.fwd_args)(
                 name, sh, dtype)
+            counts = [self.kernels[n][0].by_entry.copy()
+                      for n in (name, name.replace("_nhwc", ""))]
             got = self.kernels[name][0](*args)
             want = nhwc_via_tokens(args, backward)
+            which = 0 if dtype == torch.bfloat16 else 1
+            for n, c in zip((name, name.replace("_nhwc", "")), counts):
+                entry = (ATTN_BWD_ENTRIES if backward
+                         else ATTN_FWD_ENTRIES)[n][which]
+                delta = +(self.kernels[n][0].by_entry - c)
+                require(delta == {entry: 1}, f"{name} a_base stage0 {dt}: "
+                        f"{n} launched {dict(delta)}, expected {entry}")
             if not backward:
                 require(torch.equal(got, want),
                         f"{name} a_base stage0 {dt}: not bitwise equal to "
                         "partition -> attn_branch -> unpartition")
                 print(f"[compare] {name} a_base stage0 {dt} vs partition -> "
-                      "attn_branch -> unpartition: bitwise equal")
+                      "attn_branch -> unpartition: bitwise equal (both "
+                      f"{'tensor-core' if which == 0 else 'FMA'} kernels)")
                 continue
             require(torch.equal(got[0], want[0]),
                     f"{name} {dt}: dx differs from attn_branch_backward's")
@@ -1423,31 +1497,46 @@ class Smoke:
                 torch.cuda.empty_cache()
 
     def ab_attn(self, iters=10, fma_iters=2):
-        """The fused attention branch backward's A/B in bf16 at the train
-        batch: ``csrc/attn_branch_bwd_mma.cu`` (the main paths' kernel)
-        against ``csrc/attn_branch.cu``'s FMA backward it replaces there, on
-        the same inputs at the stage-0 shapes of ``AB_ATTN``. Per shape in
+        """The fused attention branch's A/B in bf16: the main paths'
+        tensor-core kernels, ``csrc/attn_branch_mma.cu`` forward and
+        ``csrc/attn_branch_bwd_mma.cu`` backward, against
+        ``csrc/attn_branch.cu``'s FMA kernels they replace there, on the
+        same inputs at the stage-0 shapes of ``AB_ATTN_FWD`` (the forward,
+        at batch 64 per forward and at the train batch 128 per train step)
+        and ``AB_ATTN`` (the backward, at 128 per train step). Per shape in
         turns (mma, FMA, FMA, mma) in this process: device time (calls in
         one CUDA graph, :func:`graph_ms`; ``fma_iters`` of the slow
         kernel), then eager time (host time included), each with its share
-        of the bound, per launch and per train step. Beside them, for scale
-        only (no gate, not ``library_ms``): the same function composed of
-        library calls, ``F.layer_norm`` -> ``F.linear`` -> SDPA ->
-        ``F.linear``, its autograd backward timed the same ways."""
+        of the bound, per launch and per forward or train step. Beside
+        them, for scale only (no gate, not ``library_ms``): the same
+        function composed of library calls, ``F.layer_norm`` ->
+        ``F.linear`` -> SDPA -> ``F.linear`` (for the backward, its autograd
+        backward), timed the same ways."""
         import torch
 
         from outgridvit_tpu_torch.ops.attn_branch import (
             _launch_backward,
+            _launch_forward,
             _launch_nhwc_backward,
+            _launch_nhwc_forward,
         )
 
-        for name, case in AB_ATTN:
-            sh = stage_shapes(case, TRAIN_BATCH)[0]
-            launch = (_launch_nhwc_backward if name == "attn_branch_nhwc_bwd"
-                      else _launch_backward)
+        launchers = {"attn_branch": _launch_forward,
+                     "attn_branch_nhwc": _launch_nhwc_forward,
+                     "attn_branch_bwd": _launch_backward,
+                     "attn_branch_nhwc_bwd": _launch_nhwc_backward}
+        todo = ([(name, case, BATCH) for name, case in AB_ATTN_FWD]
+                + [(name, case, TRAIN_BATCH) for name, case in AB_ATTN_FWD]
+                + [(name, case, TRAIN_BATCH) for name, case in AB_ATTN])
+        for name, case, batch in todo:
+            backward = name.endswith("_bwd")
+            sh = stage_shapes(case, batch)[0]
+            launch = launchers[name]
             call = self.kernels[name][0]
-            args = self.bwd_args(name, sh, torch.bfloat16)
-            entries = dict(zip(("mma", "fma"), ATTN_BWD_ENTRIES[name]))
+            args = (self.bwd_args if backward else self.fwd_args)(
+                name, sh, torch.bfloat16)
+            entries = dict(zip(("mma", "fma"), (
+                ATTN_BWD_ENTRIES if backward else ATTN_FWD_ENTRIES)[name]))
             fns = {w: (lambda e=e: launch(e, *args))
                    for w, e in entries.items()}
             for w, e in entries.items():  # each side its kernel
@@ -1460,14 +1549,17 @@ class Smoke:
             stream = torch.cuda.Stream()
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
-                composed = composed_branch_backward(args, name)
+                composed = (composed_branch_backward if backward
+                            else composed_branch_forward)(args, name)
             torch.cuda.current_stream().wait_stream(stream)
             n, blocks = {"mma": iters, "fma": fma_iters}, sh["blocks"]
-            label = (f"{case.tag} stage0 B={TRAIN_BATCH} G={sh['G']} "
+            unit = "step" if batch == TRAIN_BATCH else "forward"
+            per = ("train step" if unit == "step" else "forward")
+            label = (f"{case.tag} stage0 B={batch} G={sh['G']} "
                      f"N={sh['N']} C={sh['C']} heads={sh['heads']}")
             res = self.ab_fma.setdefault(name, {})[label] = {
                 "bound_ms": bound, "launches": blocks,
-                "bound_per_step_ms": blocks * bound}
+                f"bound_per_{unit}_ms": blocks * bound}
             for how, timer, ctimer in (
                     ("device", lambda f, w: graph_ms(f, n[w]),
                      lambda f: graph_ms(f, iters, stream)),
@@ -1481,8 +1573,8 @@ class Smoke:
                 res[how] = {
                     "mma_ms": k, "fma_ms": f, "mma_bound_share": bound / k,
                     "fma_bound_share": bound / f,
-                    "per_step_mma_ms": blocks * k,
-                    "per_step_fma_ms": blocks * f,
+                    f"per_{unit}_mma_ms": blocks * k,
+                    f"per_{unit}_fma_ms": blocks * f,
                     "composed_library_ms": c,
                     "runs": {w: [round(t, 6) for t in v]
                              for w, v in runs.items()}}
@@ -1491,11 +1583,12 @@ class Smoke:
                       f"{runs['mma'][1] * 1e3:.1f}) vs the FMA kernel it "
                       f"replaces {f * 1e3:.1f} us: mma/FMA {k / f:.4f}; "
                       f"bound {bound * 1e3:.2f} us, mma at {bound / k:.2%} "
-                      f"of it, FMA at {bound / f:.2%}; per train step "
+                      f"of it, FMA at {bound / f:.2%}; per {per} "
                       f"({blocks} launches) mma {blocks * k:.4f} ms, FMA "
                       f"{blocks * f:.4f} ms, bound {blocks * bound:.4f} ms; "
-                      f"for scale, LN -> linear -> SDPA -> linear autograd "
-                      f"backward {c * 1e3:.1f} us [{self.gpu}]")
+                      f"for scale, LN -> linear -> SDPA -> linear"
+                      f"{' autograd backward' if backward else ''} "
+                      f"{c * 1e3:.1f} us [{self.gpu}]")
             del args, fns, composed
             torch.cuda.empty_cache()
 
@@ -1784,8 +1877,9 @@ class Smoke:
         draws = None
         mlp_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0][
             "mlp_branch"]  # as many forwards as backwards a step
-        attn_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH),
-                                 backward=True)[0]
+        attn_steps = {**launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0],
+                      **launch_plan(case, stage_shapes(case, TRAIN_BATCH),
+                                    backward=True)[0]}
         for label, dtype, kern in (("fp32 kernel", torch.float32, True),
                                    ("fp32 plain", torch.float32, False),
                                    ("bf16 kernel", torch.bfloat16, True)):
@@ -1794,14 +1888,15 @@ class Smoke:
             self.reset_counts()
             state, m = step(state, (images, labels), draws)
             torch.cuda.synchronize()
-            if label == "fp32 kernel":  # the fp32 MLP kernels: FMA ones
+            if label == "fp32 kernel":  # the fp32 kernels: the FMA ones
                 got = self.read_entries()
                 for name, (_, fma) in MLP_ENTRIES.items():
                     require(got[name] == {fma: mlp_steps},
                             f"{case.tag} fp32 step: {name} launches by "
                             f"entry point {got[name]}, expected {mlp_steps} "
                             f"of {fma}")
-                for name, (_, fma) in ATTN_BWD_ENTRIES.items():
+                for name, (_, fma) in (*ATTN_FWD_ENTRIES.items(),
+                                       *ATTN_BWD_ENTRIES.items()):
                     want = ({fma: attn_steps[name]} if attn_steps[name]
                             else {})
                     require(got[name] == want,
@@ -1949,6 +2044,8 @@ class Smoke:
                     self.ab_lib[name]
             if name in self.ab_fma:
                 out[-1]["ab_vs_fma_kernel_ms"] = self.ab_fma[name]
+            if name in self.share:
+                out[-1]["bf16_bitwise_share_min"] = self.share[name]
             if len(sources) > 1:
                 out[-1]["sources"] = list(sources)
                 out[-1]["launches_by_entry"] = self.entries[name]

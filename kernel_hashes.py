@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Whether two trees' kernels give bitwise-equal outputs on the card.
+
+    python3 kernel_hashes.py OUT.json [--root TREE]
+    python3 kernel_hashes.py --compare A.json B.json
+
+The first form builds the kernels of the repository at TREE (this file's
+own by default, e.g. a ``git archive`` checkout of another commit), calls
+every kernel wrapper of ``chip_smoke.py`` once at every stage shape of its
+cases (the forward at batch 64, the backward at 128, in fp32 and bf16;
+the outlook kernels at the outlookers' shapes, the depthwise ones at the
+MBConvs'), on inputs drawn from a seed fixed per (case, direction, dtype),
+and writes the SHA-256 of each output's bytes, keyed by case, kernel, shape
+and dtype. The inputs depend only on ``chip_smoke.py``'s shapes and its
+input makers, so two trees that share those get the same inputs. The
+second form lists the calls whose outputs differ and the kernels whose
+every call is bitwise equal. Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def hashes(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as cs
+    from outgridvit_tpu_torch.ops import kernel_build
+
+    if not Path(kernel_build.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {kernel_build.__file__}, not {root}'s")
+    kernel_build.build()
+    kernel_build.load()
+    kernel_build.load_layouts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = cs.Smoke(torch.device("cuda"), "")
+    out = {}
+    for ci, case in enumerate(cs.CASES):
+        outlook = (("outlook_agg", "outlook_branch", "outlook_softmax")
+                   if case.front else ())
+        for backward, batch in ((False, cs.BATCH), (True, cs.TRAIN_BATCH)):
+            shapes = cs.stage_shapes(case, batch)
+            for di, dtype in enumerate((torch.float32, torch.bfloat16)):
+                smoke.gen.manual_seed(1000 * ci + 10 * backward + di)
+                for name, args, label, *_ in smoke.cases(
+                        shapes, backward, dtype, outlook, dw=True):
+                    kern = smoke.launch.get(name, smoke.kernels[name][0])
+                    got = kern(*args)
+                    got = (got,) if torch.is_tensor(got) else got
+                    out[f"{case.tag}|{name}|{label}|{dtype}"] = [
+                        hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                                       .numpy().tobytes()).hexdigest()
+                        for t in got]
+                torch.cuda.empty_cache()
+    return out
+
+
+def compare(a: dict, b: dict) -> None:
+    if a.keys() != b.keys():
+        raise SystemExit(f"the two files hash other calls: "
+                         f"{sorted(set(a) ^ set(b))}")
+    diff = [k for k in a if a[k] != b[k]]
+    print(f"{len(a)} kernel calls: {len(a) - len(diff)} bitwise equal, "
+          f"{len(diff)} differ")
+    for k in diff:
+        print(f"differs: {k}")
+    names = {k.split("|")[1] for k in a}
+    print("kernels whose every call is bitwise equal:",
+          sorted(n for n in names
+                 if not any(k.split("|")[1] == n for k in diff)))
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("out", nargs="?", help="where to write the hashes")
+    p.add_argument("--root", default=str(Path(__file__).resolve().parent),
+                   help="the repository whose kernels are hashed")
+    p.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    a = p.parse_args()
+    if a.compare:
+        compare(*(json.loads(Path(f).read_text()) for f in a.compare))
+        return 0
+    if not a.out:
+        p.error("give OUT.json or --compare A B")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_hashes: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    got = hashes(Path(a.root).resolve())
+    Path(a.out).write_text(json.dumps(got, indent=0))
+    print(f"{a.root}: {len(got)} kernel calls hashed in "
+          f"{time.perf_counter() - t0:.1f} s -> {a.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

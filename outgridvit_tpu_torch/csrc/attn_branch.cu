@@ -31,10 +31,12 @@
 //             from xhat and rstd.
 // The qkv and output projections run inside the kernels, as in the TPU one.
 //
-// Which launches run here: every forward of the branch (both dtypes), and
-// the backward in fp32 and at the bf16 shapes the tensor-core backward
-// (csrc/attn_branch_bwd_mma.cu, ogvt_attn_branch[_nhwc]_bwd_mma) does not
-// take; ops/attn_branch.py:backward_entry decides by dtype and shape.
+// Which launches run here: fp32 launches both ways, and bf16 ones at the
+// shapes the tensor-core kernels (csrc/attn_branch_mma.cu forward,
+// ogvt_attn_branch[_nhwc]_mma; csrc/attn_branch_bwd_mma.cu backward,
+// ogvt_attn_branch[_nhwc]_bwd_mma) are not instantiated at: every shipped
+// bf16 shape goes there. ops/attn_branch.py:forward_entry and
+// backward_entry decide by dtype and shape.
 //
 // What bounds it on the H100: per grid of N tokens the forward does
 // 2*N*C*(4C + 2N) flops (3.1 MFLOP at N = C = 64) against 4*N*C bytes of

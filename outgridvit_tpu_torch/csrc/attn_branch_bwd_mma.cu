@@ -6,7 +6,7 @@
 // attn_branch_pallas (#5) and outgridvit_tpu/ops/experimental/
 // attn_branch_nhwc_pallas.py:attn_branch_nhwc_pallas (#12), backward half
 // (`_bwd_kernel`, `_rows_bwd`), for the bf16 launches whose shape the
-// kernels are instantiated at (attn_branch_bwd_mma_layout.h:takes; the
+// kernels are instantiated at (attn_branch_mma_layout.h:takes; the
 // shipped N = 64, C = 64 / hd 32 and C = 80 / hd 40). ops/attn_branch.py
 // routes them here (backward_entry); fp32 and other shapes keep
 // csrc/attn_branch.cu. The math and the rounding points are that kernel's
@@ -69,246 +69,22 @@
 // #12's parameter grads equal #5's on the partitioned tokens bit for bit.
 // Staged rows are an odd number of 16-byte units apart (row_bytes), so the
 // 8 rows one ldmatrix reads fall in 8 distinct bank groups. The launch plan
-// (blocks and grids a block of each kernel, shared bytes) is ops/attn_branch.py:attn_branch_backward_plan, made from
-// the layout queries of attn_branch_bwd_mma_layout.cpp; the layout itself is
-// attn_branch_bwd_mma_layout.h, and the entry points refuse any plan it does
-// not match.
-#include <stdint.h>
-
-#include "attn_branch_bwd_mma_layout.h"
-#include "attn_branch_geom.cuh"
+// (blocks and grids a block of each kernel, shared bytes) is
+// ops/attn_branch.py:attn_branch_backward_plan, made from the layout queries
+// of attn_branch_mma_layout.cpp; the layout itself is
+// attn_branch_mma_layout.h, and the entry points refuse any plan it does not
+// match. The staging, LN, ldmatrix and mma loops and the qkv projection are
+// attn_branch_mma.cuh's, shared with the forward (csrc/attn_branch_mma.cu),
+// so the recompute forms the forward's xn and qkv.
+#include "attn_branch_mma.cuh"
 #include "common.cuh"
 #include "grid_mhsa_packed_mma.cuh"
-#include "mma.cuh"
 #include "partials.cuh"
 
 using namespace ogvt;
 using namespace ogvt::attn_mma;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned pack(float lo, float hi) {
-  return as_u32(__floats2bfloat162_rn(lo, hi));
-}
-
-__device__ __forceinline__ float2 unpack(unsigned v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-
-// Window w's 64 token rows of x (or dy) into the tile at shared address
-// `tile`, rows `rowb` bytes apart, by 16-byte cp.async.
-__device__ __forceinline__ void stage_grid(unsigned tile, const bf16* src,
-                                           Geom geo, int w, int C, int rowb) {
-  const int units = C / 8;
-  for (int i = threadIdx.x; i < kN * units; i += kThreads) {
-    const int r = i / units, u = i - r * units;
-    cp_async16(tile + r * rowb + u * 16, src + geo.token(w, r, kN, C) + u * 8);
-  }
-}
-
-// `rows` contiguous rows of `cols` bf16 at src into the tile at `tile`.
-__device__ __forceinline__ void stage_rows(unsigned tile, const bf16* src,
-                                           int rows, int cols, int rowb) {
-  const int units = cols / 8;
-  for (int i = threadIdx.x; i < rows * units; i += kThreads) {
-    const int r = i / units, u = i - r * units;
-    cp_async16(tile + r * rowb + u * 16,
-               src + static_cast<size_t>(r) * cols + u * 8);
-  }
-}
-
-// round(LN(x)) of the 64 rows of the staged bf16 tile `src` into `dst`
-// (rows rowb bytes apart; dst may be src), four lanes a row: warp w takes
-// rows 8w..8w+7, lane (r, q) = (lane / 4, lane % 4) row 8w + r and its
-// 8-column units q, q + 4, ... by 16-byte loads. fp32 statistics (a lane
-// sums its columns in order, the quad's xor tree sums the lanes), the fast
-// variance clamped at 0. Both kernels call it, so they recompute the same
-// xn. Writes mu and rstd when s_mu is given.
-__device__ __forceinline__ void ln_rows(const unsigned char* src,
-                                        unsigned char* dst, int rowb, int C,
-                                        const float* __restrict__ ls,
-                                        const float* __restrict__ lb,
-                                        float eps, float* s_mu,
-                                        float* s_rstd) {
-  const int lane = threadIdx.x & 31, q = lane & 3;
-  const int r = 8 * (threadIdx.x >> 5) + (lane >> 2);
-  const unsigned char* row = src + r * rowb;
-  float s = 0.f, ss = 0.f;
-  for (int u = q; u < C / 8; u += 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + u * 16);
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = unpack(w[k]);
-      s += f.x;
-      s += f.y;
-      ss = fmaf(f.x, f.x, ss);
-      ss = fmaf(f.y, f.y, ss);
-    }
-  }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-  const float mu = s / C;
-  const float rstd = rsqrtf(fmaxf(0.f, ss / C - mu * mu) + eps);
-  if (s_mu != nullptr && q == 0) {
-    s_mu[r] = mu;
-    s_rstd[r] = rstd;
-  }
-  for (int u = q; u < C / 8; u += 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + u * 16);
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-    unsigned o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c = 8 * u + 2 * k;
-      const float2 f = unpack(w[k]);
-      o[k] = pack((f.x - mu) * (rstd * ls[c]) + lb[c],
-                  (f.y - mu) * (rstd * ls[c + 1]) + lb[c + 1]);
-    }
-    *reinterpret_cast<uint4*>(dst + r * rowb + u * 16) =
-        make_uint4(o[0], o[1], o[2], o[3]);
-  }
-}
-
-// The A-operand ldmatrix address of lane `lane` for the 16 rows from r0 of a
-// staged tile (rows rowb bytes apart), k unit 0: (rows 0-7, k 0-7),
-// (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
-__device__ __forceinline__ unsigned rows_a(unsigned tile, int rowb, int r0,
-                                           int lane) {
-  return tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * rowb +
-         (lane >> 4) * 16;
-}
-
-// The B fragments of n tiles j0.. (NJ of them) of y (rows rowy bytes apart)
-// for one k16 step at column unit ku, ldmatrix without .trans: yb is the
-// lane's x4 address (n 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15);
-// an odd last tile takes an .x2 (lanes 0-15's addresses: n 0-7, k 0-15).
-template <int NJ>
-__device__ __forceinline__ void frags_nt(unsigned (&b)[NJ][2], unsigned yb,
-                                         int rowy, int ku) {
-#pragma unroll
-  for (int j = 0; j < NJ; j += 2) {
-    if (j + 1 < NJ) {
-      unsigned q[4];
-      ldsm_x4(yb + j * 8 * rowy + ku * 16, q);
-      b[j][0] = q[0];
-      b[j][1] = q[1];
-      b[j + 1][0] = q[2];
-      b[j + 1][1] = q[3];
-    } else {
-      unsigned q[2];
-      ldsm_x2(yb + j * 8 * rowy + ku * 16, q);
-      b[j][0] = q[0];
-      b[j][1] = q[1];
-    }
-  }
-}
-
-// acc[j] += x.y^T: x the 16 rows whose A address is xa, y the 8 * NJ rows
-// from `y` (rows rowy bytes apart), both over 8 * KU bf16 columns, an
-// m16n8k8 step for the k8 tail when KU is odd; bf16 products summed in
-// fp32 in k order. Each k step loads all its fragments before its mma, so
-// that the loads' latencies overlap.
-template <int KU, int NJ>
-__device__ __forceinline__ void mma_xyt(float (&acc)[NJ][4], unsigned xa,
-                                        unsigned y, int rowy, int lane) {
-  const int lr = lane & 7, lm = lane >> 3;
-  const unsigned yb = y + (lr + (lm >> 1) * 8) * rowy + (lm & 1) * 16;
-#pragma unroll
-  for (int kc = 0; kc + 1 < KU; kc += 2) {
-    unsigned a[4], b[NJ][2];
-    ldsm_x4(xa + kc * 16, a);
-    frags_nt(b, yb, rowy, kc);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) mma_k16(acc[j], a, b[j][0], b[j][1]);
-  }
-  if constexpr (KU & 1) {  // the k8 tail: lanes 0-15 address n rows 0-15
-    const unsigned tail = y + (lane & 15) * rowy + (KU - 1) * 16;
-    unsigned a[2], b[NJ];
-    ldsm_x2(xa + (KU - 1) * 16, a);  // rows 0-7, rows 8-15
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      if (j + 1 < NJ) {
-        unsigned q[2];
-        ldsm_x2(tail + j * 8 * rowy, q);
-        b[j] = q[0];
-        b[j + 1] = q[1];
-      } else {
-        ldsm_x1(tail + j * 8 * rowy, b[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) mma_k8(acc[j], a, b[j]);
-  }
-}
-
-// acc[j] += sum_u a[u].y over one k16 step: rows k0..k0+15 of the tile y
-// (the k index, rows rowy bytes apart), its 8-column units j0u + j the n
-// tiles (ldmatrix .trans). T = 2 sums a two-term split: each tile takes
-// the hi term, then the lo term. The step's fragments are loaded first.
-template <int NJ, int T>
-__device__ __forceinline__ void mma_rows(float (&acc)[NJ][4],
-                                         const unsigned (&a)[T][4],
-                                         unsigned y, int rowy, int k0,
-                                         int j0u, int lane) {
-  const int lr = lane & 7, lm = lane >> 3;
-  // (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-  const unsigned yb =
-      y + (k0 + lr + (lm & 1) * 8) * rowy + (j0u + (lm >> 1)) * 16;
-  unsigned b[NJ][2];
-#pragma unroll
-  for (int j = 0; j < NJ; j += 2) {
-    if (j + 1 < NJ) {
-      unsigned q[4];
-      ldsm_x4_t(yb + j * 16, q);
-      b[j][0] = q[0];
-      b[j][1] = q[1];
-      b[j + 1][0] = q[2];
-      b[j + 1][1] = q[3];
-    } else {  // an .x2: lanes 0-15's addresses, n 0-7
-      unsigned q[2];
-      ldsm_x2_t(yb + j * 16, q);
-      b[j][0] = q[0];
-      b[j][1] = q[1];
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < T; ++u) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) mma_k16(acc[j], a[u], b[j][0], b[j][1]);
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-}
-
-// acc * scale as bf16 into rows r0 + g and r0 + g + 8, columns col + 8j +
-// 2t, 2t + 1 of the tile (rows rowb bytes apart).
-template <int NJ>
-__device__ __forceinline__ void put(unsigned char* tile, int rowb,
-                                    const float (&acc)[NJ][4], float scale,
-                                    int r0, int col, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    unsigned char* row = tile + (r0 + g + 8 * h) * rowb;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      *reinterpret_cast<unsigned*>(row + (col + 8 * j + 2 * t) * 2) =
-          pack(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
-    }
-  }
-}
 
 // The column sums of acc * scale over the warp's 16 rows (rows g and g + 8
 // in a lane, then the xor tree over g) into dst[col + 8j + 2t, + 1].
@@ -363,16 +139,8 @@ attn_bwd_tokens(const bf16* __restrict__ x, const float* __restrict__ ls,
   for (int i = tid; i < 6 * C; i += kThreads) s_red[i] = 0.f;
 
   const int w0 = blockIdx.x * grids, w1 = min(G, w0 + grids);
-  for (int i = tid; i < C * (C3 / 8); i += kThreads) {
-    const int r = i / (C3 / 8), u = i - r * (C3 / 8);
-    cp_async16(base + g.wqkv + r * g.rowQ + u * 16,
-               wqkv + static_cast<size_t>(r) * C3 + u * 8);
-  }
-  for (int i = tid; i < C * (C / 8); i += kThreads) {
-    const int r = i / (C / 8), u = i - r * (C / 8);
-    cp_async16(base + g.wp + r * g.rowC + u * 16,
-               wp + static_cast<size_t>(r) * C + u * 8);
-  }
+  stage_rows(base + g.wqkv, wqkv, C, C3, g.rowQ);
+  stage_rows(base + g.wp, wp, C, C, g.rowC);
   if (w0 < w1) {
     stage_grid(base + g.x, x, geo, w0, C, g.rowC);
     stage_grid(base + g.dy, dy, geo, w0, C, g.rowC);
@@ -417,30 +185,9 @@ attn_bwd_tokens(const bf16* __restrict__ x, const float* __restrict__ ls,
     }
 
     // qkv = round(xn.Wqkv + bqkv), the warp's rows and half of the columns
-    {
-      const unsigned xa = rows_a(apply_ln ? base + g.xn : s_x, g.rowC, r0,
-                                 lane);
-      float acc[QT][4];
-      zero(acc);
-#pragma unroll
-      for (int kc = 0; kc < CT; ++kc) {
-        unsigned a[1][4];
-        ldsm_x4(xa + kc * 32, a[0]);
-        mma_rows<QT, 1>(acc, a, base + g.wqkv, g.rowQ, 16 * kc, hs * QT,
-                        lane);
-      }
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-        const int c = hs * (C3 / 2) + 8 * j + 2 * tq;
-        const float b0 = __bfloat162float(bqkv[c]);
-        const float b1 = __bfloat162float(bqkv[c + 1]);
-        acc[j][0] += b0;
-        acc[j][1] += b1;
-        acc[j][2] += b0;
-        acc[j][3] += b1;
-      }
-      put(t_qkv, g.rowQ, acc, 1.f, r0, hs * (C3 / 2), lane);
-    }
+    qkv_rows<CT, QT>(t_qkv, g.rowQ,
+                     rows_a(apply_ln ? base + g.xn : s_x, g.rowC, r0, lane),
+                     base + g.wqkv, bqkv, r0, hs * QT, lane);
     // dout = round(dy.Wp^T), the warp's rows and half of the columns
     float dout[CT][4];
     zero(dout);
@@ -803,12 +550,6 @@ struct Plan {
   int t_blocks, t_grids, t_smem, w_splits, w_grids, w_smem;
 };
 
-// Whether `n` blocks of `per` grids each cover G grids, none left empty.
-bool covers(int G, int n, int per) {
-  return n >= 1 && per >= 1 && static_cast<long long>(n - 1) * per < G &&
-         static_cast<long long>(n) * per >= G;
-}
-
 // Whether the plan is one the kernels take for these shapes: the shapes
 // they are instantiated at, both layouts' shared bytes, blocks that cover
 // the grids.
@@ -852,10 +593,6 @@ cudaError_t launch(const Args& a, const Plan& p, cudaStream_t s) {
                       {part + 4 * C, p.t_blocks, ts, C, a.dls, 1},
                       {part + 5 * C, p.t_blocks, ts, C, a.dlb, 1}}};
   return reduce_segments(segs, 3 * C * C, s);
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 int bwd(const Args& a, const Plan& p, int dtype, void* stream) {

@@ -1,5 +1,6 @@
 """Fused pre-LN grid-attention branch ``y = proj(MHSA(qkv(LN(x))))`` for
-grids of N >= 64 tokens: the CUDA kernels ``csrc/attn_branch.cu`` (forward
+grids of N >= 64 tokens: the CUDA kernels ``csrc/attn_branch.cu``,
+``csrc/attn_branch_mma.cu`` and ``csrc/attn_branch_bwd_mma.cu`` (forward
 and backward) and their plain PyTorch versions (twin of
 ``outgridvit_tpu/ops/attn_branch_pallas.py:attn_branch_pallas`` and its
 recompute backward).
@@ -20,16 +21,20 @@ The backward (:func:`attn_branch_backward_reference`, ``_rows_bwd``) saves
 only the inputs and recomputes the rest. :func:`attn_branch_autograd` is the
 differentiable branch the model calls.
 
-The backward has two kernels, picked by dtype and shape before launch
-(:func:`backward_entry`): a bf16 launch at a shape the tensor-core kernel
-is instantiated at (grids of 64 tokens, C = 64 with heads of 32 and C = 80
-with heads of 40: every shipped shape) runs ``csrc/attn_branch_bwd_mma.cu``
-(``ogvt_attn_branch[_nhwc]_bwd_mma``, every product on ``mma.sync`` tiles,
-launch plan :func:`attn_branch_backward_plan`); fp32 launches and other
-shapes run the FMA kernel of ``csrc/attn_branch.cu``
-(``ogvt_attn_branch[_nhwc]_bwd``), as does every forward. Launches are
-counted per C entry point (``attn_branch_backward.by_entry``,
-``attn_branch_nhwc_backward.by_entry``).
+Each direction has two kernels, picked by dtype and shape before launch
+(:func:`forward_entry`, :func:`backward_entry`): a bf16 launch at a shape
+the tensor-core kernels are instantiated at (grids of 64 tokens, C = 64
+with heads of 32 and C = 80 with heads of 40: every shipped shape) runs
+``csrc/attn_branch_mma.cu`` forward (``ogvt_attn_branch[_nhwc]_mma``,
+launch plan :func:`attn_branch_forward_plan`) and
+``csrc/attn_branch_bwd_mma.cu`` backward
+(``ogvt_attn_branch[_nhwc]_bwd_mma``, launch plan
+:func:`attn_branch_backward_plan`), every product on ``mma.sync`` tiles;
+fp32 launches and other shapes run the FMA kernels of
+``csrc/attn_branch.cu`` (``ogvt_attn_branch[_nhwc]``,
+``ogvt_attn_branch[_nhwc]_bwd``). Launches are counted per C entry point
+(``attn_branch.by_entry``, ``attn_branch_nhwc.by_entry``,
+``attn_branch_backward.by_entry``, ``attn_branch_nhwc_backward.by_entry``).
 
 The NHWC variant (twin of ``outgridvit_tpu/ops/experimental/
 attn_branch_nhwc_pallas.py:attn_branch_nhwc_pallas``, TPU kernel #12)
@@ -205,46 +210,103 @@ def _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
 def attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads: int,
                 eps: float = 1e-5, apply_ln: bool = True):
-    """x [G, N, C] -> [G, N, C]. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes :func:`attn_branch_reference`."""
+    """x [G, N, C] -> [G, N, C]. A CUDA tensor launches a kernel (or
+    raises): ``csrc/attn_branch_mma.cu`` where :func:`forward_entry` says so
+    (bf16 at the shapes it is instantiated at; x, wqkv and wproj 16-byte
+    aligned or a ValueError), else ``csrc/attn_branch.cu``; a CPU tensor
+    takes :func:`attn_branch_reference`."""
     if x.device.type == "cpu":
         return attn_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                      bproj, heads, eps, apply_ln)
-    G, N, C = _check_launch("attn_branch", x, ln_scale, ln_bias, wqkv, bqkv,
-                            wproj, bproj, heads, False)
+    return _launch_forward(None, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                           bproj, heads, eps, apply_ln)
+
+
+def _forward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                  bproj, G, N, C, heads, shape_args, eps, apply_ln):
+    """Launch the forward entry ``entry`` (a tokens or an NHWC one) for G
+    grids; ``shape_args``: the entry's shape arguments (G, N, C, heads, or
+    B, H, W, C, g, heads). Returns y."""
+    mma = entry.endswith("_mma")
+    if mma:
+        plan = attn_branch_forward_plan(G, N, C, heads, x.dtype)
+        check_aligned16(name, x=x, wqkv=wqkv, wproj=wproj)
     y = torch.empty_like(x)
     lib = kernel_build.load()
     with torch.cuda.device(x.device):
-        err = lib.ogvt_attn_branch(
+        err = getattr(lib, entry)(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-            bproj.data_ptr(), y.data_ptr(), G, N, C, heads,
+            bproj.data_ptr(), y.data_ptr(), *shape_args,
             ctypes.c_float((C // heads) ** -0.5), float(eps),
             int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
+            *(plan.args() if mma else ()),
             torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "attn_branch launch")
-    attn_branch.launches += 1
+    kernel_build.check(err, f"{name} launch ({entry})")
+    return y
+
+
+def _launch_forward(entry: Optional[str], x, ln_scale, ln_bias, wqkv, bqkv,
+                    wproj, bproj, heads: int, eps: float = 1e-5,
+                    apply_ln: bool = True):
+    """:func:`attn_branch` on the card through the C entry point ``entry``
+    (one of :data:`FORWARD_ENTRIES`), or :func:`forward_entry`'s where it is
+    None. A named entry is for comparing the two kernels on the same inputs
+    (``chip_smoke.py``'s A/B, the card tests)."""
+    name = "attn_branch"
+    G, N, C = _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                            bproj, heads, False)
+    if entry is None:
+        entry = forward_entry(G, N, C, heads, x.dtype)
+    elif entry not in FORWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{FORWARD_ENTRIES}")
+    y = _forward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                      bproj, G, N, C, heads, (G, N, C, heads), eps, apply_ln)
+    kernel_build.count_launch(attn_branch, None, entry)
     return y
 
 
 attn_branch.launches = 0
+attn_branch.by_entry = Counter()
 
 
-# ---- the tensor-core backward's launch plan (csrc/attn_branch_bwd_mma.cu)
+# ---- the tensor-core kernels' launch plans (csrc/attn_branch_mma.cu,
+# csrc/attn_branch_bwd_mma.cu)
 
-# the layout queries of csrc/attn_branch_bwd_mma_layout.cpp
-_BWD_LAYOUTS = {"tokens": "ogvt_attn_branch_bwd_mma_tokens_layout",
-                "weights": "ogvt_attn_branch_bwd_mma_weights_layout"}
+# the layout queries of csrc/attn_branch_mma_layout.cpp
+_LAYOUTS = {"forward": "ogvt_attn_branch_mma_fwd_layout",
+            "tokens": "ogvt_attn_branch_bwd_mma_tokens_layout",
+            "weights": "ogvt_attn_branch_bwd_mma_weights_layout"}
+_BUILT = ("the kernels are built for grids of 64 tokens at C = 64 with "
+          "heads of 32 and C = 80 with heads of 40")
 
 
-def _bwd_layout(kind: str, *args: int) -> Optional[tuple]:
-    """The kernels' own answer (``csrc/attn_branch_bwd_mma_layout.cpp``)
-    for one layout: ``kind`` "tokens" or "weights" at (N, C, heads) gives
-    (threads, shared bytes, register cap); None where the kernel does not
-    take it."""
+def _layout(kind: str, *args: int) -> Optional[tuple]:
+    """The kernels' own answer (``csrc/attn_branch_mma_layout.cpp``) for
+    one layout: ``kind`` "forward", "tokens" or "weights" at (N, C, heads)
+    gives (threads, shared bytes, register cap); None where the kernel does
+    not take it."""
     out = (ctypes.c_int * 3)()
-    fn = getattr(kernel_build.load_layouts(), _BWD_LAYOUTS[kind])
+    fn = getattr(kernel_build.load_layouts(), _LAYOUTS[kind])
     return None if fn(*args, out) else tuple(out)
+
+
+class AttnFwdPlan(NamedTuple):
+    """How ``ogvt_attn_branch[_nhwc]_mma`` cuts one call of G grids:
+    ``blocks`` blocks of ``smem`` shared bytes, each a contiguous run of
+    ``grids`` grids (the last may run short), at most ``blocks_per_sm`` an
+    SM at the register cap ``regs``. The blocks depend on G alone."""
+    blocks: int
+    grids: int
+    smem: int
+    regs: int
+    blocks_per_sm: int
+
+    def args(self):
+        """The plan's arguments of ``ogvt_attn_branch[_nhwc]_mma``, in
+        order."""
+        return (self.blocks, self.grids, self.smem)
 
 
 class AttnBwdPlan(NamedTuple):
@@ -282,18 +344,68 @@ def _runs(G: int, slots: int):
 
 
 @lru_cache(maxsize=None)
+def _fit_forward(G: int, N: int, C: int, heads: int):
+    """The forward's plan for G bf16 grids of N tokens, C channels and
+    ``heads`` heads, or why there is none (a str): the kernel's layout
+    (:func:`_layout`) decides the shape; one wave of blocks."""
+    if G < 1:
+        return "G >= 1 grids"
+    got = _layout("forward", N, C, heads)
+    if got is None:
+        return _BUILT
+    threads, smem, regs = got
+    per_sm = sm_blocks(threads, smem, regs)
+    blocks, grids = _runs(G, SMS * per_sm)
+    return AttnFwdPlan(blocks, grids, smem, regs, per_sm)
+
+
+def attn_branch_forward_plan(G: int, N: int, C: int, heads: int,
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> AttnFwdPlan:
+    """The tensor-core forward's launch plan for G grids of N tokens, C
+    channels and ``heads`` heads, or a ValueError naming the shape it does
+    not take: fp32 (the FMA kernel's), and any shape the kernel is not
+    built for, as its own layout query says (:func:`_layout`). Cached: the
+    wrapper asks at every launch."""
+    where = (f"attn_branch (mma): G={G}, N={N}, C={C}, heads={heads}, "
+             f"{dtype}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    plan = _fit_forward(G, N, C, heads)
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+def forward_entry(G: int, N: int, C: int, heads: int,
+                  dtype: torch.dtype) -> str:
+    """The C entry point a forward launch of these shapes takes on tokens
+    (the NHWC wrapper's names add ``_nhwc``): ``ogvt_attn_branch_mma`` where
+    :func:`attn_branch_forward_plan` takes the shape, else the FMA kernel's
+    ``ogvt_attn_branch``. Decided by dtype and shape alone, and never
+    raises."""
+    if (dtype == torch.bfloat16
+            and not isinstance(_fit_forward(G, N, C, heads), str)):
+        return "ogvt_attn_branch_mma"
+    return "ogvt_attn_branch"
+
+
+FORWARD_ENTRIES = ("ogvt_attn_branch_mma", "ogvt_attn_branch")
+NHWC_FORWARD_ENTRIES = ("ogvt_attn_branch_nhwc_mma", "ogvt_attn_branch_nhwc")
+
+
+@lru_cache(maxsize=None)
 def _fit_backward(G: int, N: int, C: int, heads: int):
     """The plan for G bf16 grids of N tokens, C channels and ``heads``
     heads, or why there is none (a str): the kernels' layouts
-    (:func:`_bwd_layout`) decide the shapes; both kernels take one wave of
+    (:func:`_layout`) decide the shapes; both kernels take one wave of
     blocks."""
     if G < 1:
         return "G >= 1 grids"
-    tok = _bwd_layout("tokens", N, C, heads)
-    got = _bwd_layout("weights", N, C, heads)
+    tok = _layout("tokens", N, C, heads)
+    got = _layout("weights", N, C, heads)
     if tok is None or got is None:
-        return ("the kernels are built for grids of 64 tokens at C = 64 "
-                "with heads of 32 and C = 80 with heads of 40")
+        return _BUILT
     threads, t_smem, t_regs = tok
     t_per_sm = sm_blocks(threads, t_smem, t_regs)
     t_blocks, t_grids = _runs(G, SMS * t_per_sm)
@@ -310,7 +422,7 @@ def attn_branch_backward_plan(G: int, N: int, C: int, heads: int,
     """The tensor-core backward's launch plan for G grids of N tokens, C
     channels and ``heads`` heads, or a ValueError naming the shape it does
     not take: fp32 (the FMA kernel's), and any shape the kernels are not
-    built for, as their own layout queries say (:func:`_bwd_layout`).
+    built for, as their own layout queries say (:func:`_layout`).
     Cached: the wrapper asks at every launch."""
     where = (f"attn_branch_backward (mma): G={G}, N={N}, C={C}, "
              f"heads={heads}, {dtype}")
@@ -521,32 +633,45 @@ def attn_branch_nhwc(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                      heads: int, grid_size: int, eps: float = 1e-5,
                      apply_ln: bool = True):
     """#12's forward, x [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches
-    the kernel (or raises); a CPU tensor takes
-    :func:`attn_branch_nhwc_reference`."""
+    a kernel (or raises): ``csrc/attn_branch_mma.cu`` where
+    :func:`forward_entry` says so for the windows, else
+    ``csrc/attn_branch.cu``; a CPU tensor takes
+    :func:`attn_branch_nhwc_reference`. y is :func:`attn_branch`'s on the
+    partitioned tokens, bit for bit."""
     if x.device.type == "cpu":
         return attn_branch_nhwc_reference(x, ln_scale, ln_bias, wqkv, bqkv,
                                           wproj, bproj, heads, grid_size, eps,
                                           apply_ln)
+    return _launch_nhwc_forward(None, x, ln_scale, ln_bias, wqkv, bqkv,
+                                wproj, bproj, heads, grid_size, eps, apply_ln)
+
+
+def _launch_nhwc_forward(entry: Optional[str], x, ln_scale, ln_bias, wqkv,
+                         bqkv, wproj, bproj, heads: int, grid_size: int,
+                         eps: float = 1e-5, apply_ln: bool = True):
+    """:func:`attn_branch_nhwc` on the card through the C entry point
+    ``entry`` (one of :data:`NHWC_FORWARD_ENTRIES`), or
+    :func:`forward_entry`'s for the windows where it is None, as
+    :func:`_launch_forward`."""
+    name = "attn_branch_nhwc"
     shape = _windows(x, heads, grid_size)
-    _check_launch("attn_branch_nhwc", x, ln_scale, ln_bias, wqkv, bqkv, wproj,
-                  bproj, heads, False, shape)
-    B, H, W, C = x.shape
-    y = torch.empty_like(x)
-    lib = kernel_build.load()
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_attn_branch_nhwc(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-            bproj.data_ptr(), y.data_ptr(), B, H, W, C, grid_size, heads,
-            ctypes.c_float((C // heads) ** -0.5), float(eps),
-            int(bool(apply_ln)), kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, "attn_branch_nhwc launch")
-    attn_branch_nhwc.launches += 1
+    G, N, C = _check_launch(name, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                            bproj, heads, False, shape)
+    if entry is None:
+        entry = _nhwc_entry(forward_entry(G, N, C, heads, x.dtype))
+    elif entry not in NHWC_FORWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{NHWC_FORWARD_ENTRIES}")
+    B, H, W, _ = x.shape
+    y = _forward_call(name, entry, x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                      bproj, G, N, C, heads, (B, H, W, C, grid_size, heads),
+                      eps, apply_ln)
+    kernel_build.count_launch(attn_branch_nhwc, None, entry)
     return y
 
 
 attn_branch_nhwc.launches = 0
+attn_branch_nhwc.by_entry = Counter()
 
 
 def attn_branch_nhwc_backward(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,

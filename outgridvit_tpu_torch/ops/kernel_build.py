@@ -101,6 +101,9 @@ _SIGNATURES = {
     # apply_ln, dtype, stream
     "ogvt_attn_branch": ((_P,) * 8 + (_I, _I, _I, _I, _F, _F, _I, _I, _P),
                          _I),
+    # the same, then the plan: blocks, grids a block, smem; stream
+    "ogvt_attn_branch_mma": ((_P,) * 8 + (_I, _I, _I, _I, _F, _F, _I, _I)
+                             + (_I,) * 3 + (_P,), _I),
     # x, ln_scale, ln_bias, wqkv, bqkv, wp, dy, dx, dln_scale, dln_bias,
     # dwqkv, dbqkv, dwp, dbp, workspace, G, N, C, heads, scale, eps,
     # apply_ln, dtype, stream
@@ -112,6 +115,9 @@ _SIGNATURES = {
     # scale, eps, apply_ln, dtype, stream
     "ogvt_attn_branch_nhwc": ((_P,) * 8 + (_I,) * 6 + (_F, _F, _I, _I, _P),
                               _I),
+    # the same, then the plan: blocks, grids a block, smem; stream
+    "ogvt_attn_branch_nhwc_mma": ((_P,) * 8 + (_I,) * 6 + (_F, _F, _I, _I)
+                                  + (_I,) * 3 + (_P,), _I),
     # x, ln_scale, ln_bias, wqkv, bqkv, wp, dy, dx, dln_scale, dln_bias,
     # dwqkv, dbqkv, dwp, dbp, workspace, B, H, W, C, g, heads, scale, eps,
     # apply_ln, dtype, stream
@@ -171,6 +177,8 @@ _HOST_SIGNATURES = {
     "ogvt_mlp_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
     # C, units, rows, buffers, int out[4]
     "ogvt_mlp_branch_bwd_mma_weights_layout": ((_I, _I, _I, _I, _P), _I),
+    # N, C, heads, int out[3]
+    "ogvt_attn_branch_mma_fwd_layout": ((_I, _I, _I, _P), _I),
     # N, C, heads, int out[3]
     "ogvt_attn_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
     # N, C, heads, int out[3]

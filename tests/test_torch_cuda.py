@@ -24,7 +24,12 @@ shapes (serving and train batch) and edge shapes (N = 1, 17, 63; hd = 56,
 branch (#12) at the default Model A stage-0 shape and rectangular maps,
 against its plain version and bit for bit against partition -> #5 ->
 unpartition, tiny models through both, and ``model.use_pallas: false``,
-which launches no kernel; the MLP forward's and backward's bf16
+which launches no kernel; the fused branch's bf16 tensor-core forward
+(``csrc/attn_branch_mma.cu``) at the Tiny-ImageNet and default Model A
+stage-0 shapes, one grid and a rectangular map, two calls bitwise equal,
+#12's y bitwise #5's on the partitioned tokens, both kernels on request,
+its refusals (a pointer off 16 bytes, a plan or shape it does not take)
+and the FMA kernel for fp32 and other shapes; the MLP forward's and backward's bf16
 tensor-core kernels (``csrc/mlp_branch_mma.cu``,
 ``csrc/mlp_branch_bwd_mma.cu``) at a ragged tile, the row-layout tag, the
 widest C and a 5-token launch without LN (the forward also at the
@@ -523,7 +528,7 @@ def _attn_bwd_entries(fn=attn_branch_backward):
     return dict(fn.by_entry)
 
 
-def _attn_bwd_delta(before, fn=attn_branch_backward):
+def _attn_delta(before, fn=attn_branch_backward):
     return {k: v - before.get(k, 0) for k, v in fn.by_entry.items()
             if v - before.get(k, 0)}
 
@@ -555,7 +560,7 @@ def test_attn_branch_backward_mma_matches_plain(dev, G, C, apply_ln):
     got = attn_branch_backward(*args, dy, 2, 1e-5, apply_ln)
     again = attn_branch_backward(*args, dy, 2, 1e-5, apply_ln)
     torch.cuda.synchronize()
-    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd_mma": 2}
+    assert _attn_delta(before) == {"ogvt_attn_branch_bwd_mma": 2}
     want = attn_branch_backward_reference(*args, dy, 2, 1e-5, apply_ln)
     _check_branch_grads(got, again, want, torch.bfloat16, apply_ln)
 
@@ -573,7 +578,7 @@ def test_attn_branch_nhwc_backward_mma_matches_plain_and_tokens(dev, B, H, W,
     got = attn_branch_nhwc_backward(*args, dy, 2, g)
     again = attn_branch_nhwc_backward(*args, dy, 2, g)
     torch.cuda.synchronize()
-    assert _attn_bwd_delta(before, attn_branch_nhwc_backward) == \
+    assert _attn_delta(before, attn_branch_nhwc_backward) == \
         {"ogvt_attn_branch_nhwc_bwd_mma": 2}
     want = attn_branch_nhwc_backward_reference(*args, dy, 2, g)
     _check_branch_grads(got, again, want, torch.bfloat16, True)
@@ -581,7 +586,7 @@ def test_attn_branch_nhwc_backward_mma_matches_plain_and_tokens(dev, B, H, W,
     x, meta, shape = _windows(args[0], g)
     before = _attn_bwd_entries()
     tgrads = attn_branch_backward(x, *args[1:], _windows(dy, g)[0], 2)
-    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd_mma": 1}
+    assert _attn_delta(before) == {"ogvt_attn_branch_bwd_mma": 1}
     assert torch.equal(got[0],
                        grid_unpartition(tgrads[0].reshape(shape), meta))
     for name, a, t in zip(BRANCH_GRADS[1:], got[1:], tgrads[1:]):
@@ -602,7 +607,7 @@ def test_attn_branch_backward_takes_the_fma_kernel_where_mma_does_not(
     got = attn_branch_backward(*args, dy, heads)
     again = attn_branch_backward(*args, dy, heads)
     torch.cuda.synchronize()
-    assert _attn_bwd_delta(before) == {"ogvt_attn_branch_bwd": 2}
+    assert _attn_delta(before) == {"ogvt_attn_branch_bwd": 2}
     want = attn_branch_backward_reference(*args, dy, heads)
     _check_branch_grads(got, again, want, dtype, True)
 
@@ -620,7 +625,7 @@ def test_attn_branch_backward_entries_on_request(dev):
         got = attn_branch_mod._launch_backward(entry, *args, dy, 2)
         again = attn_branch_mod._launch_backward(entry, *args, dy, 2)
         torch.cuda.synchronize()
-        assert _attn_bwd_delta(before) == {entry: 2}
+        assert _attn_delta(before) == {entry: 2}
         _check_branch_grads(got, again, want, torch.bfloat16, True)
     xm = args[0].reshape(4, 32, 32, 80)
     dym = dy.reshape(4, 32, 32, 80)
@@ -632,7 +637,7 @@ def test_attn_branch_backward_entries_on_request(dev):
         again = attn_branch_mod._launch_nhwc_backward(entry, xm, *args[1:],
                                                       dym, 2, 4)
         torch.cuda.synchronize()
-        assert _attn_bwd_delta(before, attn_branch_nhwc_backward) == \
+        assert _attn_delta(before, attn_branch_nhwc_backward) == \
             {entry: 2}
         _check_branch_grads(got, again, want, torch.bfloat16, True)
     f32 = tuple(t.float() for t in args)
@@ -678,6 +683,132 @@ def test_attn_branch_backward_mma_refuses_what_it_does_not_take(dev):
     assert call(plan, heads=4) != 0
     assert call(plan) == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("G,C,apply_ln", [
+    (4096, 64, True),    # Tiny-ImageNet stage 0 at serving batch 64
+    (8192, 64, False),   # the same at train batch 128, no LN
+    (5, 80, True),       # cifar100_model_a stage 0 (hd 40), 5 grids
+    (1024, 80, False),   # the same at batch 64, no LN
+    (1, 64, True)])      # one grid
+def test_attn_branch_mma_matches_plain(dev, G, C, apply_ln):
+    # bf16 launches at the shapes csrc/attn_branch_mma.cu is instantiated
+    # at (N = 64; C = 64, hd 32; C = 80, hd 40) take it; two calls are
+    # bitwise equal
+    g = torch.Generator().manual_seed(G + C + 1)
+    args = _branch_args(g, G, 64, C, dev, torch.bfloat16)
+    before = dict(attn_branch.by_entry)
+    got = attn_branch(*args, 2, 1e-5, apply_ln)
+    again = attn_branch(*args, 2, 1e-5, apply_ln)
+    torch.cuda.synchronize()
+    assert _attn_delta(before, attn_branch) == {"ogvt_attn_branch_mma": 2}
+    assert torch.equal(got, again)
+    _assert_close(got, attn_branch_reference(*args, 2, 1e-5, apply_ln),
+                  torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,W,C,g", [
+    (64, 32, 32, 80, 4),    # cifar100_model_a stage 0, serving batch 64
+    (3, 16, 64, 64, 4)])    # a rectangular map: 4 x 16 windows of 4 x 16
+def test_attn_branch_nhwc_mma_matches_plain_and_tokens(dev, B, H, W, C, g):
+    gen = torch.Generator().manual_seed(B + H + W + C + 1)
+    args = _branch_args(gen, B, H * W, C, dev, torch.bfloat16)
+    args = (args[0].reshape(B, H, W, C), *args[1:])
+    before = dict(attn_branch_nhwc.by_entry)
+    got = attn_branch_nhwc(*args, 2, g)
+    again = attn_branch_nhwc(*args, 2, g)
+    torch.cuda.synchronize()
+    assert _attn_delta(before, attn_branch_nhwc) == \
+        {"ogvt_attn_branch_nhwc_mma": 2}
+    assert torch.equal(got, again)
+    _assert_close(got, attn_branch_nhwc_reference(*args, 2, g),
+                  torch.bfloat16)
+    # #5 on the partitioned tokens: the same y, bit for bit
+    x, meta, shape = _windows(args[0], g)
+    before = dict(attn_branch.by_entry)
+    tokens = attn_branch(x, *args[1:], 2)
+    assert _attn_delta(before, attn_branch) == {"ogvt_attn_branch_mma": 1}
+    assert torch.equal(got, grid_unpartition(tokens.reshape(shape), meta))
+
+
+@pytest.mark.parametrize("dtype,G,N,C,heads", [
+    (torch.float32, 8, 64, 64, 2),     # fp32: the FMA kernel's
+    (torch.float32, 5, 64, 80, 2),
+    (torch.bfloat16, 3, 72, 48, 3),    # N other than 64
+    (torch.bfloat16, 4, 64, 64, 4)])   # hd 16: not instantiated
+def test_attn_branch_takes_the_fma_kernel_where_mma_does_not(
+        dev, dtype, G, N, C, heads):
+    g = torch.Generator().manual_seed(G + N + C + heads + 1)
+    args = _branch_args(g, G, N, C, dev, dtype)
+    before = dict(attn_branch.by_entry)
+    got = attn_branch(*args, heads)
+    torch.cuda.synchronize()
+    assert _attn_delta(before, attn_branch) == {"ogvt_attn_branch": 1}
+    _assert_close(got, attn_branch_reference(*args, heads), dtype)
+
+
+def test_attn_branch_forward_entries_on_request(dev):
+    # the A/B of chip_smoke.py: either kernel at a shape both take, each
+    # against the plain version, on tokens and on the NHWC map; the mma
+    # entry refuses fp32 by name
+    g = torch.Generator().manual_seed(19)
+    args = _branch_args(g, 64, 64, 80, dev, torch.bfloat16)
+    want = attn_branch_reference(*args, 2)
+    for entry in attn_branch_mod.FORWARD_ENTRIES:
+        before = dict(attn_branch.by_entry)
+        got = attn_branch_mod._launch_forward(entry, *args, 2)
+        torch.cuda.synchronize()
+        assert _attn_delta(before, attn_branch) == {entry: 1}
+        _assert_close(got, want, torch.bfloat16)
+    xm = args[0].reshape(4, 32, 32, 80)
+    want = attn_branch_nhwc_reference(xm, *args[1:], 2, 4)
+    for entry in attn_branch_mod.NHWC_FORWARD_ENTRIES:
+        before = dict(attn_branch_nhwc.by_entry)
+        got = attn_branch_mod._launch_nhwc_forward(entry, xm, *args[1:], 2,
+                                                   4)
+        torch.cuda.synchronize()
+        assert _attn_delta(before, attn_branch_nhwc) == {entry: 1}
+        _assert_close(got, want, torch.bfloat16)
+    f32 = tuple(t.float() for t in args)
+    with pytest.raises(ValueError, match="G=64, N=64, C=80, heads=2"):
+        attn_branch_mod._launch_forward("ogvt_attn_branch_mma", *f32, 2)
+    with pytest.raises(ValueError, match="entry"):
+        attn_branch_mod._launch_forward("ogvt_nope", *args, 2)
+
+
+def test_attn_branch_mma_refuses_what_it_does_not_take(dev):
+    g = torch.Generator().manual_seed(11)
+    G, C = 6, 64
+    args = _branch_args(g, G, 64, C, dev, torch.bfloat16)
+    # a pointer off 16 bytes: the kernel copies 16 bytes at a time
+    off = torch.empty(G * 64 * C + 1, device=dev,
+                      dtype=torch.bfloat16)[1:].view(G, 64, C)
+    off.copy_(args[0])
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    with pytest.raises(ValueError, match="x .*16-byte aligned"):
+        attn_branch(off, *args[1:], 2)
+    # the entry point checks the plan it is given against the shapes
+    plan = attn_branch_mod.attn_branch_forward_plan(G, 64, C, 2)
+    lib = kernel_build.load()
+    y = torch.empty_like(args[0])
+
+    def call(p, N=64, heads=2, x=args[0]):
+        return lib.ogvt_attn_branch_mma(
+            x.data_ptr(), *(t.data_ptr() for t in args[1:]), y.data_ptr(),
+            G, N, C, heads, (C // 2) ** -0.5, 1e-5, 1, 1, *p.args(),
+            torch.cuda.current_stream().cuda_stream)
+
+    for bad in (dict(smem=plan.smem + 16), dict(smem=plan.smem - 16),
+                dict(blocks=0), dict(grids=plan.grids + 1,
+                                     blocks=plan.blocks + 1),
+                dict(blocks=plan.blocks + 5)):
+        assert call(plan._replace(**bad)) != 0, bad
+    assert call(plan, N=72) != 0
+    assert call(plan, heads=4) != 0
+    assert call(plan, x=off) != 0
+    assert call(plan) == 0
+    torch.cuda.synchronize()
+    _assert_close(y, attn_branch_reference(*args, 2), torch.bfloat16)
 
 
 def _th_entries():

@@ -25,6 +25,7 @@ def test_port_kernels_names_every_attention_branch_kernel_source():
     port = profile_step.port_kernels()
     assert port["attn_bwd_tokens"] == port["attn_bwd_weights"] == \
         "csrc/attn_branch_bwd_mma.cu"
+    assert port["attn_branch_fwd_mma"] == "csrc/attn_branch_mma.cu"
     assert port["attn_branch_fwd"] == port["attn_branch_bwd"] == \
         "csrc/attn_branch.cu"
 
