@@ -41,8 +41,10 @@ from a seed:
   JAX model falls back to its #6 there; stages 1-3 the N=36 grids of
   ``grid_mhsa_packed`` at C = 96/192/256.
 
-The grid core's bf16 "th" launches (Tiny-ImageNet's and ``a_base``'s
-stages 1-3) run ``csrc/grid_mhsa_th.cu``, every other ``csrc/grid_mhsa.cu``;
+Every bf16 launch of the grid core, tagged "t" (#1: the 7M model's,
+Model B's and ``a7m_48``'s grids of N <= 16) or "th" (#3: Tiny-ImageNet's
+and ``a_base``'s stages 1-3), runs ``csrc/grid_mhsa_th.cu``, every fp32
+one ``csrc/grid_mhsa.cu``;
 the block-packed core's bf16 launches of N <= 63 (``a7m_48``'s stage 0,
 ``a7m_96``'s stages 1-3) run ``csrc/grid_mhsa_packed_mma.cu``, its fp32
 ones ``csrc/grid_mhsa_packed.cu``, and its launches of 64 <= N <= 256 in
@@ -84,9 +86,10 @@ eager, with their shares of the bound (``AB_LIBRARY``): the depthwise
 backward against ``aten.convolution_backward`` (cuDNN) at the MBConv shapes
 of Model B and the 7M model and at the Tiny-ImageNet stage 0, the
 depthwise forward against ``F.conv2d(groups=C)`` at Model B's and at the
-stage 0 of Tiny-ImageNet and ``a7m_96``, #1 against SDPA at the "t"
-shapes of the 7M model and Model B (forward at batch 64, backward at 128),
-#3 at its six "th" shapes, and #6 against SDPA at ``a7m_48``'s stage 0
+stage 0 of Tiny-ImageNet and ``a7m_96``, the grid core's tensor-core
+kernel against SDPA at the "t" shapes of the 7M model and Model B (#1;
+forward at batch 64, backward at 128) and at #3's six "th" shapes, and #6
+against SDPA at ``a7m_48``'s stage 0
 and, for long grids, at ``a7m_96``'s (forward at batch 64 and 128,
 backward at 128); per shape and per forward or train step. Phase
 ``ab_mlp`` (``AB_MLP``) then times the MLP branch's tensor-core kernels
@@ -99,7 +102,12 @@ Tiny-ImageNet (#5), ``a_base`` (#12) and the default Model A through #5:
 the forward at batch 64 per forward and at batch 128 per train step, the
 backward at batch 128 per train step, per launch too, beside the same
 function composed of library calls (LN, linear, SDPA, linear; for scale
-only).
+only). Phase ``ab_grid`` (``AB_GRID``) times the grid core's tensor-core
+kernel against the FMA kernel it replaces for #1 at every "t" stage shape
+of the 7M model, Model B and ``a7m_48`` the same way: the forward at batch
+64, per forward, the backward at 128, per train step, per launch too. The
+share of the grid core's bf16 outputs bitwise the plain version's is
+reported at every compare, not gated.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -340,8 +348,10 @@ STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STAT_TOL = (
 BF16_LOSS_TOL = 3e-2
 
 # name -> (source, or sources, the TPU kernel it replaces, the JAX entry
-# points it covers). grid_mhsa: csrc/grid_mhsa.cu for "t" launches (#1) and
-# fp32 "th" ones, csrc/grid_mhsa_th.cu for bf16 "th" launches (#3).
+# points it covers). grid_mhsa: csrc/grid_mhsa_th.cu for every bf16 launch
+# at 1 <= N <= 16 and a head width that is a multiple of 8 up to 64, of
+# either tag ("t", #1; "th", #3: every main path's), csrc/grid_mhsa.cu for
+# fp32 ones (and a bf16 "t" launch at another head width).
 # mlp_branch / mlp_branch_bwd: csrc/mlp_branch_mma.cu /
 # csrc/mlp_branch_bwd_mma.cu for bf16 launches whose C and H are multiples
 # of 16 (every main path's), csrc/mlp_branch.cu / csrc/mlp_branch_bwd.cu
@@ -355,8 +365,8 @@ BF16_LOSS_TOL = 3e-2
 # JAX falls back to it from #5), csrc/grid_mhsa_long.cu in both dtypes.
 SOURCES = {
     "grid_mhsa": (
-        ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
-         "outgridvit_tpu_torch/csrc/grid_mhsa_th.cu"),
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_th.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas_t.py:270",
         ["outgridvit_tpu/ops/grid_attention_pallas_t.py:270 "
          "grid_mhsa_pallas_t (#1, variant t)",
@@ -377,8 +387,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/attn_branch_pallas.py:324 attn_branch_pallas "
          "(#5, forward :349)"]),
     "grid_mhsa_bwd": (
-        ("outgridvit_tpu_torch/csrc/grid_mhsa.cu",
-         "outgridvit_tpu_torch/csrc/grid_mhsa_th.cu"),
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_th.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa.cu"),
         "outgridvit_tpu/ops/grid_attention_pallas_t.py:319",
         ["outgridvit_tpu/ops/grid_attention_pallas_t.py:319 "
          "grid_mhsa_pallas_t backward (#1)",
@@ -545,6 +555,13 @@ ATTN_FWD_ENTRIES = {
     "attn_branch": ("ogvt_attn_branch_mma", "ogvt_attn_branch"),
     "attn_branch_nhwc": ("ogvt_attn_branch_nhwc_mma",
                          "ogvt_attn_branch_nhwc")}
+# the C entry points of the grid core's A/B, tensor-core side first (the
+# entry each dtype routes to at every shipped shape), and the paths whose
+# every "t" launch Smoke.ab_grid times (#1)
+GRID_ENTRIES = {"grid_mhsa": ("ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
+                "grid_mhsa_bwd": ("ogvt_grid_mhsa_th_bwd",
+                                  "ogvt_grid_mhsa_bwd")}
+AB_GRID = (FLAGSHIP, MODEL_B, A7M_48)
 AB_ATTN = (("attn_branch_bwd", TIN), ("attn_branch_nhwc_bwd", A_BASE),
            ("attn_branch_bwd", A_BASE))
 AB_ATTN_FWD = (("attn_branch", TIN), ("attn_branch_nhwc", A_BASE),
@@ -561,8 +578,9 @@ BITWISE = ("dwconv3x3",)
 BITWISE_SHARE = {"mlp_branch": 0.9}
 # bf16 kernels whose share of outputs bitwise equal to the plain version's
 # is reported, not gated (they are held to KERNEL_TOL): the fused attention
-# branch's forward, whose softmax takes the card's expf
-SHARE_REPORTED = ("attn_branch", "attn_branch_nhwc")
+# branch's forward and the grid core, whose softmax takes the card's expf
+SHARE_REPORTED = ("attn_branch", "attn_branch_nhwc", "grid_mhsa",
+                  "grid_mhsa_bwd")
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -970,9 +988,8 @@ class Smoke:
                 self.entries[n][k] = self.entries[n].get(k, 0) + c
 
     def require_entries(self, what, plan, variants, times=1):
-        """On a bf16 main path: every "th" launch of the grid core went
-        through the head-chunked kernel's entry points
-        (csrc/grid_mhsa_th.cu), every other through csrc/grid_mhsa.cu's;
+        """On a bf16 main path: every launch of the grid core, "t" (#1) and
+        "th" (#3), went through csrc/grid_mhsa_th.cu's entry points;
         every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
         of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP forward
         and backward through csrc/mlp_branch_mma.cu's and
@@ -997,15 +1014,11 @@ class Smoke:
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
                         f"entry point {got[name]}, expected {want}")
-        for name, th_entry, t_entry in (
-                ("grid_mhsa", "ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
-                ("grid_mhsa_bwd", "ogvt_grid_mhsa_th_bwd",
-                 "ogvt_grid_mhsa_bwd")):
+        for name, (mma, _) in GRID_ENTRIES.items():
             if name not in variants:
                 continue
-            want = {entry: variants[name][tag] * times
-                    for entry, tag in ((th_entry, "th"), (t_entry, "t"))
-                    if variants[name].get(tag)}
+            n = sum(variants[name].values()) * times
+            want = {mma: n} if n else {}
             require(got[name] == want, f"{what}: {name} launches by entry "
                     f"point {got[name]}, expected {want}")
 
@@ -1145,13 +1158,14 @@ class Smoke:
         kernel = self.launch.get(name, self.kernels[name][0])
         dt = str(dtype).split(".")[-1]
         backward = name.endswith("_bwd")
-        routed = ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
+        routed = (ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
+                  or GRID_ENTRIES.get(name))
         twice = backward or routed is not None
         before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
         again = kernel(*args) if twice else got
         torch.cuda.synchronize()
-        if routed:  # the fused branch: the entry its dtype routes to
+        if routed:  # the branch or grid core: the entry its dtype takes
             entry = routed[0 if dt == "bfloat16" else 1]
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
@@ -1317,8 +1331,8 @@ class Smoke:
         ``AB_LIBRARY``: the depthwise backward vs
         ``aten.convolution_backward`` (cuDNN) and the depthwise forward vs
         ``F.conv2d(groups=C)``; the grid cores vs SDPA (and its autograd
-        backward): #1 ("t" launches, ``csrc/grid_mhsa.cu``), #3 ("th"
-        launches, ``csrc/grid_mhsa_th.cu``) and #6
+        backward): #1 ("t" launches) and #3 ("th" launches), both on
+        ``csrc/grid_mhsa_th.cu`` in bf16, and #6
         (``csrc/grid_mhsa_packed_mma.cu``, ``csrc/grid_mhsa_long.cu``). Per
         shape in turns (kernel, library, library, kernel) in this process:
         device time (``iters`` calls in one CUDA graph, :func:`graph_ms`),
@@ -1403,6 +1417,62 @@ class Smoke:
                       f"[{self.gpu}]")
             torch.cuda.empty_cache()
 
+    def ab_fma_shape(self, name, label, args, fns, entries, n, count,
+                     total):
+        """One shape of a tensor-core kernel's A/B in bf16 against the FMA
+        kernel it replaces: ``fns`` ({"mma", "fma"} callables launching
+        ``entries``' C entry points on ``args``) each launched once through
+        its own entry point, then timed in turns (mma, FMA, FMA, mma),
+        device time (``n[side]`` calls in one CUDA graph, :func:`graph_ms`)
+        then eager time (host time included), each with its share of the
+        bound. Printed, added ``count`` times to ``total`` (bound,
+        launches, ``{device,eager}_{mma,fma}``) and returned."""
+        import torch
+
+        call = self.kernels[name][0]
+        for w, e in entries.items():  # each side its kernel
+            before = call.by_entry[e]
+            outs = fns[w]()
+            require(call.by_entry[e] == before + 1,
+                    f"{name} A/B: {w} did not launch {e}")
+        bound = max(bound_ms(name, args, outs, torch.bfloat16))
+        del outs
+        res = {"bound_ms": bound, "launches": count}
+        for how, timer in (
+                ("device", lambda f, w: graph_ms(f, n[w])),
+                ("eager", lambda f, w: time_ms(f, (), n[w], warmup=1))):
+            runs = {"mma": [], "fma": []}
+            for w in ("mma", "fma", "fma", "mma"):
+                runs[w].append(timer(fns[w], w))
+            k, f = (sum(v) / len(v) for v in runs.values())
+            res[how] = {
+                "mma_ms": k, "fma_ms": f, "mma_bound_share": bound / k,
+                "fma_bound_share": bound / f,
+                "runs": {w: [round(t, 6) for t in v]
+                         for w, v in runs.items()}}
+            print(f"[ab] {name} {label} bf16 {how}, per launch: mma "
+                  f"{k * 1e3:.1f} us ({runs['mma'][0] * 1e3:.1f}, "
+                  f"{runs['mma'][1] * 1e3:.1f}) vs the FMA kernel it "
+                  f"replaces {f * 1e3:.1f} us: mma/FMA {k / f:.4f}; bound "
+                  f"{bound * 1e3:.2f} us, mma at {bound / k:.1%} of it, FMA "
+                  f"at {bound / f:.2%} [{self.gpu}]")
+            for key, t in (("mma", k), ("fma", f)):
+                total[f"{how}_{key}"] = (total.get(f"{how}_{key}", 0.0)
+                                         + count * t)
+        total["bound"] += count * bound
+        total["launches"] += count
+        return res
+
+    def ab_fma_total(self, name, per, total):
+        """Print an A/B's ``total`` (:meth:`ab_fma_shape`) per ``per``."""
+        for how in ("device", "eager"):
+            k, f = total[f"{how}_mma"], total[f"{how}_fma"]
+            print(f"[ab] {name} per {per} ({total['launches']} launches, "
+                  f"bf16) {how}: mma {k:.4f} ms vs the FMA kernel it "
+                  f"replaces {f:.4f} ms: {k / f:.4f}; bound "
+                  f"{total['bound']:.4f} ms, mma at {total['bound'] / k:.1%}"
+                  f", FMA at {total['bound'] / f:.2%} [{self.gpu}]")
+
     def ab_mlp(self, iters=10, fma_iters=2):
         """The MLP kernels' A/B in bf16: ``csrc/mlp_branch_mma.cu`` and
         ``csrc/mlp_branch_bwd_mma.cu`` (the main paths' kernels) against
@@ -1410,10 +1480,8 @@ class Smoke:
         kernels they replace there, on the same inputs at every MLP shape of
         ``AB_MLP``'s paths (the outlooker MLPs, H = 2C, and the block MLPs,
         H = 4C): the forward at batch 64, the backward at the train batch
-        128. Per shape in turns (mma, FMA, FMA, mma) in this process: device
-        time (calls in one CUDA graph, :func:`graph_ms`; ``fma_iters`` of
-        the slow kernel), then eager time (host time included), each with
-        its share of the bound; summed per forward and per train step."""
+        128. Per shape in turns (:meth:`ab_fma_shape`; ``fma_iters`` of the
+        slow kernel in a graph); summed per forward and per train step."""
         import torch
 
         from outgridvit_tpu_torch.ops.mlp_branch import (
@@ -1426,7 +1494,6 @@ class Smoke:
                  self.fwd_args),
                 ("mlp_branch_bwd", TRAIN_BATCH, f"train step B={TRAIN_BATCH}",
                  _launch_backward, self.bwd_args)):
-            call = self.kernels[name][0]
             entries = dict(zip(("mma", "fma"), MLP_ENTRIES[name]))
             for case in AB_MLP:
                 total = {"bound": 0.0, "launches": 0}
@@ -1441,59 +1508,15 @@ class Smoke:
                         fns = {w: (lambda e=e: launch(e, *args,
                                                       sh["mlp_variant"]))
                                for w, e in entries.items()}
-                        n = {"mma": iters, "fma": fma_iters}
-                        for w, e in entries.items():  # each side its kernel
-                            before = call.by_entry[e]
-                            outs = fns[w]()
-                            require(call.by_entry[e] == before + 1,
-                                    f"{name} A/B: {w} did not launch {e}")
-                        bound = max(bound_ms(name, args, outs,
-                                             torch.bfloat16))
-                        del outs
                         label = (f"{case.tag} stage{sh['stage']} "
                                  f"M={sh['M']} C={sh['C']} H={H} "
                                  f"variant={sh['mlp_variant']}")
-                        res[label] = {"bound_ms": bound, "launches": count}
-                        for how, timer in (
-                                ("device", lambda f, w: graph_ms(f, n[w])),
-                                ("eager", lambda f, w: time_ms(
-                                    f, (), n[w], warmup=1))):
-                            runs = {"mma": [], "fma": []}
-                            for w in ("mma", "fma", "fma", "mma"):
-                                runs[w].append(timer(fns[w], w))
-                            k, f = (sum(v) / len(v) for v in runs.values())
-                            res[label][how] = {
-                                "mma_ms": k, "fma_ms": f,
-                                "mma_bound_share": bound / k,
-                                "fma_bound_share": bound / f,
-                                "runs": {w: [round(t, 6) for t in v]
-                                         for w, v in runs.items()}}
-                            print(f"[ab] {name} {label} bf16 {how}, per "
-                                  f"launch: mma {k * 1e3:.1f} us ("
-                                  f"{runs['mma'][0] * 1e3:.1f}, "
-                                  f"{runs['mma'][1] * 1e3:.1f}) vs the FMA "
-                                  f"kernel it replaces {f * 1e3:.1f} us: "
-                                  f"mma/FMA {k / f:.4f}; bound "
-                                  f"{bound * 1e3:.2f} us, mma at "
-                                  f"{bound / k:.1%} of it, FMA at "
-                                  f"{bound / f:.2%} [{self.gpu}]")
-                            for key, t in (("mma", k), ("fma", f)):
-                                total[f"{how}_{key}"] = (
-                                    total.get(f"{how}_{key}", 0.0)
-                                    + count * t)
-                        total["bound"] += count * bound
-                        total["launches"] += count
+                        res[label] = self.ab_fma_shape(
+                            name, label, args, fns, entries,
+                            {"mma": iters, "fma": fma_iters}, count, total)
                         del args, fns
                 res[f"{case.tag} {per}"] = total
-                for how in ("device", "eager"):
-                    k, f = total[f"{how}_mma"], total[f"{how}_fma"]
-                    print(f"[ab] {name} per {case.tag} {per} "
-                          f"({total['launches']} launches, bf16) {how}: mma "
-                          f"{k:.4f} ms vs the FMA kernel it replaces "
-                          f"{f:.4f} ms: {k / f:.4f}; bound "
-                          f"{total['bound']:.4f} ms, mma at "
-                          f"{total['bound'] / k:.1%}, FMA at "
-                          f"{total['bound'] / f:.2%} [{self.gpu}]")
+                self.ab_fma_total(name, f"{case.tag} {per}", total)
                 torch.cuda.empty_cache()
 
     def ab_attn(self, iters=10, fma_iters=2):
@@ -1591,6 +1614,50 @@ class Smoke:
                       f"{c * 1e3:.1f} us [{self.gpu}]")
             del args, fns, composed
             torch.cuda.empty_cache()
+
+    def ab_grid(self, iters=10, fma_iters=3):
+        """#1's A/B in bf16: ``csrc/grid_mhsa_th.cu`` (every bf16 launch
+        of the main paths) against ``csrc/grid_mhsa.cu``, the FMA kernel it
+        replaces for the "t" launches, on the same inputs at every "t"
+        stage shape of ``AB_GRID``'s paths (the 7M model, Model B,
+        ``a7m_48``): the forward at batch 64, per forward, the backward at
+        the train batch 128, per train step. Per shape in turns
+        (:meth:`ab_fma_shape`; ``fma_iters`` of the slow kernel in a
+        graph), per launch and summed per forward and per train step. Both
+        sides go through ``ops/grid_attention.py:_launch``."""
+        import torch
+
+        from outgridvit_tpu_torch.ops.grid_attention import _launch
+
+        for name, batch, per in (
+                ("grid_mhsa", BATCH, f"forward B={BATCH}"),
+                ("grid_mhsa_bwd", TRAIN_BATCH, f"train step B={TRAIN_BATCH}")):
+            backward = name.endswith("_bwd")
+            entries = dict(zip(("mma", "fma"), GRID_ENTRIES[name]))
+            for case in AB_GRID:
+                total = {"bound": 0.0, "launches": 0}
+                res = self.ab_fma.setdefault(name, {}).setdefault(case.tag,
+                                                                  {})
+                for sh in stage_shapes(case, batch):
+                    if not AB_SHAPES["t"](sh):
+                        continue
+                    args = (self.bwd_args if backward else self.fwd_args)(
+                        name, sh, torch.bfloat16)
+                    qkv, heads = args[0], args[-1]
+                    dout = args[1] if backward else None
+                    fns = {w: (lambda e=e: _launch(e, qkv, heads, "t", dout))
+                           for w, e in entries.items()}
+                    label = (f"{case.tag} stage{sh['stage']} B={batch} "
+                             f"G={sh['G']} N={sh['N']} C={sh['C']} "
+                             f"heads={sh['heads']}")
+                    res[label] = self.ab_fma_shape(
+                        name, label, args, fns, entries,
+                        {"mma": iters, "fma": fma_iters}, sh["blocks"],
+                        total)
+                    del args, fns, qkv, dout
+                res[f"{case.tag} {per}"] = total
+                self.ab_fma_total(name, f"{case.tag} {per}", total)
+                torch.cuda.empty_cache()
 
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
@@ -1896,7 +1963,8 @@ class Smoke:
                             f"entry point {got[name]}, expected {mlp_steps} "
                             f"of {fma}")
                 for name, (_, fma) in (*ATTN_FWD_ENTRIES.items(),
-                                       *ATTN_BWD_ENTRIES.items()):
+                                       *ATTN_BWD_ENTRIES.items(),
+                                       *GRID_ENTRIES.items()):
                     want = ({fma: attn_steps[name]} if attn_steps[name]
                             else {})
                     require(got[name] == want,
@@ -2102,6 +2170,7 @@ def main() -> int:
             smoke.ab_vs_library()
             smoke.ab_mlp()
             smoke.ab_attn()
+            smoke.ab_grid()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

@@ -2,6 +2,10 @@
 //
 // Replaces the TPU kernel outgridvit_tpu/ops/grid_attention_pallas_t.py:
 // grid_mhsa_pallas_t: `_fwd_kernel` here, `_bwd_kernel` below (grid_mhsa_bwd).
+// It runs the fp32 launches (the parity path, of #1 and #3) and bf16 ones
+// at a head width that is not a multiple of 8 up to 64: every other bf16
+// launch takes the tensor-core kernel csrc/grid_mhsa_th.cu
+// (ops/grid_attention.py:grid_mhsa_entry).
 // Forward: for each grid g and head
 // h: out[g, n, h*hd:(h+1)*hd] = softmax_m(q_n . k_m * hd^-1/2) v_m, with the
 // q.k sum in fp32 and scaled after the sum, an fp32 softmax with max

@@ -1,17 +1,24 @@
-"""Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa.cu`` and
-``csrc/grid_mhsa_th.cu`` (forward and backward) and their plain PyTorch
+"""Grid MHSA core for tiny grids: the CUDA kernels ``csrc/grid_mhsa_th.cu`` and
+``csrc/grid_mhsa.cu`` (forward and backward) and their plain PyTorch
 versions. They stand for two TPU kernels of
 ``outgridvit_tpu/ops/grid_attention_pallas_t.py`` that compute the same math
-in different VMEM layouts: ``grid_mhsa_pallas_t`` (#1, variant ``"t"``) and
-the head-chunked ``grid_mhsa_pallas_th`` (#3, variant ``"th"``, the wide-C
-N=16 grids of the 64px configs and the default Model A). The variant picks
-the kernel: ``"t"`` launches ``grid_mhsa.cu`` (one block per grid, fp32
-staging); ``"th"`` in bf16 launches ``grid_mhsa_th.cu`` (one warp per grid
-and head on ``mma.sync`` tiles, launch plan :func:`grid_mhsa_th_plan`),
-which takes N = 16 and a head width that is a multiple of 8 up to 64 and
-raises on anything else; ``"th"`` in fp32 (the parity path) keeps
-``grid_mhsa.cu``. Launches are counted per variant
-(``grid_mhsa.by_variant``) and per C entry point (``grid_mhsa.by_entry``).
+in different VMEM layouts: ``grid_mhsa_pallas_t`` (#1, variant ``"t"``, every
+grid of N <= 16) and the head-chunked ``grid_mhsa_pallas_th`` (#3, variant
+``"th"``, the wide-C N=16 grids of the 64px configs and the default Model
+A). The variant names the JAX kernel; dtype and shape pick the CUDA one,
+before the launch (:func:`grid_mhsa_entry`):
+
+- every bf16 launch at 1 <= N <= 16 with a head width that is a multiple
+  of 8 up to 64, of either tag, runs ``csrc/grid_mhsa_th.cu`` (one warp per
+  head of 16 // N adjacent grids on ``mma.sync`` tiles, block-diagonally
+  masked below N = 16; launch plan :func:`grid_mhsa_th_plan`, asked of the
+  kernel's layout header). A bf16 ``"th"`` launch it does not take raises;
+- fp32 launches (the parity path), and a bf16 ``"t"`` launch at a head
+  width it does not take, run ``csrc/grid_mhsa.cu`` (one block per grid,
+  fp32 staging).
+
+Launches are counted per variant (``grid_mhsa.by_variant``) and per C entry
+point (``grid_mhsa.by_entry``).
 
 Forward, per grid and head: ``softmax(q.k^T * hd^-1/2) v`` with the q.k sum
 in fp32 scaled after the sum, an fp32 softmax with max subtraction, and the
@@ -70,14 +77,8 @@ LONG_MAX_TOKENS = 256  # csrc/grid_mhsa_long.cu takes 64 <= N <= 256
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
 
 
-# ---- the "th" kernel's launch plan (csrc/grid_mhsa_th.cu) -----------------
+# ---- the tensor-core kernel's launch plan (csrc/grid_mhsa_th.cu) ----------
 
-TH_TOKENS = 16       # tokens per grid: the M of one mma tile (kN)
-TH_WARPS = 4         # warps per block, one (grid, head) unit each (kWarps)
-TH_MAX_HD = 64       # widest head (the accumulators' registers)
-# the kernels' register caps (__launch_bounds__(128, 8) and, for the
-# backward at hd > 32, (128, 6))
-TH_REGS = {"fwd": 64, "bwd": 64, "bwd_wide": 80}
 # one H100 SM: shared memory (each block reserves 1 KB more), registers,
 # threads and blocks; the most one block may ask for; the SMs of an H100 SXM
 SM_SMEM, SM_BLOCK_RESERVED = 228 * 1024, 1024
@@ -95,11 +96,13 @@ def blocks_per_sm(warps: int, smem: int, regs: int) -> int:
 
 class ThPlan(NamedTuple):
     """How ``ogvt_grid_mhsa_th[_bwd]`` cuts one call: ``warps`` per block,
-    each one (grid, head) unit (``grids_per_block`` grids' worth),
-    ``blocks`` in all; ``smem_bytes`` of a block (``tiles`` staged
-    ``[16, hd]`` bf16 tiles a warp, rows ``row_bytes`` apart); and what one
-    SM holds at the kernel's register cap ``regs``: ``blocks_per_sm``
-    blocks, ``grids_in_flight`` grids' worth of units."""
+    each one unit (one head of ``grids_per_unit`` adjacent grids,
+    ``grids_per_block`` grids' worth a block), ``blocks`` in all;
+    ``smem_bytes`` of a block (``tiles`` staged ``[16, hd]`` bf16 tiles a
+    warp, rows ``row_bytes`` apart); and what one SM holds at the kernel's
+    register cap ``regs``: ``blocks_per_sm`` blocks, ``grids_in_flight``
+    grids' worth of units. Everything but the counts comes from
+    ``csrc/grid_mhsa_th_layout.h``."""
     warps: int
     blocks: int
     grids_per_block: float
@@ -109,37 +112,55 @@ class ThPlan(NamedTuple):
     regs: int
     blocks_per_sm: int
     grids_in_flight: float
+    grids_per_unit: int
 
 
 def th_row_bytes(hd: int) -> int:
-    """Row stride of a staged tile: hd / 8 16-byte units made odd, so the 8
-    rows one ldmatrix reads fall in 8 distinct bank groups."""
+    """Row stride of a staged bf16 tile of #6's kernels: hd / 8 16-byte
+    units made odd, so the 8 rows one ldmatrix reads fall in 8 distinct
+    bank groups."""
     return 16 * ((hd // 8) | 1)
+
+
+@lru_cache(maxsize=None)
+def _th_layout(N: int, C: int, heads: int, backward: bool):
+    """``csrc/grid_mhsa_th_layout.h``'s layout for the shape (warps, shared
+    bytes, register cap, grids a unit, tiles a warp, row bytes), or None
+    where the kernel does not take it."""
+    out = (ctypes.c_int * 6)()
+    if kernel_build.load_layouts().ogvt_grid_mhsa_th_layout(
+            N, C, heads, int(backward), out):
+        return None
+    return tuple(out)
+
+
+def th_takes(N: int, C: int, heads: int) -> bool:
+    """Whether ``csrc/grid_mhsa_th.cu`` takes grids of N tokens, C channels
+    and ``heads`` heads (1 <= N <= 16, a head width that is a multiple of 8
+    up to 64), as its layout header says."""
+    return _th_layout(N, C, heads, False) is not None
 
 
 @lru_cache(maxsize=None)
 def grid_mhsa_th_plan(G: int, N: int, C: int, heads: int,
                       backward: bool) -> ThPlan:
-    """The "th" kernel's launch plan for qkv ``[G, N, 3C]`` in bf16, or a
-    ValueError naming the shape it does not take (N other than 16, a head
-    width that is not a multiple of 8 in [8, 64]). Cached: the wrapper asks
-    at every launch."""
+    """The tensor-core kernel's launch plan for qkv ``[G, N, 3C]`` in bf16,
+    or a ValueError naming the shape it does not take (N outside 1..16, a
+    head width that is not a multiple of 8 in [8, 64]). Cached: the wrapper
+    asks at every launch."""
     if G < 0 or heads <= 0 or C % heads:
         raise ValueError(f"grid_mhsa_th: G={G}, N={N}, C={C}, heads={heads}")
-    hd = C // heads
-    if N != TH_TOKENS or hd % 8 or not 8 <= hd <= TH_MAX_HD:
+    layout = _th_layout(N, C, heads, backward)
+    if layout is None:
         raise ValueError(
-            f"grid_mhsa_th: N={N}, C={C}, heads={heads} (hd={hd}); the "
-            f"kernel takes N={TH_TOKENS} and hd a multiple of 8 up to "
-            f"{TH_MAX_HD}")
-    tiles = 4 if backward else 3
-    row = th_row_bytes(hd)
-    smem = TH_WARPS * tiles * TH_TOKENS * row
-    regs = TH_REGS["bwd_wide" if hd > 32 else "bwd"] if backward \
-        else TH_REGS["fwd"]
-    per_sm = blocks_per_sm(TH_WARPS, smem, regs)
-    return ThPlan(TH_WARPS, -(-G * heads // TH_WARPS), TH_WARPS / heads,
-                  tiles, row, smem, regs, per_sm, per_sm * TH_WARPS / heads)
+            f"grid_mhsa_th: N={N}, C={C}, heads={heads} (hd={C // heads}); "
+            f"the kernel takes 1 <= N <= {MAX_TOKENS} and hd a multiple of 8 "
+            "up to 64")
+    warps, smem, regs, per, tiles, row = layout
+    per_sm = blocks_per_sm(warps, smem, regs)
+    units = -(-G // per) * heads
+    return ThPlan(warps, -(-units // warps), warps * per / heads, tiles, row,
+                  smem, regs, per_sm, per_sm * warps * per / heads, per)
 
 
 # ---- #6's bf16 kernel's launch plan (csrc/grid_mhsa_packed_mma.cuh) -------
@@ -401,10 +422,20 @@ def _check_dout(name, qkv, dout, G, N, C):
             f"on {qkv.device}")
 
 
-def _takes_th(qkv: torch.Tensor, variant: str) -> bool:
-    """Whether a launch takes ``csrc/grid_mhsa_th.cu``: bf16 and ``"th"``;
-    every other takes ``csrc/grid_mhsa.cu``."""
-    return variant == "th" and qkv.dtype == torch.bfloat16
+ENTRIES = ("ogvt_grid_mhsa_th", "ogvt_grid_mhsa")
+BACKWARD_ENTRIES = ("ogvt_grid_mhsa_th_bwd", "ogvt_grid_mhsa_bwd")
+
+
+def grid_mhsa_entry(N: int, C: int, heads: int, dtype: torch.dtype,
+                    variant: str, backward: bool = False) -> str:
+    """The C entry point a launch of these shapes takes, decided by dtype,
+    shape and tag alone: ``csrc/grid_mhsa_th.cu``'s for a bf16 ``"th"``
+    launch (whose plan raises on a shape the kernel does not take) and for
+    every bf16 launch it takes (:func:`th_takes`); ``csrc/grid_mhsa.cu``'s
+    for fp32 and for a bf16 ``"t"`` launch it does not take."""
+    th = dtype == torch.bfloat16 and (variant == "th"
+                                      or th_takes(N, C, heads))
+    return (ENTRIES if not backward else BACKWARD_ENTRIES)[0 if th else 1]
 
 
 def _mma_plan(name: str, planner, qkv: torch.Tensor, heads: int,
@@ -427,36 +458,12 @@ def _mma_plan(name: str, planner, qkv: torch.Tensor, heads: int,
 def grid_mhsa(qkv: torch.Tensor, heads: int,
               variant: str = "t") -> torch.Tensor:
     """qkv [G, N, 3C] -> [G, N, C]. A CUDA tensor launches a kernel (or
-    raises): ``csrc/grid_mhsa_th.cu`` for a bf16 ``"th"`` launch, else
-    ``csrc/grid_mhsa.cu``; a CPU tensor takes :func:`grid_mhsa_reference`.
-    ``variant`` names the JAX kernel the launch stands for
-    (:data:`VARIANTS`)."""
+    raises), the one :func:`grid_mhsa_entry` names; a CPU tensor takes
+    :func:`grid_mhsa_reference`. ``variant`` names the JAX kernel the launch
+    stands for (:data:`VARIANTS`)."""
     if qkv.device.type == "cpu":
         return grid_mhsa_reference(qkv, heads)
-    th = _takes_th(qkv, variant)
-    G, N, C = _check_launch(
-        "grid_mhsa", qkv, heads,
-        None if th else lambda N, C: N * 3 * C + heads * N * N, variant)
-    plan = (_mma_plan("grid_mhsa", grid_mhsa_th_plan, qkv, heads, False)
-            if th else None)
-    out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
-    lib = kernel_build.load()
-    scale = ctypes.c_float((C // heads) ** -0.5)
-    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan is None:
-            entry = "ogvt_grid_mhsa"
-            err = lib.ogvt_grid_mhsa(qkv.data_ptr(), out.data_ptr(), G, N, C,
-                                     heads, scale, dtype, stream)
-        else:
-            entry = "ogvt_grid_mhsa_th"
-            err = lib.ogvt_grid_mhsa_th(
-                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
-                plan.warps, plan.smem_bytes, dtype, stream)
-    kernel_build.check(err, f"grid_mhsa launch ({entry})")
-    kernel_build.count_launch(grid_mhsa, variant, entry)
-    return out
+    return _launch(None, qkv, heads, variant)
 
 
 grid_mhsa.launches = 0
@@ -472,37 +479,55 @@ def grid_mhsa_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     :func:`grid_mhsa`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_backward_reference(qkv, dout, heads)
-    th = _takes_th(qkv, variant)
-    G, N, C = _check_launch(
-        "grid_mhsa_backward", qkv, heads,
-        None if th else lambda N, C: N * 4 * C + 2 * heads * N * N, variant)
-    _check_dout("grid_mhsa_backward", qkv, dout, G, N, C)
-    plan = (_mma_plan("grid_mhsa_backward", grid_mhsa_th_plan, qkv, heads,
-                      True, ("dout", dout)) if th else None)
-    dqkv = torch.empty_like(qkv)
-    lib = kernel_build.load()
-    scale = ctypes.c_float((C // heads) ** -0.5)
-    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if plan is None:
-            entry = "ogvt_grid_mhsa_bwd"
-            err = lib.ogvt_grid_mhsa_bwd(
-                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
-                heads, scale, dtype, stream)
-        else:
-            entry = "ogvt_grid_mhsa_th_bwd"
-            err = lib.ogvt_grid_mhsa_th_bwd(
-                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
-                heads, scale, plan.warps, plan.smem_bytes, dtype, stream)
-    kernel_build.check(err, f"grid_mhsa_backward launch ({entry})")
-    kernel_build.count_launch(grid_mhsa_backward, variant, entry)
-    return dqkv
+    return _launch(None, qkv, heads, variant, dout)
 
 
 grid_mhsa_backward.launches = 0
 grid_mhsa_backward.by_variant = Counter()
 grid_mhsa_backward.by_entry = Counter()
+
+
+def _launch(entry, qkv: torch.Tensor, heads: int, variant: str = "t",
+            dout=None) -> torch.Tensor:
+    """:func:`grid_mhsa` (or, given ``dout``, :func:`grid_mhsa_backward`)
+    on the card through the C entry point ``entry`` (one of
+    :data:`ENTRIES` / :data:`BACKWARD_ENTRIES`), or
+    :func:`grid_mhsa_entry`'s where it is None. A named entry is for
+    comparing the two kernels on the same inputs (``chip_smoke.py``'s A/B,
+    the card tests). Counted on the wrapper of its direction."""
+    backward = dout is not None
+    name = "grid_mhsa_backward" if backward else "grid_mhsa"
+    G, N, C = _check(qkv, heads)
+    entries = BACKWARD_ENTRIES if backward else ENTRIES
+    if entry is None:
+        entry = grid_mhsa_entry(N, C, heads, qkv.dtype, variant, backward)
+    elif entry not in entries:
+        raise ValueError(f"{name}: entry {entry!r} is not one of {entries}")
+    th = entry == entries[0]
+    fp32_smem = ((lambda N, C: N * 4 * C + 2 * heads * N * N) if backward
+                 else (lambda N, C: N * 3 * C + heads * N * N))
+    _check_launch(name, qkv, heads, None if th else fp32_smem, variant)
+    others = ()
+    if backward:
+        _check_dout(name, qkv, dout, G, N, C)
+        others = (("dout", dout),)
+    plan = (_mma_plan(name, grid_mhsa_th_plan, qkv, heads, backward, *others)
+            if th else None)
+    out = (torch.empty_like(qkv) if backward else
+           torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device))
+    ins = (qkv.data_ptr(),) + ((dout.data_ptr(),) if backward else ())
+    lib = kernel_build.load()
+    scale = ctypes.c_float((C // heads) ** -0.5)
+    dtype = kernel_build.DTYPE_CODES[qkv.dtype]
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = ((plan.warps, plan.smem_bytes) if th else ())
+        err = getattr(lib, entry)(*ins, out.data_ptr(), G, N, C, heads,
+                                  scale, *launch, dtype, stream)
+    kernel_build.check(err, f"{name} launch ({entry})")
+    kernel_build.count_launch(grid_mhsa_backward if backward else grid_mhsa,
+                              variant, entry)
+    return out
 
 
 class _GridMHSA(torch.autograd.Function):

@@ -183,6 +183,8 @@ _HOST_SIGNATURES = {
     "ogvt_attn_branch_bwd_mma_tokens_layout": ((_I, _I, _I, _P), _I),
     # N, C, heads, int out[3]
     "ogvt_attn_branch_bwd_mma_weights_layout": ((_I, _I, _I, _P), _I),
+    # N, C, heads, backward, int out[6]
+    "ogvt_grid_mhsa_th_layout": ((_I, _I, _I, _I, _P), _I),
 }
 
 

@@ -86,6 +86,7 @@ from outgridvit_tpu_torch.ops.grid_attention import (
     grid_mhsa_reference,
 )
 from outgridvit_tpu_torch.ops import attn_branch as attn_branch_mod
+from outgridvit_tpu_torch.ops import grid_attention as grid_attention_mod
 from outgridvit_tpu_torch.ops import mlp_branch as mlp_branch_mod
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
@@ -883,6 +884,159 @@ def test_grid_mhsa_th_refuses_what_it_does_not_take(dev):
             grid_mhsa(x, heads, "th")
         with pytest.raises(ValueError, match=f"N={N}, C={C}"):
             grid_mhsa_backward(x, x[..., :C].contiguous(), heads, "th")
+
+
+def _check_grid(dev, dtype, G, N, C, heads, variant, seed, want, qkv=None,
+                dout=None):
+    """Both launches of one grid-core shape against their plain versions
+    through the entry point ``want`` (``ogvt_grid_mhsa_th`` or
+    ``ogvt_grid_mhsa``, ``_bwd`` for the backward), by each wrapper's
+    ``by_entry``; the backward twice, bitwise equal; every output finite.
+    Returns (out, dqkv)."""
+    g = torch.Generator().manual_seed(seed)
+    if qkv is None:
+        qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, dtype)
+        dout = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    before = (grid_mhsa.by_entry.copy(), grid_mhsa_backward.by_entry.copy())
+    got = grid_mhsa(qkv, heads, variant)
+    dqkv = grid_mhsa_backward(qkv, dout, heads, variant)
+    again = grid_mhsa_backward(qkv, dout, heads, variant)
+    torch.cuda.synchronize()
+    assert +(grid_mhsa.by_entry - before[0]) == {want: 1}
+    assert +(grid_mhsa_backward.by_entry - before[1]) == {want + "_bwd": 2}
+    assert torch.equal(dqkv, again)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(torch.isfinite(dqkv.float()).all())
+    _assert_close(got, grid_mhsa_reference(qkv, heads), dtype)
+    _assert_close(dqkv, grid_mhsa_backward_reference(qkv, dout, heads), dtype)
+    return got, dqkv
+
+
+# Every "t" launch of the shipped configs at train batch 128 (G = 128 *
+# grids an image): Model B (also 14M and SVHN) stage 0 (N = 16, C = 64) and
+# stages 1-3 (N = 4); A-7M stage 0 (N = 16, C = 48, hd 24) and stages 1-3
+# (N = 4); a7m_48 stages 1-3 (N = 9, one grid a unit, 7 padding rows).
+T_SHAPES = [(8192, 16, 64, 2), (8192, 4, 128, 4), (2048, 4, 256, 8),
+            (512, 4, 384, 6), (8192, 16, 48, 2), (8192, 4, 96, 3),
+            (2048, 4, 192, 6), (512, 4, 256, 8), (8192, 9, 96, 3),
+            (2048, 9, 192, 6), (512, 9, 256, 8)]
+
+
+@pytest.mark.parametrize("G,N,C,heads", T_SHAPES)
+def test_grid_mhsa_t_takes_the_tensor_core_kernel(dev, G, N, C, heads):
+    _check_grid(dev, torch.bfloat16, G, N, C, heads, "t", G + N + C,
+                "ogvt_grid_mhsa_th")
+
+
+@pytest.mark.parametrize("G,N,C,heads", [
+    (7, 1, 48, 2), (7, 5, 64, 2), (3, 9, 96, 3), (1, 9, 56, 1),
+    (5, 4, 40, 5), (1, 4, 64, 2), (1, 16, 64, 2), (11, 7, 24, 3),
+    (9, 2, 128, 2), (13, 3, 64, 1), (6, 6, 512, 8), (3, 15, 32, 4)])
+def test_grid_mhsa_t_packs_grids_into_units(dev, G, N, C, heads):
+    # N = 1, 5, 9 and others that do not divide 16, G % (16 // N) != 0
+    # (the last unit part empty), G = 1, hd 8-64
+    _check_grid(dev, torch.bfloat16, G, N, C, heads, "t", 7 * G + N,
+                "ogvt_grid_mhsa_th")
+
+
+@pytest.mark.parametrize("at_end", [False, True])
+def test_grid_mhsa_t_reads_nothing_past_its_tensors(dev, at_end):
+    # qkv and dout at the start of a NaN-filled allocation (a read past
+    # their end would bring NaN in) or at its very end (past it, nothing is
+    # allocated); G % P != 0, so the last unit holds one grid of three
+    G, N, C, heads = 7, 5, 64, 2
+    g = torch.Generator().manual_seed(5)
+
+    def place(*shape):
+        n = G * N * shape[-1]
+        buf = torch.full((n + 4096,), float("nan"), device=dev,
+                         dtype=torch.bfloat16)
+        t = buf[4096:] if at_end else buf[:n]
+        t.copy_(torch.randn(n, generator=g).to(dev, torch.bfloat16))
+        return t.view(*shape)
+
+    qkv, dout = place(G, N, 3 * C), place(G, N, C)
+    _check_grid(dev, torch.bfloat16, G, N, C, heads, "t", 0,
+                "ogvt_grid_mhsa_th", qkv, dout)
+
+
+@pytest.mark.parametrize("G,C,heads", [(8192, 64, 2), (8192, 48, 2),
+                                       (512, 128, 4)])
+def test_grid_mhsa_t_is_bitwise_th_at_16_tokens(dev, G, C, heads):
+    # one kernel for both tags: a "t" launch equals a "th" one at N = 16
+    t = _check_grid(dev, torch.bfloat16, G, 16, C, heads, "t", G + C,
+                    "ogvt_grid_mhsa_th")
+    th = _check_grid(dev, torch.bfloat16, G, 16, C, heads, "th", G + C,
+                     "ogvt_grid_mhsa_th")
+    assert torch.equal(t[0], th[0]) and torch.equal(t[1], th[1])
+
+
+@pytest.mark.parametrize("dtype,G,N,C,heads,want", [
+    (torch.float32, 8192, 16, 64, 2, "ogvt_grid_mhsa"),
+    (torch.float32, 2048, 4, 192, 6, "ogvt_grid_mhsa"),
+    (torch.float32, 7, 5, 64, 2, "ogvt_grid_mhsa"),
+    (torch.bfloat16, 7, 9, 36, 3, "ogvt_grid_mhsa"),
+    (torch.bfloat16, 5, 4, 60, 5, "ogvt_grid_mhsa")])
+def test_grid_mhsa_t_keeps_the_fma_kernel_for_fp32_and_other_heads(
+        dev, dtype, G, N, C, heads, want):
+    # fp32 and head widths the tensor-core kernel does not take (12)
+    _check_grid(dev, dtype, G, N, C, heads, "t", G + C, want)
+
+
+def test_grid_mhsa_entries_on_request(dev):
+    # both kernels on the same bf16 inputs through grid_attention._launch
+    g = torch.Generator().manual_seed(2)
+    G, N, C, heads = 300, 4, 96, 3
+    qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, torch.bfloat16)
+    dout = torch.randn(G, N, C, generator=g).to(dev, torch.bfloat16)
+    before = (grid_mhsa.by_entry.copy(), grid_mhsa_backward.by_entry.copy())
+    outs = [grid_attention_mod._launch(e, qkv, heads, "t") for e in
+            grid_attention_mod.ENTRIES]
+    douts = [grid_attention_mod._launch(e, qkv, heads, "t", dout) for e in
+             grid_attention_mod.BACKWARD_ENTRIES]
+    torch.cuda.synchronize()
+    assert +(grid_mhsa.by_entry - before[0]) == {
+        e: 1 for e in grid_attention_mod.ENTRIES}
+    assert +(grid_mhsa_backward.by_entry - before[1]) == {
+        e: 1 for e in grid_attention_mod.BACKWARD_ENTRIES}
+    for got in outs:
+        _assert_close(got, grid_mhsa_reference(qkv, heads), torch.bfloat16)
+    for got in douts:
+        _assert_close(got, grid_mhsa_backward_reference(qkv, dout, heads),
+                      torch.bfloat16)
+    with pytest.raises(ValueError, match="entry"):
+        grid_attention_mod._launch("ogvt_grid_mhsa_th_bwd", qkv, heads)
+
+
+def test_grid_mhsa_t_refuses_a_misaligned_pointer(dev):
+    n = 7 * 4 * 3 * 64
+    qkv = torch.randn(n + 1, device=dev).bfloat16()[1:].view(7, 4, 192)
+    assert qkv.data_ptr() % 16 and qkv.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        grid_mhsa(qkv, 2, "t")
+    dout = torch.randn(7 * 4 * 64 + 1, device=dev).bfloat16()[1:].view(
+        7, 4, 64)
+    with pytest.raises(ValueError, match="dout .*16-byte aligned"):
+        grid_mhsa_backward(qkv.clone(), dout, 2, "t")
+    # the entry point refuses it too, and a plan that is not the layout's
+    lib = kernel_build.load()
+    plan = grid_attention_mod.grid_mhsa_th_plan(7, 4, 64, 2, False)
+    out = torch.empty(7, 4, 64, device=dev, dtype=torch.bfloat16)
+    aligned = qkv.clone()
+
+    def call(x, warps=plan.warps, smem=plan.smem_bytes, N=4):
+        return lib.ogvt_grid_mhsa_th(
+            x.data_ptr(), out.data_ptr(), 7, N, 64, 2, 32 ** -0.5, warps, smem,
+            kernel_build.DTYPE_CODES[torch.bfloat16],
+            torch.cuda.current_stream().cuda_stream)
+
+    assert call(qkv) != 0
+    assert call(aligned, warps=2) != 0
+    assert call(aligned, smem=plan.smem_bytes + 16) != 0
+    assert call(aligned, N=17) != 0
+    assert call(aligned) == 0
+    torch.cuda.synchronize()
+    _assert_close(out, grid_mhsa_reference(aligned, 2), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

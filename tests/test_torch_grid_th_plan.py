@@ -76,7 +76,7 @@ def test_th_plan_at_every_shipped_shape(G, N, C, heads, backward):
     where = (G, N, C, heads, backward, p)
     # what csrc/grid_mhsa_th.cu takes: four warps, 3 or 4 tiles a warp,
     # rows an odd number of 16-byte units (ldmatrix without bank conflicts)
-    assert p.warps == ga.TH_WARPS and p.tiles == (4 if backward else 3)
+    assert p.warps == 4 and p.tiles == (4 if backward else 3)
     assert p.row_bytes >= 2 * hd and (p.row_bytes // 16) % 2 == 1, where
     assert p.smem_bytes == p.warps * p.tiles * N * p.row_bytes, where
     assert p.smem_bytes <= BLOCK_SMEM, where

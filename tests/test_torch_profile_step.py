@@ -30,11 +30,22 @@ def test_port_kernels_names_every_attention_branch_kernel_source():
         "csrc/attn_branch.cu"
 
 
+def test_port_kernels_names_every_grid_core_kernel_source():
+    port = profile_step.port_kernels()
+    # #1 and #3 in bf16 (the tensor-core kernel), and in fp32
+    assert port["th_fwd"] == port["th_bwd"] == "csrc/grid_mhsa_th.cu"
+    assert port["grid_mhsa_fwd"] == port["grid_mhsa_bwd"] == \
+        "csrc/grid_mhsa.cu"
+
+
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::weights_kernel<0, 4>(__nv_bfloat16 "
      "const*, float const*)", "csrc/mlp_branch_bwd_mma.cu"),
     ("void ogvt::reduce_partials<float>(float const*, int)",
      "csrc/partials.cuh"),
+    ("void (anonymous namespace)::th_fwd<4, true>(__nv_bfloat16 const*, "
+     "__nv_bfloat16*, int, int, float, (anonymous namespace)::Mask)",
+     "csrc/grid_mhsa_th.cu"),
     ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_"
      "impl_nocast<at::native::(anonymous namespace)::where_kernel_impl("
      "at::TensorIteratorBase&)>", "elementwise"),
