@@ -56,7 +56,13 @@ path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
 attention branch's bf16 launches (Tiny-ImageNet's and ``a_base``'s stage
 0) run ``csrc/attn_branch_mma.cu`` forward and
 ``csrc/attn_branch_bwd_mma.cu`` backward, its fp32 ones
-``csrc/attn_branch.cu``. The served and trained main paths (bf16) must
+``csrc/attn_branch.cu``. The backward of the fused outlook projection
+(#7 ``outlook_agg`` and #8 ``outlook_branch``) runs, for every bf16
+launch its plan takes (every outlooker of C <= 128: Model B's front and
+every ``OUTLOOK_SHAPES`` entry of C <= 128), ``csrc/outlook_agg_bwd_mma.cu``
+(CUDA C++, its five products on ``mma.sync`` tiles, one pass a tile with
+the halo rows' dyag recomputed), its fp32 and wider launches
+``csrc/outlook_agg.cu``. The served and trained main paths (bf16) must
 launch them through the matching C entry points, and the fp32 step
 through the FMA ones; ``attn_branch_nhwc``'s y and parameter grads must
 equal ``attn_branch``'s on the partitioned inputs bit for bit.
@@ -105,9 +111,16 @@ function composed of library calls (LN, linear, SDPA, linear; for scale
 only). Phase ``ab_grid`` (``AB_GRID``) times the grid core's tensor-core
 kernel against the FMA kernel it replaces for #1 at every "t" stage shape
 of the 7M model, Model B and ``a7m_48`` the same way: the forward at batch
-64, per forward, the backward at 128, per train step, per launch too. The
-share of the grid core's bf16 outputs bitwise the plain version's is
-reported at every compare, not gated.
+64, per forward, the backward at 128, per train step, per launch too.
+Phase ``ab_outlook`` (``Smoke.ab_outlook``) times in device time the
+never-redesigned forward kernels of #7, #8 (``csrc/outlook_agg.cu``) and
+#9 (``csrc/outlook_softmax.cu``) at Model B's front (batch 64, per launch
+and per forward), then the outlook backward's tensor-core kernel against
+the FMA kernel it replaces at Model B's front (batch 128, per launch and
+per train step) and at every other ``OUTLOOK_SHAPES`` entry its plan takes,
+each with its share of the bound. The share of the grid core's bf16
+outputs bitwise the plain version's is reported at every compare, not
+gated, and so are the outlook backward's shares of dv / dx and da.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -363,6 +376,9 @@ BF16_LOSS_TOL = 3e-2
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
 # JAX falls back to it from #5), csrc/grid_mhsa_long.cu in both dtypes.
+# outlook_agg_bwd / outlook_branch_bwd: csrc/outlook_agg_bwd_mma.cu for bf16
+# launches its plan takes (every outlooker of C <= 128: every main path's),
+# csrc/outlook_agg.cu for fp32 ones and wider bf16 ones.
 SOURCES = {
     "grid_mhsa": (
         ("outgridvit_tpu_torch/csrc/grid_mhsa_th.cu",
@@ -415,7 +431,8 @@ SOURCES = {
          "outlook_attention_proj_pallas (#7, forward: whole image :426, "
          "row-chunked :333)"]),
     "outlook_agg_bwd": (
-        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        ("outgridvit_tpu_torch/csrc/outlook_agg_bwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/outlook_agg.cu"),
         "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:461",
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:461 "
          "outlook_attention_proj_pallas backward (#7, row-chunked :374)"]),
@@ -426,7 +443,8 @@ SOURCES = {
          "outlook_branch_pallas (#8, forward: whole image :693, "
          "row-chunked :710)"]),
     "outlook_branch_bwd": (
-        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        ("outgridvit_tpu_torch/csrc/outlook_agg_bwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/outlook_agg.cu"),
         "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746",
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746 "
          "outlook_branch_pallas backward (#8, row-chunked :773)"]),
@@ -562,6 +580,12 @@ GRID_ENTRIES = {"grid_mhsa": ("ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
                 "grid_mhsa_bwd": ("ogvt_grid_mhsa_th_bwd",
                                   "ogvt_grid_mhsa_bwd")}
 AB_GRID = (FLAGSHIP, MODEL_B, A7M_48)
+# the C entry points of the outlook backward's A/B, tensor-core side first
+# (bf16 launches its plan takes; fp32 and the rest take the FMA one)
+OUTLOOK_BWD_ENTRIES = {
+    "outlook_agg_bwd": ("ogvt_outlook_agg_bwd_mma", "ogvt_outlook_agg_bwd"),
+    "outlook_branch_bwd": ("ogvt_outlook_agg_bwd_mma",
+                           "ogvt_outlook_agg_bwd")}
 AB_ATTN = (("attn_branch_bwd", TIN), ("attn_branch_nhwc_bwd", A_BASE),
            ("attn_branch_bwd", A_BASE))
 AB_ATTN_FWD = (("attn_branch", TIN), ("attn_branch_nhwc", A_BASE),
@@ -584,6 +608,10 @@ SHARE_REPORTED = ("attn_branch", "attn_branch_nhwc", "grid_mhsa",
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
+# their shares bitwise equal to the plain version's in bf16, reported (not
+# gated) for the outlook backward, by output
+SHARE_OUTPUTS = {"outlook_agg_bwd": ("dv", "da"),
+                 "outlook_branch_bwd": ("dx", "da")}
 
 
 class CheckFailed(RuntimeError):
@@ -714,6 +742,18 @@ def graph_ms(fn, iters=20, stream=None):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def outlook_bwd_entry(name, args):
+    """The C entry point the outlook backward ``name`` takes on its
+    arguments (v, a, wp, g) or (x, a, wv, bv, wp, g): by dtype and shape
+    (``ops/outlook_agg.py:backward_entry``)."""
+    from outgridvit_tpu_torch.ops.outlook_agg import TAPS, backward_entry
+
+    x, a, wp = args[0], args[1], args[-2]
+    B, H, W, Cin = x.shape
+    return backward_entry(B, H, W, Cin, wp.shape[0], a.shape[-1] // TAPS,
+                          name == "outlook_branch_bwd", x.dtype)
 
 
 def nhwc_via_tokens(args, backward):
@@ -947,6 +987,7 @@ class Smoke:
         self.ab = {}                     # #12 vs #5 + copies, per pass
         self.ab_lib = {}                 # kernel vs library call, per shape
         self.ab_fma = {}                 # mma kernels vs the FMA kernels
+        self.device = {}                 # forward kernels' device time
         self.share = {}                  # least share of y bitwise plain
         self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
@@ -995,7 +1036,9 @@ class Smoke:
         and backward through csrc/mlp_branch_mma.cu's and
         csrc/mlp_branch_bwd_mma.cu's; every forward and backward of the
         fused attention branch through csrc/attn_branch_mma.cu's and
-        csrc/attn_branch_bwd_mma.cu's. ``plan`` and
+        csrc/attn_branch_bwd_mma.cu's; every backward of #7 and #8 (Model
+        B's front, C = 64) through csrc/outlook_agg_bwd_mma.cu's. ``plan``
+        and
         ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
@@ -1009,7 +1052,8 @@ class Smoke:
                             *((name, mma) for name, (mma, _)
                               in (*MLP_ENTRIES.items(),
                                   *ATTN_FWD_ENTRIES.items(),
-                                  *ATTN_BWD_ENTRIES.items()))):
+                                  *ATTN_BWD_ENTRIES.items(),
+                                  *OUTLOOK_BWD_ENTRIES.items()))):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
@@ -1159,14 +1203,16 @@ class Smoke:
         dt = str(dtype).split(".")[-1]
         backward = name.endswith("_bwd")
         routed = (ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
-                  or GRID_ENTRIES.get(name))
+                  or GRID_ENTRIES.get(name) or OUTLOOK_BWD_ENTRIES.get(name))
         twice = backward or routed is not None
         before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
         again = kernel(*args) if twice else got
         torch.cuda.synchronize()
-        if routed:  # the branch or grid core: the entry its dtype takes
-            entry = routed[0 if dt == "bfloat16" else 1]
+        if routed:  # the entry its dtype (and, outlook, its shape) takes
+            entry = (outlook_bwd_entry(name, args) if name in
+                     OUTLOOK_BWD_ENTRIES else routed[0 if dt == "bfloat16"
+                                                     else 1])
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
                      if v - before.get(k, 0)}
@@ -1185,6 +1231,12 @@ class Smoke:
                 and dt == "bfloat16":
             share = (got[0] == want[0]).float().mean().item()
             self.share[name] = min(self.share.get(name, 1.0), share)
+        if name in SHARE_OUTPUTS and dt == "bfloat16":
+            share = {k: (g == w).float().mean().item() for k, g, w in
+                     zip(SHARE_OUTPUTS[name], got, want)}
+            self.share[name] = {k: min(self.share.get(name, {}).get(k, 1.0),
+                                       v) for k, v in share.items()}
+            share = ", ".join(f"{k} {v:.4%}" for k, v in share.items())
         if name in BITWISE_SHARE and dt == "bfloat16":
             require(share >= BITWISE_SHARE[name],
                     f"{name} {label}: {share:.4%} of the outputs bitwise "
@@ -1214,7 +1266,8 @@ class Smoke:
               + (" deterministic ok" if twice else "")
               + (f" via {entry}" if routed else "")
               + (" bitwise ok" if name in BITWISE else "")
-              + ("" if share is None else f" bitwise equal {share:.4%}"
+              + ("" if share is None else " bitwise equal "
+                 + (share if isinstance(share, str) else f"{share:.4%}")
                  + (f" (at least {BITWISE_SHARE[name]:.0%})"
                     if name in BITWISE_SHARE else " (reported, not gated)")))
 
@@ -1659,6 +1712,78 @@ class Smoke:
                 self.ab_fma_total(name, f"{case.tag} {per}", total)
                 torch.cuda.empty_cache()
 
+    def ab_outlook(self, iters=10, fma_iters=2):
+        """#7, #8 and #9 in bf16, device time (calls in one CUDA graph,
+        :func:`graph_ms`), each with its share of the bound. First the
+        forward kernels, never redesigned, at Model B's front (H = W = 32,
+        C = 64, 2 heads; #9 at ``model_b_o``'s) at the serving batch 64:
+        ``csrc/outlook_agg.cu`` for #7 and #8, ``csrc/outlook_softmax.cu``
+        for #9, twice each, per launch and per forward (3 launches). Then
+        the backward's A/B at the train batch 128: the tensor-core kernel
+        ``csrc/outlook_agg_bwd_mma.cu`` against the FMA kernel
+        ``csrc/outlook_agg.cu`` it replaces, in turns (:meth:`ab_fma_shape`;
+        ``fma_iters`` of the slow kernel in a graph), per launch and per
+        step at Model B's front, and per launch at every other
+        ``OUTLOOK_SHAPES`` entry the tensor-core plan takes."""
+        import torch
+
+        from outgridvit_tpu_torch.ops.outlook_agg import _launch_backward
+
+        bf = torch.bfloat16
+        H, C, heads = OUTLOOK_SHAPES["model_b front"][0]
+        n = MODEL_B.front
+        for name in ("outlook_agg", "outlook_branch", "outlook_softmax"):
+            args = (self.softmax_args(BATCH, H, C, heads, 3, bf)
+                    if name == "outlook_softmax"
+                    else self.outlook_args(name, BATCH, H, C, heads, bf))
+            fn = self.kernels[name][0]
+            bound = max(bound_ms(name, args, fn(*args), bf))
+            runs = [graph_ms(lambda: fn(*args), iters) for _ in range(2)]
+            k = sum(runs) / len(runs)
+            path = "model_b_o" if name == "outlook_softmax" else "model_b"
+            self.device[name] = {
+                "per": f"{path} front B={BATCH}", "launches": n,
+                "ms_per_launch": k, "ms_per_forward": n * k,
+                "bound_ms_per_launch": bound, "bound_share": bound / k,
+                "runs": [round(t, 6) for t in runs]}
+            print(f"[ab] {name} {path} front B={BATCH} H=W={H} C={C} "
+                  f"heads={heads} bf16 device, per launch: "
+                  f"{k * 1e3:.1f} us ({runs[0] * 1e3:.1f}, "
+                  f"{runs[1] * 1e3:.1f}); per forward ({n} launches) "
+                  f"{n * k:.4f} ms; bound {bound * 1e3:.2f} us, kernel at "
+                  f"{bound / k:.2%} of it [{self.gpu}]")
+            del args
+        shapes = [(cfg, sh) for cfg, shs in OUTLOOK_SHAPES.items()
+                  for sh in shs]
+        for base, wrapper in (("outlook_agg", "outlook_agg_proj_backward"),
+                              ("outlook_branch", "outlook_branch_backward")):
+            name = base + "_bwd"
+            entries = dict(zip(("mma", "fma"), OUTLOOK_BWD_ENTRIES[name]))
+            res = self.ab_fma.setdefault(name, {})
+            for cfg, (h, c, hh) in shapes:
+                args = self.outlook_args(base, TRAIN_BATCH, h, c, hh, bf,
+                                         backward=True)
+                if outlook_bwd_entry(name, args) != entries["mma"]:
+                    continue
+                # (v, a, wp, g) / (x, a, wv, bv, wp, g)
+                full = args if base == "outlook_branch" else (
+                    args[0], args[1], None, None, *args[2:])
+                fns = {w: (lambda e=e: _launch_backward(e, wrapper, *full))
+                       for w, e in entries.items()}
+                front = cfg == "model_b front"
+                label = (f"{cfg} B={TRAIN_BATCH} H=W={h} C={c} heads={hh}")
+                total = {"bound": 0.0, "launches": 0}
+                res[label] = self.ab_fma_shape(
+                    name, label, args, fns, entries,
+                    {"mma": iters, "fma": fma_iters}, n if front else 1,
+                    total)
+                if front:
+                    per = f"model_b train step B={TRAIN_BATCH}"
+                    res[per] = total
+                    self.ab_fma_total(name, per, total)
+                del args, full, fns
+                torch.cuda.empty_cache()
+
     def compare_outlook(self, backward, batch, dtype):
         """Both outlook kernels against their plain versions at every
         outlooker shape of the three configurations."""
@@ -1964,7 +2089,8 @@ class Smoke:
                             f"of {fma}")
                 for name, (_, fma) in (*ATTN_FWD_ENTRIES.items(),
                                        *ATTN_BWD_ENTRIES.items(),
-                                       *GRID_ENTRIES.items()):
+                                       *GRID_ENTRIES.items(),
+                                       *OUTLOOK_BWD_ENTRIES.items()):
                     want = ({fma: attn_steps[name]} if attn_steps[name]
                             else {})
                     require(got[name] == want,
@@ -2112,6 +2238,8 @@ class Smoke:
                     self.ab_lib[name]
             if name in self.ab_fma:
                 out[-1]["ab_vs_fma_kernel_ms"] = self.ab_fma[name]
+            if name in self.device:
+                out[-1]["device_ms"] = self.device[name]
             if name in self.share:
                 out[-1]["bf16_bitwise_share_min"] = self.share[name]
             if len(sources) > 1:
@@ -2171,6 +2299,7 @@ def main() -> int:
             smoke.ab_mlp()
             smoke.ab_attn()
             smoke.ab_grid()
+            smoke.ab_outlook()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:

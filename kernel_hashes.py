@@ -9,7 +9,10 @@ own by default, e.g. a ``git archive`` checkout of another commit), calls
 every kernel wrapper of ``chip_smoke.py`` once at every stage shape of its
 cases (the forward at batch 64, the backward at 128, in fp32 and bf16;
 the outlook kernels at the outlookers' shapes, the depthwise ones at the
-MBConvs'), on inputs drawn from a seed fixed per (case, direction, dtype),
+MBConvs'; the outlook backward also at every ``OUTLOOK_SHAPES`` entry, at
+batch 128, through the kernel its dtype and shape route to), on inputs
+drawn from a seed fixed per (case, direction, dtype) or (shape, kernel,
+dtype),
 and writes the SHA-256 of each output's bytes, keyed by case, kernel, shape
 and dtype. The inputs depend only on ``chip_smoke.py``'s shapes and its
 input makers, so two trees that share those get the same inputs. The
@@ -43,6 +46,13 @@ def hashes(root: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     smoke = cs.Smoke(torch.device("cuda"), "")
     out = {}
+
+    def record(key, got):
+        got = (got,) if torch.is_tensor(got) else got
+        out[key] = [hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                                   .numpy().tobytes()).hexdigest()
+                    for t in got]
+
     for ci, case in enumerate(cs.CASES):
         outlook = (("outlook_agg", "outlook_branch", "outlook_softmax")
                    if case.front else ())
@@ -53,13 +63,21 @@ def hashes(root: Path) -> dict:
                 for name, args, label, *_ in smoke.cases(
                         shapes, backward, dtype, outlook, dw=True):
                     kern = smoke.launch.get(name, smoke.kernels[name][0])
-                    got = kern(*args)
-                    got = (got,) if torch.is_tensor(got) else got
-                    out[f"{case.tag}|{name}|{label}|{dtype}"] = [
-                        hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
-                                       .numpy().tobytes()).hexdigest()
-                        for t in got]
+                    record(f"{case.tag}|{name}|{label}|{dtype}", kern(*args))
                 torch.cuda.empty_cache()
+    shapes = [(cfg, sh) for cfg, shs in cs.OUTLOOK_SHAPES.items()
+              for sh in shs]
+    for si, (cfg, (H, C, heads)) in enumerate(shapes):
+        for ki, base in enumerate(cs.OUTLOOK):
+            name = base + "_bwd"
+            for di, dtype in enumerate((torch.float32, torch.bfloat16)):
+                smoke.gen.manual_seed(100_000 + 100 * si + 10 * ki + di)
+                args = smoke.outlook_args(base, cs.TRAIN_BATCH, H, C, heads,
+                                          dtype, backward=True)
+                record(f"{cfg}|{name}|B={cs.TRAIN_BATCH} H=W={H} C={C} "
+                       f"heads={heads}|{dtype}", smoke.kernels[name][0](*args))
+                del args
+            torch.cuda.empty_cache()
     return out
 
 

@@ -158,6 +158,11 @@ _SIGNATURES = {
     "ogvt_outlook_agg_bwd": ((_P,) * 13 + (_I,) * 9 + (_P,), _I),
     # B, H, W, Cin, C, heads, rows, fold -> floats of workspace
     "ogvt_outlook_agg_bwd_workspace": ((_I,) * 8, ctypes.c_longlong),
+    # the same pointers, B, H, W, Cin, C, heads; the plan: rows, chunk;
+    # fold, dtype; the plan: blocks, smem; stream
+    "ogvt_outlook_agg_bwd_mma": ((_P,) * 13 + (_I,) * 12 + (_P,), _I),
+    # Cin, C, fold, blocks -> floats of workspace
+    "ogvt_outlook_agg_bwd_mma_workspace": ((_I,) * 4, ctypes.c_longlong),
     # v, logits, out, B, H, W, C, heads, k, dtype, stream
     "ogvt_outlook_softmax": ((_P,) * 3 + (_I,) * 7 + (_P,), _I),
     # x, w9, y, B, H, W, C, rows, tw, chunk, bands, parts, smem, vecio, dtype,
@@ -185,6 +190,8 @@ _HOST_SIGNATURES = {
     "ogvt_attn_branch_bwd_mma_weights_layout": ((_I, _I, _I, _P), _I),
     # N, C, heads, backward, int out[6]
     "ogvt_grid_mhsa_th_layout": ((_I, _I, _I, _I, _P), _I),
+    # W, Cin, C, heads, rows, chunk, fold, int out[4]
+    "ogvt_outlook_agg_bwd_mma_layout": ((_I,) * 7 + (_P,), _I),
 }
 
 

@@ -35,14 +35,39 @@ Pallas kernels:
 the differentiable ops the model calls: ``torch.autograd.Function``\\ s in
 recompute style that save only their inputs (``_fwd_vjp`` :509,
 ``_fwdv_vjp`` :819).
+
+The backward has two kernels, picked by dtype and shape before launch
+(:func:`backward_entry`): a bf16 launch that
+:func:`outlook_agg_backward_plan` takes (C and Cin multiples of 16, a head
+width that is a multiple of 4, a tile of whole image rows that fits one
+block: every shipped outlooker of C <= 128) runs
+``csrc/outlook_agg_bwd_mma.cu`` (``ogvt_outlook_agg_bwd_mma``: its five
+products on ``mma.sync`` tiles, one pass a tile, the halo rows' dyag
+recomputed); fp32 launches and the bf16 shapes the plan refuses run the
+FMA kernels of ``csrc/outlook_agg.cu`` (``ogvt_outlook_agg_bwd``).
+Launches are counted per C entry point
+(``outlook_agg_proj_backward.by_entry``,
+``outlook_branch_backward.by_entry``). The plan asks the kernel's one
+layout, ``csrc/outlook_agg_mma_layout.h``, through :func:`_layout`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
+from collections import Counter
+from functools import lru_cache
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from outgridvit_tpu_torch.ops import kernel_build
+from outgridvit_tpu_torch.ops.kernel_build import (
+    SMS,
+    check_aligned16,
+    sm_blocks,
+)
 
 TAPS = 9  # K = 3
 # (dy, dx) of tap t, row-major
@@ -231,28 +256,176 @@ def _forward(name, x, a, wv, bv, wp, bp):
     return out
 
 
-def _backward(name, x, a, wv, bv, wp, g):
+# ---- the tensor-core backward's launch plan -------------------------------
+
+class OutlookBwdPlan(NamedTuple):
+    """How ``ogvt_outlook_agg_bwd_mma`` cuts one call: tiles of ``rows``
+    whole image rows of one image (``tiles`` of them), each staged with a
+    halo row above and below; the channels in chunks of ``chunk`` (a
+    multiple of the head width); ``blocks`` persistent blocks of
+    ``threads`` threads and ``smem`` shared bytes walk the tiles,
+    ``blocks_per_sm`` an SM at the register cap ``regs``; a warp holds
+    ``slots`` m16n16 tiles of each weight gradient (the kernel's template).
+    ``ws_floats``: the blocks' fp32 partials."""
+    rows: int
+    chunk: int
+    tiles: int
+    blocks: int
+    threads: int
+    smem: int
+    regs: int
+    blocks_per_sm: int
+    slots: int
+    ws_floats: int
+
+
+def _layout(W: int, Cin: int, C: int, heads: int, rows: int, chunk: int,
+            fold: bool) -> Optional[tuple]:
+    """The kernel's own answer (``csrc/outlook_agg_mma_layout.cpp``) for one
+    layout: (threads, shared bytes, register cap, dW tiles a warp), or None
+    where the kernel does not take it."""
+    out = (ctypes.c_int * 4)()
+    fn = kernel_build.load_layouts().ogvt_outlook_agg_bwd_mma_layout
+    return None if fn(W, Cin, C, heads, rows, chunk, int(fold), out) \
+        else tuple(out)
+
+
+def partial_floats(Cin: int, C: int, fold: bool) -> int:
+    """Floats of one block's fp32 partial: dWp, dbp and, with the fold,
+    dWv, dbv (``outlook_agg_mma_layout.h:partial_floats``)."""
+    return C * C + C + (Cin * C + C if fold else 0)
+
+
+@lru_cache(maxsize=None)
+def _fit_backward(B: int, H: int, W: int, Cin: int, C: int, heads: int,
+                  fold: bool) -> Union[OutlookBwdPlan, str]:
+    """The plan for these bf16 shapes, or why there is none (a str). Of the
+    layouts the kernel takes (``_layout``), the one with the least work a
+    block: waves of tiles over the card's resident blocks times R + 1 for
+    tiles of R rows (the two halo rows enter two of the five products, the
+    taps walk only the tile's rows); then the widest chunk, then the
+    tallest tile."""
+    if B < 1 or H < 1 or W < 1:
+        return "an empty input"
+    if C < 16 or Cin < 16 or C % 16 or Cin % 16:
+        return "C and Cin must be multiples of 16"
+    if heads < 1 or C % heads or (C // heads) % 4:
+        return (f"the head width C / heads = {C} / {heads} must be a "
+                "multiple of 4")
+    step = math.lcm(C // heads, 16)
+    best = None
+    for chunk in range(C, 0, -step):
+        if C % chunk:
+            continue
+        for rows in range(1, H + 1):
+            got = _layout(W, Cin, C, heads, rows, chunk, fold)
+            if got is None:
+                break  # a taller tile needs more shared memory
+            threads, smem, regs, slots = got
+            per_sm = sm_blocks(threads, smem, regs)
+            tiles = B * -(-H // rows)
+            waves = -(-tiles // (SMS * per_sm))
+            key = (waves * (rows + 1), -chunk, -rows)
+            if best is None or key < best[0]:
+                best = (key, OutlookBwdPlan(
+                    rows, chunk, tiles, min(tiles, SMS * per_sm), threads,
+                    smem, regs, per_sm, slots, 0))
+    if best is None:
+        return ("no tile of one image row fits one block's shared memory "
+                "with the weight gradients in at most 4 m16n16 tiles a warp")
+    plan = best[1]
+    return plan._replace(
+        ws_floats=plan.blocks * partial_floats(Cin, C, fold))
+
+
+def outlook_agg_backward_plan(B: int, H: int, W: int, Cin: int, C: int,
+                              heads: int, fold: bool,
+                              dtype: torch.dtype = torch.bfloat16
+                              ) -> OutlookBwdPlan:
+    """The tensor-core backward's launch plan for x ``[B, H, W, Cin]`` (v
+    without the ``fold``, Cin == C), C output channels and ``heads`` heads,
+    or a ValueError naming the shape it does not take: fp32 (the FMA
+    kernel's), C or Cin not a multiple of 16, a head width that is not a
+    multiple of 4, and shapes
+    whose tile of one image row does not fit an H100 block's shared memory
+    or whose weight gradients need more than 4 m16n16 tiles a warp, as the
+    kernel's own layout says (``_layout``). Cached: the wrapper asks at
+    every launch."""
+    where = (f"outlook backward (mma): B={B}, H={H}, W={W}, Cin={Cin}, "
+             f"C={C}, heads={heads}, fold={bool(fold)}, {dtype}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    plan = _fit_backward(B, H, W, Cin, C, heads, bool(fold))
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+BACKWARD_ENTRIES = ("ogvt_outlook_agg_bwd_mma", "ogvt_outlook_agg_bwd")
+
+
+def backward_entry(B: int, H: int, W: int, Cin: int, C: int, heads: int,
+                   fold: bool, dtype: torch.dtype) -> str:
+    """The C entry point a backward launch of these shapes takes:
+    ``ogvt_outlook_agg_bwd_mma`` where :func:`outlook_agg_backward_plan`
+    takes the shape, else the FMA kernel's ``ogvt_outlook_agg_bwd``.
+    Decided by dtype and shape alone."""
+    if dtype == torch.bfloat16 and not isinstance(
+            _fit_backward(B, H, W, Cin, C, heads, bool(fold)), str):
+        return BACKWARD_ENTRIES[0]
+    return BACKWARD_ENTRIES[1]
+
+
+def _launch_backward(entry: Optional[str], name, x, a, wv, bv, wp, g):
+    """The backward on the card through the C entry point ``entry`` (one of
+    :data:`BACKWARD_ENTRIES`), or :func:`backward_entry`'s where it is
+    None. A named entry is for comparing the two kernels on the same inputs
+    (``chip_smoke.py``'s A/B, the card tests)."""
     B, H, W, Cin, C, heads, rows = _check_launch(name, x, a, wv, bv, wp,
                                                  None, g)
     fold = wv is not None
+    if entry is None:
+        entry = backward_entry(B, H, W, Cin, C, heads, fold, x.dtype)
+    elif entry not in BACKWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{BACKWARD_ENTRIES}")
+    mma = entry == BACKWARD_ENTRIES[0]
     lib = kernel_build.load()
-    ws = torch.empty(lib.ogvt_outlook_agg_bwd_workspace(
-        B, H, W, Cin, C, heads, rows, int(fold)), dtype=torch.float32,
-        device=x.device)
+    if mma:
+        plan = outlook_agg_backward_plan(B, H, W, Cin, C, heads, fold,
+                                         x.dtype)
+        check_aligned16(name, x=x, wp=wp, g=g,
+                        **({"wv": wv} if fold else {}))
+        n_ws = lib.ogvt_outlook_agg_bwd_mma_workspace(Cin, C, int(fold),
+                                                      plan.blocks)
+    else:
+        n_ws = lib.ogvt_outlook_agg_bwd_workspace(B, H, W, Cin, C, heads,
+                                                  rows, int(fold))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
     dx, da = torch.empty_like(x), torch.empty_like(a)
     dwv = torch.empty_like(wv) if fold else None
     dbv = torch.empty_like(bv) if fold else None
     dwp, dbp = torch.empty_like(wp), torch.empty((C,), dtype=wp.dtype,
                                                  device=x.device)
     ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_outlook_agg_bwd(
-            x.data_ptr(), a.data_ptr(), ptr(wv), ptr(bv), wp.data_ptr(),
+    ptrs = (x.data_ptr(), a.data_ptr(), ptr(wv), ptr(bv), wp.data_ptr(),
             g.data_ptr(), dx.data_ptr(), da.data_ptr(), ptr(dwv), ptr(dbv),
             dwp.data_ptr(), dbp.data_ptr(), ws.data_ptr(), B, H, W, Cin, C,
-            heads, rows, int(fold), kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, f"{name} launch")
+            heads)
+    code = kernel_build.DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if mma:
+            err = lib.ogvt_outlook_agg_bwd_mma(
+                *ptrs, plan.rows, plan.chunk, int(fold), code, plan.blocks,
+                plan.smem, stream)
+        else:
+            err = lib.ogvt_outlook_agg_bwd(*ptrs, rows, int(fold), code,
+                                           stream)
+    kernel_build.check(err, f"{name} launch ({entry})")
+    kernel_build.count_launch(
+        outlook_branch_backward if fold else outlook_agg_proj_backward, None,
+        entry)
     return (dx, da, dwv, dbv, dwp, dbp) if fold else (dx, da, dwp, dbp)
 
 
@@ -271,18 +444,20 @@ outlook_agg_proj.launches = 0
 
 
 def outlook_agg_proj_backward(v, a, wp, g):
-    """#7 backward: ``(dv, da, dwp, dbp)``. A CUDA tensor launches the
-    kernels (or raises); a CPU tensor takes
+    """#7 backward: ``(dv, da, dwp, dbp)``. A CUDA tensor launches a kernel
+    (or raises): ``csrc/outlook_agg_bwd_mma.cu`` where
+    :func:`backward_entry` says so (x, wp and g 16-byte aligned or a
+    ValueError), else ``csrc/outlook_agg.cu``; a CPU tensor takes
     :func:`outlook_agg_proj_backward_reference`. Deterministic: two calls
     give bitwise-equal grads."""
     if v.device.type == "cpu":
         return outlook_agg_proj_backward_reference(v, a, wp, g)
-    grads = _backward("outlook_agg_proj_backward", v, a, None, None, wp, g)
-    outlook_agg_proj_backward.launches += 1
-    return grads
+    return _launch_backward(None, "outlook_agg_proj_backward", v, a, None,
+                            None, wp, g)
 
 
 outlook_agg_proj_backward.launches = 0
+outlook_agg_proj_backward.by_entry = Counter()
 
 
 def outlook_branch(x, a, wv, bv, wp, bp):
@@ -301,16 +476,17 @@ outlook_branch.launches = 0
 
 def outlook_branch_backward(x, a, wv, bv, wp, g):
     """#8 backward: ``(dx, da, dwv, dbv, dwp, dbp)``. A CUDA tensor launches
-    the kernels (or raises); a CPU tensor takes
+    a kernel (or raises), as :func:`outlook_agg_proj_backward` does (wv
+    16-byte aligned too); a CPU tensor takes
     :func:`outlook_branch_backward_reference`. Deterministic."""
     if x.device.type == "cpu":
         return outlook_branch_backward_reference(x, a, wv, bv, wp, g)
-    grads = _backward("outlook_branch_backward", x, a, wv, bv, wp, g)
-    outlook_branch_backward.launches += 1
-    return grads
+    return _launch_backward(None, "outlook_branch_backward", x, a, wv, bv,
+                            wp, g)
 
 
 outlook_branch_backward.launches = 0
+outlook_branch_backward.by_entry = Counter()
 
 
 class _OutlookAggProj(torch.autograd.Function):

@@ -88,6 +88,7 @@ from outgridvit_tpu_torch.ops.grid_attention import (
 from outgridvit_tpu_torch.ops import attn_branch as attn_branch_mod
 from outgridvit_tpu_torch.ops import grid_attention as grid_attention_mod
 from outgridvit_tpu_torch.ops import mlp_branch as mlp_branch_mod
+from outgridvit_tpu_torch.ops import outlook_agg as outlook_agg_mod
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
     mlp_branch_backward,
@@ -1298,6 +1299,137 @@ def test_outlook_wrappers_reject_what_the_kernels_do_not_take(dev):
         outlook_branch(torch.randn(1, 2, 4096, 12, device=dev),
                        torch.randn(1, 2, 4096, 18, device=dev), wv, bv, wp,
                        bp)
+
+
+OUTLOOK_MMA, OUTLOOK_FMA = outlook_agg_mod.BACKWARD_ENTRIES
+
+
+def _outlook_bwd(fold):
+    return ((outlook_branch_backward, outlook_branch_backward_reference,
+             ("dx", "da", "dwv", "dbv", "dwp", "dbp")) if fold else
+            (outlook_agg_proj_backward, outlook_agg_proj_backward_reference,
+             ("dv", "da", "dwp", "dbp")))
+
+
+def _check_outlook_bwd(dev, dtype, fold, B, H, W, Cin, C, heads, want_entry,
+                       seed):
+    """Two calls of the outlook backward at these shapes: the entry point
+    ``want_entry`` launched twice, bitwise-equal grads, dv / dx and da
+    close to the plain version per element, the parameter grads relative
+    to their largest value."""
+    g = torch.Generator().manual_seed(seed)
+    *args, _ = _outlook_args(g, B, H, W, Cin, C, heads, fold, dev, dtype)
+    dy = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    bwd, ref, names = _outlook_bwd(fold)
+    before = bwd.by_entry.copy()
+    got = bwd(*args, dy)
+    again = bwd(*args, dy)
+    torch.cuda.synchronize()
+    assert dict(bwd.by_entry - before) == {want_entry: 2}
+    want = ref(*args, dy)
+    for name, a, b, w in zip(names, got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        if name in ("dx", "dv", "da"):
+            _assert_close(a, w, dtype)
+        else:
+            _assert_close_to_max(a, w, dtype, name)
+
+
+# the outlooker shapes of chip_smoke.py:OUTLOOK_SHAPES of C <= 128 at a
+# small batch (H = W, C, heads): the 7M model's C = 48 and 96, TIN's C = 64
+# at 64 px and C = 128
+OUTLOOK_MMA_SHAPES = [(32, 48, 2), (16, 96, 3), (64, 64, 2), (32, 128, 4)]
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("B,H,W,Cin,C,heads", OUTLOOK_SHAPES + [
+    (2, h, h, c, c, n) for h, c, n in OUTLOOK_MMA_SHAPES])
+def test_outlook_backward_takes_the_tensor_core_kernel(dev, fold, B, H, W,
+                                                      Cin, C, heads):
+    if not fold:
+        Cin = C
+    if Cin % 16:  # the card test's Cin = 40: refused, the FMA kernel
+        want = OUTLOOK_FMA
+    else:
+        want = OUTLOOK_MMA
+    _check_outlook_bwd(dev, torch.bfloat16, fold, B, H, W, Cin, C, heads,
+                       want, B + H + C)
+    # fp32 keeps the FMA kernel
+    _check_outlook_bwd(dev, torch.float32, fold, B, H, W, Cin, C, heads,
+                       OUTLOOK_FMA, B + H + C + 1)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_outlook_backward_keeps_the_fma_kernel_where_mma_does_not(dev,
+                                                                 fold):
+    # C = 192 (the 7M model's stage 2): 9 dW tiles a warp, refused
+    _check_outlook_bwd(dev, torch.bfloat16, fold, 4, 8, 8, 192, 192, 6,
+                       OUTLOOK_FMA, 7)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_outlook_backward_entries_on_request(dev, fold):
+    # the A/B of chip_smoke.py: either kernel at a shape both take, each
+    # launching its own entry point, the two close; the tensor-core entry
+    # refuses fp32 and a pointer off 16 bytes
+    g = torch.Generator().manual_seed(3)
+    *args, _ = _outlook_args(g, 4, 32, 32, 64, 64, 2, fold, dev,
+                             torch.bfloat16)
+    dy = torch.randn(4, 32, 32, 64, generator=g).to(dev, torch.bfloat16)
+    bwd, _, names = _outlook_bwd(fold)
+    full = args if fold else [args[0], args[1], None, None, args[2]]
+    name = bwd.__name__
+    out = {}
+    for entry in (OUTLOOK_MMA, OUTLOOK_FMA):
+        before = bwd.by_entry.copy()
+        out[entry] = outlook_agg_mod._launch_backward(entry, name, *full, dy)
+        torch.cuda.synchronize()
+        assert dict(bwd.by_entry - before) == {entry: 1}
+    for n, a, b in zip(names, out[OUTLOOK_MMA], out[OUTLOOK_FMA]):
+        if n in ("dx", "dv", "da"):
+            _assert_close(a, b, torch.bfloat16)
+        else:
+            _assert_close_to_max(a, b, torch.bfloat16, n)
+    f32 = [None if t is None else t.float() for t in full]
+    with pytest.raises(ValueError, match="bf16 only"):
+        outlook_agg_mod._launch_backward(OUTLOOK_MMA, name, *f32,
+                                         dy.float())
+    x = torch.empty(full[0].numel() + 1, dtype=torch.bfloat16,
+                    device=dev)[1:].view(full[0].shape)
+    x.copy_(full[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        outlook_agg_mod._launch_backward(OUTLOOK_MMA, name, x, *full[1:], dy)
+
+
+@pytest.mark.parametrize("mode", ["fused_agg", "fused_agg_v"])
+def test_model_b_bf16_train_step_takes_the_tensor_core_outlook_backward(
+        dev, mode):
+    # Model B (configs/cifar100_model_b.yaml's model) at batch 8 in bf16:
+    # each front outlooker's backward (C = 64, 2 heads) on the new kernel
+    cfg = {"type": "model_b", "num_classes": 100, "in_ch": 3, "stem_dim": 64,
+           "outlooker_front_depth": 3, "dpr_max": 0.1, "use_pallas": mode,
+           "stages": [
+               {"dim": 64, "depth": 2, "num_heads": 2, "grid_size": 8,
+                "outlook_heads": 2},
+               {"dim": 128, "depth": 2, "num_heads": 4, "grid_size": 8,
+                "outlook_heads": 4},
+               {"dim": 256, "depth": 3, "num_heads": 8, "grid_size": 4,
+                "outlook_heads": 8},
+               {"dim": 384, "depth": 1, "num_heads": 6, "grid_size": 2,
+                "outlook_heads": 6}]}
+    bwd = _outlook_bwd(mode == "fused_agg_v")[0]
+    model = build_model(cfg, dtype=torch.bfloat16, use_kernels=True,
+                        device=dev, seed=1)
+    x = torch.randn(8, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    y = (torch.arange(8) % 100).to(dev)
+    before = bwd.by_entry.copy()
+    state, m = make_train_step(StepConfig(num_classes=100))(
+        TrainState.create(model, AdamW(1e-3)), (x, y),
+        generator=torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    assert dict(bwd.by_entry - before) == {OUTLOOK_MMA: 3}
+    assert float(m["nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
 
 
 @pytest.mark.parametrize("mode", ["fused_agg", "fused_agg_v"])

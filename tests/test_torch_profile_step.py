@@ -38,6 +38,14 @@ def test_port_kernels_names_every_grid_core_kernel_source():
         "csrc/grid_mhsa.cu"
 
 
+def test_port_kernels_names_every_outlook_value_path_kernel_source():
+    port = profile_step.port_kernels()
+    # #7 / #8: the bf16 backward's tensor-core kernel, and the FMA kernels
+    assert port["outlook_bwd_mma"] == "csrc/outlook_agg_bwd_mma.cu"
+    assert port["outlook_fwd"] == port["outlook_bwd_proj"] == \
+        port["outlook_bwd_dv"] == "csrc/outlook_agg.cu"
+
+
 @pytest.mark.parametrize("name,want", [
     ("void (anonymous namespace)::weights_kernel<0, 4>(__nv_bfloat16 "
      "const*, float const*)", "csrc/mlp_branch_bwd_mma.cu"),
