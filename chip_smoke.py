@@ -56,24 +56,28 @@ path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
 attention branch's bf16 launches (Tiny-ImageNet's and ``a_base``'s stage
 0) run ``csrc/attn_branch_mma.cu`` forward and
 ``csrc/attn_branch_bwd_mma.cu`` backward, its fp32 ones
-``csrc/attn_branch.cu``. The backward of the fused outlook projection
-(#7 ``outlook_agg`` and #8 ``outlook_branch``) runs, for every bf16
-launch its plan takes (every outlooker of C <= 128: Model B's front and
-every ``OUTLOOK_SHAPES`` entry of C <= 128), ``csrc/outlook_agg_bwd_mma.cu``
-(CUDA C++, its five products on ``mma.sync`` tiles, one pass a tile with
-the halo rows' dyag recomputed), its fp32 and wider launches
-``csrc/outlook_agg.cu``. The served and trained main paths (bf16) must
-launch them through the matching C entry points, and the fp32 step
-through the FMA ones; ``attn_branch_nhwc``'s y and parameter grads must
-equal ``attn_branch``'s on the partitioned inputs bit for bit.
+``csrc/attn_branch.cu``. The fused outlook projection (#7 ``outlook_agg``
+and #8 ``outlook_branch``) runs, for every bf16 forward launch its plan
+takes (Model B's front and every ``OUTLOOK_SHAPES`` entry of C <= 192
+with the fold, C <= 256 without), ``csrc/outlook_agg_fwd_mma.cu`` (CUDA
+C++, x.Wv and y.Wp on ``mma.sync`` tiles, staged by 16-byte ``cp.async``
+on the backward's layout), and for every bf16 backward launch its plan
+takes (every outlooker of C <= 128) ``csrc/outlook_agg_bwd_mma.cu`` (its
+five products on ``mma.sync`` tiles, one pass a tile with the halo rows'
+dyag recomputed); its fp32 and wider launches ``csrc/outlook_agg.cu``.
+The served and trained main paths (bf16) must launch them through the
+matching C entry points, and the fp32 step through the FMA ones;
+``attn_branch_nhwc``'s y and parameter grads must equal ``attn_branch``'s
+on the partitioned inputs bit for bit.
 
 For each model: every kernel against its plain PyTorch version at every
 stage shape (forward at the serving batch 64, backward at the train batch
 128, fp32 and bf16; each backward and each forward of the fused
 attention branch twice, bitwise equal, through the entry point its dtype
-routes to; the bf16 MLP forward with at least 90% of its outputs bitwise
-equal to the plain version's; the share of the fused branch's bf16 y
-bitwise the plain version's reported), requests through
+routes to, and so does the outlook forward; the bf16 MLP and outlook
+forwards with at least 90% of their outputs bitwise equal to the plain
+version's; the share of the fused branch's bf16 y bitwise the plain
+version's reported), requests through
 ``Predictor`` at batch 64 with the launch counts of each forward, the kernel
 path's logits against the plain path's, one fp32 train step through the
 kernels against one through the plain path (batch 128, raw uint8 in, the
@@ -113,12 +117,13 @@ kernel against the FMA kernel it replaces for #1 at every "t" stage shape
 of the 7M model, Model B and ``a7m_48`` the same way: the forward at batch
 64, per forward, the backward at 128, per train step, per launch too.
 Phase ``ab_outlook`` (``Smoke.ab_outlook``) times in device time the
-never-redesigned forward kernels of #7, #8 (``csrc/outlook_agg.cu``) and
-#9 (``csrc/outlook_softmax.cu``) at Model B's front (batch 64, per launch
-and per forward), then the outlook backward's tensor-core kernel against
-the FMA kernel it replaces at Model B's front (batch 128, per launch and
-per train step) and at every other ``OUTLOOK_SHAPES`` entry its plan takes,
-each with its share of the bound. The share of the grid core's bf16
+never-redesigned forward kernel of #9 (``csrc/outlook_softmax.cu``) at
+Model B's front (batch 64, per launch and per forward), then the outlook
+forward's tensor-core kernel against the FMA kernel it replaces at Model
+B's front (batch 64, per launch and per forward) and at every other
+``OUTLOOK_SHAPES`` entry its plan takes, then the backward's the same way
+(batch 128, per launch and per train step), each with its share of the
+bound. The share of the grid core's bf16
 outputs bitwise the plain version's is reported at every compare, not
 gated, and so are the outlook backward's shares of dv / dx and da.
 
@@ -376,9 +381,12 @@ BF16_LOSS_TOL = 3e-2
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
 # JAX falls back to it from #5), csrc/grid_mhsa_long.cu in both dtypes.
-# outlook_agg_bwd / outlook_branch_bwd: csrc/outlook_agg_bwd_mma.cu for bf16
-# launches its plan takes (every outlooker of C <= 128: every main path's),
-# csrc/outlook_agg.cu for fp32 ones and wider bf16 ones.
+# outlook_agg / outlook_branch: csrc/outlook_agg_fwd_mma.cu for bf16
+# launches its plan takes (Wp, and Wv with the fold, resident beside one
+# tile: every main path's), csrc/outlook_agg.cu for fp32 ones and wider bf16
+# ones. outlook_agg_bwd / outlook_branch_bwd: csrc/outlook_agg_bwd_mma.cu for
+# bf16 launches its plan takes (every outlooker of C <= 128: every main
+# path's), csrc/outlook_agg.cu for fp32 ones and wider bf16 ones.
 SOURCES = {
     "grid_mhsa": (
         ("outgridvit_tpu_torch/csrc/grid_mhsa_th.cu",
@@ -425,7 +433,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/attn_branch_pallas.py:396 attn_branch_pallas "
          "backward (#5)"]),
     "outlook_agg": (
-        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        ("outgridvit_tpu_torch/csrc/outlook_agg_fwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/outlook_agg.cu"),
         "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:499",
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:499 "
          "outlook_attention_proj_pallas (#7, forward: whole image :426, "
@@ -437,7 +446,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:461 "
          "outlook_attention_proj_pallas backward (#7, row-chunked :374)"]),
     "outlook_branch": (
-        "outgridvit_tpu_torch/csrc/outlook_agg.cu",
+        ("outgridvit_tpu_torch/csrc/outlook_agg_fwd_mma.cu",
+         "outgridvit_tpu_torch/csrc/outlook_agg.cu"),
         "outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:809",
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:809 "
          "outlook_branch_pallas (#8, forward: whole image :693, "
@@ -580,8 +590,12 @@ GRID_ENTRIES = {"grid_mhsa": ("ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
                 "grid_mhsa_bwd": ("ogvt_grid_mhsa_th_bwd",
                                   "ogvt_grid_mhsa_bwd")}
 AB_GRID = (FLAGSHIP, MODEL_B, A7M_48)
-# the C entry points of the outlook backward's A/B, tensor-core side first
-# (bf16 launches its plan takes; fp32 and the rest take the FMA one)
+# the C entry points of the outlook forward's and backward's A/Bs,
+# tensor-core side first (bf16 launches their plans take; fp32 and the rest
+# take the FMA one)
+OUTLOOK_FWD_ENTRIES = {
+    "outlook_agg": ("ogvt_outlook_agg_fwd_mma", "ogvt_outlook_agg"),
+    "outlook_branch": ("ogvt_outlook_agg_fwd_mma", "ogvt_outlook_agg")}
 OUTLOOK_BWD_ENTRIES = {
     "outlook_agg_bwd": ("ogvt_outlook_agg_bwd_mma", "ogvt_outlook_agg_bwd"),
     "outlook_branch_bwd": ("ogvt_outlook_agg_bwd_mma",
@@ -596,10 +610,11 @@ LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
 # kernels whose outputs equal their plain versions bit for bit on the card
 BITWISE = ("dwconv3x3",)
 # the least share of a bf16 kernel's outputs that must equal its plain
-# version's bit for bit: the MLP forward's sums differ only in fp32 order,
-# which flips a rounding in well under 1% of its outputs (a wrong kernel
-# may pass KERNEL_TOL, not this)
-BITWISE_SHARE = {"mlp_branch": 0.9}
+# version's bit for bit: the MLP and outlook forwards' sums differ only in
+# fp32 order, which flips a rounding in well under 1% of their outputs (a
+# wrong kernel may pass KERNEL_TOL, not this)
+BITWISE_SHARE = {"mlp_branch": 0.9, "outlook_agg": 0.9,
+                 "outlook_branch": 0.9}
 # bf16 kernels whose share of outputs bitwise equal to the plain version's
 # is reported, not gated (they are held to KERNEL_TOL): the fused attention
 # branch's forward and the grid core, whose softmax takes the card's expf
@@ -744,16 +759,22 @@ def graph_ms(fn, iters=20, stream=None):
     return t0.elapsed_time(t1) / iters
 
 
-def outlook_bwd_entry(name, args):
-    """The C entry point the outlook backward ``name`` takes on its
-    arguments (v, a, wp, g) or (x, a, wv, bv, wp, g): by dtype and shape
-    (``ops/outlook_agg.py:backward_entry``)."""
-    from outgridvit_tpu_torch.ops.outlook_agg import TAPS, backward_entry
+def outlook_entry(name, args):
+    """The C entry point the outlook forward or backward ``name`` takes on
+    its arguments ((v, a, wp, bp) or (x, a, wv, bv, wp, bp); the backward's
+    with g for bp): by dtype and shape
+    (``ops/outlook_agg.py:forward_entry``, ``backward_entry``)."""
+    from outgridvit_tpu_torch.ops.outlook_agg import (
+        TAPS,
+        backward_entry,
+        forward_entry,
+    )
 
     x, a, wp = args[0], args[1], args[-2]
     B, H, W, Cin = x.shape
-    return backward_entry(B, H, W, Cin, wp.shape[0], a.shape[-1] // TAPS,
-                          name == "outlook_branch_bwd", x.dtype)
+    pick = backward_entry if name.endswith("_bwd") else forward_entry
+    return pick(B, H, W, Cin, wp.shape[0], a.shape[-1] // TAPS,
+                name.startswith("outlook_branch"), x.dtype)
 
 
 def nhwc_via_tokens(args, backward):
@@ -1037,9 +1058,8 @@ class Smoke:
         csrc/mlp_branch_bwd_mma.cu's; every forward and backward of the
         fused attention branch through csrc/attn_branch_mma.cu's and
         csrc/attn_branch_bwd_mma.cu's; every backward of #7 and #8 (Model
-        B's front, C = 64) through csrc/outlook_agg_bwd_mma.cu's. ``plan``
-        and
-        ``variants``:
+        B's front, C = 64) through csrc/outlook_agg_fwd_mma.cu's and
+        csrc/outlook_agg_bwd_mma.cu's. ``plan`` and ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
         got = self.read_entries()
@@ -1053,6 +1073,7 @@ class Smoke:
                               in (*MLP_ENTRIES.items(),
                                   *ATTN_FWD_ENTRIES.items(),
                                   *ATTN_BWD_ENTRIES.items(),
+                                  *OUTLOOK_FWD_ENTRIES.items(),
                                   *OUTLOOK_BWD_ENTRIES.items()))):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
@@ -1203,16 +1224,17 @@ class Smoke:
         dt = str(dtype).split(".")[-1]
         backward = name.endswith("_bwd")
         routed = (ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
-                  or GRID_ENTRIES.get(name) or OUTLOOK_BWD_ENTRIES.get(name))
+                  or GRID_ENTRIES.get(name) or OUTLOOK_FWD_ENTRIES.get(name)
+                  or OUTLOOK_BWD_ENTRIES.get(name))
         twice = backward or routed is not None
         before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
         again = kernel(*args) if twice else got
         torch.cuda.synchronize()
         if routed:  # the entry its dtype (and, outlook, its shape) takes
-            entry = (outlook_bwd_entry(name, args) if name in
-                     OUTLOOK_BWD_ENTRIES else routed[0 if dt == "bfloat16"
-                                                     else 1])
+            entry = (outlook_entry(name, args) if name in
+                     (*OUTLOOK_FWD_ENTRIES, *OUTLOOK_BWD_ENTRIES)
+                     else routed[0 if dt == "bfloat16" else 1])
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
                      if v - before.get(k, 0)}
@@ -1714,71 +1736,80 @@ class Smoke:
 
     def ab_outlook(self, iters=10, fma_iters=2):
         """#7, #8 and #9 in bf16, device time (calls in one CUDA graph,
-        :func:`graph_ms`), each with its share of the bound. First the
-        forward kernels, never redesigned, at Model B's front (H = W = 32,
-        C = 64, 2 heads; #9 at ``model_b_o``'s) at the serving batch 64:
-        ``csrc/outlook_agg.cu`` for #7 and #8, ``csrc/outlook_softmax.cu``
-        for #9, twice each, per launch and per forward (3 launches). Then
-        the backward's A/B at the train batch 128: the tensor-core kernel
-        ``csrc/outlook_agg_bwd_mma.cu`` against the FMA kernel
-        ``csrc/outlook_agg.cu`` it replaces, in turns (:meth:`ab_fma_shape`;
-        ``fma_iters`` of the slow kernel in a graph), per launch and per
-        step at Model B's front, and per launch at every other
-        ``OUTLOOK_SHAPES`` entry the tensor-core plan takes."""
+        :func:`graph_ms`), each with its share of the bound. First #9's
+        forward, never redesigned (``csrc/outlook_softmax.cu``), at
+        ``model_b_o``'s front (H = W = 32, C = 64, 2 heads) at the serving
+        batch 64, twice, per launch and per forward (3 launches). Then the
+        A/Bs of #7 and #8 in turns (:meth:`ab_fma_shape`; ``fma_iters`` of
+        the slow kernel in a graph): the forward's tensor-core kernel
+        ``csrc/outlook_agg_fwd_mma.cu`` against the FMA kernel
+        ``csrc/outlook_agg.cu`` it replaces at batch 64, per launch and per
+        forward at Model B's front and per launch at every other
+        ``OUTLOOK_SHAPES`` entry its plan takes; then the backward's,
+        ``csrc/outlook_agg_bwd_mma.cu`` against ``csrc/outlook_agg.cu``, the
+        same way at the train batch 128, per train step at the front."""
         import torch
 
-        from outgridvit_tpu_torch.ops.outlook_agg import _launch_backward
+        from outgridvit_tpu_torch.ops.outlook_agg import (
+            _launch_backward,
+            _launch_forward,
+        )
 
         bf = torch.bfloat16
         H, C, heads = OUTLOOK_SHAPES["model_b front"][0]
         n = MODEL_B.front
-        for name in ("outlook_agg", "outlook_branch", "outlook_softmax"):
-            args = (self.softmax_args(BATCH, H, C, heads, 3, bf)
-                    if name == "outlook_softmax"
-                    else self.outlook_args(name, BATCH, H, C, heads, bf))
-            fn = self.kernels[name][0]
-            bound = max(bound_ms(name, args, fn(*args), bf))
-            runs = [graph_ms(lambda: fn(*args), iters) for _ in range(2)]
-            k = sum(runs) / len(runs)
-            path = "model_b_o" if name == "outlook_softmax" else "model_b"
-            self.device[name] = {
-                "per": f"{path} front B={BATCH}", "launches": n,
-                "ms_per_launch": k, "ms_per_forward": n * k,
-                "bound_ms_per_launch": bound, "bound_share": bound / k,
-                "runs": [round(t, 6) for t in runs]}
-            print(f"[ab] {name} {path} front B={BATCH} H=W={H} C={C} "
-                  f"heads={heads} bf16 device, per launch: "
-                  f"{k * 1e3:.1f} us ({runs[0] * 1e3:.1f}, "
-                  f"{runs[1] * 1e3:.1f}); per forward ({n} launches) "
-                  f"{n * k:.4f} ms; bound {bound * 1e3:.2f} us, kernel at "
-                  f"{bound / k:.2%} of it [{self.gpu}]")
-            del args
+        name = "outlook_softmax"
+        args = self.softmax_args(BATCH, H, C, heads, 3, bf)
+        fn = self.kernels[name][0]
+        bound = max(bound_ms(name, args, fn(*args), bf))
+        runs = [graph_ms(lambda: fn(*args), iters) for _ in range(2)]
+        k = sum(runs) / len(runs)
+        self.device[name] = {
+            "per": f"model_b_o front B={BATCH}", "launches": n,
+            "ms_per_launch": k, "ms_per_forward": n * k,
+            "bound_ms_per_launch": bound, "bound_share": bound / k,
+            "runs": [round(t, 6) for t in runs]}
+        print(f"[ab] {name} model_b_o front B={BATCH} H=W={H} C={C} "
+              f"heads={heads} bf16 device, per launch: "
+              f"{k * 1e3:.1f} us ({runs[0] * 1e3:.1f}, "
+              f"{runs[1] * 1e3:.1f}); per forward ({n} launches) "
+              f"{n * k:.4f} ms; bound {bound * 1e3:.2f} us, kernel at "
+              f"{bound / k:.2%} of it [{self.gpu}]")
+        del args
         shapes = [(cfg, sh) for cfg, shs in OUTLOOK_SHAPES.items()
                   for sh in shs]
-        for base, wrapper in (("outlook_agg", "outlook_agg_proj_backward"),
-                              ("outlook_branch", "outlook_branch_backward")):
-            name = base + "_bwd"
-            entries = dict(zip(("mma", "fma"), OUTLOOK_BWD_ENTRIES[name]))
+        for base, wrapper, backward in (
+                ("outlook_agg", "outlook_agg_proj", False),
+                ("outlook_branch", "outlook_branch", False),
+                ("outlook_agg", "outlook_agg_proj_backward", True),
+                ("outlook_branch", "outlook_branch_backward", True)):
+            name = base + ("_bwd" if backward else "")
+            batch = TRAIN_BATCH if backward else BATCH
+            launch = _launch_backward if backward else _launch_forward
+            entries = dict(zip(("mma", "fma"), (
+                OUTLOOK_BWD_ENTRIES if backward else OUTLOOK_FWD_ENTRIES)[
+                    name]))
             res = self.ab_fma.setdefault(name, {})
             for cfg, (h, c, hh) in shapes:
-                args = self.outlook_args(base, TRAIN_BATCH, h, c, hh, bf,
-                                         backward=True)
-                if outlook_bwd_entry(name, args) != entries["mma"]:
+                args = self.outlook_args(base, batch, h, c, hh, bf,
+                                         backward=backward)
+                if outlook_entry(name, args) != entries["mma"]:
                     continue
-                # (v, a, wp, g) / (x, a, wv, bv, wp, g)
+                # (v, a, wp, bp or g) / (x, a, wv, bv, wp, bp or g)
                 full = args if base == "outlook_branch" else (
                     args[0], args[1], None, None, *args[2:])
-                fns = {w: (lambda e=e: _launch_backward(e, wrapper, *full))
+                fns = {w: (lambda e=e: launch(e, wrapper, *full))
                        for w, e in entries.items()}
                 front = cfg == "model_b front"
-                label = (f"{cfg} B={TRAIN_BATCH} H=W={h} C={c} heads={hh}")
+                label = f"{cfg} B={batch} H=W={h} C={c} heads={hh}"
                 total = {"bound": 0.0, "launches": 0}
                 res[label] = self.ab_fma_shape(
                     name, label, args, fns, entries,
                     {"mma": iters, "fma": fma_iters}, n if front else 1,
                     total)
                 if front:
-                    per = f"model_b train step B={TRAIN_BATCH}"
+                    per = (f"model_b train step B={batch}" if backward
+                           else f"model_b forward B={batch}")
                     res[per] = total
                     self.ab_fma_total(name, per, total)
                 del args, full, fns
@@ -2090,6 +2121,7 @@ class Smoke:
                 for name, (_, fma) in (*ATTN_FWD_ENTRIES.items(),
                                        *ATTN_BWD_ENTRIES.items(),
                                        *GRID_ENTRIES.items(),
+                                       *OUTLOOK_FWD_ENTRIES.items(),
                                        *OUTLOOK_BWD_ENTRIES.items()):
                     want = ({fma: attn_steps[name]} if attn_steps[name]
                             else {})

@@ -9,8 +9,9 @@ own by default, e.g. a ``git archive`` checkout of another commit), calls
 every kernel wrapper of ``chip_smoke.py`` once at every stage shape of its
 cases (the forward at batch 64, the backward at 128, in fp32 and bf16;
 the outlook kernels at the outlookers' shapes, the depthwise ones at the
-MBConvs'; the outlook backward also at every ``OUTLOOK_SHAPES`` entry, at
-batch 128, through the kernel its dtype and shape route to), on inputs
+MBConvs'; the outlook forward and backward also at every
+``OUTLOOK_SHAPES`` entry, at batch 64 and 128, through the kernel their
+dtype and shape route to), on inputs
 drawn from a seed fixed per (case, direction, dtype) or (shape, kernel,
 dtype),
 and writes the SHA-256 of each output's bytes, keyed by case, kernel, shape
@@ -69,15 +70,18 @@ def hashes(root: Path) -> dict:
               for sh in shs]
     for si, (cfg, (H, C, heads)) in enumerate(shapes):
         for ki, base in enumerate(cs.OUTLOOK):
-            name = base + "_bwd"
-            for di, dtype in enumerate((torch.float32, torch.bfloat16)):
-                smoke.gen.manual_seed(100_000 + 100 * si + 10 * ki + di)
-                args = smoke.outlook_args(base, cs.TRAIN_BATCH, H, C, heads,
-                                          dtype, backward=True)
-                record(f"{cfg}|{name}|B={cs.TRAIN_BATCH} H=W={H} C={C} "
-                       f"heads={heads}|{dtype}", smoke.kernels[name][0](*args))
-                del args
-            torch.cuda.empty_cache()
+            for backward, batch, seed in ((True, cs.TRAIN_BATCH, 100_000),
+                                          (False, cs.BATCH, 200_000)):
+                name = base + ("_bwd" if backward else "")
+                for di, dtype in enumerate((torch.float32, torch.bfloat16)):
+                    smoke.gen.manual_seed(seed + 100 * si + 10 * ki + di)
+                    args = smoke.outlook_args(base, batch, H, C, heads, dtype,
+                                              backward=backward)
+                    record(f"{cfg}|{name}|B={batch} H=W={H} C={C} "
+                           f"heads={heads}|{dtype}",
+                           smoke.kernels[name][0](*args))
+                    del args
+                torch.cuda.empty_cache()
     return out
 
 

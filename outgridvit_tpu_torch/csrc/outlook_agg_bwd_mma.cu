@@ -57,126 +57,16 @@
 // block order (partials.cuh:reduce_segments), with no float atomics: two
 // calls give bitwise-equal grads. Staged bf16 rows are an odd number of
 // 16-byte units apart (row_bytes). The layout is outlook_agg_mma_layout.h;
-// the entry point refuses any plan it does not match.
-#include <stdint.h>
-
-#include "common.cuh"
-#include "mma.cuh"
-#include "outlook_agg_mma_layout.h"
+// the entry point refuses any plan it does not match. The staging, the v
+// and dyag products and the taps of y are outlook_agg_mma.cuh's, shared
+// with the forward (csrc/outlook_agg_fwd_mma.cu).
+#include "outlook_agg_mma.cuh"
 #include "partials.cuh"
 
 using namespace ogvt;
 using namespace ogvt::outlook_mma;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  return as_u32(__floats2bfloat162_rn(lo, hi));
-}
-
-// n / d by a multiply for 0 <= n, d < 2^16 (the layout keeps every
-// quotient the taps take there): m = ceil(2^32 / d), exact below 2^32 / d.
-struct FastDiv {
-  unsigned m;
-  int d;
-  __device__ explicit FastDiv(int d_) : m(0xffffffffu / d_ + 1u), d(d_) {}
-  __device__ __forceinline__ int div(int n) const {
-    return d == 1 ? n : static_cast<int>(__umulhi(n, m));
-  }
-};
-
-// Staged rows [lo, hi) of the n rows at shared address `tile` (rowb bytes
-// apart) from rows first + e of the [*, cols] bf16 matrix `src`; the other
-// rows zero-filled (src is then not read).
-__device__ __forceinline__ void stage_rows(unsigned tile, const bf16* src,
-                                           long long first, int lo, int hi,
-                                           int n, int cols, int rowb) {
-  // item i = e * units + u, walked without a division: i advances by
-  // kThreads, i.e. de rows and du units
-  const int units = cols / 8, de = kThreads / units, du = kThreads % units;
-  int e = threadIdx.x / units, u = threadIdx.x % units;
-  for (; e < n; e += de, u += du) {
-    if (u >= units) {
-      u -= units;
-      ++e;
-      if (e >= n) break;
-    }
-    const bool in = e >= lo && e < hi;
-    cp_async16_zfill(tile + e * rowb + u * 16,
-                     in ? src + (first + e) * cols + u * 8 : src,
-                     in ? 16 : 0);
-  }
-}
-
-// Rows [lo, hi) of `rows` rows of `cols` bf16 at `src` (row 0 at src
-// row `first`) into the rows at `dst`, the other rows zero-filled: 4 bytes
-// at a time by cp.async where rows of `cols` bf16 keep 4-byte alignment
-// (cols * W even: `pairs`), else 2 at a time through registers.
-__device__ __forceinline__ void stage_flat(bf16* dst, const bf16* src,
-                                          long long first, int lo, int hi,
-                                          int rows, int cols, bool pairs) {
-  const int n0 = lo * cols, n = (hi - lo) * cols;
-  for (int i = threadIdx.x; i < n0; i += kThreads) {
-    dst[i] = __float2bfloat16(0.f);
-  }
-  for (int i = n0 + n + threadIdx.x; i < rows * cols; i += kThreads) {
-    dst[i] = __float2bfloat16(0.f);
-  }
-  const bf16* s0 = src + (first + lo) * cols;
-  bf16* d0 = dst + n0;
-  if (pairs) {
-    for (int i = threadIdx.x; i < n / 2; i += kThreads) {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       smem_addr(d0 + 2 * i)),
-                   "l"(s0 + 2 * i)
-                   : "memory");
-    }
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) d0[i] = s0[i];
-  }
-}
-
-// Ask L2 for the bytes [p, p + n), one 128-byte line a thread at a time.
-__device__ __forceinline__ void prefetch_l2(const void* p, long long n) {
-  const char* c = static_cast<const char*>(p);
-  for (long long i = threadIdx.x * 128ll; i < n; i += kThreads * 128ll) {
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + i));
-  }
-}
-
-// acc += A.B for 16 rows and 16 * NG columns: A [16, K] row-major at shared
-// address a0 (rows rowA bytes apart); B [K, 16 * NG] from a staged matrix
-// at b0, kBT: row-major [K, n] (ldmatrix.trans), else its transpose [n, K]
-// (ldmatrix). acc[i]: the m16n8 tile of columns 8i..8i+7; A's fragments
-// serve all NG column groups.
-template <bool kBT, int NG>
-__device__ __forceinline__ void mma_rows(unsigned a0, int rowA, unsigned b0,
-                                         int rowB, int K,
-                                         float (&acc)[2 * NG][4]) {
-  const int lane = threadIdx.x % 32, lr = lane % 8, lm = lane / 8;
-  const unsigned a_ln = a0 + (lr + (lm & 1) * 8) * rowA + (lm >> 1) * 16;
-  const unsigned b_ln =
-      kBT ? b0 + (lr + (lm & 1) * 8) * rowB + (lm >> 1) * 16
-          : b0 + (lr + (lm >> 1) * 8) * rowB + (lm & 1) * 16;
-#pragma unroll 2
-  for (int k = 0; k < K / 16; ++k) {
-    unsigned af[4];
-    ldsm_x4(a_ln + k * 32, af);
-#pragma unroll
-    for (int gi = 0; gi < NG; ++gi) {
-      unsigned bf[4];
-      if (kBT) {
-        ldsm_x4_t(b_ln + k * 16 * rowB + gi * 32, bf);
-      } else {
-        ldsm_x4(b_ln + gi * 16 * rowB + k * 32, bf);
-      }
-      mma_k16(acc[2 * gi], af, bf[0], bf[1]);
-      mma_k16(acc[2 * gi + 1], af, bf[2], bf[3]);
-    }
-  }
-}
 
 // acc += A^T.B over K rows: A [K, *] and B [K, *] row-major bf16 tiles whose
 // 16 columns start at shared addresses a0 and b0 (row 0), rows rowA and
@@ -224,55 +114,6 @@ __device__ __forceinline__ void mma_cols2(unsigned a0, int rowA, unsigned b0,
   }
 }
 
-// 1. of the kernel: v (the fold: x.Wv + bv, 0 outside the image) and
-// dyag = g.Wp^T of the chunk's channels [c0, c0 + CH) at every staged
-// pixel into the padded fp32 rows; a warp an (m16, 16 * NG columns) unit.
-template <bool kFold, int NG>
-__device__ __forceinline__ void products(const Geom& G, unsigned base,
-                                         float* s_v, float* s_d,
-                                         const bf16* __restrict__ bv, int c0,
-                                         int CH, int Cin, int C, int W,
-                                         int e_lo, int e_hi,
-                                         const FastDiv& divW) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, tq = lane % 4, ldv = G.ldv, WP = W + 2;
-  const int ng = CH / (16 * NG), units = (G.NE / 16) * ng;
-  for (int u = warp; u < (kFold ? 2 : 1) * units; u += kWarps) {
-    const bool is_v = kFold && u >= units;
-    const int uu = is_v ? u - units : u;
-    const int m0 = (uu / ng) * 16, n0 = c0 + (uu % ng) * 16 * NG;
-    float acc[2 * NG][4] = {};
-    if (is_v) {
-      mma_rows<true, NG>(base + G.xs + m0 * G.rowX, G.rowX,
-                         base + G.wv + n0 * 2, G.rowC, Cin, acc);
-    } else {
-      mma_rows<false, NG>(base + G.gs + m0 * G.rowC, G.rowC,
-                          base + G.wp + n0 * G.rowC, G.rowC, C, acc);
-    }
-    float* dst = is_v ? s_v : s_d;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int e = m0 + gq + 8 * hh;
-      if (e >= G.ext) continue;
-      const bool in = e >= e_lo && e < e_hi;
-      const int r = divW.div(e);
-      float* row = dst + (r * WP + e - r * W + 1) * ldv;
-#pragma unroll
-      for (int n = 0; n < 2 * NG; ++n) {
-        const int cl = n0 - c0 + 8 * n + 2 * tq;
-        float b0 = 0.f, b1 = 0.f;
-        if (is_v) {
-          b0 = to_f32(bv[c0 + cl]);
-          b1 = to_f32(bv[c0 + cl + 1]);
-        }
-        *reinterpret_cast<float2*>(row + cl) =
-            in ? make_float2(acc[n][2 * hh] + b0, acc[n][2 * hh + 1] + b1)
-               : make_float2(0.f, 0.f);
-      }
-    }
-  }
-}
-
 template <bool kFold, int NU>
 __global__ void __launch_bounds__(kThreads, 1)
 outlook_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ a,
@@ -289,7 +130,7 @@ outlook_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ a,
   const int hd = G.hd, h9 = G.h9, ldv = G.ldv;
   const int nc = C / 16;
   bf16* s_a = reinterpret_cast<bf16*>(smem + G.as);
-  const bool a_pairs = (W * h9) % 2 == 0;
+  const bool a_pairs = pairs_ok(a, W, h9);
   float* s_v = reinterpret_cast<float*>(smem + G.vf);
   float* s_d = reinterpret_cast<float*>(smem + G.df);
   bf16* s_da = reinterpret_cast<bf16*>(smem + G.da);
@@ -357,24 +198,13 @@ outlook_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ a,
       // 1. v (the fold: x.Wv + bv; else x) and dyag = g.Wp^T of the chunk's
       // channels at every staged pixel, fp32, 0 outside the image
       if (CH % 32 == 0) {
-        products<kFold, 2>(G, base, s_v, s_d, bv, c0, CH, Cin, C, W, e_lo,
-                           e_hi, divW);
+        products<kFold, true, 2>(G, base, s_v, s_d, bv, c0, CH, Cin, C, W,
+                                 e_lo, e_hi, divW);
       } else {
-        products<kFold, 1>(G, base, s_v, s_d, bv, c0, CH, Cin, C, W, e_lo,
-                           e_hi, divW);
+        products<kFold, true, 1>(G, base, s_v, s_d, bv, c0, CH, Cin, C, W,
+                                 e_lo, e_hi, divW);
       }
-      if (!kFold) {  // a warp a row, a lane two channels at a time
-        for (int e = warp; e < G.ext; e += kWarps) {
-          const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(
-              smem + G.xs + e * G.rowX + c0 * 2);
-          const int r = divW.div(e);
-          float* row = s_v + (r * WP + e - r * W + 1) * ldv;
-          for (int c = lane; c < CH / 2; c += 32) {
-            *reinterpret_cast<float2*>(row + 2 * c) =
-                __bfloat1622float2(xr[c]);
-          }
-        }
-      }
+      if (!kFold) values_f32(G, smem, s_v, c0, CH, W, divW);
       __syncthreads();
 
       // 2. y and da, a thread a (tile pixel, head of the chunk, part of its
@@ -416,25 +246,11 @@ outlook_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ a,
         for (int c = 0; c < cp; c += 4) {
           const float2 da0 = *reinterpret_cast<const float2*>(drow + c);
           const float2 da1 = *reinterpret_cast<const float2*>(drow + c + 2);
-          float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
-#pragma unroll
-          for (int tp = 0; tp < kTaps; ++tp) {
-            const float* vp =
-                vrow + (tp / 3 - 1) * tstride + (tp % 3 - 1) * ldv + c;
-            const float2 va = *reinterpret_cast<const float2*>(vp);
-            const float2 vb = *reinterpret_cast<const float2*>(vp + 2);
-            y0 = __fadd_rn(y0, __fmul_rn(va.x, w[tp]));
-            y1 = __fadd_rn(y1, __fmul_rn(va.y, w[tp]));
-            y2 = __fadd_rn(y2, __fmul_rn(vb.x, w[tp]));
-            y3 = __fadd_rn(y3, __fmul_rn(vb.y, w[tp]));
-            dac[tp] = fmaf(vb.y, da1.y,
-                           fmaf(vb.x, da1.x,
-                                fmaf(va.y, da0.y,
-                                     fmaf(va.x, da0.x, dac[tp]))));
-          }
+          float y[4];
+          taps4<true>(vrow + c, tstride, ldv, w, da0, da1, dac, y);
           if (live) {
-            yrow[c / 2] = pack2(y0, y1);
-            yrow[c / 2 + 1] = pack2(y2, y3);
+            yrow[c / 2] = pack2(y[0], y[1]);
+            yrow[c / 2 + 1] = pack2(y[2], y[3]);
           }
         }
         // the np lanes of the head: a tree over the parts; lane `part`
@@ -640,10 +456,6 @@ outlook_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ a,
     pb[C * C + c] = s_dbp[c];
     if (kFold) pb[C * C + C + Cin * C + c] = s_dbv[c];
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 struct Args {

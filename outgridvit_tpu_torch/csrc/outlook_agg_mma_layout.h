@@ -1,9 +1,11 @@
-// The shared-memory layout, register cap and limits of the fused outlook
-// projection's bf16 tensor-core backward (csrc/outlook_agg_bwd_mma.cu), in
-// plain C++ (no CUDA), so that one copy serves the kernel, its entry point's
-// plan check and the layout query of outlook_agg_mma_layout.cpp, which the
-// launch plan (ops/outlook_agg.py:outlook_agg_backward_plan) asks on any
-// host.
+// The shared-memory layouts, register cap and limits of the fused outlook
+// projection's bf16 tensor-core kernels, the backward
+// (csrc/outlook_agg_bwd_mma.cu: geom, fits) and the forward
+// (csrc/outlook_agg_fwd_mma.cu: fwd_geom, fwd_fits), in plain C++ (no
+// CUDA), so that one copy serves each kernel, its entry point's plan check
+// and the layout queries of outlook_agg_mma_layout.cpp, which the launch
+// plans (ops/outlook_agg.py:outlook_agg_backward_plan,
+// outlook_agg_forward_plan) ask on any host.
 #pragma once
 
 #ifdef __CUDACC__
@@ -28,6 +30,16 @@ constexpr int kRegCap = 65536 / kThreads;  // one block an SM
 // csrc/mma.cuh:row16).
 OGVT_HD constexpr int row_bytes(int cols) { return 16 * ((cols / 8) | 1); }
 OGVT_HD constexpr int up16(int n) { return (n + 15) / 16 * 16; }
+
+// The parts a head's channels are cut into for the taps, one thread a
+// (tile pixel, head of the chunk, part): the fewest (a power of 2 up to 8,
+// each part a multiple of 4 channels) that give every thread of the block
+// an item, for SP tile pixels and hc heads a chunk.
+OGVT_HD inline int parts(int hd, int SP, int hc) {
+  int np = 1;
+  while (np < 8 && (hd / np) % 8 == 0 && SP * hc * np < kThreads) np *= 2;
+  return np;
+}
 
 // The m16n16 tiles of dWp [C, C], and of dWv [Cin, C] with the fold, that
 // each warp holds in registers across the block's tiles (the kernel's
@@ -90,11 +102,7 @@ OGVT_HD inline Geom geom(int W, int Cin, int C, int heads, int R, int CH,
   g.rowC = row_bytes(C);
   g.rowO = row_bytes(Cin > C ? Cin : C);
   g.slots = slots(Cin, C, fold);
-  g.np = 1;
-  while (g.np < 8 && (g.hd / g.np) % 8 == 0 &&
-         g.SP * (CH / g.hd) * g.np < kThreads) {
-    g.np *= 2;
-  }
+  g.np = parts(g.hd, g.SP, CH / g.hd);
   int o = 0;
   g.xs = o;
   o += g.NE * g.rowX;
@@ -126,13 +134,15 @@ OGVT_HD inline Geom geom(int W, int Cin, int C, int heads, int R, int CH,
   return g;
 }
 
-// Whether the kernel takes these shapes at R rows a tile and chunks of CH
-// channels: C and Cin multiples of 16 (Cin == C without the fold), a head
-// width that is a multiple of 4, CH a multiple of 16 and of the head width
-// dividing C, at most kMaxSlots dW tiles a warp, within one block's shared
-// memory. The sizes
-// are capped so that no byte offset overflows an int.
-inline bool fits(int W, int Cin, int C, int heads, int R, int CH, int fold) {
+// Whether both kernels take these shapes at R rows a tile and chunks of CH
+// channels, before their shared memory: C and Cin multiples of 16 (Cin ==
+// C without the fold), a head width that is a multiple of 4, CH a multiple
+// of 16 and of the head width dividing C. The sizes are capped so that no
+// byte offset overflows an int, and the quotients the kernels take by a
+// multiply (pixels of the haloed tile by W, tap items by SP) stay below
+// 2^16.
+inline bool shapes_ok(int W, int Cin, int C, int heads, int R, int CH,
+                      int fold) {
   if (W < 1 || W > 4096 || R < 1 || R > 4096 || heads < 1 || C < 16 ||
       C > 1024 || C % 16 || Cin < 16 || Cin > 1024 || Cin % 16 ||
       (fold != 0 && fold != 1) || (!fold && Cin != C) || C % heads) {
@@ -140,13 +150,77 @@ inline bool fits(int W, int Cin, int C, int heads, int R, int CH, int fold) {
   }
   const int hd = C / heads;
   if (hd % 4 || CH < 16 || CH % 16 || C % CH || CH % hd) return false;
-  // the quotients the kernel takes by a multiply stay below 2^16
-  if (static_cast<long long>(R + 2) * W > 8192 ||
-      static_cast<long long>(up16(R * W)) * heads > 8192) {
-    return false;
-  }
+  return static_cast<long long>(R + 2) * W <= 8192 &&
+         static_cast<long long>(up16(R * W)) * heads <= 8192;
+}
+
+// Whether the backward takes these shapes: shapes_ok, at most kMaxSlots dW
+// tiles a warp, within one block's shared memory.
+inline bool fits(int W, int Cin, int C, int heads, int R, int CH, int fold) {
+  if (!shapes_ok(W, Cin, C, heads, R, CH, fold)) return false;
   const Geom g = geom(W, Cin, C, heads, R, CH, fold);
   return g.slots <= kMaxSlots && g.bytes <= kMaxBlockSmem;
+}
+
+// The forward's shared memory for the same tiles (byte offsets): the
+// backward's staging, weights, y tile, tap weights and fp32 v rows, with no
+// g, dyag, dv, da or column sums, and no dW tiles in registers.
+//   xs [NE, Cin] bf16   x of the ext pixels (v without the fold); NE: ext
+//                       rounded up to 16 (the m16 tiles of x.Wv)
+//   wp [C, C], wv [Cin, C] bf16, resident for every tile
+//   ys [SP, C] bf16     y = round(aggregate), the A operand of y.Wp
+//   as [S, h9] bf16     the tap weights of the tile's own pixels
+//   vf [R + 2, W + 2, CH + 2] fp32  v of one chunk's channels at every ext
+//                       pixel, a zero pixel either side of each row (as the
+//                       backward's); once the taps have read it, out's
+//                       rows os [SP, C] bf16 in its place (os == vf), so
+//                       the zero pixels are restored every tile
+// The taps take the backward's items (parts); the rows are the backward's
+// (row_bytes), so its staging and products serve both.
+struct FwdGeom {
+  int hd, h9, ext, S, SP, NE, NP, ldv, rowX, rowC, np;
+  int xs, wp, wv, ys, as, vf, os, bytes;
+};
+
+OGVT_HD inline FwdGeom fwd_geom(int W, int Cin, int C, int heads, int R,
+                                int CH, int fold) {
+  FwdGeom g;
+  g.hd = C / heads;
+  g.h9 = kTaps * heads;
+  g.ext = (R + 2) * W;
+  g.S = R * W;
+  g.SP = up16(g.S);
+  g.NE = up16(g.ext);
+  g.NP = (R + 2) * (W + 2);
+  g.ldv = CH + 2;
+  g.rowX = row_bytes(Cin);
+  g.rowC = row_bytes(C);
+  g.np = parts(g.hd, g.SP, CH / g.hd);
+  int o = 0;
+  g.xs = o;
+  o += g.NE * g.rowX;
+  g.wp = o;
+  o += C * g.rowC;
+  g.wv = o;
+  o += fold ? Cin * g.rowC : 0;
+  g.ys = o;
+  o += g.SP * g.rowC;
+  g.as = o;
+  o += up16(2 * g.S * g.h9);
+  g.vf = g.os = o;
+  const int v = up16(4 * g.NP * g.ldv), os = g.SP * g.rowC;
+  o += v > os ? v : os;
+  g.bytes = o;
+  return g;
+}
+
+// Whether the forward takes these shapes: shapes_ok, within one block's
+// shared memory (Wp, and Wv with the fold, resident: at C = 256 with the
+// fold they alone take 270 KB).
+inline bool fwd_fits(int W, int Cin, int C, int heads, int R, int CH,
+                     int fold) {
+  return shapes_ok(W, Cin, C, heads, R, CH, fold) &&
+         fwd_geom(W, Cin, C, heads, R, CH, fold).bytes <= kMaxBlockSmem;
 }
 
 }  // namespace outlook_mma

@@ -153,6 +153,9 @@ _SIGNATURES = {
     # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
     # stream
     "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),
+    # the same pointers, B, H, W, Cin, C, heads; the plan: rows, chunk;
+    # fold, dtype; the plan: blocks, smem; stream
+    "ogvt_outlook_agg_fwd_mma": ((_P,) * 7 + (_I,) * 12 + (_P,), _I),
     # x, a, wv, bv, wp, g, dx, da, dwv, dbv, dwp, dbp, workspace, B, H, W,
     # Cin, C, heads, rows, fold, dtype, stream
     "ogvt_outlook_agg_bwd": ((_P,) * 13 + (_I,) * 9 + (_P,), _I),
@@ -192,6 +195,8 @@ _HOST_SIGNATURES = {
     "ogvt_grid_mhsa_th_layout": ((_I, _I, _I, _I, _P), _I),
     # W, Cin, C, heads, rows, chunk, fold, int out[4]
     "ogvt_outlook_agg_bwd_mma_layout": ((_I,) * 7 + (_P,), _I),
+    # W, Cin, C, heads, rows, chunk, fold, int out[3]
+    "ogvt_outlook_agg_fwd_mma_layout": ((_I,) * 7 + (_P,), _I),
 }
 
 

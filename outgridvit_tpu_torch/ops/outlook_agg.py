@@ -36,7 +36,18 @@ the differentiable ops the model calls: ``torch.autograd.Function``\\ s in
 recompute style that save only their inputs (``_fwd_vjp`` :509,
 ``_fwdv_vjp`` :819).
 
-The backward has two kernels, picked by dtype and shape before launch
+The forward has two kernels, picked by dtype and shape before launch
+(:func:`forward_entry`): a bf16 launch that :func:`outlook_agg_forward_plan`
+takes (C and Cin multiples of 16, a head width that is a multiple of 4, a
+tile of whole image rows that fits one block with Wp, and Wv with the fold,
+resident: every shipped outlooker of C <= 192 with the fold, C <= 256
+without) runs ``csrc/outlook_agg_fwd_mma.cu`` (``ogvt_outlook_agg_fwd_mma``:
+x.Wv and y.Wp on ``mma.sync`` tiles, the backward's staging and taps); fp32
+launches and the bf16 shapes the plan refuses run the FMA kernel of
+``csrc/outlook_agg.cu`` (``ogvt_outlook_agg``). Launches are counted per C
+entry point (``outlook_agg_proj.by_entry``, ``outlook_branch.by_entry``).
+
+The backward has two kernels, picked the same way
 (:func:`backward_entry`): a bf16 launch that
 :func:`outlook_agg_backward_plan` takes (C and Cin multiples of 16, a head
 width that is a multiple of 4, a tile of whole image rows that fits one
@@ -47,8 +58,8 @@ recomputed); fp32 launches and the bf16 shapes the plan refuses run the
 FMA kernels of ``csrc/outlook_agg.cu`` (``ogvt_outlook_agg_bwd``).
 Launches are counted per C entry point
 (``outlook_agg_proj_backward.by_entry``,
-``outlook_branch_backward.by_entry``). The plan asks the kernel's one
-layout, ``csrc/outlook_agg_mma_layout.h``, through :func:`_layout`.
+``outlook_branch_backward.by_entry``). Both plans ask the kernels' one
+layout header, ``csrc/outlook_agg_mma_layout.h``, through :func:`_layout`.
 """
 
 from __future__ import annotations
@@ -241,21 +252,6 @@ def _check_launch(name, x, a, wv, bv, wp, bp, g=None):
     return B, H, W, Cin, C, heads, rows
 
 
-def _forward(name, x, a, wv, bv, wp, bp):
-    B, H, W, Cin, C, heads, rows = _check_launch(name, x, a, wv, bv, wp, bp)
-    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
-    lib = kernel_build.load()
-    with torch.cuda.device(x.device):
-        err = lib.ogvt_outlook_agg(
-            x.data_ptr(), a.data_ptr(), None if wv is None else wv.data_ptr(),
-            None if bv is None else bv.data_ptr(), wp.data_ptr(),
-            bp.data_ptr(), out.data_ptr(), B, H, W, Cin, C, heads, rows,
-            int(wv is not None), kernel_build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    kernel_build.check(err, f"{name} launch")
-    return out
-
-
 # ---- the tensor-core backward's launch plan -------------------------------
 
 class OutlookBwdPlan(NamedTuple):
@@ -280,12 +276,15 @@ class OutlookBwdPlan(NamedTuple):
 
 
 def _layout(W: int, Cin: int, C: int, heads: int, rows: int, chunk: int,
-            fold: bool) -> Optional[tuple]:
+            fold: bool, forward: bool = False) -> Optional[tuple]:
     """The kernel's own answer (``csrc/outlook_agg_mma_layout.cpp``) for one
-    layout: (threads, shared bytes, register cap, dW tiles a warp), or None
-    where the kernel does not take it."""
-    out = (ctypes.c_int * 4)()
-    fn = kernel_build.load_layouts().ogvt_outlook_agg_bwd_mma_layout
+    layout: the backward's (threads, shared bytes, register cap, dW tiles a
+    warp), with ``forward`` the forward's (threads, shared bytes, register
+    cap); None where the kernel does not take it."""
+    lib = kernel_build.load_layouts()
+    fn, n = ((lib.ogvt_outlook_agg_fwd_mma_layout, 3) if forward
+             else (lib.ogvt_outlook_agg_bwd_mma_layout, 4))
+    out = (ctypes.c_int * n)()
     return None if fn(W, Cin, C, heads, rows, chunk, int(fold), out) \
         else tuple(out)
 
@@ -294,6 +293,20 @@ def partial_floats(Cin: int, C: int, fold: bool) -> int:
     """Floats of one block's fp32 partial: dWp, dbp and, with the fold,
     dWv, dbv (``outlook_agg_mma_layout.h:partial_floats``)."""
     return C * C + C + (Cin * C + C if fold else 0)
+
+
+def _refusal(B: int, H: int, W: int, Cin: int, C: int,
+             heads: int) -> Optional[str]:
+    """Why neither tensor-core kernel takes these shapes whatever the
+    layout, or None."""
+    if B < 1 or H < 1 or W < 1:
+        return "an empty input"
+    if C < 16 or Cin < 16 or C % 16 or Cin % 16:
+        return "C and Cin must be multiples of 16"
+    if heads < 1 or C % heads or (C // heads) % 4:
+        return (f"the head width C / heads = {C} / {heads} must be a "
+                "multiple of 4")
+    return None
 
 
 @lru_cache(maxsize=None)
@@ -305,13 +318,9 @@ def _fit_backward(B: int, H: int, W: int, Cin: int, C: int, heads: int,
     tiles of R rows (the two halo rows enter two of the five products, the
     taps walk only the tile's rows); then the widest chunk, then the
     tallest tile."""
-    if B < 1 or H < 1 or W < 1:
-        return "an empty input"
-    if C < 16 or Cin < 16 or C % 16 or Cin % 16:
-        return "C and Cin must be multiples of 16"
-    if heads < 1 or C % heads or (C // heads) % 4:
-        return (f"the head width C / heads = {C} / {heads} must be a "
-                "multiple of 4")
+    why = _refusal(B, H, W, Cin, C, heads)
+    if why:
+        return why
     step = math.lcm(C // heads, 16)
     best = None
     for chunk in range(C, 0, -step):
@@ -429,18 +438,167 @@ def _launch_backward(entry: Optional[str], name, x, a, wv, bv, wp, g):
     return (dx, da, dwv, dbv, dwp, dbp) if fold else (dx, da, dwp, dbp)
 
 
-def outlook_agg_proj(v, a, wp, bp):
-    """#7 forward, [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes
-    :func:`outlook_agg_proj_reference`."""
-    if v.device.type == "cpu":
-        return outlook_agg_proj_reference(v, a, wp, bp)
-    out = _forward("outlook_agg_proj", v, a, None, None, wp, bp)
-    outlook_agg_proj.launches += 1
+# ---- the tensor-core forward's launch plan --------------------------------
+
+class OutlookFwdPlan(NamedTuple):
+    """How ``ogvt_outlook_agg_fwd_mma`` cuts one call: tiles of ``rows``
+    whole image rows of one image (``tiles`` of them), each staged with a
+    halo row above and below; v in chunks of ``chunk`` channels (a multiple
+    of the head width); ``blocks`` persistent blocks of ``threads`` threads
+    and ``smem`` shared bytes walk the tiles, ``blocks_per_sm`` an SM at the
+    register cap ``regs``."""
+    rows: int
+    chunk: int
+    tiles: int
+    blocks: int
+    threads: int
+    smem: int
+    regs: int
+    blocks_per_sm: int
+
+
+def _fwd_plan(B: int, H: int, W: int, Cin: int, C: int, heads: int,
+              fold: bool, rows: int, chunk: int) -> Optional[OutlookFwdPlan]:
+    """The forward's plan at ``rows`` and ``chunk`` as the kernel's layout
+    gives it (``_layout``), or None where the kernel does not take them:
+    as many blocks as the card holds at once, at most one a tile."""
+    got = _layout(W, Cin, C, heads, rows, chunk, fold, forward=True)
+    if got is None:
+        return None
+    threads, smem, regs = got
+    per_sm = sm_blocks(threads, smem, regs)
+    tiles = B * -(-H // rows)
+    return OutlookFwdPlan(rows, chunk, tiles, min(tiles, SMS * per_sm),
+                          threads, smem, regs, per_sm)
+
+
+def _fwd_cost(p: OutlookFwdPlan, fold: bool) -> int:
+    """Work a block, in image rows: waves of tiles over the card's resident
+    blocks times a tile's rows through the phases, the v product over the
+    R + 2 staged rows with the fold, the taps and y.Wp over the R."""
+    waves = -(-p.tiles // (SMS * p.blocks_per_sm))
+    return waves * ((p.rows + 2 if fold else 0) + 2 * p.rows)
+
+
+@lru_cache(maxsize=None)
+def _fit_forward(B: int, H: int, W: int, Cin: int, C: int, heads: int,
+                 fold: bool) -> Union[OutlookFwdPlan, str]:
+    """The forward's plan for these bf16 shapes, or why there is none (a
+    str): of the layouts the kernel takes, the least :func:`_fwd_cost`, then
+    the tallest tile, then the widest chunk (a sweep of layouts on the
+    card at the five ``OUTLOOK_SHAPES`` of C <= 128, both fold modes: the
+    plan is the fastest there, and taller tiles beat wider chunks)."""
+    why = _refusal(B, H, W, Cin, C, heads)
+    if why:
+        return why
+    best = None
+    for chunk in range(C, 0, -math.lcm(C // heads, 16)):
+        if C % chunk:
+            continue
+        for rows in range(1, H + 1):
+            p = _fwd_plan(B, H, W, Cin, C, heads, fold, rows, chunk)
+            if p is None:
+                break  # a taller tile needs more shared memory
+            key = (_fwd_cost(p, fold), -rows, -chunk)
+            if best is None or key < best[0]:
+                best = (key, p)
+    if best is None:
+        return ("no tile of one image row fits one block's shared memory "
+                "with Wp" + (" and Wv" if fold else "") + " resident")
+    return best[1]
+
+
+def outlook_agg_forward_plan(B: int, H: int, W: int, Cin: int, C: int,
+                             heads: int, fold: bool,
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> OutlookFwdPlan:
+    """The tensor-core forward's launch plan for x ``[B, H, W, Cin]`` (v
+    without the ``fold``, Cin == C), C output channels and ``heads`` heads,
+    or a ValueError naming the shape it does not take: fp32 (the FMA
+    kernel's), C or Cin not a multiple of 16, a head width that is not a
+    multiple of 4, and shapes whose tile of one image row does not fit an
+    H100 block's shared memory beside the resident weights, as the kernel's
+    own layout says (``_layout``). Cached: the wrapper asks at every
+    launch."""
+    where = (f"outlook forward (mma): B={B}, H={H}, W={W}, Cin={Cin}, "
+             f"C={C}, heads={heads}, fold={bool(fold)}, {dtype}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{where}: the tensor-core kernel takes bf16 only")
+    plan = _fit_forward(B, H, W, Cin, C, heads, bool(fold))
+    if isinstance(plan, str):
+        raise ValueError(f"{where}: {plan}")
+    return plan
+
+
+FORWARD_ENTRIES = ("ogvt_outlook_agg_fwd_mma", "ogvt_outlook_agg")
+
+
+def forward_entry(B: int, H: int, W: int, Cin: int, C: int, heads: int,
+                  fold: bool, dtype: torch.dtype) -> str:
+    """The C entry point a forward launch of these shapes takes:
+    ``ogvt_outlook_agg_fwd_mma`` where :func:`outlook_agg_forward_plan`
+    takes the shape, else the FMA kernel's ``ogvt_outlook_agg``. Decided by
+    dtype and shape alone, before the launch."""
+    if dtype == torch.bfloat16 and not isinstance(
+            _fit_forward(B, H, W, Cin, C, heads, bool(fold)), str):
+        return FORWARD_ENTRIES[0]
+    return FORWARD_ENTRIES[1]
+
+
+def _launch_forward(entry: Optional[str], name, x, a, wv, bv, wp, bp,
+                    plan: Optional[OutlookFwdPlan] = None):
+    """The forward on the card through the C entry point ``entry`` (one of
+    :data:`FORWARD_ENTRIES`), or :func:`forward_entry`'s where it is None.
+    A named entry, or a ``plan`` other than
+    :func:`outlook_agg_forward_plan`'s (any of :func:`_fwd_plan`), is for
+    comparing kernels and layouts on the same inputs (``chip_smoke.py``'s
+    A/B, the card tests)."""
+    B, H, W, Cin, C, heads, rows = _check_launch(name, x, a, wv, bv, wp, bp)
+    fold = wv is not None
+    if entry is None:
+        entry = forward_entry(B, H, W, Cin, C, heads, fold, x.dtype)
+    elif entry not in FORWARD_ENTRIES:
+        raise ValueError(f"{name}: entry {entry!r} is not one of "
+                         f"{FORWARD_ENTRIES}")
+    mma = entry == FORWARD_ENTRIES[0]
+    if mma:
+        plan = plan or outlook_agg_forward_plan(B, H, W, Cin, C, heads, fold,
+                                                x.dtype)
+        check_aligned16(name, x=x, wp=wp, **({"wv": wv} if fold else {}))
+    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    ptrs = (x.data_ptr(), a.data_ptr(), ptr(wv), ptr(bv), wp.data_ptr(),
+            bp.data_ptr(), out.data_ptr(), B, H, W, Cin, C, heads)
+    code = kernel_build.DTYPE_CODES[x.dtype]
+    lib = kernel_build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if mma:
+            err = lib.ogvt_outlook_agg_fwd_mma(
+                *ptrs, plan.rows, plan.chunk, int(fold), code, plan.blocks,
+                plan.smem, stream)
+        else:
+            err = lib.ogvt_outlook_agg(*ptrs, rows, int(fold), code, stream)
+    kernel_build.check(err, f"{name} launch ({entry})")
+    kernel_build.count_launch(outlook_branch if fold else outlook_agg_proj,
+                              None, entry)
     return out
 
 
+def outlook_agg_proj(v, a, wp, bp):
+    """#7 forward, [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches a
+    kernel (or raises): ``csrc/outlook_agg_fwd_mma.cu`` where
+    :func:`forward_entry` says so (v and wp 16-byte aligned or a
+    ValueError), else ``csrc/outlook_agg.cu``; a CPU tensor takes
+    :func:`outlook_agg_proj_reference`."""
+    if v.device.type == "cpu":
+        return outlook_agg_proj_reference(v, a, wp, bp)
+    return _launch_forward(None, "outlook_agg_proj", v, a, None, None, wp,
+                           bp)
+
+
 outlook_agg_proj.launches = 0
+outlook_agg_proj.by_entry = Counter()
 
 
 def outlook_agg_proj_backward(v, a, wp, g):
@@ -461,17 +619,16 @@ outlook_agg_proj_backward.by_entry = Counter()
 
 
 def outlook_branch(x, a, wv, bv, wp, bp):
-    """#8 forward, [B, H, W, Cin] -> [B, H, W, C]. A CUDA tensor launches
-    the kernel (or raises); a CPU tensor takes
-    :func:`outlook_branch_reference`."""
+    """#8 forward, [B, H, W, Cin] -> [B, H, W, C]. A CUDA tensor launches a
+    kernel (or raises), as :func:`outlook_agg_proj` does (wv 16-byte
+    aligned too); a CPU tensor takes :func:`outlook_branch_reference`."""
     if x.device.type == "cpu":
         return outlook_branch_reference(x, a, wv, bv, wp, bp)
-    out = _forward("outlook_branch", x, a, wv, bv, wp, bp)
-    outlook_branch.launches += 1
-    return out
+    return _launch_forward(None, "outlook_branch", x, a, wv, bv, wp, bp)
 
 
 outlook_branch.launches = 0
+outlook_branch.by_entry = Counter()
 
 
 def outlook_branch_backward(x, a, wv, bv, wp, g):

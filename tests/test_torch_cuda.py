@@ -1,25 +1,32 @@
-"""CUDA kernels of outgridvit_tpu_torch (forward and backward) against
-their plain PyTorch versions on the card, at edge shapes the Model A paths
-do not reach (odd token and channel counts, N=1, C not a multiple of 32, a
-ragged last token tile, a hidden width that is not a multiple of the 64-unit
-chunk, a grid whose staging needs more than 48 KB of shared memory) and at
-the full Tiny-ImageNet-200 stage shapes (train batch 128: the fused
-attention branch at N=64, the head-chunked grid shapes at C=128/256/384, the
-row-layout MLP shapes at M=524,288), the head-chunked grid kernel
+"""CUDA kernels of outgridvit_tpu_torch (forward and backward) against their
+plain PyTorch versions on the card, at edge shapes the Model A paths do not
+reach (odd token and channel counts, N=1, C not a multiple of 32, a ragged
+last token tile, a hidden width that is not a multiple of the 64-unit chunk,
+a grid whose staging needs more than 48 KB of shared memory) and at the full
+Tiny-ImageNet-200 stage shapes (train batch 128: the fused attention branch
+at N=64, the head-chunked grid shapes at C=128/256/384, the row-layout MLP
+shapes at M=524,288), the head-chunked grid kernel
 (``csrc/grid_mhsa_th.cu``) also at the default Model A's shapes (C =
 160/320/448), at G = 1 and 3, at every head width it takes, through its own
 entry points in bf16, and its refusals (a pointer off 16 bytes, N != 16, hd
-not a multiple of 8 up to 64), the fused outlook kernels (#7, #8) at
-a Model B front shape, a 64 x 64 shape and an hd=24 shape with H != W and a
-ragged last tile, the fused outlook softmax (#9) and the depthwise kernels
-(#10, #11) at one shape of each configuration and at edge shapes (K = 5,
-hd = 24, C not a multiple of the vector width), plus tiny models (Model A,
-Model B in the fused outlook modes, Model B with the depthwise mode "t" and
-Model A with "bwd") through the kernels against the plain path, forward and
-one train step; the block-packed grid core (#6) at the 48 px 7M stage-0
-shapes (serving and train batch) and edge shapes (N = 1, 17, 63; hd = 56,
-64), its bf16 kernel (``csrc/grid_mhsa_packed_mma.cu``) at N = 17, 33, 48,
-49, 63 times hd = 8, 24, 56, 64 through its own entry points (fp32 through
+not a multiple of 8 up to 64), the fused outlook kernels (#7, #8) at a Model
+B front shape, a 64 x 64 shape and an hd=24 shape with H != W and a ragged
+last tile, the fused outlook softmax (#9) and the depthwise kernels (#10,
+#11) at one shape of each configuration and at edge shapes (K = 5, hd = 24,
+C not a multiple of the vector width), plus tiny models (Model A, Model B in
+the fused outlook modes, Model B with the depthwise mode "t" and Model A
+with "bwd") through the kernels against the plain path, forward and one
+train step; the fused outlook projection's bf16 tensor-core forward
+(``csrc/outlook_agg_fwd_mma.cu``) at the outlook shapes above and the
+``chip_smoke.py`` shapes of C <= 128, two calls bitwise equal, at least 90%
+bitwise the plain version, every layout of its plan bitwise the plan's, both
+kernels on request, its refusals (fp32, a pointer off 16 bytes) and the FMA
+kernel for fp32, Cin = 40 and the widths whose weights do not fit, and a
+bf16 Model B forward and train step in both fused modes on it; the
+block-packed grid core (#6) at the 48 px 7M stage-0 shapes (serving and
+train batch) and edge shapes (N = 1, 17, 63; hd = 56, 64), its bf16 kernel
+(``csrc/grid_mhsa_packed_mma.cu``) at N = 17, 33, 48, 49, 63 times hd = 8,
+24, 56, 64 through its own entry points (fp32 through
 ``csrc/grid_mhsa_packed.cu``'s) and its refusal of hd = 12, the NHWC fused
 branch (#12) at the default Model A stage-0 shape and rectangular maps,
 against its plain version and bit for bit against partition -> #5 ->
@@ -27,16 +34,16 @@ unpartition, tiny models through both, and ``model.use_pallas: false``,
 which launches no kernel; the fused branch's bf16 tensor-core forward
 (``csrc/attn_branch_mma.cu``) at the Tiny-ImageNet and default Model A
 stage-0 shapes, one grid and a rectangular map, two calls bitwise equal,
-#12's y bitwise #5's on the partitioned tokens, both kernels on request,
-its refusals (a pointer off 16 bytes, a plan or shape it does not take)
-and the FMA kernel for fp32 and other shapes; the MLP forward's and backward's bf16
+#12's y bitwise #5's on the partitioned tokens, both kernels on request, its
+refusals (a pointer off 16 bytes, a plan or shape it does not take) and the
+FMA kernel for fp32 and other shapes; the MLP forward's and backward's bf16
 tensor-core kernels (``csrc/mlp_branch_mma.cu``,
 ``csrc/mlp_branch_bwd_mma.cu``) at a ragged tile, the row-layout tag, the
 widest C and a 5-token launch without LN (the forward also at the
-Tiny-ImageNet stage 0 and in every layout it takes at five shapes), with
-the entry point each launch took (fp32 and H = 100 keep
-``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``), both kernels on
-request and the tensor-core entries' refusals.
+Tiny-ImageNet stage 0 and in every layout it takes at five shapes), with the
+entry point each launch took (fp32 and H = 100 keep ``csrc/mlp_branch.cu``
+and ``csrc/mlp_branch_bwd.cu``), both kernels on request and the tensor-core
+entries' refusals.
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -1429,6 +1436,134 @@ def test_model_b_bf16_train_step_takes_the_tensor_core_outlook_backward(
         generator=torch.Generator().manual_seed(5))
     torch.cuda.synchronize()
     assert dict(bwd.by_entry - before) == {OUTLOOK_MMA: 3}
+    assert float(m["nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
+
+
+OUTLOOK_FWD_MMA, OUTLOOK_FWD_FMA = outlook_agg_mod.FORWARD_ENTRIES
+
+
+def _outlook_fwd(fold):
+    return ((outlook_branch, outlook_branch_reference) if fold else
+            (outlook_agg_proj, outlook_agg_proj_reference))
+
+
+def _check_outlook_fwd(dev, dtype, fold, B, H, W, Cin, C, heads, want_entry,
+                       seed):
+    """Two calls of the outlook forward at these shapes: the entry point
+    ``want_entry`` launched twice, bitwise-equal outputs, close to the plain
+    version per element and (bf16) at least 90% of them bitwise its."""
+    g = torch.Generator().manual_seed(seed)
+    args = _outlook_args(g, B, H, W, Cin, C, heads, fold, dev, dtype)
+    fwd, ref = _outlook_fwd(fold)
+    before = fwd.by_entry.copy()
+    got = fwd(*args)
+    again = fwd(*args)
+    torch.cuda.synchronize()
+    assert dict(fwd.by_entry - before) == {want_entry: 2}
+    assert torch.equal(got, again), "two calls differ"
+    want = ref(*args)
+    _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert (got == want).float().mean().item() >= 0.9
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("B,H,W,Cin,C,heads", OUTLOOK_SHAPES + [
+    (2, h, h, c, c, n) for h, c, n in OUTLOOK_MMA_SHAPES])
+def test_outlook_forward_takes_the_tensor_core_kernel(dev, fold, B, H, W,
+                                                     Cin, C, heads):
+    if not fold:
+        Cin = C
+    # the card test's Cin = 40: refused, the FMA kernel
+    want = OUTLOOK_FWD_FMA if Cin % 16 else OUTLOOK_FWD_MMA
+    _check_outlook_fwd(dev, torch.bfloat16, fold, B, H, W, Cin, C, heads,
+                       want, B + H + C + 2)
+    # fp32 keeps the FMA kernel
+    _check_outlook_fwd(dev, torch.float32, fold, B, H, W, Cin, C, heads,
+                       OUTLOOK_FWD_FMA, B + H + C + 3)
+
+
+@pytest.mark.parametrize("fold,H,C,heads", [
+    (True, 4, 256, 8),     # the 7M model's stage 3: Wv and Wp do not fit
+    (False, 8, 384, 6),    # Tiny-ImageNet's stage 3: Wp does not fit
+])
+def test_outlook_forward_keeps_the_fma_kernel_where_mma_does_not(dev, fold,
+                                                                H, C,
+                                                                heads):
+    _check_outlook_fwd(dev, torch.bfloat16, fold, 4, H, H, C, C, heads,
+                       OUTLOOK_FWD_FMA, 8)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_outlook_forward_entries_on_request(dev, fold):
+    # the A/B of chip_smoke.py: either kernel at a shape both take, each
+    # launching its own entry point, the two close; every layout the
+    # tensor-core plan could pick agrees with the plan's bit for bit; the
+    # tensor-core entry refuses fp32 and a pointer off 16 bytes
+    g = torch.Generator().manual_seed(4)
+    args = _outlook_args(g, 4, 32, 32, 64, 64, 2, fold, dev, torch.bfloat16)
+    fwd, _ = _outlook_fwd(fold)
+    full = list(args) if fold else [args[0], args[1], None, None, *args[2:]]
+    name = fwd.__name__
+    out = {}
+    for entry in (OUTLOOK_FWD_MMA, OUTLOOK_FWD_FMA):
+        before = fwd.by_entry.copy()
+        out[entry] = outlook_agg_mod._launch_forward(entry, name, *full)
+        torch.cuda.synchronize()
+        assert dict(fwd.by_entry - before) == {entry: 1}
+    _assert_close(out[OUTLOOK_FWD_MMA], out[OUTLOOK_FWD_FMA], torch.bfloat16)
+    for rows in (1, 3, 4, 8):
+        for chunk in (64, 32):
+            plan = outlook_agg_mod._fwd_plan(4, 32, 32, 64, 64, 2, fold,
+                                             rows, chunk)
+            got = outlook_agg_mod._launch_forward(OUTLOOK_FWD_MMA, name,
+                                                  *full, plan=plan)
+            assert torch.equal(got, out[OUTLOOK_FWD_MMA]), (rows, chunk)
+    f32 = [None if t is None else t.float() for t in full]
+    with pytest.raises(ValueError, match="bf16 only"):
+        outlook_agg_mod._launch_forward(OUTLOOK_FWD_MMA, name, *f32)
+    x = torch.empty(full[0].numel() + 1, dtype=torch.bfloat16,
+                    device=dev)[1:].view(full[0].shape)
+    x.copy_(full[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        outlook_agg_mod._launch_forward(OUTLOOK_FWD_MMA, name, x, *full[1:])
+
+
+@pytest.mark.parametrize("mode", ["fused_agg", "fused_agg_v"])
+def test_model_b_bf16_forward_and_step_take_the_tensor_core_outlook_forward(
+        dev, mode):
+    # Model B (configs/cifar100_model_b.yaml's model) at batch 8 in bf16:
+    # each front outlooker's forward (C = 64, 2 heads) on the new kernel,
+    # served and in the train step
+    cfg = {"type": "model_b", "num_classes": 100, "in_ch": 3, "stem_dim": 64,
+           "outlooker_front_depth": 3, "dpr_max": 0.1, "use_pallas": mode,
+           "stages": [
+               {"dim": 64, "depth": 2, "num_heads": 2, "grid_size": 8,
+                "outlook_heads": 2},
+               {"dim": 128, "depth": 2, "num_heads": 4, "grid_size": 8,
+                "outlook_heads": 4},
+               {"dim": 256, "depth": 3, "num_heads": 8, "grid_size": 4,
+                "outlook_heads": 8},
+               {"dim": 384, "depth": 1, "num_heads": 6, "grid_size": 2,
+                "outlook_heads": 6}]}
+    fwd = _outlook_fwd(mode == "fused_agg_v")[0]
+    model = build_model(cfg, dtype=torch.bfloat16, use_kernels=True,
+                        device=dev, seed=1)
+    x = torch.randn(8, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    y = (torch.arange(8) % 100).to(dev)
+    before = fwd.by_entry.copy()
+    with torch.inference_mode():
+        logits = model(x)
+    torch.cuda.synchronize()
+    assert dict(fwd.by_entry - before) == {OUTLOOK_FWD_MMA: 3}
+    assert torch.isfinite(logits.float()).all()
+    before = fwd.by_entry.copy()
+    state, m = make_train_step(StepConfig(num_classes=100))(
+        TrainState.create(model, AdamW(1e-3)), (x, y),
+        generator=torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    assert dict(fwd.by_entry - before) == {OUTLOOK_FWD_MMA: 3}
     assert float(m["nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
 
 
