@@ -65,6 +65,11 @@ on the backward's layout), and for every bf16 backward launch its plan
 takes (every outlooker of C <= 128) ``csrc/outlook_agg_bwd_mma.cu`` (its
 five products on ``mma.sync`` tiles, one pass a tile with the halo rows'
 dyag recomputed); its fp32 and wider launches ``csrc/outlook_agg.cu``.
+The fused outlook softmax (#9 ``outlook_softmax``) runs every bf16 launch
+at K = 3 its plan takes (every outlooker) on
+``csrc/outlook_softmax_rows.cu`` (whole image rows staged by
+``cp.async``, a thread a run of adjacent pixels of one 16-byte channel
+chunk), its fp32 and K = 5 launches on ``csrc/outlook_softmax.cu``.
 The served and trained main paths (bf16) must launch them through the
 matching C entry points, and the fp32 step through the FMA ones;
 ``attn_branch_nhwc``'s y and parameter grads must equal ``attn_branch``'s
@@ -86,7 +91,8 @@ which the loss must fall (launch counts of each step), and timings. The 7M
 path also checks the non-finite guard. Model B's phase also holds both outlook
 kernels against their plain versions at every outlooker shape of the three
 configurations; the ``fused_outlook`` phase holds ``outlook_softmax`` there
-(K = 3, and K = 5 at one shape) and the depthwise kernels at every MBConv
+(K = 3, and K = 5 at one shape; bit for bit, twice, through the entry
+point its dtype and K route to) and the depthwise kernels at every MBConv
 depthwise shape of the five configurations and of ``a7m_96`` (the
 forward bit for bit); ``a7m_48`` and ``a_base`` time
 only their new kernels. Phase ``ab_vs_library`` (after the
@@ -116,12 +122,12 @@ only). Phase ``ab_grid`` (``AB_GRID``) times the grid core's tensor-core
 kernel against the FMA kernel it replaces for #1 at every "t" stage shape
 of the 7M model, Model B and ``a7m_48`` the same way: the forward at batch
 64, per forward, the backward at 128, per train step, per launch too.
-Phase ``ab_outlook`` (``Smoke.ab_outlook``) times in device time the
-never-redesigned forward kernel of #9 (``csrc/outlook_softmax.cu``) at
-Model B's front (batch 64, per launch and per forward), then the outlook
-forward's tensor-core kernel against the FMA kernel it replaces at Model
-B's front (batch 64, per launch and per forward) and at every other
-``OUTLOOK_SHAPES`` entry its plan takes, then the backward's the same way
+Phase ``ab_outlook`` (``Smoke.ab_outlook``) times in device time #9's
+row kernel (``csrc/outlook_softmax_rows.cu``) against the kernel it
+replaces (``csrc/outlook_softmax.cu``) in turns at Model B's front (batch
+64, per launch and per forward) and at every other ``OUTLOOK_SHAPES``
+entry its plan takes, then the outlook forward's tensor-core kernel
+against the FMA kernel it replaces the same way, then the backward's
 (batch 128, per launch and per train step), each with its share of the
 bound. The share of the grid core's bf16
 outputs bitwise the plain version's is reported at every compare, not
@@ -387,6 +393,9 @@ BF16_LOSS_TOL = 3e-2
 # ones. outlook_agg_bwd / outlook_branch_bwd: csrc/outlook_agg_bwd_mma.cu for
 # bf16 launches its plan takes (every outlooker of C <= 128: every main
 # path's), csrc/outlook_agg.cu for fp32 ones and wider bf16 ones.
+# outlook_softmax: csrc/outlook_softmax_rows.cu for bf16 launches at K = 3
+# its plan takes (every outlooker), csrc/outlook_softmax.cu for fp32 and
+# K != 3.
 SOURCES = {
     "grid_mhsa": (
         ("outgridvit_tpu_torch/csrc/grid_mhsa_th.cu",
@@ -459,7 +468,8 @@ SOURCES = {
         ["outgridvit_tpu/ops/experimental/outlook_agg_pallas.py:746 "
          "outlook_branch_pallas backward (#8, row-chunked :773)"]),
     "outlook_softmax": (
-        "outgridvit_tpu_torch/csrc/outlook_softmax.cu",
+        ("outgridvit_tpu_torch/csrc/outlook_softmax_rows.cu",
+         "outgridvit_tpu_torch/csrc/outlook_softmax.cu"),
         "outgridvit_tpu/ops/experimental/outlook_pallas.py:141",
         ["outgridvit_tpu/ops/experimental/outlook_pallas.py:141 "
          "outlook_attention_pallas (#9, forward :157; its backward is XLA's "
@@ -600,15 +610,22 @@ OUTLOOK_BWD_ENTRIES = {
     "outlook_agg_bwd": ("ogvt_outlook_agg_bwd_mma", "ogvt_outlook_agg_bwd"),
     "outlook_branch_bwd": ("ogvt_outlook_agg_bwd_mma",
                            "ogvt_outlook_agg_bwd")}
+# the C entry points of #9's A/B, the row kernel first (bf16 launches at K
+# = 3 its plan takes; fp32 and K = 5 take the other)
+SOFTMAX_ENTRIES = {"outlook_softmax": ("ogvt_outlook_softmax_rows",
+                                       "ogvt_outlook_softmax")}
 AB_ATTN = (("attn_branch_bwd", TIN), ("attn_branch_nhwc_bwd", A_BASE),
            ("attn_branch_bwd", A_BASE))
 AB_ATTN_FWD = (("attn_branch", TIN), ("attn_branch_nhwc", A_BASE),
                ("attn_branch", A_BASE))
 AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
+# the key of a redesign's A/B against the kernel it replaces (default
+# ab_vs_fma_kernel_ms)
+AB_OLD_KEY = {"outlook_softmax": "ab_vs_old_kernel_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
 # kernels whose outputs equal their plain versions bit for bit on the card
-BITWISE = ("dwconv3x3",)
+BITWISE = ("dwconv3x3", "outlook_softmax")
 # the least share of a bf16 kernel's outputs that must equal its plain
 # version's bit for bit: the MLP and outlook forwards' sums differ only in
 # fp32 order, which flips a rounding in well under 1% of their outputs (a
@@ -775,6 +792,15 @@ def outlook_entry(name, args):
     pick = backward_entry if name.endswith("_bwd") else forward_entry
     return pick(B, H, W, Cin, wp.shape[0], a.shape[-1] // TAPS,
                 name.startswith("outlook_branch"), x.dtype)
+
+
+def softmax_entry(args):
+    """The C entry point #9 takes on its arguments (v, logits, heads, k):
+    by dtype, K and shape (``ops/outlook_softmax.py:softmax_entry``)."""
+    from outgridvit_tpu_torch.ops import outlook_softmax as osm
+
+    v, logits, heads, k = args
+    return osm.softmax_entry(*v.shape, heads, k, v.dtype)
 
 
 def nhwc_via_tokens(args, backward):
@@ -1007,8 +1033,7 @@ class Smoke:
         self.ms = {}                               # name -> timings
         self.ab = {}                     # #12 vs #5 + copies, per pass
         self.ab_lib = {}                 # kernel vs library call, per shape
-        self.ab_fma = {}                 # mma kernels vs the FMA kernels
-        self.device = {}                 # forward kernels' device time
+        self.ab_fma = {}                 # redesigns vs the kernels replaced
         self.share = {}                  # least share of y bitwise plain
         self.entries = {n: {} for n in SOURCES}  # name -> {C entry: count}
 
@@ -1057,9 +1082,10 @@ class Smoke:
         and backward through csrc/mlp_branch_mma.cu's and
         csrc/mlp_branch_bwd_mma.cu's; every forward and backward of the
         fused attention branch through csrc/attn_branch_mma.cu's and
-        csrc/attn_branch_bwd_mma.cu's; every backward of #7 and #8 (Model
-        B's front, C = 64) through csrc/outlook_agg_fwd_mma.cu's and
-        csrc/outlook_agg_bwd_mma.cu's. ``plan`` and ``variants``:
+        csrc/attn_branch_bwd_mma.cu's; every forward and backward of #7
+        and #8 (Model B's front, C = 64) through csrc/outlook_agg_fwd_mma.cu's
+        and csrc/outlook_agg_bwd_mma.cu's; every #9 forward (the same front)
+        through csrc/outlook_softmax_rows.cu's. ``plan`` and ``variants``:
         launches per forward or step (:func:`launch_plan`) and ``times`` of
         them."""
         got = self.read_entries()
@@ -1074,7 +1100,8 @@ class Smoke:
                                   *ATTN_FWD_ENTRIES.items(),
                                   *ATTN_BWD_ENTRIES.items(),
                                   *OUTLOOK_FWD_ENTRIES.items(),
-                                  *OUTLOOK_BWD_ENTRIES.items()))):
+                                  *OUTLOOK_BWD_ENTRIES.items(),
+                                  *SOFTMAX_ENTRIES.items()))):
             want = {entry: plan[name] * times} if plan.get(name) else {}
             if name in plan:
                 require(got[name] == want, f"{what}: {name} launches by "
@@ -1225,7 +1252,8 @@ class Smoke:
         backward = name.endswith("_bwd")
         routed = (ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
                   or GRID_ENTRIES.get(name) or OUTLOOK_FWD_ENTRIES.get(name)
-                  or OUTLOOK_BWD_ENTRIES.get(name))
+                  or OUTLOOK_BWD_ENTRIES.get(name)
+                  or SOFTMAX_ENTRIES.get(name))
         twice = backward or routed is not None
         before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
@@ -1234,6 +1262,7 @@ class Smoke:
         if routed:  # the entry its dtype (and, outlook, its shape) takes
             entry = (outlook_entry(name, args) if name in
                      (*OUTLOOK_FWD_ENTRIES, *OUTLOOK_BWD_ENTRIES)
+                     else softmax_entry(args) if name in SOFTMAX_ENTRIES
                      else routed[0 if dt == "bfloat16" else 1])
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
@@ -1493,17 +1522,22 @@ class Smoke:
             torch.cuda.empty_cache()
 
     def ab_fma_shape(self, name, label, args, fns, entries, n, count,
-                     total):
-        """One shape of a tensor-core kernel's A/B in bf16 against the FMA
-        kernel it replaces: ``fns`` ({"mma", "fma"} callables launching
-        ``entries``' C entry points on ``args``) each launched once through
-        its own entry point, then timed in turns (mma, FMA, FMA, mma),
-        device time (``n[side]`` calls in one CUDA graph, :func:`graph_ms`)
-        then eager time (host time included), each with its share of the
-        bound. Printed, added ``count`` times to ``total`` (bound,
-        launches, ``{device,eager}_{mma,fma}``) and returned."""
+                     total, sides=("mma", "fma")):
+        """One shape of a redesigned kernel's A/B in bf16 against the kernel
+        it replaces (``sides``: the new and the old side's keys, by default
+        a tensor-core kernel and the FMA one): ``fns`` (a callable for each
+        side launching ``entries``' C entry points on ``args``) each
+        launched once through its own entry point, then timed in turns
+        (new, old, old, new), device time (``n[side]`` calls in one CUDA
+        graph, :func:`graph_ms`) then eager time (host time included), each
+        with its share of the bound. Printed, added ``count`` times to
+        ``total`` (bound, launches, ``{device,eager}_{side}``) and
+        returned."""
         import torch
 
+        new, old = sides
+        what = {"mma": "mma", "fma": "the FMA kernel it replaces",
+                "old": "the kernel it replaces"}
         call = self.kernels[name][0]
         for w, e in entries.items():  # each side its kernel
             before = call.by_entry[e]
@@ -1516,37 +1550,40 @@ class Smoke:
         for how, timer in (
                 ("device", lambda f, w: graph_ms(f, n[w])),
                 ("eager", lambda f, w: time_ms(f, (), n[w], warmup=1))):
-            runs = {"mma": [], "fma": []}
-            for w in ("mma", "fma", "fma", "mma"):
+            runs = {new: [], old: []}
+            for w in (new, old, old, new):
                 runs[w].append(timer(fns[w], w))
             k, f = (sum(v) / len(v) for v in runs.values())
             res[how] = {
-                "mma_ms": k, "fma_ms": f, "mma_bound_share": bound / k,
-                "fma_bound_share": bound / f,
+                f"{new}_ms": k, f"{old}_ms": f,
+                f"{new}_bound_share": bound / k,
+                f"{old}_bound_share": bound / f,
                 "runs": {w: [round(t, 6) for t in v]
                          for w, v in runs.items()}}
-            print(f"[ab] {name} {label} bf16 {how}, per launch: mma "
-                  f"{k * 1e3:.1f} us ({runs['mma'][0] * 1e3:.1f}, "
-                  f"{runs['mma'][1] * 1e3:.1f}) vs the FMA kernel it "
-                  f"replaces {f * 1e3:.1f} us: mma/FMA {k / f:.4f}; bound "
-                  f"{bound * 1e3:.2f} us, mma at {bound / k:.1%} of it, FMA "
-                  f"at {bound / f:.2%} [{self.gpu}]")
-            for key, t in (("mma", k), ("fma", f)):
+            print(f"[ab] {name} {label} bf16 {how}, per launch: "
+                  f"{what.get(new, new)} {k * 1e3:.1f} us "
+                  f"({runs[new][0] * 1e3:.1f}, {runs[new][1] * 1e3:.1f}) vs "
+                  f"{what[old]} {f * 1e3:.1f} us: {new}/{old} {k / f:.4f}; "
+                  f"bound {bound * 1e3:.2f} us, {new} at {bound / k:.1%} of "
+                  f"it, {old} at {bound / f:.2%} [{self.gpu}]")
+            for key, t in ((new, k), (old, f)):
                 total[f"{how}_{key}"] = (total.get(f"{how}_{key}", 0.0)
                                          + count * t)
         total["bound"] += count * bound
         total["launches"] += count
         return res
 
-    def ab_fma_total(self, name, per, total):
+    def ab_fma_total(self, name, per, total, sides=("mma", "fma")):
         """Print an A/B's ``total`` (:meth:`ab_fma_shape`) per ``per``."""
+        new, old = sides
         for how in ("device", "eager"):
-            k, f = total[f"{how}_mma"], total[f"{how}_fma"]
+            k, f = total[f"{how}_{new}"], total[f"{how}_{old}"]
             print(f"[ab] {name} per {per} ({total['launches']} launches, "
-                  f"bf16) {how}: mma {k:.4f} ms vs the FMA kernel it "
-                  f"replaces {f:.4f} ms: {k / f:.4f}; bound "
-                  f"{total['bound']:.4f} ms, mma at {total['bound'] / k:.1%}"
-                  f", FMA at {total['bound'] / f:.2%} [{self.gpu}]")
+                  f"bf16) {how}: {new} {k:.4f} ms vs the "
+                  f"{'FMA ' if old == 'fma' else ''}kernel it replaces "
+                  f"{f:.4f} ms: {k / f:.4f}; bound {total['bound']:.4f} ms, "
+                  f"{new} at {total['bound'] / k:.1%}, {old} at "
+                  f"{total['bound'] / f:.2%} [{self.gpu}]")
 
     def ab_mlp(self, iters=10, fma_iters=2):
         """The MLP kernels' A/B in bf16: ``csrc/mlp_branch_mma.cu`` and
@@ -1735,47 +1772,53 @@ class Smoke:
                 torch.cuda.empty_cache()
 
     def ab_outlook(self, iters=10, fma_iters=2):
-        """#7, #8 and #9 in bf16, device time (calls in one CUDA graph,
-        :func:`graph_ms`), each with its share of the bound. First #9's
-        forward, never redesigned (``csrc/outlook_softmax.cu``), at
-        ``model_b_o``'s front (H = W = 32, C = 64, 2 heads) at the serving
-        batch 64, twice, per launch and per forward (3 launches). Then the
-        A/Bs of #7 and #8 in turns (:meth:`ab_fma_shape`; ``fma_iters`` of
-        the slow kernel in a graph): the forward's tensor-core kernel
-        ``csrc/outlook_agg_fwd_mma.cu`` against the FMA kernel
-        ``csrc/outlook_agg.cu`` it replaces at batch 64, per launch and per
-        forward at Model B's front and per launch at every other
-        ``OUTLOOK_SHAPES`` entry its plan takes; then the backward's,
-        ``csrc/outlook_agg_bwd_mma.cu`` against ``csrc/outlook_agg.cu``, the
-        same way at the train batch 128, per train step at the front."""
+        """#9, #7 and #8 in bf16, each redesign in turns with the kernel it
+        replaces (:meth:`ab_fma_shape`; ``fma_iters`` of the slow kernel in
+        a graph), device time (calls in one CUDA graph, :func:`graph_ms`)
+        and eager, each with its share of the bound. First #9's row kernel
+        ``csrc/outlook_softmax_rows.cu`` against ``csrc/outlook_softmax.cu``
+        at the serving batch 64, per launch and per forward (3 launches) at
+        Model B's front (H = W = 32, C = 64, 2 heads) and per launch at
+        every other ``OUTLOOK_SHAPES`` entry its plan takes. Then #7 and
+        #8: the forward's tensor-core kernel ``csrc/outlook_agg_fwd_mma.cu``
+        against the FMA kernel ``csrc/outlook_agg.cu`` it replaces at batch
+        64, per launch and per forward at Model B's front and per launch at
+        every other ``OUTLOOK_SHAPES`` entry its plan takes; then the
+        backward's, ``csrc/outlook_agg_bwd_mma.cu`` against
+        ``csrc/outlook_agg.cu``, the same way at the train batch 128, per
+        train step at the front."""
         import torch
 
         from outgridvit_tpu_torch.ops.outlook_agg import (
             _launch_backward,
             _launch_forward,
         )
+        from outgridvit_tpu_torch.ops.outlook_softmax import _launch
 
         bf = torch.bfloat16
-        H, C, heads = OUTLOOK_SHAPES["model_b front"][0]
         n = MODEL_B.front
         name = "outlook_softmax"
-        args = self.softmax_args(BATCH, H, C, heads, 3, bf)
-        fn = self.kernels[name][0]
-        bound = max(bound_ms(name, args, fn(*args), bf))
-        runs = [graph_ms(lambda: fn(*args), iters) for _ in range(2)]
-        k = sum(runs) / len(runs)
-        self.device[name] = {
-            "per": f"model_b_o front B={BATCH}", "launches": n,
-            "ms_per_launch": k, "ms_per_forward": n * k,
-            "bound_ms_per_launch": bound, "bound_share": bound / k,
-            "runs": [round(t, 6) for t in runs]}
-        print(f"[ab] {name} model_b_o front B={BATCH} H=W={H} C={C} "
-              f"heads={heads} bf16 device, per launch: "
-              f"{k * 1e3:.1f} us ({runs[0] * 1e3:.1f}, "
-              f"{runs[1] * 1e3:.1f}); per forward ({n} launches) "
-              f"{n * k:.4f} ms; bound {bound * 1e3:.2f} us, kernel at "
-              f"{bound / k:.2%} of it [{self.gpu}]")
-        del args
+        entries = dict(zip(("rows", "old"), SOFTMAX_ENTRIES[name]))
+        res = self.ab_fma.setdefault(name, {})
+        for cfg, (h, c, hh) in ((cfg, sh) for cfg, shs in
+                                OUTLOOK_SHAPES.items() for sh in shs):
+            args = self.softmax_args(BATCH, h, c, hh, 3, bf)
+            if softmax_entry(args) != entries["rows"]:
+                continue
+            fns = {w: (lambda e=e: _launch(e, *args))
+                   for w, e in entries.items()}
+            front = cfg == "model_b front"
+            label = f"{cfg} B={BATCH} H=W={h} C={c} heads={hh}"
+            total = {"bound": 0.0, "launches": 0}
+            res[label] = self.ab_fma_shape(
+                name, label, args, fns, entries,
+                {"rows": iters, "old": fma_iters}, n if front else 1, total,
+                sides=("rows", "old"))
+            if front:
+                per = f"model_b_o forward B={BATCH}"
+                res[per] = total
+                self.ab_fma_total(name, per, total, sides=("rows", "old"))
+            del args, fns
         shapes = [(cfg, sh) for cfg, shs in OUTLOOK_SHAPES.items()
                   for sh in shs]
         for base, wrapper, backward in (
@@ -2122,7 +2165,8 @@ class Smoke:
                                        *ATTN_BWD_ENTRIES.items(),
                                        *GRID_ENTRIES.items(),
                                        *OUTLOOK_FWD_ENTRIES.items(),
-                                       *OUTLOOK_BWD_ENTRIES.items()):
+                                       *OUTLOOK_BWD_ENTRIES.items(),
+                                       *SOFTMAX_ENTRIES.items()):
                     want = ({fma: attn_steps[name]} if attn_steps[name]
                             else {})
                     require(got[name] == want,
@@ -2269,9 +2313,8 @@ class Smoke:
                 out[-1][AB_KEY.get(name, "ab_vs_sdpa_ms")] = \
                     self.ab_lib[name]
             if name in self.ab_fma:
-                out[-1]["ab_vs_fma_kernel_ms"] = self.ab_fma[name]
-            if name in self.device:
-                out[-1]["device_ms"] = self.device[name]
+                out[-1][AB_OLD_KEY.get(name, "ab_vs_fma_kernel_ms")] = \
+                    self.ab_fma[name]
             if name in self.share:
                 out[-1]["bf16_bitwise_share_min"] = self.share[name]
             if len(sources) > 1:

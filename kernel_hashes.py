@@ -10,8 +10,9 @@ every kernel wrapper of ``chip_smoke.py`` once at every stage shape of its
 cases (the forward at batch 64, the backward at 128, in fp32 and bf16;
 the outlook kernels at the outlookers' shapes, the depthwise ones at the
 MBConvs'; the outlook forward and backward also at every
-``OUTLOOK_SHAPES`` entry, at batch 64 and 128, through the kernel their
-dtype and shape route to), on inputs
+``OUTLOOK_SHAPES`` entry, at batch 64 and 128, and #9 at every
+``OUTLOOK_SHAPES`` entry (K = 3) and at Model B's front with K = 5, at
+batch 64, through the kernel their dtype, K and shape route to), on inputs
 drawn from a seed fixed per (case, direction, dtype) or (shape, kernel,
 dtype),
 and writes the SHA-256 of each output's bytes, keyed by case, kernel, shape
@@ -82,6 +83,19 @@ def hashes(root: Path) -> dict:
                            smoke.kernels[name][0](*args))
                     del args
                 torch.cuda.empty_cache()
+    # #9 at every outlooker shape (K = 3) and at Model B's front with K = 5,
+    # through the kernel its dtype, K and shape route to
+    softmax = [(cfg, *sh, 3) for cfg, sh in shapes]
+    softmax.append(("model_b front", *cs.OUTLOOK_SHAPES["model_b front"][0],
+                    5))
+    for si, (cfg, H, C, heads, k) in enumerate(softmax):
+        for di, dtype in enumerate((torch.float32, torch.bfloat16)):
+            smoke.gen.manual_seed(300_000 + 10 * si + di)
+            args = smoke.softmax_args(cs.BATCH, H, C, heads, k, dtype)
+            record(f"{cfg}|outlook_softmax|B={cs.BATCH} H=W={H} C={C} "
+                   f"heads={heads} K={k}|{dtype}",
+                   smoke.kernels["outlook_softmax"][0](*args))
+            del args
     return out
 
 

@@ -168,6 +168,9 @@ _SIGNATURES = {
     "ogvt_outlook_agg_bwd_mma_workspace": ((_I,) * 4, ctypes.c_longlong),
     # v, logits, out, B, H, W, C, heads, k, dtype, stream
     "ogvt_outlook_softmax": ((_P,) * 3 + (_I,) * 7 + (_P,), _I),
+    # v, logits, out, B, H, W, C, heads; the plan: rows, pix; dtype; the
+    # plan: blocks, smem; stream
+    "ogvt_outlook_softmax_rows": ((_P,) * 3 + (_I,) * 10 + (_P,), _I),
     # x, w9, y, B, H, W, C, rows, tw, chunk, bands, parts, smem, vecio, dtype,
     # stream
     "ogvt_dwconv3x3": ((_P,) * 3 + (_I,) * 12 + (_P,), _I),
@@ -197,6 +200,8 @@ _HOST_SIGNATURES = {
     "ogvt_outlook_agg_bwd_mma_layout": ((_I,) * 7 + (_P,), _I),
     # W, Cin, C, heads, rows, chunk, fold, int out[3]
     "ogvt_outlook_agg_fwd_mma_layout": ((_I,) * 7 + (_P,), _I),
+    # W, C, heads, rows, pix, int out[3]
+    "ogvt_outlook_softmax_rows_layout": ((_I,) * 5 + (_P,), _I),
 }
 
 

@@ -96,6 +96,7 @@ from outgridvit_tpu_torch.ops import attn_branch as attn_branch_mod
 from outgridvit_tpu_torch.ops import grid_attention as grid_attention_mod
 from outgridvit_tpu_torch.ops import mlp_branch as mlp_branch_mod
 from outgridvit_tpu_torch.ops import outlook_agg as outlook_agg_mod
+from outgridvit_tpu_torch.ops import outlook_softmax as outlook_softmax_mod
 from outgridvit_tpu_torch.ops.mlp_branch import (
     mlp_branch,
     mlp_branch_backward,
@@ -1628,6 +1629,150 @@ def test_outlook_softmax_kernel_matches_plain(dev, dtype, B, H, W, C, heads,
     assert outlook_softmax_agg.launches == n + 1
     _assert_close(got, outlook_softmax_agg_reference(v, logits, heads, k),
                   dtype)
+
+
+SOFTMAX_ROWS, SOFTMAX_OLD = outlook_softmax_mod.ENTRIES
+
+
+def _softmax_args(B, H, W, C, heads, k, dev, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn(B, H, W, C, generator=g).to(dev, dtype)
+    logits = (2 * torch.randn(B, H, W, heads * k * k, generator=g)).to(
+        dev, dtype)
+    return v, logits
+
+
+@pytest.mark.parametrize("B,H,W,C,heads", [
+    (64, 32, 32, 64, 2),    # Model B front at the serving batch
+    (64, 16, 16, 96, 3),    # Model A-7M stage 1
+    (16, 64, 64, 64, 2),    # Tiny-ImageNet stage 0
+    (3, 13, 20, 48, 2),     # hd = 24, H != W, a ragged last tile
+    (5, 9, 7, 80, 2),       # hd = 40, a ragged run
+    (4, 11, 5, 112, 2),     # hd = 56
+    (7, 10, 12, 64, 2),     # 10 rows in the plan's tiles: a ragged last one
+])
+def test_outlook_softmax_rows_is_bitwise_the_plain_and_the_old_kernel(
+        dev, B, H, W, C, heads):
+    # bf16 at K = 3: csrc/outlook_softmax_rows.cu, twice, bitwise equal to
+    # each other, to the plain version and to csrc/outlook_softmax.cu
+    v, logits = _softmax_args(B, H, W, C, heads, 3, dev, torch.bfloat16,
+                              B + H + W + C)
+    before = outlook_softmax_agg.by_entry.copy()
+    got = outlook_softmax_agg(v, logits, heads)
+    again = outlook_softmax_agg(v, logits, heads)
+    torch.cuda.synchronize()
+    assert dict(outlook_softmax_agg.by_entry - before) == {SOFTMAX_ROWS: 2}
+    assert torch.equal(got, again), "two calls differ"
+    assert torch.equal(got, outlook_softmax_agg_reference(v, logits, heads))
+    old = outlook_softmax_mod._launch(SOFTMAX_OLD, v, logits, heads)
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("dtype,k,want", [
+    (torch.bfloat16, 3, SOFTMAX_ROWS), (torch.float32, 3, SOFTMAX_OLD),
+    (torch.bfloat16, 5, SOFTMAX_OLD), (torch.float32, 5, SOFTMAX_OLD)])
+def test_outlook_softmax_routes_by_dtype_and_k(dev, dtype, k, want):
+    v, logits = _softmax_args(4, 32, 32, 64, 2, k, dev, dtype, k)
+    before = outlook_softmax_agg.by_entry.copy()
+    got = outlook_softmax_agg(v, logits, 2, k)
+    torch.cuda.synchronize()
+    assert dict(outlook_softmax_agg.by_entry - before) == {want: 1}
+    assert torch.equal(got, outlook_softmax_agg_reference(v, logits, 2, k))
+
+
+def test_outlook_softmax_rows_every_layout_and_logits_alignment(dev):
+    # every (rows, pix) layout the kernel takes gives the plan's output bit
+    # for bit; logits copied 16, 4 and 2 bytes at a time (a [*, 18] tensor
+    # at a 16-byte address, a W * 18 that is not a multiple of 8, one
+    # element off) give the same
+    v, logits = _softmax_args(3, 9, 12, 64, 2, 3, dev, torch.bfloat16, 9)
+    want = outlook_softmax_agg(v, logits, 2)
+    for rows in (1, 2, 3, 4, 9):
+        for pix in outlook_softmax_mod.PIX_RUNS:
+            plan = outlook_softmax_mod._rows_plan(3, 9, 12, 64, 2, rows, pix)
+            got = outlook_softmax_mod._launch(SOFTMAX_ROWS, v, logits, 2,
+                                              plan=plan)
+            assert torch.equal(got, want), (rows, pix)
+    v5, l5 = _softmax_args(2, 6, 5, 32, 2, 3, dev, torch.bfloat16, 5)
+    off = torch.empty(l5.numel() + 1, dtype=l5.dtype, device=dev)[1:]
+    off = off.view(l5.shape)
+    off.copy_(l5)
+    want = outlook_softmax_agg_reference(v5, l5, 2)
+    for lg in (l5, off):
+        got = outlook_softmax_mod._launch(SOFTMAX_ROWS, v5, lg, 2)
+        assert torch.equal(got, want)
+
+
+def test_outlook_softmax_rows_refuses_what_it_does_not_take(dev):
+    v, logits = _softmax_args(2, 8, 8, 64, 2, 3, dev, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="bf16 only"):
+        outlook_softmax_mod._launch(SOFTMAX_ROWS, v.float(), logits.float(),
+                                    2)
+    with pytest.raises(ValueError, match="K = 3 only"):
+        outlook_softmax_mod._launch(SOFTMAX_ROWS, v, torch.zeros(
+            2, 8, 8, 50, dtype=v.dtype, device=dev), 2, 5)
+    x = torch.empty(v.numel() + 1, dtype=v.dtype, device=dev)[1:]
+    x = x.view(v.shape)
+    x.copy_(v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        outlook_softmax_mod._launch(SOFTMAX_ROWS, x, logits, 2)
+    # the entry point itself refuses a plan it does not match
+    plan = outlook_softmax_mod.outlook_softmax_plan(2, 8, 8, 64, 2)
+    out = torch.empty_like(v)
+    lib = kernel_build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = dict(B=2, H=8, W=8, C=64, heads=2, rows=plan.rows, pix=plan.pix,
+                dtype=1, blocks=plan.blocks, smem=plan.smem)
+
+    def call(**kw):
+        a = {**args, **kw}
+        return lib.ogvt_outlook_softmax_rows(
+            v.data_ptr(), logits.data_ptr(), out.data_ptr(), a["B"], a["H"],
+            a["W"], a["C"], a["heads"], a["rows"], a["pix"], a["dtype"],
+            a["blocks"], a["smem"], stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    for bad in ({"dtype": 0}, {"pix": 3}, {"smem": plan.smem + 16},
+                {"blocks": plan.tiles + 1}, {"blocks": 0}, {"C": 48},
+                {"heads": 4}):
+        assert call(**bad) != 0, bad
+
+
+def test_model_b_o_bf16_serve_and_step_take_the_row_kernel(dev):
+    # Model B (configs/cifar100_model_b.yaml's model) with use_pallas
+    # fused_outlook at batch 8 in bf16: each front outlooker's softmax +
+    # aggregate (C = 64, 2 heads) on csrc/outlook_softmax_rows.cu, served
+    # and in the train step (its backward is autograd, no kernel)
+    cfg = {"type": "model_b", "num_classes": 100, "in_ch": 3, "stem_dim": 64,
+           "outlooker_front_depth": 3, "dpr_max": 0.1,
+           "use_pallas": "fused_outlook", "stages": [
+               {"dim": 64, "depth": 2, "num_heads": 2, "grid_size": 8,
+                "outlook_heads": 2},
+               {"dim": 128, "depth": 2, "num_heads": 4, "grid_size": 8,
+                "outlook_heads": 4},
+               {"dim": 256, "depth": 3, "num_heads": 8, "grid_size": 4,
+                "outlook_heads": 8},
+               {"dim": 384, "depth": 1, "num_heads": 6, "grid_size": 2,
+                "outlook_heads": 6}]}
+    model = build_model(cfg, dtype=torch.bfloat16, use_kernels=True,
+                        device=dev, seed=1)
+    x = torch.randn(8, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    y = (torch.arange(8) % 100).to(dev)
+    before = outlook_softmax_agg.by_entry.copy()
+    with torch.inference_mode():
+        logits = model(x)
+    torch.cuda.synchronize()
+    assert dict(outlook_softmax_agg.by_entry - before) == {SOFTMAX_ROWS: 3}
+    assert torch.isfinite(logits.float()).all()
+    before = outlook_softmax_agg.by_entry.copy()
+    state, m = make_train_step(StepConfig(num_classes=100))(
+        TrainState.create(model, AdamW(1e-3)), (x, y),
+        generator=torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    assert dict(outlook_softmax_agg.by_entry - before) == {SOFTMAX_ROWS: 3}
+    assert float(m["nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
