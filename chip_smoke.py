@@ -133,6 +133,19 @@ bound. The share of the grid core's bf16
 outputs bitwise the plain version's is reported at every compare, not
 gated, and so are the outlook backward's shares of dv / dx and da.
 
+Phase ``loop`` (last, ``Smoke.loop``) drives the training entry point as a
+user runs it: ``outgridvit_tpu_torch/train.py:main`` in-process with
+``configs/cifar100_model_a_7m.yaml`` at full width, bf16, batch 128, on a
+CIFAR-100 pickle fixture of random images (10,000 train, 1,000 test, 100
+classes), ``--steps-per-dispatch 4``: 2 epochs, then ``--resume`` from
+the last checkpoint for a third. It checks the exit codes, finite
+``[Train]`` / ``[Val]`` losses, the resume line, both checkpoints, that
+the grid and MLP kernels (forward and backward) launched on their
+tensor-core entry points and that the eval graph replayed; it prints each
+epoch's img/s and seconds. Then the 7M eval superstep at K = 4 is held
+bitwise to 4 eager eval steps before and after one train step, and the
+two are timed in turns (``Smoke.eval_graph``).
+
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
@@ -245,6 +258,46 @@ BATCH = 64
 TRAIN_BATCH = 128
 SEED = 0
 DEVICE = "cuda"
+# phase loop: the CIFAR-100 fixture's images, the eval graph's K, the
+# timed K-groups
+LOOP_TRAIN, LOOP_TEST, LOOP_K, LOOP_TIMED = 10_000, 1_000, 4, 10
+
+
+def write_cifar_fixture(data_dir, n_train: int, n_test: int, classes: int,
+                        seed: int) -> None:
+    """Random uint8 images in the ``cifar-100-python/{train,test}`` pickle
+    layout that ``outgridvit_tpu_torch/data/datasets.py`` reads (the
+    fixture of ``tests/test_cli.py``)."""
+    import pickle
+
+    import numpy as np
+
+    base = data_dir / "cifar-100-python"
+    base.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("test", n_test)):
+        payload = {b"data": rng.integers(0, 255, (n, 3072), dtype=np.uint8),
+                   b"fine_labels": (np.arange(n) % classes).tolist()}
+        with open(base / split, "wb") as f:
+            pickle.dump(payload, f)
+
+
+class StampedLines:
+    """A text stream that writes through to ``out`` and keeps each
+    complete line with the ``time.perf_counter()`` at which it ended."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        now = time.perf_counter()
+        *done, self._part = (self._part + text).split("\n")
+        self.lines.extend((now, line) for line in done)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2289,6 +2342,197 @@ class Smoke:
                 "guard: NaN loss not reported")
         require(same, "guard: the state changed on a non-finite step")
 
+    # -- phase loop: the training entry point ----------------------------
+    def loop(self):
+        """The port's CLI (``outgridvit_tpu_torch/train.py:main``) on the
+        7M config at full width, bf16, batch 128, on a CIFAR-100 pickle
+        fixture of random images (``LOOP_TRAIN`` / ``LOOP_TEST``, 100
+        classes): 2 epochs at K = ``LOOP_K``, then a resume for a third.
+        With the config's val_split 0.1 an epoch has 70 full train batches
+        and a ragged tail and 7 full val batches and a ragged tail, so full
+        K-groups, single batches and ragged tails all occur in train and in
+        eval. Then the K = ``LOOP_K`` eval superstep's graph is held bitwise
+        to ``LOOP_K`` eager eval steps before and after one train step, and
+        the two are timed in turns."""
+        import contextlib
+        import re
+        import tempfile
+        from pathlib import Path
+
+        import torch
+
+        from outgridvit_tpu_torch import train as cli
+        from outgridvit_tpu_torch.training.steps import EvalSuperstep
+
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            write_cifar_fixture(tmp / "data", LOOP_TRAIN, LOOP_TEST,
+                                FLAGSHIP_MODEL_CFG["num_classes"], SEED)
+            out = tmp / "out"
+            common = ["--config", FLAGSHIP.config, "--data-dir",
+                      str(tmp / "data"), "--batch-size", str(TRAIN_BATCH),
+                      "--steps-per-dispatch", str(LOOP_K),
+                      "--output-dir", str(out)]
+            self.reset_counts()
+            EvalSuperstep.replays = 0
+            runs = []
+            for args in (["--epochs", "2"],
+                         ["--epochs", "3", "--resume",
+                          str(out / "last_cifar100_model_a_7m.pt")]):
+                tee = StampedLines(sys.stdout)
+                with contextlib.redirect_stdout(tee):
+                    rc = cli.main(common + args)
+                require(rc == 0, f"loop: train CLI {args} returned {rc}")
+                runs.append(tee.lines)
+            counts, variants = self.read_counts()
+            replays = EvalSuperstep.replays
+            ckpts = [out / "last_cifar100_model_a_7m.pt",
+                     out / "best_cifar100_model_a_7m.pt"]
+            require(all(p.exists() for p in ckpts),
+                    f"loop: checkpoints missing in {sorted(out.iterdir())}")
+        self.record("loop", counts, variants)
+        bad = {n: e for n, e in self.read_entries().items()
+               if n in ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
+                        "mlp_branch_bwd")
+               and set(e) - {"ogvt_grid_mhsa_th", "ogvt_grid_mhsa_th_bwd",
+                             "ogvt_mlp_branch_mma",
+                             "ogvt_mlp_branch_bwd_mma"}}
+        require(not bad, f"loop: bf16 launches off the tensor-core entry "
+                f"points: {bad}")
+        for name in ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
+                     "mlp_branch_bwd"):
+            require(counts[name] > 0, f"loop: {name} never launched")
+        require(replays > 0, "loop: the eval graph never replayed")
+
+        text = ["\n".join(line for _, line in r) for r in runs]
+        for i, t in enumerate(text):
+            for tag in ("Train", "Val"):
+                losses = re.findall(rf"\[{tag}\]\s+loss (\S+) \|", t)
+                require(losses and all(math.isfinite(float(v))
+                                       for v in losses),
+                        f"loop: run {i + 1}: [{tag}] losses {losses}")
+        require(re.search(r"Resumed from .*last_cifar100_model_a_7m\.pt at "
+                          r"epoch 2\b", text[1]) is not None,
+                "loop: the resume did not start at epoch 2")
+        require("=== Epoch 1/3 ===" not in text[1]
+                and "=== Epoch 3/3 ===" in text[1],
+                "loop: the resumed run did not run epoch 3 alone")
+        # per epoch: img/s of its last [train step] line, seconds between
+        # its "=== Epoch" line and its "Epoch time" line
+        epochs = []
+        for r in runs:
+            start = None
+            for t, line in r:
+                if line.startswith("=== Epoch "):
+                    start, ips = t, None
+                m = re.match(r"\[train step \d+/\d+\] .* ([\d.]+) img/s",
+                             line)
+                if m:
+                    ips = float(m.group(1))
+                if line.startswith("Epoch time:"):
+                    epochs.append((ips, t - start))
+        require(len(epochs) == 3, f"loop: {len(epochs)} epochs timed")
+        for e, (ips, sec) in enumerate(epochs, 1):
+            print(f"[loop] epoch {e}: {ips:.1f} img/s ([train step] line), "
+                  f"{sec:.3f} s (train + val + checkpoint)")
+        print(f"[loop] launches in the 3 epochs: "
+              f"{ {n: counts[n] for n in ('grid_mhsa', 'grid_mhsa_bwd', 'mlp_branch', 'mlp_branch_bwd')} }; "
+              f"eval graph replays {replays}")
+        self.loop_epochs = epochs
+        self.eval_graph()
+        print(f"[loop] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+    def eval_graph(self):
+        """The 7M eval superstep at K = ``LOOP_K`` (bf16, batch 128, uint8
+        in) against ``LOOP_K`` eager eval steps on the same batches,
+        bitwise, before and after one train step (the graph reads the
+        parameters the step updates in place); then both timed in turns
+        (CUDA events around each K-group, the host's launch time
+        included)."""
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            EvalSuperstep,
+            StepConfig,
+            make_eval_step,
+            make_eval_superstep,
+            make_train_step,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        T, dev, gen = FLAGSHIP.train, self.dev, self.gen
+        norm = (FLAGSHIP.mean, FLAGSHIP.std)
+        model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.bfloat16,
+                            device=dev, seed=SEED)
+        sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+        state = TrainState.create(model, AdamW(sched, T["weight_decay"],
+                                               T["grad_clip_norm"]))
+        superstep = make_eval_superstep(model, normalize=norm, k=LOOP_K)
+        eager = make_eval_step(model, normalize=norm)
+        x = torch.randint(0, 256, (LOOP_K, TRAIN_BATCH, 32, 32, 3),
+                          dtype=torch.uint8, generator=gen).to(dev)
+        y = torch.randint(0, FLAGSHIP_MODEL_CFG["num_classes"],
+                          (LOOP_K, TRAIN_BATCH), generator=gen).to(
+                              dev, torch.int32)
+
+        def eager_k():
+            ms = [eager((x[i], y[i])) for i in range(LOOP_K)]
+            return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+        def compare(when):
+            replays = EvalSuperstep.replays
+            got, want = superstep((x, y)), eager_k()
+            require(EvalSuperstep.replays == replays + 1,
+                    "eval graph: no replay")
+            same = all(torch.equal(got[k], want[k]) for k in want)
+            print(f"[eval_graph] K={LOOP_K} {when}: loss "
+                  f"{got['loss'].tolist()} top1 {got['top1'].tolist()}; "
+                  f"bitwise the eager steps: {same}")
+            require(same, f"eval graph {when}: {got} vs eager {want}")
+            return got
+
+        before = compare("before a train step")
+        step = make_train_step(StepConfig(
+            num_classes=FLAGSHIP_MODEL_CFG["num_classes"],
+            label_smoothing=T["label_smoothing"],
+            mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+            mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
+            augment=AugmentConfig(mean=FLAGSHIP.mean, std=FLAGSHIP.std,
+                                  crop_pad=FLAGSHIP.crop_pad)), sched)
+        state, _ = step(state, (x[0], y[0]), seed=SEED)
+        after = compare("after one train step")
+        require(not torch.equal(before["loss"], after["loss"]),
+                "eval graph: the metrics did not follow the train step")
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        graph_ms, eager_ms = [], []
+        for _ in range(LOOP_TIMED):
+            graph_ms.append(timed(lambda: superstep((x, y))))
+            eager_ms.append(timed(eager_k))
+        self.eval_graph_ms = (float(np.median(graph_ms)),
+                              float(np.median(eager_ms)))
+        print(f"[eval_graph] per K={LOOP_K} group of batch-{TRAIN_BATCH} "
+              f"eval steps, median of {LOOP_TIMED} in turns: graph "
+              f"{self.eval_graph_ms[0]:.4f} ms vs eager "
+              f"{self.eval_graph_ms[1]:.4f} ms")
+
     def kernels_line(self):
         out = []
         for name, (source, replaces, covers) in SOURCES.items():
@@ -2377,6 +2621,9 @@ def main() -> int:
             smoke.ab_outlook()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
+    smoke.loop()
+    torch.cuda.empty_cache()
+    print(f"[phase] loop done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:
         require(smoke.launches[name], f"{name}: no launch on a main path")
 

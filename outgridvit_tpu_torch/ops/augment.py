@@ -70,10 +70,11 @@ class AugmentDraws(NamedTuple):
 
 def normalize_batch(x: torch.Tensor, mean: Sequence[float],
                     std: Sequence[float]) -> torch.Tensor:
-    """uint8/int NHWC -> normalized float32."""
+    """uint8/int NHWC -> normalized float32; ``mean`` and ``std`` are
+    sequences or fp32 tensors on x's device (then used as they are)."""
     xf = x.to(torch.float32) / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    m = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    s = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return (xf - m) / s
 
 

@@ -2208,3 +2208,110 @@ def test_use_pallas_false_launches_no_kernel(dev):
             logits = model(torch.randn(2, img, img, 3, device=dev))
         assert [c.launches for c in counters] == before
         assert torch.isfinite(logits).all()
+
+
+# ---- the training entry point: eval graph, prefetcher, loop ---------------
+
+LOOP_CFG = {"type": "model_a", "num_classes": 10, "stem_dim": 16,
+            "dpr_max": 0.1, "stages": [
+                {"dim": 16, "depth": 1, "num_heads": 2, "grid_size": 4,
+                 "outlook_heads": 2},
+                {"dim": 32, "depth": 1, "num_heads": 2, "grid_size": 2,
+                 "outlook_heads": 2}]}
+LOOP_NORM = ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25))
+
+
+def test_eval_graph_is_bitwise_eager_steps_before_and_after_a_step(dev):
+    from outgridvit_tpu_torch.ops.augment import AugmentConfig
+    from outgridvit_tpu_torch.training.steps import (
+        EvalSuperstep,
+        make_eval_step,
+        make_eval_superstep,
+    )
+
+    model = build_model(LOOP_CFG, dtype=torch.bfloat16, device=dev, seed=1)
+    state = TrainState.create(model, AdamW(1e-2))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (4, 16, 16, 16, 3), dtype=torch.uint8,
+                      generator=g).to(dev)
+    y = torch.randint(0, 10, (4, 16), generator=g).to(dev, torch.int32)
+    superstep = make_eval_superstep(model, normalize=LOOP_NORM, k=4)
+    eager = make_eval_step(model, normalize=LOOP_NORM)
+    step = make_train_step(StepConfig(
+        num_classes=10, mixup_alpha=0.8, cutmix_alpha=1.0, mix_prob=0.5,
+        augment=AugmentConfig(*LOOP_NORM, crop_pad=2)))
+    counts = grid_mhsa.launches, mlp_branch.launches
+    outs = []
+    for _ in range(2):
+        replays = EvalSuperstep.replays
+        got = superstep((x, y))
+        assert EvalSuperstep.replays == replays + 1
+        for i in range(4):
+            for k, v in eager((x[i], y[i])).items():
+                assert torch.equal(got[k][i], v), (k, i)
+        outs.append(got)
+        state, _ = step(state, (x[0], y[0]), seed=0)  # in-place update
+    assert not torch.equal(outs[0]["loss"], outs[1]["loss"])
+    assert len(superstep.graphs) == 1  # one capture, two replays
+    assert grid_mhsa.launches > counts[0] and mlp_branch.launches > counts[1]
+
+
+def test_prefetcher_delivers_batches_unchanged_to_the_card(dev):
+    import numpy as np
+
+    from outgridvit_tpu_torch.data.pipeline import Prefetcher
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (8, 16, 16, 3), dtype=np.uint8),
+                rng.integers(0, 10, 8).astype(np.int32)) for _ in range(5)]
+    batches.append((rng.standard_normal((3, 8, 16, 16, 3)).astype(
+        np.float32), rng.integers(0, 10, (3, 8)).astype(np.int32)))
+    got = []
+    for x, y in Prefetcher(iter(batches), dev, depth=2):
+        assert x.is_cuda and y.is_cuda
+        torch.cuda._sleep(1_000_000)  # the consumer's stream is busy
+        got.append((x.cpu().numpy(), y.cpu().numpy()))
+    assert len(got) == len(batches)
+    for (x, y), (xn, yn) in zip(got, batches):
+        assert x.dtype == xn.dtype and x.shape == xn.shape
+        np.testing.assert_array_equal(x, xn)
+        np.testing.assert_array_equal(y, yn)
+
+    def broken():
+        yield batches[0]
+        raise OSError("disk gone")
+
+    with pytest.raises(OSError, match="disk gone"):
+        list(Prefetcher(broken(), dev))
+
+
+def test_train_model_two_epochs_launches_the_grid_and_mlp_kernels(
+        dev, tmp_path):
+    import math
+
+    from outgridvit_tpu_torch.data.datasets import (
+        get_synthetic_structured_dataloaders,
+    )
+    from outgridvit_tpu_torch.training.loop import train_model
+    from outgridvit_tpu_torch.training.steps import EvalSuperstep
+
+    train, val, _ = get_synthetic_structured_dataloaders(
+        batch_size=16, num_samples=120, img_size=16, num_classes=10,
+        seed=0, val_split=0.4)  # 72 / 48: 4 full + ragged, 3 full
+    model = build_model(LOOP_CFG, dtype=torch.bfloat16, device=dev, seed=2)
+    wrappers = (grid_mhsa, grid_mhsa_backward, mlp_branch,
+                mlp_branch_backward)
+    before = [w.launches for w in wrappers]
+    replays = EvalSuperstep.replays
+    hist, state = train_model(
+        model, train, epochs=2, val_loader=val, device="cuda",
+        autocast_dtype="bf16", print_every=2, num_classes=10,
+        mixup_alpha=0.8, cutmix_alpha=1.0, mix_prob=0.5, early_stop=False,
+        save_path=str(tmp_path / "b.ckpt"), last_path=str(tmp_path / "l.ckpt"),
+        steps_per_dispatch=2)
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    assert EvalSuperstep.replays == replays + 2  # one full K-group an epoch
+    assert state.step == 2 * len(train) == 10
+    assert all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"])
+    assert hist["train_mem_alloc_gib"][0] > 0
+    assert (tmp_path / "l.ckpt").exists()

@@ -89,6 +89,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "assert 'outgridvit_tpu_torch.training.steps' in mods, mods\n"
         "assert 'outgridvit_tpu_torch.ops.augment' in mods, mods\n"
+        "for m in ('train', 'training.loop', 'training.checkpoints',\n"
+        "          'data.pipeline', 'data.datasets', 'data.transforms',\n"
+        "          'data.registry', 'data.data_utils', 'utils.config',\n"
+        "          'utils.history'):\n"
+        "    assert 'outgridvit_tpu_torch.' + m in mods, (m, mods)\n"
         "from outgridvit_tpu_torch.serving import build_predictor\n"
         f"cfg = {SMALL!r}\n"
         "p = build_predictor(cfg, batch_size=2, img_size=16, device='cpu')\n"
@@ -111,8 +116,14 @@ def test_port_imports_no_jax():
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "assert chip_smoke.MODEL_B_O.model['use_pallas'] == 'fused_outlook'\n"
+        "import tempfile\n"
+        "from outgridvit_tpu_torch.train import main\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    assert main(['--config', 'configs/smoke_synthetic.yaml',\n"
+        "                 '--output-dir', d]) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'yaml', 'outgridvit_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'yaml', 'outgridvit_tpu',\n"
+        "              'PIL', 'datasets', 'matplotlib'))\n"
         "print('LOADED', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
