@@ -2351,9 +2351,11 @@ class Smoke:
         With the config's val_split 0.1 an epoch has 70 full train batches
         and a ragged tail and 7 full val batches and a ragged tail, so full
         K-groups, single batches and ragged tails all occur in train and in
-        eval. Then the K = ``LOOP_K`` eval superstep's graph is held bitwise
-        to ``LOOP_K`` eager eval steps before and after one train step, and
-        the two are timed in turns."""
+        eval; each full K-group trains through the train superstep's CUDA
+        graph (it must replay). Then the K = ``LOOP_K`` eval superstep's
+        graph is held bitwise to ``LOOP_K`` eager eval steps before and
+        after one train step, and the two are timed in turns; then the
+        train graph against eager train steps (:meth:`train_graph`)."""
         import contextlib
         import re
         import tempfile
@@ -2362,7 +2364,10 @@ class Smoke:
         import torch
 
         from outgridvit_tpu_torch import train as cli
-        from outgridvit_tpu_torch.training.steps import EvalSuperstep
+        from outgridvit_tpu_torch.training.steps import (
+            EvalSuperstep,
+            TrainSuperstep,
+        )
 
         t_phase = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
@@ -2375,7 +2380,7 @@ class Smoke:
                       "--steps-per-dispatch", str(LOOP_K),
                       "--output-dir", str(out)]
             self.reset_counts()
-            EvalSuperstep.replays = 0
+            EvalSuperstep.replays = TrainSuperstep.replays = 0
             runs = []
             for args in (["--epochs", "2"],
                          ["--epochs", "3", "--resume",
@@ -2387,6 +2392,7 @@ class Smoke:
                 runs.append(tee.lines)
             counts, variants = self.read_counts()
             replays = EvalSuperstep.replays
+            train_replays = TrainSuperstep.replays
             ckpts = [out / "last_cifar100_model_a_7m.pt",
                      out / "best_cifar100_model_a_7m.pt"]
             require(all(p.exists() for p in ckpts),
@@ -2404,6 +2410,7 @@ class Smoke:
                      "mlp_branch_bwd"):
             require(counts[name] > 0, f"loop: {name} never launched")
         require(replays > 0, "loop: the eval graph never replayed")
+        require(train_replays > 0, "loop: the train graph never replayed")
 
         text = ["\n".join(line for _, line in r) for r in runs]
         for i, t in enumerate(text):
@@ -2435,13 +2442,182 @@ class Smoke:
         require(len(epochs) == 3, f"loop: {len(epochs)} epochs timed")
         for e, (ips, sec) in enumerate(epochs, 1):
             print(f"[loop] epoch {e}: {ips:.1f} img/s ([train step] line), "
-                  f"{sec:.3f} s (train + val + checkpoint)")
-        print(f"[loop] launches in the 3 epochs: "
+                  f"{sec:.3f} s (train + val + checkpoint); {self.gpu}")
+        print(f"[loop] launches in the 3 epochs (a graph's counted once, at "
+              f"its capture): "
               f"{ {n: counts[n] for n in ('grid_mhsa', 'grid_mhsa_bwd', 'mlp_branch', 'mlp_branch_bwd')} }; "
-              f"eval graph replays {replays}")
+              f"train graph replays {train_replays}, eval graph replays "
+              f"{replays}")
         self.loop_epochs = epochs
         self.eval_graph()
+        self.train_graph()
+        # a graph's launches are counted at its capture; each replay runs
+        # them again: K steps' (train) or K forwards' (eval) launches
+        per_step, captured = self.train_graph_launches
+        ran = {n: counts[n] + train_replays * c
+               + (0 if n.endswith("_bwd") else replays * LOOP_K * per_step[n])
+               for n, c in captured.items()}
+        print(f"[loop] launches run in the 3 epochs: counted + train graph "
+              f"replays {train_replays} x captured {captured} + eval graph "
+              f"replays {replays} x {LOOP_K} forwards = {ran}")
         print(f"[loop] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+    def train_graph(self):
+        """The 7M train superstep at K = ``LOOP_K`` (full width, bf16, batch
+        128, uint8 in, the yaml's recipe: device augmentation, mixup /
+        cutmix, drop-path) against ``LOOP_K`` eager train steps from the
+        same state on the same batches and seed: parameters, BN
+        statistics, AdamW mu, nu and count, the device step and every
+        metric bitwise. The eager steps run twice first: if they differ
+        from each other, the graph may differ from the first by no more
+        than they do. Then both timed in turns, training on (CUDA events
+        around each K-group, the host's draws and launches included)."""
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            StepConfig,
+            TrainSuperstep,
+            make_train_step,
+            make_train_superstep,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        T, dev, gen = FLAGSHIP.train, self.dev, self.gen
+        model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.bfloat16,
+                            device=dev, seed=SEED)
+        sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+        state = TrainState.create(model, AdamW(sched, T["weight_decay"],
+                                               T["grad_clip_norm"]))
+        cfg = StepConfig(
+            num_classes=FLAGSHIP_MODEL_CFG["num_classes"],
+            label_smoothing=T["label_smoothing"],
+            mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+            mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
+            augment=AugmentConfig(mean=FLAGSHIP.mean, std=FLAGSHIP.std,
+                                  crop_pad=FLAGSHIP.crop_pad))
+        step = make_train_step(cfg, sched)
+        superstep = make_train_superstep(cfg, sched, k=LOOP_K)
+        x = torch.randint(0, 256, (LOOP_K, TRAIN_BATCH, 32, 32, 3),
+                          dtype=torch.uint8, generator=gen).to(dev)
+        y = torch.randint(0, FLAGSHIP_MODEL_CFG["num_classes"],
+                          (LOOP_K, TRAIN_BATCH), generator=gen).to(
+                              dev, torch.int32)
+
+        def tensors(st):
+            named = {f"model.{k}": v for k, v in
+                     st.model.state_dict().items()}
+            for part in ("mu", "nu"):
+                named.update((f"{part}.{k}", v) for k, v in
+                             getattr(st.opt_state, part).items())
+            named["count"] = st.opt_state.count
+            named["device_step"] = st.device_step
+            return named
+
+        start = {k: v.detach().clone() for k, v in tensors(state).items()}
+
+        def from_start():
+            with torch.no_grad():
+                for k, v in tensors(state).items():
+                    v.copy_(start[k])
+            return dataclasses.replace(state, step=0)
+
+        def eager_k(st):
+            ms = []
+            for i in range(LOOP_K):
+                st, m = step(st, (x[i], y[i]), seed=SEED)
+                ms.append(m)
+            return st, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+        def result(st, metrics):
+            out = {k: v.detach().clone() for k, v in tensors(st).items()}
+            out.update((f"metric.{k}", v.clone()) for k, v in metrics.items())
+            out["host_step"] = torch.tensor(st.step)
+            return out
+
+        names = ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
+                 "mlp_branch_bwd")
+        self.reset_counts()
+        runs = [result(*eager_k(from_start()))]
+        per_step = {n: c // LOOP_K for n, c in self.read_counts()[0].items()
+                    if n in names}
+        runs.append(result(*eager_k(from_start())))
+        self.reset_counts()
+        replays = TrainSuperstep.replays
+        runs.append(result(*superstep(from_start(), (x, y), seed=SEED)))
+        require(TrainSuperstep.replays == replays + 1,
+                "train graph: no replay")
+        # the first call: one warm-up step, then the K steps captured
+        captured = {n: c - per_step[n] for n, c in
+                    self.read_counts()[0].items() if n in names}
+        require(all(captured[n] == LOOP_K * per_step[n] > 0 for n in names),
+                f"train graph: captured {captured}, a step {per_step}")
+        self.train_graph_launches = (per_step, captured)
+        print(f"[train_graph] launches a step {per_step}; captured in the "
+              f"K={LOOP_K} graph {captured}, run again at each replay")
+        e1, e2, g = runs
+
+        def differ(a, b):
+            return {k: float((a[k].double() - b[k].double()).abs().max())
+                    for k in a if not torch.equal(a[k], b[k])}
+
+        eager_diff, graph_diff = differ(e2, e1), differ(g, e1)
+        print(f"[train_graph] K={LOOP_K} 7M steps from one state: loss "
+              f"{g['metric.loss'].tolist()} lr {g['metric.lr'].tolist()}; "
+              f"{len(g)} tensors compared; eager vs eager: "
+              f"{len(eager_diff)} differ; graph vs eager: "
+              f"{len(graph_diff)} differ")
+        if eager_diff:
+            print(f"[train_graph] the eager steps differ from each other "
+                  f"in: {sorted(eager_diff.items())[:20]}")
+            require(all(v <= eager_diff.get(k, 0.0)
+                        for k, v in graph_diff.items()),
+                    f"train graph: beyond the eager-vs-eager difference: "
+                    f"{sorted(graph_diff.items())[:20]}")
+        else:
+            require(not graph_diff, f"train graph: not bitwise the eager "
+                    f"steps: {sorted(graph_diff.items())[:20]}")
+
+        def timed(fn):
+            start_ev = torch.cuda.Event(enable_timing=True)
+            end_ev = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start_ev.record()
+            fn()
+            end_ev.record()
+            torch.cuda.synchronize()
+            return start_ev.elapsed_time(end_ev)
+
+        st = from_start()
+
+        def run_graph():
+            nonlocal st
+            st, _ = superstep(st, (x, y), seed=SEED)
+
+        def run_eager():
+            nonlocal st
+            st, _ = eager_k(st)
+
+        graph_ms, eager_ms = [], []
+        for _ in range(LOOP_TIMED):
+            graph_ms.append(timed(run_graph) / LOOP_K)
+            eager_ms.append(timed(run_eager) / LOOP_K)
+        self.train_graph_ms = (float(np.median(graph_ms)),
+                               float(np.median(eager_ms)))
+        ips = [TRAIN_BATCH * 1e3 / t for t in self.train_graph_ms]
+        print(f"[train_graph] a batch-{TRAIN_BATCH} train step, K={LOOP_K} "
+              f"groups, median of {LOOP_TIMED} in turns: graph "
+              f"{self.train_graph_ms[0]:.4f} ms ({ips[0]:.1f} img/s) vs "
+              f"eager {self.train_graph_ms[1]:.4f} ms ({ips[1]:.1f} img/s); "
+              f"{self.gpu}")
 
     def eval_graph(self):
         """The 7M eval superstep at K = ``LOOP_K`` (bf16, batch 128, uint8

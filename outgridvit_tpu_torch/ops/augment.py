@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,13 +68,34 @@ class AugmentDraws(NamedTuple):
     er_noise: Optional[torch.Tensor]     # [B, H, W, C] f32 N(0, 1)
 
 
+# host constants kept on each device they were used on, by (values, dtype,
+# device): a step makes no host-to-device copy once it has run there, so a
+# CUDA graph can capture it
+_DEVICE_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_const(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` (a sequence or numpy array) as a tensor on ``device``,
+    made once per (values, dtype, device)."""
+    device = torch.device(device)
+    key = (tuple(np.asarray(values).ravel().tolist()), np.shape(values),
+           dtype, device)
+    t = _DEVICE_CONSTS.get(key)
+    if t is None:
+        t = _DEVICE_CONSTS[key] = torch.as_tensor(
+            np.asarray(values), dtype=dtype, device=device)
+    return t
+
+
 def normalize_batch(x: torch.Tensor, mean: Sequence[float],
                     std: Sequence[float]) -> torch.Tensor:
     """uint8/int NHWC -> normalized float32; ``mean`` and ``std`` are
-    sequences or fp32 tensors on x's device (then used as they are)."""
+    sequences (kept on x's device, :func:`device_const`) or fp32 tensors on
+    x's device (then used as they are)."""
     xf = x.to(torch.float32) / 255.0
-    m = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    m, s = (v if isinstance(v, torch.Tensor)
+            else device_const(v, torch.float32, x.device)
+            for v in (mean, std))
     return (xf - m) / s
 
 
@@ -246,8 +267,8 @@ def rand_augment_apply(x, op_ids, signs, magnitude: int = 7):
     into the 14-op space, ``signs`` [num_ops, B] in {-1., +1.}."""
     B, H, W, C = x.shape
     mags, signed = _ra_tables(W, magnitude)
-    mags = torch.from_numpy(mags).to(x.device)
-    signed = torch.from_numpy(signed).to(x.device)
+    mags = device_const(mags, torch.float32, x.device)
+    signed = device_const(signed, torch.bool, x.device)
     for s in range(op_ids.shape[0]):
         op_id = op_ids[s].long()
         v = mags[op_id] * torch.where(signed[op_id], signs[s].float(),

@@ -5,7 +5,9 @@ One file: the magic ``OGVT``, the metadata's length (little-endian uint64)
 and the metadata as JSON (``epoch``, ``best_top1``, ``extra``), as the JAX
 checkpoint has them, then a ``torch.save`` payload of the train state: the
 model's ``state_dict`` (parameters and BatchNorm statistics), the AdamW
-``mu``, ``nu`` and ``count``, and ``step``. The payload is the port's own
+``mu``, ``nu`` and ``count``, ``step`` and ``device_step`` (the train
+state's host and device step counts, equal in a state the train step has
+advanced; a resume sets both from ``step``). The payload is the port's own
 (the JAX one is msgpack, which the GPU machine lacks); a JAX train state
 comes across through ``utils/port_jax.py:load_jax_train_state``. It is read
 back with ``torch.load(weights_only=True)``.
@@ -35,6 +37,7 @@ def _tree(state) -> Dict[str, Any]:
         "opt_state": {"mu": state.opt_state.mu, "nu": state.opt_state.nu,
                       "count": state.opt_state.count},
         "step": int(state.step),
+        "device_step": int(state.device_step),
     }
 
 
@@ -86,9 +89,9 @@ def _copy_into(dst: Mapping[str, torch.Tensor],
 def load_checkpoint(path: str, state=None) -> Dict[str, Any]:
     """Read a checkpoint: ``{"epoch", "best_top1", "extra", "state"}``.
     Given a ``state`` (a ``TrainState``), its model's parameters and
-    buffers, AdamW moments and count are overwritten in place and its step
-    set, and ``"state"`` is that state; otherwise ``"state"`` is the raw
-    tree (on the CPU)."""
+    buffers, AdamW moments and count are overwritten in place and its host
+    and device steps set from the checkpoint's host step, and ``"state"``
+    is that state; otherwise ``"state"`` is the raw tree (on the CPU)."""
     meta, tree = _read(path)
     out = dict(meta)
     if state is None:
@@ -100,7 +103,7 @@ def load_checkpoint(path: str, state=None) -> Dict[str, Any]:
     _copy_into(state.opt_state.nu, opt["nu"], "AdamW nu")
     with torch.no_grad():
         state.opt_state.count.copy_(opt["count"])
-    state.step = int(tree["step"])
+    state.set_step(int(tree["step"]))
     out["state"] = state
     return out
 

@@ -10,19 +10,25 @@ format. On the port:
   from ``(seed, state.step)`` (``training/steps.py:step_generator``), so a
   resumed run is bitwise the run it resumes;
 - with ``steps_per_dispatch`` K > 1 the loop groups K full batches into a
-  ``[K, B, ...]`` superbatch, one host-to-device copy, and runs them as K
-  train steps, the result the JAX scan gives; eval runs each full K-group
-  through one CUDA graph (``steps.py:EvalSuperstep``), ragged tails and
-  fewer than K batches eagerly;
+  ``[K, B, ...]`` superbatch, one host-to-device copy, and runs each
+  through the train superstep, K steps in one CUDA graph on the card
+  (``steps.py:TrainSuperstep``), bitwise K single steps, as the JAX loop
+  runs its scan; eval runs each full K-group through one CUDA graph
+  (``steps.py:EvalSuperstep``); ragged tails and fewer than K batches run
+  as single eager steps;
 - step metrics stay on the device, and a print or an epoch end fetches
   them in one transfer;
 - memory is ``torch.cuda.max_memory_allocated`` / ``max_memory_reserved``
-  (nan on the CPU); the JAX loop has one number for both.
+  (nan on the CPU); the JAX loop has one number for both;
+- with ``OUTGRIDVIT_PROFILE_DIR`` set, the first trained epoch's train
+  steps are traced by ``torch.profiler`` (the card's kernels too on
+  CUDA) into a Chrome trace there, as the JAX loop writes a JAX trace.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Optional
 
@@ -40,6 +46,7 @@ from outgridvit_tpu_torch.training.steps import (
     make_eval_step,
     make_eval_superstep,
     make_train_step,
+    make_train_superstep,
 )
 from outgridvit_tpu_torch.training.train_state import TrainState
 
@@ -213,6 +220,8 @@ def train_model(
         mix_prob=mix_prob, grad_clip_norm=grad_clip_norm, augment=aug_cfg)
     train_step = make_train_step(step_cfg, lr_schedule=schedule)
     kdisp = max(1, int(steps_per_dispatch))
+    train_superstep = (make_train_superstep(step_cfg, schedule, kdisp)
+                       if kdisp > 1 else None)
     eval_norm = getattr(val_loader, "device_normalize", None)
     eval_step = make_eval_step(model, label_smoothing=0.0,
                                normalize=eval_norm)
@@ -300,6 +309,11 @@ def train_model(
         log("val_loader=None => no early-stop / no best saving by val metric.")
     log("==================")
 
+    # optional profiler trace of the first trained epoch (set
+    # OUTGRIDVIT_PROFILE_DIR to capture)
+    profile_dir = os.environ.get("OUTGRIDVIT_PROFILE_DIR")
+    profiler = None
+
     for epoch in range(start_epoch + 1, epochs + 1):
         log(f"\n=== Epoch {epoch}/{epochs} ===")
         t_epoch = time.time()
@@ -307,6 +321,12 @@ def train_model(
             train_loader.set_epoch(epoch)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
+        if profile_dir and epoch == start_epoch + 1:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
 
         # ---------------- train epoch
         t0 = time.time()
@@ -328,13 +348,15 @@ def train_model(
         step = 0
         last_print_bucket = 0
         for xb, yb in Prefetcher(host_iter, device):
-            # a [K, B] superbatch runs as K steps; a batch as one
-            group = zip(xb, yb) if yb.dim() == 2 else ((xb, yb),)
-            for x, y in group:
-                state, m = train_step(state, (x, y), seed=seed)
-                device_metrics.append(m)
+            if yb.dim() == 2:  # [K, B] superbatch
+                state, m = train_superstep(state, (xb, yb), seed=seed)
+                step += yb.shape[0]
+                total += yb.shape[0] * yb.shape[1]
+            else:
+                state, m = train_step(state, (xb, yb), seed=seed)
                 step += 1
-                total += y.shape[0]
+                total += yb.shape[0]
+            device_metrics.append(m)
             bucket = step // print_every if print_every else 0
             if print_every and (bucket > last_print_bucket or step == nsteps):
                 last_print_bucket = bucket
@@ -361,6 +383,16 @@ def train_model(
                     f"gnorm {mm['grad_norm']:.3f} | clip {clip_pct:.1f}% | "
                     f"oflow 0 | nonfinite {oflow} | scale 1.0"
                 )
+
+        if profiler is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiler.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            trace = os.path.join(profile_dir, f"train_epoch{epoch}.json")
+            profiler.export_chrome_trace(trace)
+            profiler = None
+            log(f"[profile] wrote torch trace to {trace}")
 
         drain()
         finite_ms = [s for s in host_metrics

@@ -113,10 +113,10 @@ class AdamW:
             torch._foreach_mul([state.nu[k] for k in names], b2))
         count_inc = state.count + 1
         c = count_inc.to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=c.device), c)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=c.device), c)
+        # the bases as 0-d host tensors: a device op reads them as launch
+        # arguments, with no host-to-device copy (a CUDA graph captures it)
+        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), c)
+        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32), c)
         u = torch._foreach_div(
             torch._foreach_div(mu, bc1),
             torch._foreach_add(torch._foreach_sqrt(

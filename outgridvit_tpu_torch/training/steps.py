@@ -13,14 +13,24 @@ drop-path masks), given by the caller or sampled from a ``torch.Generator``
 with :func:`sample_step_draws`: one the caller hands in, or, given a
 ``seed``, the step's own from :func:`step_generator` seeded from ``(seed,
 state.step)``, as the JAX step folds ``state.step`` into its key, so a
-resumed run draws what an uninterrupted one drew. ``jax.random`` bits
-cannot be reproduced, so parity tests hand both frameworks the same draws.
+resumed run draws what an uninterrupted one drew. The drop-path masks are
+drawn during the forward, or, given the order the forward calls its
+DropPaths in, before it (``drop_order``): bitwise the same masks.
+``jax.random`` bits cannot be reproduced, so parity tests hand both
+frameworks the same draws.
+
+Step count: the ``lr`` metric reads the state's device step, which the step
+increments in place; the returned state's host step is one more.
 
 Non-finite guard: when the loss or the gradient norm is not finite, the
 parameters, the optimizer state (moments and count) and the BatchNorm
 statistics keep their values, ``nonfinite`` is 1 and the reported loss and
 grad_norm are 0; the state's step advances all the same. The guard is a
 select on the device, so the step needs no host sync.
+
+The K-step train superstep (twin of ``make_train_superstep``'s
+``lax.scan``) replays K train steps captured in one CUDA graph, their draws
+in static device buffers (:class:`TrainSuperstep`).
 
 The eval step (twin of ``make_eval_step``) normalizes a raw uint8 batch in
 the step when asked, runs the eval-mode forward and returns the loss and
@@ -32,7 +42,15 @@ one CUDA graph (:class:`EvalSuperstep`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (
+    Callable,
+    Dict,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
@@ -44,7 +62,7 @@ from outgridvit_tpu_torch.ops.augment import (
     normalize_batch,
     sample_augment_draws,
 )
-from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, draw_drop_masks
 from outgridvit_tpu_torch.training.losses import (
     cross_entropy_smoothed,
     soft_target_cross_entropy,
@@ -96,17 +114,24 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 
 def sample_step_draws(generator: torch.Generator, cfg: StepConfig,
-                      shape: Tuple[int, int, int, int],
-                      device=None) -> StepDraws:
-    """Draw a step's augment and mix draws from ``generator``; drop-path
-    masks are drawn from it too, during the forward."""
+                      shape: Tuple[int, int, int, int], device=None,
+                      drop_order: Optional[Sequence[Tuple[str, float]]]
+                      = None) -> StepDraws:
+    """Draw a step's augment and mix draws from ``generator``, then its
+    drop-path masks: during the forward, or, given ``drop_order`` (the
+    ``(path, rate)`` order the forward draws them in, as
+    ``DropPathMasks(record=...)`` records it), now, bitwise the same."""
     B, H, W, _ = shape
     aug = (sample_augment_draws(generator, shape, cfg.augment, device)
            if cfg.augment is not None else None)
     mix = (sample_mix_draws(generator, B, H, W, cfg.mixup_alpha,
                             cfg.cutmix_alpha, cfg.mix_prob, device)
            if cfg.mixing and cfg.mix_prob > 0.0 else None)
-    return StepDraws(aug, mix, DropPathMasks(generator=generator))
+    if drop_order is None:
+        return StepDraws(aug, mix, DropPathMasks(generator=generator))
+    masks = draw_drop_masks(generator, drop_order, B)
+    return StepDraws(aug, mix, DropPathMasks(
+        {p: m.to(device) for p, m in masks.items()}))
 
 
 def make_train_step(cfg: StepConfig,
@@ -117,7 +142,7 @@ def make_train_step(cfg: StepConfig,
     sample them from :func:`step_generator` at ``state.step`` (moved to
     the batch's device). The metrics are 0-d device tensors: loss, top1, top3,
     top5, grad_norm, clipped, nonfinite and, with ``lr_schedule``, lr (at
-    ``state.step``)."""
+    the state's device step, which the step then increments in place)."""
 
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None,
@@ -173,9 +198,8 @@ def make_train_step(cfg: StepConfig,
                 "nonfinite": (~finite).float(),
             }
             if lr_schedule is not None:
-                metrics["lr"] = lr_schedule(
-                    torch.tensor(state.step, dtype=torch.int32,
-                                 device=loss.device))
+                metrics["lr"] = lr_schedule(state.device_step)
+            state.device_step.add_(1)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
@@ -189,22 +213,14 @@ def make_eval_step(model: torch.nn.Module, label_smoothing: float = 0.0,
     (``label_smoothing``, none by default) and top-k in percent of the
     eval-mode forward of ``model``. With ``normalize=(mean, std)`` the
     images come as raw uint8 and are normalized in the step
-    (``normalize_batch``), the mean and std kept on the device per device,
-    so a step makes no host tensor once it has run on a device."""
-    stats: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def norm(x: torch.Tensor) -> torch.Tensor:
-        if x.device not in stats:
-            stats[x.device] = tuple(
-                torch.tensor(v, dtype=torch.float32, device=x.device)
-                for v in normalize)
-        return normalize_batch(x, *stats[x.device])
+    (``normalize_batch``, which keeps the mean and std on each device), so
+    a step makes no host tensor once it has run on a device."""
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:
         images, labels = batch
         if normalize is not None:
-            images = norm(images)
+            images = normalize_batch(images, *normalize)
         logits = model.eval()(images)
         accs = accuracy_topk(logits, labels)
         return {"loss": cross_entropy_smoothed(logits, labels,
@@ -278,3 +294,249 @@ def make_eval_superstep(model: torch.nn.Module, label_smoothing: float = 0.0,
                         normalize=None, k: int = 8) -> EvalSuperstep:
     """The K-batch eval superstep (:class:`EvalSuperstep`)."""
     return EvalSuperstep(model, k, label_smoothing, normalize)
+
+
+def _draw_tensors(draws: StepDraws) -> List[Tuple[tuple, torch.Tensor]]:
+    """Every tensor of a step's draws (a drop-path mapping, not a
+    generator), keyed ``("augment" | "mix", field)`` or ``("drop", path)``."""
+    out = []
+    for group, nt in (("augment", draws.augment), ("mix", draws.mix)):
+        if nt is not None:
+            out += [((group, f), t) for f, t in zip(nt._fields, nt)
+                    if t is not None]
+    if draws.drop_masks is None or draws.drop_masks.masks is None:
+        raise ValueError("the superstep needs drop-path masks drawn before "
+                         "the forward (sample_step_draws(drop_order=...))")
+    out += [(("drop", p), torch.as_tensor(m))
+            for p, m in draws.drop_masks.masks.items()]
+    return out
+
+
+class DrawLayout:
+    """K steps' draws in one flat byte buffer: each tensor of a step's
+    :class:`StepDraws` gets a ``[K, ...]`` slot of its dtype, 16-byte
+    aligned, laid out from a template step. :meth:`fill` writes K steps'
+    draws into a buffer's slots; :meth:`steps` reads them back as K
+    :class:`StepDraws` of views into it. One copy of the buffer moves a
+    group's draws to the card."""
+
+    def __init__(self, template: StepDraws, k: int):
+        self.k = int(k)
+        self.groups = (template.augment is not None, template.mix is not None)
+        self.slots = []  # (key, shape, dtype, offset, bytes)
+        off = 0
+        for key, t in _draw_tensors(template):
+            n = self.k * t.numel() * t.element_size()
+            self.slots.append((key, tuple(t.shape), t.dtype, off, n))
+            off += -(-n // 16) * 16
+        self.nbytes = max(off, 16)
+
+    def views(self, buf: torch.Tensor) -> Dict[tuple, torch.Tensor]:
+        """The ``[K, ...]`` slot of each draw in ``buf`` (uint8
+        [nbytes])."""
+        return {key: buf[off:off + n].view(dtype).view(self.k, *shape)
+                for key, shape, dtype, off, n in self.slots}
+
+    def fill(self, views: Dict[tuple, torch.Tensor],
+             draws: Sequence[StepDraws]) -> None:
+        """Write K steps' draws into a buffer's :meth:`views`."""
+        if len(draws) != self.k:
+            raise ValueError(f"{len(draws)} steps' draws for K={self.k}")
+        for i, d in enumerate(draws):
+            got = _draw_tensors(d)
+            if ([(key, tuple(t.shape), t.dtype) for key, t in got]
+                    != [s[:3] for s in self.slots]):
+                raise ValueError(
+                    f"step {i}'s draws do not match the superstep's layout "
+                    f"{[s[:3] for s in self.slots]}: "
+                    f"{[(key, tuple(t.shape), t.dtype) for key, t in got]}")
+            for key, t in got:
+                views[key][i].copy_(t)
+
+    def steps(self, buf: torch.Tensor) -> List[StepDraws]:
+        """K :class:`StepDraws` of views into ``buf``."""
+        views = self.views(buf)
+        out = []
+        for i in range(self.k):
+            field = {key: v[i] for key, v in views.items()}
+            aug = (AugmentDraws(*(field.get(("augment", f))
+                                  for f in AugmentDraws._fields))
+                   if self.groups[0] else None)
+            mix = (MixDraws(*(field[("mix", f)] for f in MixDraws._fields))
+                   if self.groups[1] else None)
+            out.append(StepDraws(aug, mix, DropPathMasks(
+                {key[1]: v for key, v in field.items()
+                 if key[0] == "drop"})))
+        return out
+
+
+class _Prepared:
+    """A superstep's state for one (train state, input shape): the
+    drop-path order, the draws' layout and buffers, and on the card the
+    graph and its static inputs and outputs."""
+
+    def __init__(self, state: TrainState, order):
+        self.state = state  # keeps what the key's ids name alive
+        self.order = order
+        self.layout: Optional[DrawLayout] = None
+        self.host: List[Tuple[torch.Tensor, Dict, Optional[object]]] = []
+        self.turn = 0
+        self.graph = None
+
+
+class TrainSuperstep:
+    """K train steps in one dispatch (twin of ``make_train_superstep``):
+    ``(state, (images [K, B, H, W, C], labels [K, B]), seed=None,
+    draws=None) -> (state, metrics dict of [K] tensors)``, the keys of
+    :func:`make_train_step`'s metrics, equal to K :func:`make_train_step`
+    calls with ``seed`` (bitwise on the CPU). ``draws``: K steps'
+    :class:`StepDraws` with drop-path masks to use instead of sampling.
+
+    The first call for a (state, input shape) runs one warm-up step from
+    a snapshot of the state (parameters, BatchNorm statistics, AdamW
+    ``mu``, ``nu`` and ``count``, the device step) and restores it: the
+    warm-up records the order the forward draws its drop-path masks in,
+    and on the card builds the kernels and computes their launch plans,
+    on a side stream. Each call draws K steps' augment, mix and drop-path
+    draws on the host from ``step_generator(seed, state.step + i)``,
+    bitwise what K single steps draw, and writes them into one flat
+    buffer (:class:`DrawLayout`).
+
+    On a CUDA device the K steps are captured once per state and input
+    shape in one CUDA graph that reads static image, label and draw
+    buffers and writes ``[K]`` metric buffers. Each call copies its draws
+    (from one of two pinned buffers, one transfer) and its batches into
+    the static buffers, replays the graph and returns copies of the
+    metrics; the host's next group is drawn while this one replays. The
+    graph reads and writes the parameters, BatchNorm statistics, optimizer
+    state and device step in place, by address, and follows a resume's
+    ``copy_``. A capture or a replay that fails raises: there is no eager
+    fallback on the card. The kernel wrappers count their launches once,
+    at the capture; :attr:`replays` counts the replays of every instance.
+    On the CPU the K steps run eagerly on the same draws."""
+
+    replays = 0
+
+    def __init__(self, cfg: StepConfig, lr_schedule: Optional[Callable] = None,
+                 k: int = 8):
+        self.cfg, self.k = cfg, int(k)
+        self.step = make_train_step(cfg, lr_schedule)
+        self.prepared: Dict[tuple, _Prepared] = {}
+        self.stream = None
+
+    @staticmethod
+    def _tensors(state: TrainState) -> List[torch.Tensor]:
+        model, opt = state.model, state.opt_state
+        return [*model.parameters(), *model.buffers(), *opt.mu.values(),
+                *opt.nu.values(), opt.count, state.device_step]
+
+    def _warm_up(self, state: TrainState, images, labels) -> list:
+        """One step from a snapshot of the state, then the snapshot back;
+        returns the drop-path order the forward drew its masks in."""
+        order: List[Tuple[str, float]] = []
+        tensors = self._tensors(state)
+        with torch.no_grad():
+            snap = [t.detach().clone() for t in tensors]
+        g = torch.Generator()  # the warm-up's draws are thrown away
+        draws = sample_step_draws(g, self.cfg, tuple(images.shape[1:]),
+                                  images.device)
+        draws = draws._replace(
+            drop_masks=DropPathMasks(generator=g, record=order))
+        self.step(state, (torch.zeros_like(images[0]),
+                          torch.zeros_like(labels[0])), draws=draws)
+        with torch.no_grad():
+            for t, old in zip(tensors, snap):
+                t.copy_(old)
+        return order
+
+    def _run(self, state, images, labels, draws) -> Dict[str, torch.Tensor]:
+        ms = []
+        for i in range(self.k):
+            state, m = self.step(state, (images[i], labels[i]),
+                                 draws=draws[i])
+            ms.append(m)
+        return {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
+
+    def _prepare(self, state, images, labels) -> _Prepared:
+        if images.device.type != "cuda":
+            return _Prepared(state, self._warm_up(state, images, labels))
+        dev = images.device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            order = self._warm_up(state, images, labels)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        return _Prepared(state, order)
+
+    def _capture(self, prep: _Prepared, state, images, labels):
+        dev = images.device
+        x, y = torch.zeros_like(images), torch.zeros_like(labels)
+        buf = torch.zeros(prep.layout.nbytes, dtype=torch.uint8, device=dev)
+        draws = prep.layout.steps(buf)
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = self._run(state, x, y, draws)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        prep.graph = (graph, x, y, buf, out)
+
+    def __call__(self, state: TrainState, superbatch, seed: Optional[int]
+                 = None, draws: Optional[Sequence[StepDraws]] = None):
+        images, labels = superbatch
+        if images.shape[0] != self.k or labels.shape[0] != self.k:
+            raise ValueError(f"train superstep of K={self.k}: got "
+                             f"{tuple(images.shape)} / "
+                             f"{tuple(labels.shape)}")
+        if (seed is None) == (draws is None):
+            raise ValueError("give the superstep a seed or its K steps' "
+                             "draws")
+        key = (id(state.model), id(state.opt_state), id(state.device_step),
+               images.device, tuple(images.shape), images.dtype,
+               tuple(labels.shape), labels.dtype)
+        prep = self.prepared.get(key)
+        if prep is None:
+            prep = self.prepared[key] = self._prepare(state, images, labels)
+        if draws is None:  # on the host, bitwise what K single steps draw
+            draws = [sample_step_draws(
+                step_generator(seed, state.step + i), self.cfg,
+                tuple(images.shape[1:]), drop_order=prep.order)
+                for i in range(self.k)]
+        cuda = images.device.type == "cuda"
+        if prep.layout is None:
+            prep.layout = DrawLayout(draws[0], self.k)
+            for _ in range(2 if cuda else 1):
+                buf = torch.empty(prep.layout.nbytes, dtype=torch.uint8,
+                                  pin_memory=cuda)
+                prep.host.append((buf, prep.layout.views(buf), None))
+        buf, views, done = prep.host[prep.turn]
+        if done is not None:
+            done.synchronize()  # its last copy to the card has been read
+        prep.layout.fill(views, draws)
+        if not cuda:
+            metrics = self._run(state, images, labels,
+                                prep.layout.steps(buf))
+            return dataclasses.replace(state, step=state.step + self.k), \
+                metrics
+        if prep.graph is None:
+            self._capture(prep, state, images, labels)
+        graph, x, y, dev_buf, out = prep.graph
+        dev_buf.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        prep.host[prep.turn] = (buf, views, done)
+        prep.turn = (prep.turn + 1) % len(prep.host)
+        x.copy_(images)
+        y.copy_(labels)
+        graph.replay()
+        TrainSuperstep.replays += 1
+        return dataclasses.replace(state, step=state.step + self.k), \
+            {key: v.clone() for key, v in out.items()}
+
+
+def make_train_superstep(cfg: StepConfig,
+                         lr_schedule: Optional[Callable] = None,
+                         k: int = 8) -> TrainSuperstep:
+    """The K-step train superstep (:class:`TrainSuperstep`)."""
+    return TrainSuperstep(cfg, lr_schedule, k)

@@ -123,7 +123,7 @@ def load_jax_train_state(model: nn.Module, tx: "AdamW", *,
     trees): params and batch_stats into ``model`` (strict, as
     :func:`load_flax_variables`), the AdamW moments and count (``opt_state``'s
     ``ScaleByAdamState``) into a fresh optimizer state of ``tx``, and the
-    step counter."""
+    step counter (host and device)."""
     from outgridvit_tpu_torch.training.train_state import TrainState
 
     load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
@@ -143,5 +143,5 @@ def load_jax_train_state(model: nn.Module, tx: "AdamW", *,
                                      f"{tuple(dst[key].shape)}")
                 dst[key].copy_(torch.from_numpy(np.array(arr)))
     state.opt_state.count.fill_(int(count))
-    state.step = int(step)
+    state.set_step(step)
     return state

@@ -43,7 +43,10 @@ widest C and a 5-token launch without LN (the forward also at the
 Tiny-ImageNet stage 0 and in every layout it takes at five shapes), with the
 entry point each launch took (fp32 and H = 100 keep ``csrc/mlp_branch.cu``
 and ``csrc/mlp_branch_bwd.cu``), both kernels on request and the tensor-core
-entries' refusals.
+entries' refusals; the training entry point: the eval graph, the
+prefetcher, ``train_model`` on the kernels, and the train superstep's CUDA
+graph (K replayed steps bitwise K eager ones, a graph per input shape,
+``train_model`` at K = 2 bitwise K = 1).
 
 Marked ``cuda``: skips without a card. Imports no JAX, so it also runs on a
 GPU machine without it:
@@ -2315,3 +2318,127 @@ def test_train_model_two_epochs_launches_the_grid_and_mlp_kernels(
     assert all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"])
     assert hist["train_mem_alloc_gib"][0] > 0
     assert (tmp_path / "l.ckpt").exists()
+
+
+# ---- the train superstep: K train steps in one CUDA graph -----------------
+
+def _train_tensors(state):
+    return ([t.detach() for t in state.model.state_dict().values()]
+            + [*state.opt_state.mu.values(), *state.opt_state.nu.values(),
+               state.opt_state.count, state.device_step])
+
+
+def _loop_step_cfg():
+    from outgridvit_tpu_torch.ops.augment import AugmentConfig
+
+    return StepConfig(num_classes=10, mixup_alpha=0.8, cutmix_alpha=1.0,
+                      mix_prob=0.5,
+                      augment=AugmentConfig(*LOOP_NORM, crop_pad=2))
+
+
+def _loop_state(dev, seed=1):
+    from outgridvit_tpu_torch.training.optim import warmup_cosine_lr
+
+    sched = warmup_cosine_lr(1e-2, 40, 4, 1e-4)
+    model = build_model(LOOP_CFG, dtype=torch.bfloat16, device=dev,
+                        seed=seed)
+    return TrainState.create(model, AdamW(sched, 0.05, 1.0)), sched
+
+
+def test_train_graph_is_bitwise_eager_steps(dev):
+    """Two K = 3 groups of the tiny bf16 model on the kernel path: the
+    replayed graph against 3 eager steps each, from identical states, on
+    the same batches and seed: parameters, BN statistics, mu, nu, count,
+    the device step and every metric bitwise."""
+    from outgridvit_tpu_torch.training.steps import (
+        TrainSuperstep,
+        make_train_superstep,
+    )
+
+    cfg = _loop_step_cfg()
+    eager_state, sched = _loop_state(dev)
+    graph_state, _ = _loop_state(dev)
+    step = make_train_step(cfg, sched)
+    superstep = make_train_superstep(cfg, sched, k=3)
+    g = torch.Generator().manual_seed(3)
+    counts = (grid_mhsa_backward.launches, mlp_branch_backward.launches)
+    for _ in range(2):
+        x = torch.randint(0, 256, (3, 16, 16, 16, 3), dtype=torch.uint8,
+                          generator=g).to(dev)
+        y = torch.randint(0, 10, (3, 16), generator=g).to(dev, torch.int32)
+        ms = []
+        for i in range(3):
+            eager_state, m = step(eager_state, (x[i], y[i]), seed=7)
+            ms.append(m)
+        replays = TrainSuperstep.replays
+        graph_state, got = superstep(graph_state, (x, y), seed=7)
+        assert TrainSuperstep.replays == replays + 1
+        assert graph_state.step == eager_state.step
+        assert set(got) == set(ms[0])
+        for k in got:
+            assert torch.equal(got[k], torch.stack([m[k] for m in ms])), k
+        for a, b in zip(_train_tensors(graph_state),
+                        _train_tensors(eager_state)):
+            assert torch.equal(a, b)
+    assert int(graph_state.device_step) == graph_state.step == 6
+    assert len(superstep.prepared) == 1  # one capture, two replays
+    assert grid_mhsa_backward.launches > counts[0]
+    assert mlp_branch_backward.launches > counts[1]
+
+
+def test_train_superstep_captures_a_graph_per_shape(dev):
+    from outgridvit_tpu_torch.training.steps import (
+        TrainSuperstep,
+        make_train_superstep,
+    )
+
+    state, sched = _loop_state(dev, seed=2)
+    superstep = make_train_superstep(_loop_step_cfg(), sched, k=2)
+    replays = TrainSuperstep.replays
+    for b in (16, 8, 16):
+        x = torch.randint(0, 256, (2, b, 16, 16, 3), dtype=torch.uint8,
+                          device=dev)
+        y = torch.randint(0, 10, (2, b), device=dev, dtype=torch.int32)
+        state, m = superstep(state, (x, y), seed=0)
+        assert m["loss"].shape == (2,) and torch.isfinite(m["loss"]).all()
+    assert len(superstep.prepared) == 2
+    assert all(p.graph is not None for p in superstep.prepared.values())
+    assert TrainSuperstep.replays == replays + 3
+    assert state.step == int(state.device_step) == 6
+
+
+def test_train_model_on_the_card_k2_is_bitwise_k1(dev, tmp_path):
+    """The full recipe (device augmentation, mixup/cutmix, drop-path) over
+    2 epochs: K = 2, full groups through the train graph and a ragged tail
+    eagerly, bitwise K = 1 in every history entry but device memory, and
+    in the final state."""
+    import numpy as np
+
+    from outgridvit_tpu_torch.data.datasets import (
+        get_synthetic_structured_dataloaders,
+    )
+    from outgridvit_tpu_torch.training.loop import train_model
+    from outgridvit_tpu_torch.training.steps import TrainSuperstep
+
+    runs = []
+    for k in (1, 2):
+        train, val, _ = get_synthetic_structured_dataloaders(
+            batch_size=16, num_samples=120, img_size=16, num_classes=10,
+            seed=0, val_split=0.4, device_augment=True)  # 4 full + ragged
+        model = build_model(LOOP_CFG, dtype=torch.bfloat16, device=dev,
+                            seed=2)
+        replays = TrainSuperstep.replays
+        runs.append(train_model(
+            model, train, epochs=2, val_loader=val, device="cuda",
+            autocast_dtype="bf16", print_every=2, num_classes=10,
+            mixup_alpha=0.8, cutmix_alpha=1.0, mix_prob=0.5,
+            early_stop=False, seed=4, save_path=str(tmp_path / f"b{k}"),
+            last_path=str(tmp_path / f"l{k}"), steps_per_dispatch=k))
+        assert TrainSuperstep.replays == replays + (0 if k == 1 else 4)
+    (h1, s1), (h2, s2) = runs
+    for key in h1:
+        if "_mem_" not in key:
+            np.testing.assert_array_equal(h2[key], h1[key], err_msg=key)
+    assert s1.step == s2.step == int(s2.device_step) == 10
+    for a, b in zip(_train_tensors(s2), _train_tensors(s1)):
+        assert torch.equal(a, b)

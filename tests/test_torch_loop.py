@@ -11,7 +11,8 @@ against ``outgridvit_tpu`` on the same weights, data and seeds (CPU, fp32).
   top-k, lr and clip shares, 5e-4 on grad norms, 2e-3 on the parameters.
 - Resume: 1 epoch then a resume for the second is bitwise an uninterrupted
   2-epoch run, with the full recipe (mixing, drop-path, device
-  augmentation); ``steps_per_dispatch`` K > 1 is bitwise K = 1.
+  augmentation), at K = 1 and K = 3; ``steps_per_dispatch`` K > 1 (each
+  full K-group through the train superstep) is bitwise K = 1.
 - Early stopping and best tracking follow JAX's on scripted val metrics.
 """
 
@@ -181,7 +182,7 @@ def _trained_state(seed=0):
         for b in model.buffers():
             b.uniform_(0.5, 1.5, generator=g)
     state.opt_state.count.fill_(7)
-    state.step = 9
+    state.set_step(9)
     return state
 
 
@@ -204,8 +205,10 @@ def test_checkpoint_round_trip_copies_in_place(tmp_path):
         assert torch.equal(src.opt_state.mu[k], dst.opt_state.mu[k])
         assert torch.equal(src.opt_state.nu[k], dst.opt_state.nu[k])
     assert int(dst.opt_state.count) == 7 and dst.step == 9
+    assert int(dst.device_step) == 9
     raw = tckpt.load_checkpoint(str(path))["state"]
-    assert raw["step"] == 9 and set(raw) == {"model", "opt_state", "step"}
+    assert raw["step"] == raw["device_step"] == 9
+    assert set(raw) == {"model", "opt_state", "step", "device_step"}
     model = build_model(TINY, device="cpu", seed=5)
     tckpt.load_model_variables(str(path), model)
     for a, b in zip(src.model.state_dict().values(),
@@ -364,6 +367,7 @@ def _recipe_run(tmp, epochs, resume=None, k=1, last="last.ckpt",
 
 def _assert_same_state(a, b):
     assert a.step == b.step
+    assert torch.equal(a.device_step, b.device_step)
     for (k, x), y in zip(a.model.state_dict().items(),
                          b.model.state_dict().values()):
         assert torch.equal(x, y), k
@@ -394,9 +398,46 @@ def test_resume_is_bitwise_an_uninterrupted_run(tmp_path):
     assert full_hist["train_loss"][0] != full_hist["train_loss"][1]
 
 
-def test_steps_per_dispatch_is_bitwise_single_steps(tmp_path):
+def test_resume_at_k3_is_bitwise_an_uninterrupted_run(tmp_path):
+    """As above with K = 3: each epoch's first three batches through the
+    train superstep (its device step restored from the checkpoint)."""
+    full_hist, full = _recipe_run(tmp_path / "full", 2, k=3)
+    with pytest.raises(_Interrupted):
+        _recipe_run(tmp_path / "cut", 2, k=3, interrupt_at=2)
+    hist, resumed = _recipe_run(tmp_path / "cut", 2, k=3,
+                                resume=str(tmp_path / "cut" / "last.ckpt"),
+                                last="last2.ckpt")
+    _assert_same_history(hist, full_hist, slice(1, 2))
+    _assert_same_state(resumed, full)
+    assert int(resumed.device_step) == resumed.step == 10
+
+
+def _counting_superstep(monkeypatch):
+    """Count train_model's superstep calls."""
+    calls = []
+    make = tloop.make_train_superstep
+
+    def counted(*args, **kwargs):
+        superstep = make(*args, **kwargs)
+
+        def call(*a, **kw):
+            calls.append(a[1][1].shape)
+            return superstep(*a, **kw)
+
+        return call
+
+    monkeypatch.setattr(tloop, "make_train_superstep", counted)
+    return calls
+
+
+def test_steps_per_dispatch_is_bitwise_single_steps(tmp_path, monkeypatch):
+    calls = _counting_superstep(monkeypatch)
     h1, s1 = _recipe_run(tmp_path / "k1", 2)
+    assert calls == []
     h3, s3 = _recipe_run(tmp_path / "k3", 2, k=3)
+    # 4 full batches and a ragged tail an epoch: one superstep, then single
+    # steps for the 4th batch and the tail
+    assert calls == [(3, 16)] * 2
     _assert_same_history(h3, h1)
     _assert_same_state(s3, s1)
 
