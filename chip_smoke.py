@@ -136,7 +136,7 @@ gated, and so are the outlook backward's shares of dv / dx and da.
 Phase ``loop`` (last, ``Smoke.loop``) drives the training entry point as a
 user runs it: ``outgridvit_tpu_torch/train.py:main`` in-process with
 ``configs/cifar100_model_a_7m.yaml`` at full width, bf16, batch 128, on a
-CIFAR-100 pickle fixture of random images (10,000 train, 1,000 test, 100
+CIFAR-100 pickle fixture of random images (10,000 train, 10,000 test, 100
 classes), ``--steps-per-dispatch 4``: 2 epochs, then ``--resume`` from
 the last checkpoint for a third. It checks the exit codes, finite
 ``[Train]`` / ``[Val]`` losses, the resume line, both checkpoints, that
@@ -145,6 +145,21 @@ tensor-core entry points and that the eval graph replayed; it prints each
 epoch's img/s and seconds. Then the 7M eval superstep at K = 4 is held
 bitwise to 4 eager eval steps before and after one train step, and the
 two are timed in turns (``Smoke.eval_graph``).
+
+Phase ``evaluate`` (last, ``Smoke.evaluate``) drives the eval and export
+entry points on the loop's best checkpoint, bf16: ``benchmark_eval.main``
+over the fixture's test split (batch 128, K = 8: the metric dict's keys,
+finite metrics, the 7M's parameter count, eval graph replays, #1 and #2 on
+their tensor-core entry points); ``eval_robustness.main`` over a
+CIFAR-100-C fixture of random images it writes (2 corruptions x 5
+severities x 10,000 images: 10 rows, a finite summary, one eval graph
+capture, seconds a setting); ``export_model.main --selfcheck`` at batch 64
+and ``load_predictor``, the loaded program against the live predictor
+(labels equal, probabilities within 1e-6, one loaded forward's launches
+those of one live forward); ``model_b_o`` exported whole and held the same
+way; each ``ogvt::`` op of ``ops/library.py`` exported alone at a stage
+shape of a case that reaches it, bitwise a direct launch. Live and loaded
+predictors are timed in turns at batch 64.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -260,7 +275,18 @@ SEED = 0
 DEVICE = "cuda"
 # phase loop: the CIFAR-100 fixture's images, the eval graph's K, the
 # timed K-groups
-LOOP_TRAIN, LOOP_TEST, LOOP_K, LOOP_TIMED = 10_000, 1_000, 4, 10
+LOOP_TRAIN, LOOP_TEST, LOOP_K, LOOP_TIMED = 10_000, 10_000, 4, 10
+# phase evaluate: the eval benchmark's K; the CIFAR-100-C fixture's
+# corruptions and rows a file (severities 1-5, 10,000 rows each); the
+# predictor timing's turns (live, loaded, loaded, live) and calls a turn
+EVAL_K = 8
+SWEEP = ("gaussian_noise", "fog")
+SWEEP_ROWS = 50_000
+SERVE_ROUNDS, SERVE_CALLS = 3, 10
+# the keys of the JAX package's evaluate_one_epoch_logs metric dict
+BENCH_KEYS = ("loss", "top1", "top3", "top5", "imgs_per_sec", "ms_per_batch",
+              "epoch_seconds", "num_images", "params", "param_size_mb",
+              "flops_fwd", "mem_gib", "mem_peak_gib")
 
 
 def write_cifar_fixture(data_dir, n_train: int, n_test: int, classes: int,
@@ -2370,33 +2396,36 @@ class Smoke:
         )
 
         t_phase = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            tmp = Path(tmp)
-            write_cifar_fixture(tmp / "data", LOOP_TRAIN, LOOP_TEST,
-                                FLAGSHIP_MODEL_CFG["num_classes"], SEED)
-            out = tmp / "out"
-            common = ["--config", FLAGSHIP.config, "--data-dir",
-                      str(tmp / "data"), "--batch-size", str(TRAIN_BATCH),
-                      "--steps-per-dispatch", str(LOOP_K),
-                      "--output-dir", str(out)]
-            self.reset_counts()
-            EvalSuperstep.replays = TrainSuperstep.replays = 0
-            runs = []
-            for args in (["--epochs", "2"],
-                         ["--epochs", "3", "--resume",
-                          str(out / "last_cifar100_model_a_7m.pt")]):
-                tee = StampedLines(sys.stdout)
-                with contextlib.redirect_stdout(tee):
-                    rc = cli.main(common + args)
-                require(rc == 0, f"loop: train CLI {args} returned {rc}")
-                runs.append(tee.lines)
-            counts, variants = self.read_counts()
-            replays = EvalSuperstep.replays
-            train_replays = TrainSuperstep.replays
-            ckpts = [out / "last_cifar100_model_a_7m.pt",
-                     out / "best_cifar100_model_a_7m.pt"]
-            require(all(p.exists() for p in ckpts),
-                    f"loop: checkpoints missing in {sorted(out.iterdir())}")
+        # the fixture and checkpoints stay for phase evaluate, which
+        # removes them
+        self.loop_dir = tempfile.TemporaryDirectory()
+        tmp = Path(self.loop_dir.name)
+        write_cifar_fixture(tmp / "data", LOOP_TRAIN, LOOP_TEST,
+                            FLAGSHIP_MODEL_CFG["num_classes"], SEED)
+        out = tmp / "out"
+        common = ["--config", FLAGSHIP.config, "--data-dir",
+                  str(tmp / "data"), "--batch-size", str(TRAIN_BATCH),
+                  "--steps-per-dispatch", str(LOOP_K),
+                  "--output-dir", str(out)]
+        self.reset_counts()
+        EvalSuperstep.replays = TrainSuperstep.replays = 0
+        runs = []
+        for args in (["--epochs", "2"],
+                     ["--epochs", "3", "--resume",
+                      str(out / "last_cifar100_model_a_7m.pt")]):
+            tee = StampedLines(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = cli.main(common + args)
+            require(rc == 0, f"loop: train CLI {args} returned {rc}")
+            runs.append(tee.lines)
+        counts, variants = self.read_counts()
+        replays = EvalSuperstep.replays
+        train_replays = TrainSuperstep.replays
+        ckpts = [out / "last_cifar100_model_a_7m.pt",
+                 out / "best_cifar100_model_a_7m.pt"]
+        require(all(p.exists() for p in ckpts),
+                f"loop: checkpoints missing in {sorted(out.iterdir())}")
+        self.loop_ckpt = ckpts[1]
         self.record("loop", counts, variants)
         bad = {n: e for n, e in self.read_entries().items()
                if n in ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
@@ -2709,6 +2738,317 @@ class Smoke:
               f"{self.eval_graph_ms[0]:.4f} ms vs eager "
               f"{self.eval_graph_ms[1]:.4f} ms")
 
+    # -- phase evaluate: the eval and export entry points -----------------
+    def evaluate(self):
+        """The port's eval benchmark, robustness sweep and export CLIs on
+        the 7M checkpoint that phase ``loop`` wrote (its best), at full
+        width, bf16:
+
+        (a) ``benchmark_eval.main`` on the fixture's test split (10,000
+            images), batch 128, K = ``EVAL_K``: the metric dict's keys,
+            finite metrics, the parameter count, eval graph replays, and
+            #1 / #2's launches on their tensor-core entry points;
+        (b) ``eval_robustness.main`` on a CIFAR-100-C fixture of random
+            images it writes (``SWEEP``, severities 1-5): 10 rows, a finite
+            summary, one eval graph capture for the sweep, seconds per
+            setting;
+        (c) ``export_model.main --selfcheck`` at batch 64, then
+            ``load_predictor`` here: labels equal to the live predictor's,
+            probabilities within 1e-6, one loaded forward's launches those
+            of one live forward (7 and 14 of #1 and #2), export seconds and
+            MB, live vs loaded imgs/s in turns;
+        (d) ``MODEL_B_O`` (random weights) exported whole and held to its
+            live predictor the same way;
+        (e) each ``ogvt::`` op exported alone at one stage shape of a case
+            that reaches it, loaded, and held bitwise to a direct launch
+            (:meth:`export_ops`)."""
+        import contextlib
+        import re
+        from pathlib import Path
+
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch import benchmark_eval, eval_robustness
+        from outgridvit_tpu_torch import export_model
+        from outgridvit_tpu_torch.serving import (
+            build_predictor,
+            load_predictor,
+        )
+        from outgridvit_tpu_torch.training.steps import EvalSuperstep
+
+        t_phase = time.perf_counter()
+        tmp = Path(self.loop_dir.name)
+        ckpt = str(self.loop_ckpt)
+        # the 7M config with the fixture's data directory
+        cfg = tmp / "cifar100_model_a_7m.yaml"
+        text = Path(FLAGSHIP.config).read_text()
+        require("  data_dir: ./data/cifar100\n" in text,
+                f"evaluate: {FLAGSHIP.config} has no data_dir line to point "
+                "at the fixture")
+        cfg.write_text(text.replace("  data_dir: ./data/cifar100\n",
+                                    f"  data_dir: {tmp / 'data'}\n"))
+
+        # (a) the eval benchmark
+        out = tmp / "bench.json"
+        self.reset_counts()
+        replays = EvalSuperstep.replays
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        rc = benchmark_eval.main([
+            "--config", str(cfg), "--checkpoint", ckpt, "--split", "test",
+            "--batch-size", str(TRAIN_BATCH), "--eval-k", str(EVAL_K),
+            "--json-out", str(out)])
+        require(rc == 0, f"evaluate: benchmark_eval returned {rc}")
+        m = json.loads(out.read_text())
+        counts, variants = self.read_counts()
+        entries = self.read_entries()
+        self.record("evaluate benchmark", counts, variants)
+        require(tuple(m) == BENCH_KEYS, f"evaluate: metric keys {list(m)}")
+        require(all(math.isfinite(m[k]) for k in ("loss", "top1", "top3",
+                                                  "top5")),
+                f"evaluate: metrics {m}")
+        require(m["params"] == FLAGSHIP_PARAMS, f"params {m['params']}")
+        require(m["num_images"] == LOOP_TEST, f"images {m['num_images']}")
+        require(EvalSuperstep.replays > replays,
+                "evaluate: the eval graph never replayed")
+        self.require_forward_entries("evaluate benchmark", counts, entries)
+        print(f"[evaluate] benchmark_eval a7m best checkpoint, test split "
+              f"{m['num_images']} images, batch {TRAIN_BATCH}, K={EVAL_K}: "
+              f"loss {m['loss']:.4f} top1 {m['top1']:.2f}% | "
+              f"{m['imgs_per_sec']:.1f} imgs/s | {m['ms_per_batch']:.3f} "
+              f"ms/batch | epoch {m['epoch_seconds']:.3f} s | peak "
+              f"{m['mem_peak_gib']:.3f} GiB | eval graph replays "
+              f"{EvalSuperstep.replays - replays} | flops/fwd "
+              f"{m['flops_fwd']}; {self.gpu}")
+        self.eval_bench = m
+
+        # (b) the CIFAR-100-C sweep
+        cdir = tmp / "CIFAR-100-C"
+        cdir.mkdir()
+        rng = np.random.default_rng(SEED)
+        np.save(cdir / "labels.npy",
+                np.arange(SWEEP_ROWS, dtype=np.int64)
+                % FLAGSHIP_MODEL_CFG["num_classes"])
+        for name in SWEEP:
+            np.save(cdir / f"{name}.npy",
+                    rng.integers(0, 256, (SWEEP_ROWS, 32, 32, 3),
+                                 dtype=np.uint8))
+        out = tmp / "robustness.json"
+        self.reset_counts()
+        captures = EvalSuperstep.captures
+        tee = StampedLines(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = eval_robustness.main([
+                "--config", str(cfg), "--checkpoint", ckpt,
+                "--suite", "cifar100c", "--data-dir", str(tmp),
+                "--corruptions", *SWEEP, "--json-out", str(out)])
+        require(rc == 0, f"evaluate: eval_robustness returned {rc}")
+        counts, variants = self.read_counts()
+        self.record("evaluate robustness", counts, variants)
+        res = json.loads(out.read_text())
+        rows, summary = res["rows"], res["summary"]
+        require(len(rows) == 2 * 5 and summary["n_settings"] == 10,
+                f"evaluate: {len(rows)} rows")
+        require(all(math.isfinite(r[k]) for r in rows
+                    for k in ("loss", "top1", "top3", "top5")),
+                f"evaluate: rows {rows}")
+        require(math.isfinite(summary["overall_top1"])
+                and math.isfinite(summary["overall_top5"])
+                and all(math.isfinite(v)
+                        for v in summary["by_severity"].values()),
+                f"evaluate: summary {summary}")
+        require(EvalSuperstep.captures == captures + 1,
+                f"evaluate: {EvalSuperstep.captures - captures} eval graph "
+                "captures in the sweep, expected 1")
+        ends = [t for t, line in tee.lines if line.startswith("[C100-C] ")]
+        require(len(ends) == 10, f"evaluate: {len(ends)} settings printed")
+        secs = np.diff([t0] + ends)
+        print(f"[evaluate] eval_robustness a7m CIFAR-100-C {list(SWEEP)} x "
+              f"severities 1-5 ({10 * 10_000} images, batch 256, K=8): "
+              f"overall top1 {summary['overall_top1']:.2f}%; seconds per "
+              f"setting {[round(float(s), 3) for s in secs]} (first incl. "
+              f"the capture), median {float(np.median(secs)):.3f} s; "
+              f"{self.gpu}")
+        self.eval_sweep_s = [float(s) for s in secs]
+
+        # (c) the 7M export
+        art = tmp / "a7m.ogvt"
+        tee = StampedLines(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            rc = export_model.main([
+                "--config", str(cfg), "--checkpoint", ckpt, "--batch-size",
+                str(BATCH), "--out", str(art), "--selfcheck"])
+        require(rc == 0, f"evaluate: export_model returned {rc}")
+        text = "\n".join(line for _, line in tee.lines)
+        found = re.search(r"Exported .* \(([\d.]+) MB, .*kernels (on|off)\) "
+                          r"in ([\d.]+) s", text)
+        require(found is not None and "selfcheck OK" in text,
+                f"evaluate: export_model printed {text!r}")
+        require(found.group(2) == "on", "evaluate: the 7M artifact was "
+                "exported without the kernels")
+        live = build_predictor(FLAGSHIP.model, checkpoint=ckpt,
+                               batch_size=BATCH, img_size=FLAGSHIP.img,
+                               mean=FLAGSHIP.mean, std=FLAGSHIP.std,
+                               device=self.dev)
+        self.hold_export(FLAGSHIP, live, load_predictor(str(art)),
+                         f"{found.group(1)} MB, exported in "
+                         f"{found.group(3)} s")
+
+        # (d) Model B with the fused outlook softmax and depthwise kernels
+        from outgridvit_tpu_torch.serving import export_predictor
+
+        live = build_predictor(MODEL_B_O.model, batch_size=BATCH,
+                               img_size=MODEL_B_O.img, mean=MODEL_B_O.mean,
+                               std=MODEL_B_O.std, device=self.dev, seed=SEED,
+                               dwconv=MODEL_B_O.dwconv)
+        art = tmp / "model_b_o.ogvt"
+        t0 = time.perf_counter()
+        export_predictor(live, str(art))
+        sec = time.perf_counter() - t0
+        self.hold_export(MODEL_B_O, live, load_predictor(str(art)),
+                         f"{art.stat().st_size / 1e6:.1f} MB, exported in "
+                         f"{sec:.2f} s")
+
+        # (e) every op alone
+        self.export_ops()
+        self.loop_dir.cleanup()
+        print(f"[evaluate] phase done in {time.perf_counter() - t_phase:.1f}"
+              " s")
+
+    def require_forward_entries(self, what, counts, entries):
+        """#1 and #2 launched, each only through its tensor-core entry."""
+        for name, entry in (("grid_mhsa", "ogvt_grid_mhsa_th"),
+                            ("mlp_branch", "ogvt_mlp_branch_mma")):
+            require(counts[name] > 0 and entries[name] == {
+                entry: counts[name]}, f"{what}: {name} launches "
+                f"{entries[name]}, expected all on {entry}")
+
+    def hold_export(self, case, live, loaded, made):
+        """A loaded artifact against its live predictor on the same images:
+        labels equal, probabilities within 1e-6 (bitwise reported); one
+        loaded forward's launches equal to one live forward's, which are
+        the case's launch plan; then imgs/s of both at batch ``BATCH``,
+        in turns (live, loaded, loaded, live) ``SERVE_ROUNDS`` times."""
+        import numpy as np
+
+        plan, _ = launch_plan(case, stage_shapes(case))
+        images = np.random.default_rng(SEED).integers(
+            0, 256, (BATCH, case.img, case.img, 3), dtype=np.uint8)
+        deltas, outs = {}, {}
+        for label, pred in (("live", live), ("loaded", loaded)):
+            self.reset_counts()
+            outs[label] = pred.predict(images)
+            counts, variants = self.read_counts()
+            deltas[label] = {k: counts[k] for k in plan}
+            if label == "loaded":
+                entries = self.read_entries()
+                self.record(f"{case.tag} exported", counts, variants)
+                self.require_forward_entries(f"{case.tag} exported",
+                                             counts, entries)
+        (l1, p1), (l2, p2) = outs["live"], outs["loaded"]
+        err = float(np.abs(p1 - p2).max())
+        require(deltas["live"] == plan, f"{case.tag}: live forward launched "
+                f"{deltas['live']}, expected {plan}")
+        require(deltas["loaded"] == deltas["live"],
+                f"{case.tag}: loaded forward launched {deltas['loaded']}, a "
+                f"live one {deltas['live']}")
+        require(np.array_equal(l1, l2), f"{case.tag}: labels differ")
+        require(err <= 1e-6, f"{case.tag}: probs differ by {err:g}")
+        runs = {"live": [], "loaded": []}
+        for pred in (live, loaded):
+            pred.predict(images)  # warm
+        for _ in range(SERVE_ROUNDS):
+            for label in ("live", "loaded", "loaded", "live"):
+                pred = live if label == "live" else loaded
+                t0 = time.perf_counter()
+                for _ in range(SERVE_CALLS):
+                    pred.predict(images)
+                runs[label].append(SERVE_CALLS * BATCH
+                                   / (time.perf_counter() - t0))
+        ips = {k: float(np.median(v)) for k, v in runs.items()}
+        print(f"[evaluate] {case.tag} artifact ({made}): loaded forward "
+              f"launches {deltas['loaded']} == live; labels equal; probs "
+              f"max |diff| {err:g} (bitwise equal: "
+              f"{bool(np.array_equal(p1, p2))}); predict imgs/s at batch "
+              f"{BATCH}, median of {2 * SERVE_ROUNDS} turns: live "
+              f"{ips['live']:.1f}, loaded {ips['loaded']:.1f}; {self.gpu}")
+        self.export_ips = getattr(self, "export_ips", {})
+        self.export_ips[case.tag] = ips
+
+    def export_ops(self):
+        """Each ``ogvt::`` op exported alone (a module that calls its
+        wrapper on its inputs), at one stage shape of a case that reaches
+        it, bf16, saved and loaded; the loaded program's output bitwise a
+        direct launch on the same inputs, and one launch of the wrapper
+        per run."""
+        import io
+
+        import torch
+
+        from outgridvit_tpu_torch.ops import library
+
+        todo = (("grid_mhsa", "grid_mhsa", TIN, 1),
+                ("mlp_branch", "mlp_branch", TIN, 0),
+                ("attn_branch", "attn_branch", TIN, 0),
+                ("grid_mhsa_packed", "grid_mhsa_packed", A7M_48, 0),
+                ("grid_mhsa_packed", "grid_mhsa_long", A7M_96, 0),
+                ("outlook_agg_proj", "outlook_agg", MODEL_B, 0),
+                ("outlook_branch", "outlook_branch", MODEL_B, 0),
+                ("outlook_softmax_agg", "outlook_softmax", MODEL_B_O, 0),
+                ("dwconv3x3", "dwconv3x3", MODEL_B_O, 0),
+                ("attn_branch_nhwc", "attn_branch_nhwc", A_BASE, 0))
+        require({op for op, *_ in todo} == set(library.OPS),
+                f"export_ops covers {sorted({op for op, *_ in todo})}, the "
+                f"library has {sorted(library.OPS)}")
+
+        class OneOp(torch.nn.Module):
+            def __init__(self, fn, consts):
+                super().__init__()
+                self.fn, self.consts = fn, consts
+
+            def forward(self, *tensors):
+                return self.fn(*tensors, *self.consts)
+
+        for op, name, case, stage in todo:
+            sh = stage_shapes(case, BATCH)[stage]
+            args = self.fwd_args(name, sh, torch.bfloat16,
+                                 sh["H_block"] if name == "mlp_branch"
+                                 else None)
+            if name == "grid_mhsa":
+                args += (sh["grid_variant"],)
+            if name == "mlp_branch":
+                args += (sh["mlp_variant"],)
+            fn = self.kernels[name][0]
+            n = len([a for a in args if isinstance(a, torch.Tensor)])
+            tensors, consts = args[:n], args[n:]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                program = torch.export.export(OneOp(fn, consts), tensors)
+            buf = io.BytesIO()
+            torch.export.save(program, buf)
+            buf.seek(0)
+            loaded = torch.export.load(buf).module()
+            sec = time.perf_counter() - t0
+            nodes = [str(nd.target) for nd in loaded.graph.nodes
+                     if nd.op == "call_function"
+                     and str(nd.target).startswith("ogvt.")]
+            require(nodes == [f"ogvt.{op}.default"],
+                    f"export {op}: graph calls {nodes}")
+            want = fn(*args)
+            before = fn.launches
+            with torch.inference_mode():
+                got = loaded(*tensors)
+            require(fn.launches == before + 1,
+                    f"export {op}: {fn.launches - before} launches")
+            require(torch.equal(got, want),
+                    f"export {op} {case.tag} stage {stage}: not bitwise the "
+                    "direct launch")
+            print(f"[evaluate] ogvt::{op} exported alone at {case.tag} stage "
+                  f"{stage} ({tuple(tensors[0].shape)} bf16): graph "
+                  f"{nodes}, loaded output bitwise the direct launch, one "
+                  f"launch; export + save + load {sec:.2f} s")
+
     def kernels_line(self):
         out = []
         for name, (source, replaces, covers) in SOURCES.items():
@@ -2800,6 +3140,9 @@ def main() -> int:
     smoke.loop()
     torch.cuda.empty_cache()
     print(f"[phase] loop done at {time.perf_counter() - t0:.1f} s")
+    smoke.evaluate()
+    torch.cuda.empty_cache()
+    print(f"[phase] evaluate done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:
         require(smoke.launches[name], f"{name}: no launch on a main path")
 

@@ -114,6 +114,17 @@ class _Subset:
         return len(self.idxs)
 
 
+def pil_image():
+    """PIL's ``Image`` module, or an ImportError that says the image-file
+    readers need it (the GPU machine has no PIL)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading JPEG / PNG image files needs PIL "
+                          "(Pillow), which is not installed here") from e
+    return Image
+
+
 class _ImageFileView:
     """Lazy uint8 RGB view over a list of image files (PIL)."""
 
@@ -121,9 +132,7 @@ class _ImageFileView:
         self.paths = paths
 
     def __getitem__(self, i):
-        from PIL import Image
-
-        return np.asarray(Image.open(self.paths[int(i)]).convert("RGB"))
+        return np.asarray(pil_image().open(self.paths[int(i)]).convert("RGB"))
 
     def __len__(self):
         return len(self.paths)
@@ -342,6 +351,19 @@ def get_oxfordpets_dataloaders(batch_size: int = 128,
         batch_size=batch_size, val_split=val_split, seed=seed,
         img_size=img_size, num_threads=max(1, num_workers),
         enable_augs=False)
+
+
+def tinyimagenet_wnid_to_label(
+    data_dir: str = "./data", hf_name: str = "zh-plus/tiny-imagenet"
+) -> dict:
+    """wnid -> clean label index map, needed by the Tiny-ImageNet-C
+    intersection loaders (``data/corruptions.py``): the names of the HF
+    ``ClassLabel`` feature of the clean train split, read from the
+    ``save_to_disk`` tree under ``data_dir`` (the HF ``datasets`` package is
+    imported here)."""
+    ds = _load_hf_dataset(hf_name, data_dir)
+    names = ds["train"].features["label"].names
+    return {wnid: i for i, wnid in enumerate(names)}
 
 
 # ----------------------------------------------------------------- synthetic

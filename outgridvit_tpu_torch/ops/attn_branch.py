@@ -214,7 +214,12 @@ def attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads: int,
     raises): ``csrc/attn_branch_mma.cu`` where :func:`forward_entry` says so
     (bf16 at the shapes it is instantiated at; x, wqkv and wproj 16-byte
     aligned or a ValueError), else ``csrc/attn_branch.cu``; a CPU tensor
-    takes :func:`attn_branch_reference`."""
+    takes :func:`attn_branch_reference`. Under tracing it is the op
+    ``ogvt::attn_branch`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("attn_branch")(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, eps,
+            apply_ln)
     if x.device.type == "cpu":
         return attn_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                      bproj, heads, eps, apply_ln)
@@ -637,7 +642,12 @@ def attn_branch_nhwc(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     :func:`forward_entry` says so for the windows, else
     ``csrc/attn_branch.cu``; a CPU tensor takes
     :func:`attn_branch_nhwc_reference`. y is :func:`attn_branch`'s on the
-    partitioned tokens, bit for bit."""
+    partitioned tokens, bit for bit. Under tracing it is the op
+    ``ogvt::attn_branch_nhwc`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("attn_branch_nhwc")(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, grid_size,
+            eps, apply_ln)
     if x.device.type == "cpu":
         return attn_branch_nhwc_reference(x, ln_scale, ln_bias, wqkv, bqkv,
                                           wproj, bproj, heads, grid_size, eps,

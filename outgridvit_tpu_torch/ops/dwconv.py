@@ -364,9 +364,17 @@ def _check_launch(name, x, w9, dy=None):
 
 def dwconv3x3(x, w9):
     """#10 forward, [B, H, W, C] -> [B, H, W, C]. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes :func:`dwconv3x3_reference`."""
+    kernel (or raises); a CPU tensor takes :func:`dwconv3x3_reference`.
+    Under tracing it is the op ``ogvt::dwconv3x3`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("dwconv3x3")(x, w9)
     if x.device.type == "cpu":
         return dwconv3x3_reference(x, w9)
+    return _launch_forward(x, w9)
+
+
+def _launch_forward(x, w9):
+    """:func:`dwconv3x3` on the card."""
     _check_launch("dwconv3x3", x, w9)
     B, H, W, C = x.shape
     y = torch.empty_like(x)

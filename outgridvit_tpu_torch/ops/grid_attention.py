@@ -460,7 +460,10 @@ def grid_mhsa(qkv: torch.Tensor, heads: int,
     """qkv [G, N, 3C] -> [G, N, C]. A CUDA tensor launches a kernel (or
     raises), the one :func:`grid_mhsa_entry` names; a CPU tensor takes
     :func:`grid_mhsa_reference`. ``variant`` names the JAX kernel the launch
-    stands for (:data:`VARIANTS`)."""
+    stands for (:data:`VARIANTS`). Under tracing it is the op
+    ``ogvt::grid_mhsa`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("grid_mhsa")(qkv, heads, variant)
     if qkv.device.type == "cpu":
         return grid_mhsa_reference(qkv, heads)
     return _launch(None, qkv, heads, variant)
@@ -602,9 +605,17 @@ def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     kernel (or raises): for N <= 63 ``csrc/grid_mhsa_packed_mma.cu`` in
     bf16, ``csrc/grid_mhsa_packed.cu`` in fp32; for 64 <= N <= 256
     ``csrc/grid_mhsa_long.cu``; a CPU tensor takes
-    :func:`grid_mhsa_packed_reference`."""
+    :func:`grid_mhsa_packed_reference`. Under tracing it is the op
+    ``ogvt::grid_mhsa_packed`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("grid_mhsa_packed")(qkv, heads)
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_reference(qkv, heads)
+    return _launch_packed(qkv, heads)
+
+
+def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """:func:`grid_mhsa_packed` on the card."""
     G, N, C, entry, plan = _packed_launch("grid_mhsa_packed", qkv, heads,
                                           False)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)

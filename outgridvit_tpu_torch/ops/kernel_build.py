@@ -358,6 +358,23 @@ def count_launch(fn, variant: Optional[str],
         fn.by_entry[entry] += 1
 
 
+def tracing() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the caller.
+    A kernel wrapper then returns its ``ogvt::`` custom op
+    (:func:`traced_op`) in place of launching: the tracer's tensors hold no
+    data, so no pointer, plan or launch can be made from them."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
+def traced_op(name: str):
+    """The custom op ``ogvt::name`` of ``ops/library.py`` (registered on
+    this first use while tracing, if nothing imported the library
+    before)."""
+    from outgridvit_tpu_torch.ops import library  # noqa: F401
+
+    return getattr(torch.ops.ogvt, name)
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().ogvt_error_string(err).decode()

@@ -473,7 +473,11 @@ def mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2, act: str,
     and H multiples of 16; x, w1 and w2 16-byte aligned or a ValueError),
     else ``csrc/mlp_branch.cu``; a CPU tensor takes
     :func:`mlp_branch_reference`. ``variant`` names the JAX kernel the
-    launch stands for (:data:`VARIANTS`)."""
+    launch stands for (:data:`VARIANTS`). Under tracing it is the op
+    ``ogvt::mlp_branch`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("mlp_branch")(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, act, eps, apply_ln, variant)
     if x.device.type == "cpu":
         return mlp_branch_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, act,
                                     eps, apply_ln)

@@ -590,7 +590,10 @@ def outlook_agg_proj(v, a, wp, bp):
     kernel (or raises): ``csrc/outlook_agg_fwd_mma.cu`` where
     :func:`forward_entry` says so (v and wp 16-byte aligned or a
     ValueError), else ``csrc/outlook_agg.cu``; a CPU tensor takes
-    :func:`outlook_agg_proj_reference`."""
+    :func:`outlook_agg_proj_reference`. Under tracing it is the op
+    ``ogvt::outlook_agg_proj`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("outlook_agg_proj")(v, a, wp, bp)
     if v.device.type == "cpu":
         return outlook_agg_proj_reference(v, a, wp, bp)
     return _launch_forward(None, "outlook_agg_proj", v, a, None, None, wp,
@@ -621,7 +624,11 @@ outlook_agg_proj_backward.by_entry = Counter()
 def outlook_branch(x, a, wv, bv, wp, bp):
     """#8 forward, [B, H, W, Cin] -> [B, H, W, C]. A CUDA tensor launches a
     kernel (or raises), as :func:`outlook_agg_proj` does (wv 16-byte
-    aligned too); a CPU tensor takes :func:`outlook_branch_reference`."""
+    aligned too); a CPU tensor takes :func:`outlook_branch_reference`.
+    Under tracing it is the op ``ogvt::outlook_branch``
+    (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("outlook_branch")(x, a, wv, bv, wp, bp)
     if x.device.type == "cpu":
         return outlook_branch_reference(x, a, wv, bv, wp, bp)
     return _launch_forward(None, "outlook_branch", x, a, wv, bv, wp, bp)

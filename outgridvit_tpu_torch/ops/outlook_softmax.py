@@ -281,7 +281,11 @@ def outlook_softmax_agg(v, logits, heads: int, k: int = 3):
     kernel (or raises): ``csrc/outlook_softmax_rows.cu`` where
     :func:`softmax_entry` says so (v 16-byte aligned or a ValueError), else
     ``csrc/outlook_softmax.cu``; a CPU tensor takes
-    :func:`outlook_softmax_agg_reference`."""
+    :func:`outlook_softmax_agg_reference`. Under tracing it is the op
+    ``ogvt::outlook_softmax_agg`` (``ops/library.py``)."""
+    if kernel_build.tracing():
+        return kernel_build.traced_op("outlook_softmax_agg")(v, logits,
+                                                             heads, k)
     if v.device.type == "cpu":
         return outlook_softmax_agg_reference(v, logits, heads, k)
     return _launch(None, v, logits, heads, k)

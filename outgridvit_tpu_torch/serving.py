@@ -1,43 +1,81 @@
-"""Inference surface (twin of ``outgridvit_tpu/serving.py``: ``Predictor``
-and ``build_predictor``).
+"""Inference surface (twin of ``outgridvit_tpu/serving.py``): ``Predictor``,
+``build_predictor``, ``export_predictor`` and ``load_predictor``.
 
 A fixed-batch classifier: raw uint8 NHWC in, normalized on the device,
 ``(labels int32, probs float32)`` out. A ragged request is zero-padded to
 ``batch_size`` and the padding stripped, so every forward runs at one
 shape, as the JAX predictor's one compiled program does.
+
+:func:`export_predictor` writes the classifier (normalize -> model ->
+softmax -> argmax at the fixed batch shape) as a ``torch.export`` program,
+weights included, behind a header of its own; :func:`load_predictor` runs
+it without the model code or a checkpoint. With the kernels on, each
+kernel launch is an ``ogvt::`` custom op in the program
+(``ops/library.py``), so the artifact needs this package's op library, built
+from ``csrc/`` at its first forward on the card.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import struct
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Sequence, Tuple, Union
+from pathlib import Path
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from outgridvit_tpu_torch.models import (
-    MaxOutNet,
-    OutlookerFrontGridNet,
-    build_model,
-)
+from outgridvit_tpu_torch.models import build_model
 from outgridvit_tpu_torch.ops.augment import normalize_batch
+
+# the artifact's magic; the JAX package's is b"OGVT1", the port's
+# checkpoints' b"OGVT"
+ARTIFACT_MAGIC = b"OGVTPT1"
+
+
+class Classifier(nn.Module):
+    """uint8 [B, H, W, 3] -> (argmax labels int32 [B], softmax probs fp32
+    [B, classes]): normalize (``mean`` / ``std`` as fp32 buffers on the
+    model's device), the model's eval-mode forward, an fp32 softmax."""
+
+    def __init__(self, model: nn.Module, mean: Sequence[float],
+                 std: Sequence[float]):
+        super().__init__()
+        self.model = model
+        device = next(model.parameters()).device
+        self.register_buffer("mean", torch.tensor(
+            tuple(mean), dtype=torch.float32, device=device))
+        self.register_buffer("std", torch.tensor(
+            tuple(std), dtype=torch.float32, device=device))
+
+    def forward(self, images: torch.Tensor):
+        logits = self.model(normalize_batch(images, self.mean, self.std))
+        probs = torch.softmax(logits.float(), dim=-1)
+        return probs.argmax(dim=-1).to(torch.int32), probs
 
 
 @dataclass(frozen=True)
 class Predictor:
     """``predict`` accepts 1..batch_size uint8 images [n, H, W, 3] (or one
-    [H, W, 3]) and returns argmax labels [n] and softmax probs [n, classes]."""
+    [H, W, 3]) and returns argmax labels [n] and softmax probs [n, classes].
 
-    model: Union[MaxOutNet, OutlookerFrontGridNet]
+    ``fn``: uint8 [batch_size, H, W, 3] on ``device`` -> (labels, probs), the
+    live :class:`Classifier` or a loaded program's module. ``model`` is the
+    live model (None for a loaded artifact); ``kernels`` whether the
+    forward launches the CUDA kernels."""
+
+    fn: Callable
     batch_size: int
     img_size: int
     num_classes: int
     mean: Tuple[float, ...]
     std: Tuple[float, ...]
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.classifier.weight.device
+    device: torch.device
+    kernels: bool
+    model: Optional[nn.Module] = None
 
     def predict(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         images = np.asarray(images)
@@ -63,9 +101,7 @@ class Predictor:
             images = np.concatenate([images, pad], axis=0)
         x = torch.from_numpy(images.astype(np.uint8)).to(self.device)
         with torch.inference_mode():
-            logits = self.model(normalize_batch(x, self.mean, self.std))
-            probs = torch.softmax(logits.float(), dim=-1)
-            labels = probs.argmax(dim=-1).to(torch.int32)
+            labels, probs = self.fn(x)
         return labels.cpu().numpy()[:n], probs.cpu().numpy()[:n]
 
     def predict_many(self, images: np.ndarray) -> Tuple[np.ndarray,
@@ -86,6 +122,7 @@ class Predictor:
 def build_predictor(
     model_cfg: Mapping[str, Any],
     variables: Optional[Mapping[str, Any]] = None,
+    checkpoint: Optional[str] = None,
     batch_size: int = 64,
     img_size: int = 32,
     mean: Sequence[float] = (0.5071, 0.4867, 0.4408),
@@ -97,11 +134,19 @@ def build_predictor(
     dwconv: str = "xla",
     attn_nhwc: bool = False,
 ) -> Predictor:
-    """Build a predictor from a model config and either the JAX package's
+    """Build a predictor from a model config and the JAX package's
     ``variables`` (numpy tree, loaded by
-    :func:`~outgridvit_tpu_torch.utils.port_jax.load_flax_variables`) or
-    random weights from ``seed``. ``use_kernels``, ``dwconv`` and
-    ``attn_nhwc`` as in :func:`~outgridvit_tpu_torch.models.build_model`."""
+    :func:`~outgridvit_tpu_torch.utils.port_jax.load_flax_variables`), a
+    ``checkpoint`` of the port (eval-only restore by
+    :func:`~outgridvit_tpu_torch.training.checkpoints.load_model_variables`)
+    or random weights from ``seed``; passing both ``variables`` and
+    ``checkpoint`` raises. ``use_kernels``, ``dwconv`` and ``attn_nhwc`` as
+    in :func:`~outgridvit_tpu_torch.models.build_model`. ``mesh`` is not
+    ported (ROADMAP §1 item 11)."""
+    if variables is not None and checkpoint:
+        raise ValueError(
+            "pass either live variables or a checkpoint path, not both "
+            "(the checkpoint would be silently ignored)")
     model = build_model(model_cfg, dtype=dtype, use_kernels=use_kernels,
                         device=device, seed=seed, dwconv=dwconv,
                         attn_nhwc=attn_nhwc)
@@ -109,6 +154,101 @@ def build_predictor(
         from outgridvit_tpu_torch.utils.port_jax import load_flax_variables
 
         load_flax_variables(model, variables)
-    return Predictor(model=model, batch_size=batch_size, img_size=img_size,
-                     num_classes=int(model_cfg.get("num_classes", 100)),
-                     mean=tuple(mean), std=tuple(std))
+    if checkpoint:
+        from outgridvit_tpu_torch.training.checkpoints import (
+            load_model_variables,
+        )
+
+        load_model_variables(checkpoint, model)
+    model.eval()
+    return Predictor(
+        fn=Classifier(model, mean, std), batch_size=batch_size,
+        img_size=img_size, num_classes=int(model_cfg.get("num_classes", 100)),
+        mean=tuple(mean), std=tuple(std),
+        device=next(model.parameters()).device,
+        kernels=any(getattr(m, "use_kernels", False)
+                    for m in model.modules()),
+        model=model)
+
+
+def export_predictor(predictor: Predictor, path: str) -> None:
+    """Write a live predictor as a standalone artifact: ``torch.export`` of
+    its :class:`Classifier` at the fixed uint8 ``[batch_size, img_size,
+    img_size, 3]`` shape, in eval mode under ``no_grad``, on the predictor's
+    device, weights included. File: :data:`ARTIFACT_MAGIC`, the header's
+    length (little-endian uint64), the header as JSON (``batch_size``,
+    ``img_size``, ``num_classes``, ``mean``, ``std``, ``device``,
+    ``kernels``, ``torch``), then the ``torch.export.save`` payload. With
+    the kernels on, every launch is an ``ogvt::`` op node; a launch without
+    an op cannot be traced and raises."""
+    if predictor.model is None:
+        raise ValueError("export_predictor needs a live predictor "
+                         "(build_predictor), not a loaded artifact")
+    example = torch.zeros(
+        (predictor.batch_size, predictor.img_size, predictor.img_size, 3),
+        dtype=torch.uint8, device=predictor.device)
+    predictor.fn.eval()
+    with torch.no_grad():
+        program = torch.export.export(predictor.fn, (example,))
+    payload = io.BytesIO()
+    torch.export.save(program, payload)
+    header = json.dumps({
+        "batch_size": predictor.batch_size, "img_size": predictor.img_size,
+        "num_classes": predictor.num_classes, "mean": list(predictor.mean),
+        "std": list(predictor.std), "device": predictor.device.type,
+        "kernels": predictor.kernels, "torch": torch.__version__,
+    }).encode("utf-8")
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "wb") as f:
+        f.write(ARTIFACT_MAGIC)
+        f.write(struct.pack("<Q", len(header)))
+        f.write(header)
+        f.write(payload.getbuffer())
+
+
+def _read_header(f, path: str) -> dict:
+    head = f.read(len(ARTIFACT_MAGIC) + 8)
+    if (len(head) < len(ARTIFACT_MAGIC) + 8
+            or head[:len(ARTIFACT_MAGIC)] != ARTIFACT_MAGIC):
+        raise ValueError(f"{path} is not an outgridvit_tpu_torch predictor "
+                         "artifact")
+    (n,) = struct.unpack("<Q", head[len(ARTIFACT_MAGIC):])
+    try:
+        return json.loads(f.read(n).decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: unreadable artifact header") from e
+
+
+def read_artifact_header(path: str) -> dict:
+    """The header of an :func:`export_predictor` artifact; a ValueError for
+    any other file (a JAX ``OGVT1`` artifact, a checkpoint)."""
+    with open(path, "rb") as f:
+        return _read_header(f, path)
+
+
+def load_predictor(path: str) -> Predictor:
+    """Load an :func:`export_predictor` artifact; the returned Predictor
+    calls the loaded program (no model code or checkpoint needed). It needs
+    this package's ``ogvt::`` op library (``ops/library.py``, imported here
+    so the ops are registered before the program is read), whose CUDA
+    kernels build from ``csrc/`` at the first forward on the card. An
+    artifact exported on the card (kernels on or not: its weights live
+    there) raises where torch sees no CUDA device; a file that is not such
+    an artifact raises ValueError."""
+    from outgridvit_tpu_torch.ops import library  # noqa: F401
+
+    with open(path, "rb") as f:
+        meta = _read_header(f, path)
+        device = torch.device(meta["device"])
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{path} was exported on a CUDA device (kernels "
+                f"{'on' if meta['kernels'] else 'off'}); torch sees none "
+                "here. Export with --device cpu for a CPU artifact")
+        program = torch.export.load(io.BytesIO(f.read()))
+    return Predictor(
+        fn=program.module(), batch_size=int(meta["batch_size"]),
+        img_size=int(meta["img_size"]), num_classes=int(meta["num_classes"]),
+        mean=tuple(meta["mean"]), std=tuple(meta["std"]), device=device,
+        kernels=bool(meta["kernels"]))

@@ -69,8 +69,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _device(name: str):
-    """The torch device ``runtime.device`` names: cpu, or the card."""
+def resolve_device(name: str):
+    """The torch device ``runtime.device`` (or ``--device``) names: cpu, or
+    the card; a RuntimeError when the card is asked for and torch sees
+    none (the port's CLIs exit 2 on it)."""
     import torch
 
     name = str(name).lower()
@@ -84,7 +86,7 @@ def _device(name: str):
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"runtime.device {name!r} asks for the card, but torch sees no "
-            "CUDA device; pass --device cpu to train on the CPU")
+            "CUDA device; pass --device cpu to run on the CPU")
     return device
 
 
@@ -129,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         runtime_cfg["seed"] = args.seed
 
     try:
-        device = _device(runtime_cfg.get("device", "cuda"))
+        device = resolve_device(runtime_cfg.get("device", "cuda"))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

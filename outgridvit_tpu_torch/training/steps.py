@@ -244,9 +244,11 @@ class EvalSuperstep:
     graph reads the parameters and BatchNorm statistics by address: it
     follows their in-place updates (the train step's and a resume's
     ``copy_``) and would not follow a rebinding. The kernel wrappers count
-    their launches once, at the capture; :attr:`replays` counts the
-    replays of every instance. On a CPU device the K steps run eagerly."""
+    their launches once, at the capture; :attr:`captures` and
+    :attr:`replays` count the captures and replays of every instance. On a
+    CPU device the K steps run eagerly."""
 
+    captures = 0
     replays = 0
 
     def __init__(self, model: torch.nn.Module, k: int,
@@ -269,6 +271,7 @@ class EvalSuperstep:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self._steps(*static)
+        EvalSuperstep.captures += 1
         return graph, static, out
 
     def __call__(self, superbatch) -> Dict[str, torch.Tensor]:

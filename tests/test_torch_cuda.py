@@ -2442,3 +2442,125 @@ def test_train_model_on_the_card_k2_is_bitwise_k1(dev, tmp_path):
     assert s1.step == s2.step == int(s2.device_step) == 10
     for a, b in zip(_train_tensors(s2), _train_tensors(s1)):
         assert torch.equal(a, b)
+
+
+# ---- the ogvt:: custom ops, the exported predictor, the robustness sweep --
+
+def _ogvt_case(name, dev):
+    """(wrapper, args) of an ogvt:: op at a bf16 shape its tensor-core
+    kernel takes (C = 64, hd = 32, N = 16 / 36 / 64)."""
+    g = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    C = 64
+    ln = (r(C, scale=0.1, dtype=torch.float32) + 1,
+          r(C, scale=0.1, dtype=torch.float32))
+    a = torch.softmax(r(2, 16, 16, 2, 9, dtype=torch.float32), -1).reshape(
+        2, 16, 16, 18).to(bf)
+    w = (r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.02),
+         r(C, C, scale=C ** -0.5), r(C, scale=0.02))
+    return {
+        "grid_mhsa": (grid_mhsa, (r(8, 16, 3 * C), 2, "t")),
+        "grid_mhsa_packed": (grid_mhsa_packed, (r(8, 36, 3 * C), 2)),
+        "attn_branch": (attn_branch, (r(8, 64, C), *ln, *w, 2, 1e-5, True)),
+        "attn_branch_nhwc": (attn_branch_nhwc,
+                             (r(2, 16, 16, C), *ln, *w, 2, 2, 1e-5, True)),
+        "mlp_branch": (mlp_branch, (r(2, 8, 8, C), *ln,
+                                    r(C, 4 * C, scale=C ** -0.5),
+                                    r(4 * C, scale=0.02),
+                                    r(4 * C, C, scale=(4 * C) ** -0.5),
+                                    r(C, scale=0.02), "gelu", 1e-5, True,
+                                    "t")),
+        "outlook_agg_proj": (outlook_agg_proj,
+                             (r(2, 16, 16, C), a, *w[2:])),
+        "outlook_branch": (outlook_branch, (r(2, 16, 16, C), a, *w[2:],
+                                            *w[2:])),
+        "outlook_softmax_agg": (outlook_softmax_agg,
+                                (r(2, 16, 16, C), r(2, 16, 16, 18), 2, 3)),
+        "dwconv3x3": (dwconv3x3, (r(2, 16, 16, C), r(9, C, scale=0.3))),
+    }[name]
+
+
+OGVT_OPS = ("grid_mhsa", "grid_mhsa_packed", "attn_branch",
+            "attn_branch_nhwc", "mlp_branch", "outlook_agg_proj",
+            "outlook_branch", "outlook_softmax_agg", "dwconv3x3")
+
+
+@pytest.mark.parametrize("name", OGVT_OPS)
+def test_ogvt_op_is_bitwise_its_direct_launch(dev, name):
+    from outgridvit_tpu_torch.ops import library
+
+    wrapper, args = _ogvt_case(name, dev)
+    want = wrapper(*args)
+    before = wrapper.launches
+    got = getattr(torch.ops.ogvt, name)(*args)
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, want)
+    assert name in library.OPS
+
+
+def test_exported_kernel_predictor_equals_the_live_one(dev, tmp_path):
+    import numpy as np
+
+    from outgridvit_tpu_torch.serving import (
+        build_predictor,
+        export_predictor,
+        load_predictor,
+    )
+
+    live = build_predictor(LOOP_CFG, batch_size=8, img_size=16, device=dev,
+                           seed=4)
+    assert live.kernels
+    path = tmp_path / "tiny.ogvt"
+    export_predictor(live, str(path))
+    loaded = load_predictor(str(path))
+    assert loaded.kernels and loaded.device.type == "cuda"
+    x = np.random.default_rng(0).integers(0, 256, (8, 16, 16, 3), np.uint8)
+    runs = []
+    for pred in (live, loaded):
+        before = grid_mhsa.launches, mlp_branch.launches
+        runs.append((pred.predict(x), grid_mhsa.launches - before[0],
+                     mlp_branch.launches - before[1]))
+    ((l1, p1), *n1), ((l2, p2), *n2) = runs
+    assert n1 == n2 and n1[0] > 0 and n1[1] > 0
+    np.testing.assert_array_equal(l1, l2)
+    np.testing.assert_allclose(p2, p1, rtol=0, atol=1e-6)
+
+
+def test_eval_robustness_sweep_captures_one_eval_graph(dev, tmp_path):
+    import json
+
+    import numpy as np
+
+    from outgridvit_tpu_torch import eval_robustness
+    from outgridvit_tpu_torch.training.steps import EvalSuperstep
+
+    stages = "".join(
+        f"    - {{dim: {s['dim']}, depth: {s['depth']}, num_heads: "
+        f"{s['num_heads']}, grid_size: {s['grid_size']}, outlook_heads: "
+        f"{s['outlook_heads']}}}\n" for s in LOOP_CFG["stages"])
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text("model:\n  type: model_a\n  num_classes: 100\n"
+                   f"  stem_dim: 16\n  stages:\n{stages}"
+                   "data:\n  img_size: 32\nruntime:\n  device: cuda\n")
+    base = tmp_path / "CIFAR-100-C"
+    base.mkdir()
+    rng = np.random.default_rng(0)
+    np.save(base / "labels.npy", np.arange(50_000, dtype=np.int64) % 100)
+    block = rng.integers(0, 256, (1000, 32, 32, 3), dtype=np.uint8)
+    np.save(base / "fog.npy", np.tile(block, (50, 1, 1, 1)))
+    captures = EvalSuperstep.captures
+    out = tmp_path / "rob.json"
+    assert eval_robustness.main([
+        "--config", str(cfg), "--suite", "cifar100c", "--data-dir",
+        str(tmp_path), "--corruptions", "fog", "--severities", "1", "2",
+        "3", "--batch-size", "512", "--eval-k", "4",
+        "--json-out", str(out)]) == 0
+    assert EvalSuperstep.captures == captures + 1
+    res = json.loads(out.read_text())
+    assert [r["severity"] for r in res["rows"]] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in res["rows"])
+    assert res["summary"]["n_settings"] == 3

@@ -92,7 +92,9 @@ def test_port_imports_no_jax():
         "for m in ('train', 'training.loop', 'training.checkpoints',\n"
         "          'data.pipeline', 'data.datasets', 'data.transforms',\n"
         "          'data.registry', 'data.data_utils', 'utils.config',\n"
-        "          'utils.history'):\n"
+        "          'utils.history', 'training.bench_eval',\n"
+        "          'data.corruptions', 'benchmark_eval', 'eval_robustness',\n"
+        "          'export_model', 'ops.library'):\n"
         "    assert 'outgridvit_tpu_torch.' + m in mods, (m, mods)\n"
         "from outgridvit_tpu_torch.serving import build_predictor\n"
         f"cfg = {SMALL!r}\n"
