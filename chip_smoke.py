@@ -146,7 +146,7 @@ epoch's img/s and seconds. Then the 7M eval superstep at K = 4 is held
 bitwise to 4 eager eval steps before and after one train step, and the
 two are timed in turns (``Smoke.eval_graph``).
 
-Phase ``evaluate`` (last, ``Smoke.evaluate``) drives the eval and export
+Phase ``evaluate`` (``Smoke.evaluate``) drives the eval and export
 entry points on the loop's best checkpoint, bf16: ``benchmark_eval.main``
 over the fixture's test split (batch 128, K = 8: the metric dict's keys,
 finite metrics, the 7M's parameter count, eval graph replays, #1 and #2 on
@@ -160,6 +160,20 @@ those of one live forward); ``model_b_o`` exported whole and held the same
 way; each ``ogvt::`` op of ``ops/library.py`` exported alone at a stage
 shape of a case that reaches it, bitwise a direct launch. Live and loaded
 predictors are timed in turns at batch 64.
+
+Phase ``analyze`` (last, ``Smoke.analyze``) drives the analysis and
+ablation entry points and per-block remat: ``run_attention_analysis.main``
+on the loop's best checkpoint (``--skip-plots --entropy --block all``: a
+row per stage, MAD and entropy within their bounds, JSON and CSV);
+``capture_attention`` on the 7M and Model B (``fused_agg``) kernel paths
+against their plain paths (#2 and #7 launched, no grid core, fused branch
+or fused softmax; the captures and their MAD / entropy rows within
+``CAPTURE_TOL`` / ``ROWS_TOL``); ``run_ablations.main``, each of the five
+ablations for 1 epoch of a small fixture (finite histories, a train graph
+replay, the kernel families launched or absent); and ``Smoke.remat``: one
+7M and one Tiny-ImageNet-200 train step per ``model.remat`` policy,
+bitwise the step without remat eagerly and through the K = 2 train graph,
+with each policy's peak memory and step time.
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
@@ -280,6 +294,14 @@ LOOP_TRAIN, LOOP_TEST, LOOP_K, LOOP_TIMED = 10_000, 10_000, 4, 10
 # corruptions and rows a file (severities 1-5, 10,000 rows each); the
 # predictor timing's turns (live, loaded, loaded, live) and calls a turn
 EVAL_K = 8
+# phase analyze: the ablation fixture (train / test images) and the bar of a
+# bf16 kernel-path capture against the plain path's (LOGIT_TOL's)
+ABL_TRAIN, ABL_TEST = 2_048, 512
+CAPTURE_TOL = 5e-2
+# the MAD / entropy rows of the two captures: |kernel - plain| <= ROWS_TOL
+# x (1 + |plain|)
+ROWS_TOL = 2e-2
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
 SWEEP = ("gaussian_noise", "fog")
 SWEEP_ROWS = 50_000
 SERVE_ROUNDS, SERVE_CALLS = 3, 10
@@ -2396,8 +2418,8 @@ class Smoke:
         )
 
         t_phase = time.perf_counter()
-        # the fixture and checkpoints stay for phase evaluate, which
-        # removes them
+        # the fixture and checkpoints stay for phases evaluate and analyze,
+        # which removes them
         self.loop_dir = tempfile.TemporaryDirectory()
         tmp = Path(self.loop_dir.name)
         write_cifar_fixture(tmp / "data", LOOP_TRAIN, LOOP_TEST,
@@ -2912,9 +2934,399 @@ class Smoke:
 
         # (e) every op alone
         self.export_ops()
-        self.loop_dir.cleanup()
         print(f"[evaluate] phase done in {time.perf_counter() - t_phase:.1f}"
               " s")
+
+    def analyze(self):
+        """The attention-analysis and ablation entry points and per-block
+        rematerialization (phase ``analyze``, after ``evaluate``):
+
+        (a) ``run_attention_analysis.main`` on the 7M config with the
+            loop's best checkpoint over the fixture's test split,
+            ``--skip-plots --entropy --block all`` (fp32 on the XLA-only
+            path, as the JAX script builds it: no kernel launches): one
+            row per stage, finite MAD and entropy, grid MAD at most
+            ``(Hf-1)+(Wf-1)``, outlook MAD at most 2, normalized entropy in
+            [0, 1], the JSON and CSV written;
+        (b) ``capture_attention`` on the 7M kernel-path model and on
+            ``MODEL_B`` (``fused_agg``), bf16, batch 64: #2 (and #7 for
+            Model B) launched during the capture, no grid core, fused
+            branch or fused softmax (#1 / #3 / #6 / #5 / #12 / #9); against
+            the same weights' plain-path capture on the card: the first
+            outlooker's logits bitwise, every block's logits within
+            ``CAPTURE_TOL`` x max(1, max|plain|) and its probabilities
+            within ``CAPTURE_TOL`` (bf16 roundings compound block by
+            block), every grid_attn row summing to 1 within 1e-5, and the
+            MAD / entropy rows of both (8 of the images) within
+            ``ROWS_TOL``;
+        (c) ``run_ablations.main`` on the 7M config (batch 128), 1 epoch of
+            a fixture of ``ABL_TRAIN`` / ``ABL_TEST`` images, one call an
+            ablation: a finite history, a train graph replay, the grid
+            attention's kernels (the grid cores, the fused branch) launched
+            unless ``num_heads`` is 0, the MLP branch always (the
+            outlooker's half of it gone without the outlooker);
+        (d) per-block remat (:meth:`remat`)."""
+        import csv
+        from pathlib import Path
+
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch import run_ablations, run_attention_analysis
+        from outgridvit_tpu_torch.experiments import (
+            capture_attention,
+            compute_grid_and_outlooker_mad_entropy_by_stage,
+        )
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.training.steps import TrainSuperstep
+        from outgridvit_tpu_torch.utils.history import load_history
+
+        t_phase = time.perf_counter()
+        tmp = Path(self.loop_dir.name)
+        cfg = tmp / "cifar100_model_a_7m.yaml"  # phase evaluate's
+        require(cfg.exists(), f"analyze: {cfg} missing")
+
+        # (a) the analysis CLI
+        out = tmp / "analysis"
+        self.reset_counts()
+        t0 = time.perf_counter()
+        rc = run_attention_analysis.main([
+            "--config", str(cfg), "--checkpoint", str(self.loop_ckpt),
+            "--split", "test", "--out-dir", str(out), "--skip-plots",
+            "--entropy", "--block", "all"])
+        sec = time.perf_counter() - t0
+        require(rc == 0, f"analyze: run_attention_analysis returned {rc}")
+        counts, _ = self.read_counts()
+        require(not any(counts.values()),
+                f"analyze: the XLA-only analysis model launched {counts}")
+        rows = json.loads((out / "mad_metrics.json").read_text())
+        with open(out / "mad_metrics.csv", newline="") as f:
+            csv_rows = list(csv.DictReader(f))
+        stages = FLAGSHIP_MODEL_CFG["stages"]
+        require([r["stage"] for r in rows] == list(range(len(stages)))
+                and len(csv_rows) == len(rows)
+                and list(csv_rows[0]) == list(rows[0]),
+                f"analyze: rows {[r['stage'] for r in rows]}, csv "
+                f"{len(csv_rows)}")
+        for r in rows:
+            vals = [r[k] for k in ("MAD_grid_abs_mean", "MAD_outlook_abs_mean",
+                                   "H_grid_mean", "Hn_grid_mean",
+                                   "H_outlook_mean", "Hn_outlook_mean")]
+            require(all(v is not None and math.isfinite(v) for v in vals),
+                    f"analyze: stage {r['stage']} row {r}")
+            grid_max = (r["grid_Hf"] - 1) + (r["grid_Wf"] - 1)
+            require(0.0 <= r["MAD_grid_abs_mean"] <= grid_max
+                    and 0.0 <= r["MAD_outlook_abs_mean"] <= 2.0
+                    and all(0.0 <= r[k] <= 1.0 + 1e-6
+                            for k in ("Hn_grid_mean", "Hn_outlook_mean")),
+                    f"analyze: stage {r['stage']} out of bounds: {r}")
+            print(f"[analyze] stage {r['stage']}: grid MAD "
+                  f"{r['MAD_grid_abs_mean']:.4f} of {grid_max} px, outlook "
+                  f"MAD {r['MAD_outlook_abs_mean']:.4f} of 2, Hn grid "
+                  f"{r['Hn_grid_mean']:.4f} outlook "
+                  f"{r['Hn_outlook_mean']:.4f}")
+        print(f"[analyze] run_attention_analysis 7M best checkpoint, test "
+              f"split, 8 images, --entropy --block all: {len(rows)} rows, "
+              f"JSON + CSV, {sec:.2f} s; {self.gpu}")
+
+        # (b) capture on the kernel path against the plain path
+        x = torch.randn((BATCH, 32, 32, 3), generator=self.gen).to(self.dev)
+        for case in (FLAGSHIP, MODEL_B):
+            want_launched = ("mlp_branch",) + ((case.outlook_kernel,)
+                                               if case.outlook_kernel else ())
+            caps, models = {}, []
+            for label, kern in (("kernel", None), ("plain", False)):
+                model = build_model(case.model, dtype=torch.bfloat16,
+                                    use_kernels=kern, device=self.dev,
+                                    seed=SEED)
+                models.append(model)
+                self.reset_counts()
+                t0 = time.perf_counter()
+                caps[label] = capture_attention(model, x)
+                sec = time.perf_counter() - t0
+                counts, _ = self.read_counts()
+                launched = {n: c for n, c in counts.items() if c}
+                if label == "plain":
+                    require(not launched, f"analyze: {case.tag} plain "
+                            f"capture launched {launched}")
+                    continue
+                require(set(launched) == set(want_launched),
+                        f"analyze: {case.tag} capture launched {launched}, "
+                        f"expected {want_launched} only")
+                print(f"[analyze] {case.tag} capture (bf16, batch {BATCH}) "
+                      f"on the kernel path: launches {launched}, "
+                      f"{sec:.3f} s")
+            got, want = caps["kernel"], caps["plain"]
+            require(set(got) == set(want) and len(got) == sum(
+                s["depth"] for s in case.model["stages"]) + case.front,
+                    f"analyze: {case.tag} capture keys {sorted(got, key=str)}")
+            first = ("front", 0) if case.front else (0, 0)
+            require(np.array_equal(got[first]["outlook_logits"],
+                                   want[first]["outlook_logits"]),
+                    f"analyze: {case.tag} {first} logits not bitwise")
+            errs, rows_off = {}, 0.0
+            for key, slot in want.items():
+                for f in ("outlook_logits", "grid_attn"):
+                    if slot[f] is None:
+                        require(got[key][f] is None,
+                                f"analyze: {case.tag} {key} {f}")
+                        continue
+                    a, b = got[key][f], slot[f]
+                    require(a.shape == b.shape and a.dtype == np.float32,
+                            f"analyze: {case.tag} {key} {f} {a.shape}")
+                    # logits against their block's scale, probabilities
+                    # absolutely: bf16 roundings compound block by block
+                    d = float(np.abs(a - b).max())
+                    bar = CAPTURE_TOL * (max(1.0, float(np.abs(b).max()))
+                                         if f == "outlook_logits" else 1.0)
+                    errs[f] = max(errs.get(f, 0.0), d / bar)
+                    require(d <= bar, f"analyze: {case.tag} {key} {f} off "
+                            f"the plain capture by {d} (bar {bar})")
+                    if f == "grid_attn":
+                        rows_off = max(rows_off, float(np.abs(
+                            a.sum(-1, dtype=np.float64) - 1.0).max()))
+                for k in ("grid_hw", "g", "meta"):
+                    require(got[key][k] == slot[k],
+                            f"analyze: {case.tag} {key} {k}")
+            require(rows_off <= 1e-5, f"analyze: {case.tag} grid_attn rows "
+                    f"sum to 1 within {rows_off}")
+            # what the analysis reads from them: MAD / entropy by stage
+            stages = ((("front",) if case.front else ())
+                      + tuple(range(len(case.model["stages"]))))
+            rows = [compute_grid_and_outlooker_mad_entropy_by_stage(
+                m, [(x.cpu().numpy(), np.zeros(BATCH))], stages=stages,
+                n_images=8) for m in models]
+            rows_err = max(abs(a[k] - b[k]) / (1.0 + abs(b[k]))
+                           for a, b in zip(*rows) for k in a
+                           if isinstance(b[k], float))
+            require(len(rows[0]) == len(stages) and rows_err <= ROWS_TOL,
+                    f"analyze: {case.tag} MAD / entropy rows of the two "
+                    f"captures differ by {rows_err} (bar {ROWS_TOL})")
+            print(f"[analyze] {case.tag} capture, kernel vs plain path: "
+                  f"{len(got)} blocks, {first} logits bitwise; largest "
+                  f"|diff| over its bar (logits {CAPTURE_TOL} x max(1, "
+                  f"max|plain|) a block, probabilities {CAPTURE_TOL}) "
+                  f"{ {f: round(v, 4) for f, v in errs.items()} }; "
+                  f"grid_attn rows sum to 1 within {rows_off:.2e}; "
+                  f"{len(rows[0])} MAD / entropy rows within "
+                  f"{rows_err:.2e} x (1 + |plain|) (bar {ROWS_TOL})")
+
+        # (c) the ablation CLI, one ablation a call
+        abl = tmp / "ablate"
+        write_cifar_fixture(abl / "data", ABL_TRAIN, ABL_TEST,
+                            FLAGSHIP_MODEL_CFG["num_classes"], SEED)
+        text = Path(FLAGSHIP.config).read_text()
+        for old in ("  data_dir: ./data/cifar100\n", "  batch_size: 64\n"):
+            require(old in text, f"analyze: {FLAGSHIP.config} has no "
+                    f"{old.strip()!r} line")
+        acfg = abl / "cifar100_model_a_7m.yaml"
+        acfg.write_text(text.replace(
+            "  data_dir: ./data/cifar100\n",
+            f"  data_dir: {abl / 'data'}\n").replace(
+            "  batch_size: 64\n", f"  batch_size: {TRAIN_BATCH}\n"))
+        fams = {}
+        for name, change in run_ablations.ABLATIONS.items():
+            self.reset_counts()
+            replays = TrainSuperstep.replays
+            t0 = time.perf_counter()
+            rc = run_ablations.main([
+                "--config", str(acfg), "--epochs", "1", "--ablations", name,
+                "--output-dir", str(abl / "out"), "--json-out",
+                str(abl / f"{name}.json")])
+            sec = time.perf_counter() - t0
+            require(rc == 0, f"analyze: run_ablations {name} returned {rc}")
+            counts, _ = self.read_counts()
+            hist = load_history(str(abl / "out" / f"history_{name}.pkl"))
+            summary = json.loads((abl / f"{name}.json").read_text())[name]
+            losses = hist["train_loss"] + hist["val_loss"]
+            require(len(hist["train_loss"]) == 1 and losses
+                    and all(math.isfinite(v) for v in losses)
+                    and math.isfinite(summary["final_train_top1"]),
+                    f"analyze: ablation {name} history {hist}")
+            require(TrainSuperstep.replays > replays,
+                    f"analyze: ablation {name}: the train graph never "
+                    "replayed")
+            grid = sum(counts[n] + counts[n + "_bwd"] for n in (
+                *GRID_CORES, "attn_branch", "attn_branch_nhwc"))
+            mlp = counts["mlp_branch"] + counts["mlp_branch_bwd"]
+            require((grid > 0) == (change.get("num_heads") != 0) and mlp > 0,
+                    f"analyze: ablation {name} launched grid {grid}, mlp "
+                    f"{mlp}: {counts}")
+            fams[name] = (grid, mlp)
+            print(f"[analyze] run_ablations {name} (1 epoch, "
+                  f"{ABL_TRAIN} / {ABL_TEST} images, batch {TRAIN_BATCH}): "
+                  f"train loss {hist['train_loss'][0]:.4f} val loss "
+                  f"{hist['val_loss'][0]:.4f}, launches grid {grid} mlp "
+                  f"{mlp}, train graph replays "
+                  f"{TrainSuperstep.replays - replays}, {sec:.2f} s; "
+                  f"{self.gpu}")
+        # the same steps, graphs and eval batches in every run: without the
+        # outlooker a block keeps one of its two MLP branches
+        require(fams["no_outlooker"][1] * 2 == fams["full"][1]
+                and fams["plain_mbconv"][1] == fams["no_outlooker"][1]
+                and fams["no_mbconv"] == fams["full"]
+                and fams["no_outlooker"][0] == fams["full"][0],
+                f"analyze: ablation launches {fams}")
+
+        # (d) remat
+        self.remat()
+        self.loop_dir.cleanup()
+        print(f"[analyze] phase done in {time.perf_counter() - t_phase:.1f}"
+              " s")
+
+    def remat(self):
+        """Per-block rematerialization (``model.remat``) at full width,
+        bf16, batch 128, the yaml's recipe, for the 7M model and
+        Tiny-ImageNet-200: with each policy (``REMAT_POLICIES``), one eager
+        train step and two through the K = 2 train superstep's CUDA graph
+        against the same steps without remat from the same state, batches
+        and seed: parameters, BN statistics, AdamW mu, nu and count, the
+        device step and every metric bitwise (if two runs without remat
+        differ, no more than they do). Then a step's peak memory above the
+        state (``torch.cuda.max_memory_allocated``, eager) and its time,
+        eager and in the graph, per policy; ``nothing``'s peak must be
+        below the peak without remat."""
+        import dataclasses
+
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            StepConfig,
+            TrainSuperstep,
+            make_train_step,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        dev, gen = self.dev, self.gen
+        self.remat_results = {}
+        for case in (FLAGSHIP, TIN):
+            T, classes = case.train, case.model["num_classes"]
+            cfg = StepConfig(
+                num_classes=classes, label_smoothing=T["label_smoothing"],
+                mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+                mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
+                augment=AugmentConfig(mean=case.mean, std=case.std,
+                                      crop_pad=case.crop_pad))
+            sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+            step = make_train_step(cfg, sched)
+            x = torch.randint(0, 256, (2, TRAIN_BATCH, case.img, case.img, 3),
+                              dtype=torch.uint8, generator=gen).to(dev)
+            y = torch.randint(0, classes, (2, TRAIN_BATCH),
+                              generator=gen).to(dev, torch.int32)
+
+            def new_state(remat):
+                mcfg = dict(case.model) if remat is None else dict(
+                    case.model, remat=remat)
+                model = build_model(mcfg, dtype=torch.bfloat16, device=dev,
+                                    seed=SEED, dwconv=case.dwconv,
+                                    attn_nhwc=case.attn_nhwc)
+                return TrainState.create(model, AdamW(
+                    sched, T["weight_decay"], T["grad_clip_norm"]))
+
+            def result(st, metrics):
+                out = {f"model.{k}": v.detach().clone()
+                       for k, v in st.model.state_dict().items()}
+                for part in ("mu", "nu"):
+                    out.update((f"{part}.{k}", v.clone()) for k, v in
+                               getattr(st.opt_state, part).items())
+                out["count"] = st.opt_state.count.clone()
+                out["device_step"] = st.device_step.clone()
+                out.update((f"metric.{k}", v.clone())
+                           for k, v in metrics.items())
+                return out
+
+            def eager(st, n, start=0):
+                ms = []
+                for i in range(start, start + n):
+                    st, m = step(st, (x[i], y[i]), seed=SEED)
+                    ms.append(m)
+                return st, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+            def differ(a, b):
+                return {k: float((a[k].double() - b[k].double()).abs().max())
+                        for k in a if not torch.equal(a[k], b[k])}
+
+            def timed_eager(st, reps=2):
+                """ms a step and the peak above the state (eager)."""
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                for i in range(reps):
+                    st, _ = step(st, (x[i % 2], y[i % 2]), seed=SEED)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / reps
+                return ms, torch.cuda.max_memory_allocated(dev) - base
+
+            def timed_graph(st, sup, reps=2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    st, _ = sup(st, (x, y), seed=SEED)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / (2 * reps)
+
+            # the reference: one and two eager steps without remat, twice
+            refs = []
+            for _ in range(2):
+                st, m1 = eager(new_state(None), 1)
+                one = result(st, m1)
+                st, m2 = eager(st, 1, start=1)
+                m12 = {k: torch.cat([m1[k], m2[k]]) for k in m1}
+                refs.append((one, result(st, m12)))
+                del st
+            noise = [differ(refs[1][i], refs[0][i]) for i in range(2)]
+            if any(noise):
+                print(f"[remat] {case.tag}: two runs without remat differ "
+                      f"in {sorted(noise[1].items())[:10]}")
+
+            def check(what, got, i):
+                diff = differ(got, refs[0][i])
+                require(all(v <= noise[i].get(k, 0.0)
+                            for k, v in diff.items()),
+                        f"remat {case.tag} {what}: not bitwise the step "
+                        f"without remat: {sorted(diff.items())[:20]}")
+                return len(got)
+
+            rows = {}
+            for policy in (None,) + REMAT_POLICIES:
+                tag = policy or "off"
+                st = new_state(policy)
+                require(st.model.remat == policy,
+                        f"remat {case.tag}: model.remat {st.model.remat}")
+                n = check(f"{tag} eager", result(*eager(st, 1)), 0)
+                e_ms, peak = timed_eager(st)
+                del st
+                gst = new_state(policy)
+                sup = TrainSuperstep(cfg, sched, k=2)
+                replays = TrainSuperstep.replays
+                gst2, gm = sup(gst, (x, y), seed=SEED)
+                require(TrainSuperstep.replays == replays + 1,
+                        f"remat {case.tag} {tag}: the graph never replayed")
+                check(f"{tag} K=2 graph", result(gst2, gm), 1)
+                g_ms = timed_graph(gst2, sup)
+                del gst, gst2, sup
+                torch.cuda.empty_cache()
+                rows[tag] = {"eager_ms": e_ms, "graph_ms": g_ms,
+                             "peak_gib": peak / 2**30}
+                print(f"[remat] {case.tag} remat={tag}: 1 eager + 2 graph "
+                      f"steps bitwise the steps without remat ({n} tensors "
+                      f"and metrics); a batch-{TRAIN_BATCH} step {e_ms:.2f} "
+                      f"ms eager, {g_ms:.3f} ms in the K=2 graph; eager "
+                      f"peak {peak / 2**30:.3f} GiB above the state; "
+                      f"{self.gpu}")
+            require(rows["nothing"]["peak_gib"] < rows["off"]["peak_gib"],
+                    f"remat {case.tag}: 'nothing' peaks at "
+                    f"{rows['nothing']['peak_gib']:.3f} GiB, no remat at "
+                    f"{rows['off']['peak_gib']:.3f}")
+            self.remat_results[case.tag] = rows
+        print(f"[remat] results {json.dumps(self.remat_results)}")
 
     def require_forward_entries(self, what, counts, entries):
         """#1 and #2 launched, each only through its tensor-core entry."""
@@ -3143,6 +3555,9 @@ def main() -> int:
     smoke.evaluate()
     torch.cuda.empty_cache()
     print(f"[phase] evaluate done at {time.perf_counter() - t0:.1f} s")
+    smoke.analyze()
+    torch.cuda.empty_cache()
+    print(f"[phase] analyze done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:
         require(smoke.launches[name], f"{name}: no launch on a main path")
 

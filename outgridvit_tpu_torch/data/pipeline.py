@@ -40,7 +40,9 @@ def peek_loader(loader):
 
 class ArrayDataLoader:
     """Batches an in-memory (or lazily indexed) dataset with an optional
-    per-image transform.
+    per-image transform. With ``lookahead > 1`` a producer thread makes the
+    batches; an exception there (a transform that raises) is raised in the
+    consumer, where the JAX loader ends the epoch early instead.
 
     Args:
       images: array-like [N, H, W, C] uint8, or an object whose
@@ -124,6 +126,8 @@ class ArrayDataLoader:
                     if stop.is_set():
                         return
                     q.put(self._make_batch(b))
+            except BaseException as e:  # re-raised in the consumer
+                q.put(e)
             finally:
                 q.put(None)
 
@@ -134,6 +138,8 @@ class ArrayDataLoader:
                 item = q.get()
                 if item is None:
                     break
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             stop.set()

@@ -3,11 +3,21 @@ outlook attention, grid MHSA, the outlooker block, the hybrid OutGrid block
 and Model B's grid-only block. Drop-path runs in train mode with masks passed in
 (:class:`~outgridvit_tpu_torch.ops.drop_path.DropPathMasks`); dropout is not
 ported, and a nonzero dropout rate in train mode raises.
+
+Attention capture (the JAX modules' ``sow`` into "intermediates" under
+``capture=True``): inside :func:`recording`, an eval-mode forward stores
+each outlooker's pre-softmax logits (fp32 ``[B, H, W, heads, K^2]``) under
+``"<path>/outlook_logits"`` and each grid MHSA's fp32 probabilities
+``[G, heads, N, N]`` under ``"<path>/attn"``, ``path`` being the module's
+flax path (``stages_0_0/outlook/attn``, ``front_1/attn``,
+``stages_0_0/grid_attn/mhsa``), and takes the paths JAX's capture takes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -20,6 +30,7 @@ from outgridvit_tpu_torch.models.layers import (
     MBConv,
     layernorm_fp32,
 )
+from outgridvit_tpu_torch.ops.attention import mhsa
 from outgridvit_tpu_torch.ops.attn_branch import (
     MIN_TOKENS,
     attn_branch_autograd,
@@ -47,6 +58,28 @@ from outgridvit_tpu_torch.stage_config import MBConvConfig, StageCfg
 # the default first
 OUTLOOK_MODES = ("xla", "fused_agg", "fused_agg_v", "fused_outlook")
 
+_RECORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "ogvt_capture", default=None)
+
+
+@contextlib.contextmanager
+def recording(store: Dict[str, torch.Tensor]) -> Iterator[dict]:
+    """Capture attention into ``store`` during the forwards run inside."""
+    token = _RECORDER.set(store)
+    try:
+        yield store
+    finally:
+        _RECORDER.reset(token)
+
+
+def _recorder(module: nn.Module) -> Optional[dict]:
+    store = _RECORDER.get()
+    if store is not None and module.training:
+        raise RuntimeError(
+            f"attention capture at '{module.path}' needs eval mode (the JAX "
+            "capture runs train=False)")
+    return store
+
 
 class OutlookAttention2d(nn.Module):
     """VOLO-style outlook attention, stride 1: a 1x1 projection gives
@@ -62,7 +95,13 @@ class OutlookAttention2d(nn.Module):
     softmax of the raw logits with the aggregate and projects apart. A
     fused mode runs the CUDA kernels with ``use_kernels`` and their plain
     versions without: one function either way. ``xla`` as in
-    :class:`~outgridvit_tpu_torch.models.layers.Dense`."""
+    :class:`~outgridvit_tpu_torch.models.layers.Dense`.
+
+    Under capture (:func:`recording`) the fp32 logits are recorded before
+    the softmax, and ``"fused_outlook"`` takes the ``"xla"`` path, as the
+    JAX module does off its fused kernel under ``capture``
+    (``blocks.py:89``); ``"fused_agg"`` and ``"fused_agg_v"`` keep their
+    fused value path (``blocks.py:99-153``)."""
 
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  dtype=torch.float32, device=None, mode: str = "xla",
@@ -77,6 +116,7 @@ class OutlookAttention2d(nn.Module):
                              f"{OUTLOOK_MODES}")
         self.heads, self.k = num_heads, kernel_size
         self.mode, self.use_kernels = mode, use_kernels
+        self.path = ""  # the flax module path, set by the model
         kk = kernel_size * kernel_size
         self.attn = Dense(dim, num_heads * kk, dtype=dtype, device=device,
                           xla=xla)
@@ -85,14 +125,17 @@ class OutlookAttention2d(nn.Module):
 
     def forward(self, x):
         B, H, W, _ = x.shape
-        if self.mode == "fused_outlook":
+        store = _recorder(self)
+        if self.mode == "fused_outlook" and store is None:
             y = outlook_softmax_autograd(
                 self.v(x).contiguous(), self.attn(x).contiguous(), self.heads,
                 self.k, self.use_kernels)
             return self.proj(y)
         a = self.attn(x).reshape(B, H, W, self.heads, self.k * self.k)
+        if store is not None:
+            store[f"{self.path}/outlook_logits"] = a.float()
         a = torch.softmax(a.float(), dim=-1).to(x.dtype)
-        if self.mode == "xla" or self.k != 3:
+        if self.mode in ("xla", "fused_outlook") or self.k != 3:
             y = outlook_aggregate(self.v(x), a, kernel_size=self.k, stride=1)
             return self.proj(y)
         dt = self.proj.dtype
@@ -131,6 +174,9 @@ class MultiHeadSelfAttention(nn.Module):
     cast to the compute dtype, ``qkv = x@W`` and ``+ b`` each rounded,
     fp32 logits and softmax, the probabilities cast before P.V, ``out@Wp``
     and ``+ bp`` each rounded; plain PyTorch under autograd, no kernel.
+    Capture (:func:`recording`) takes that path at every N too, as JAX's
+    ``capture`` leaves its kernels (``blocks.py:247``), and records the
+    fp32 probabilities (:func:`~outgridvit_tpu_torch.ops.attention.mhsa`).
 
     qkv's last axis is laid out (3, heads, hd)."""
 
@@ -144,6 +190,7 @@ class MultiHeadSelfAttention(nn.Module):
                 f"({num_heads})")
         self.heads, self.use_kernels = num_heads, use_kernels
         self.xla, self.attn_nhwc = xla, attn_nhwc
+        self.path = ""  # the flax module path, set by the model
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device, xla=xla)
         self.proj = Dense(dim, dim, dtype=dtype, device=device, xla=xla)
 
@@ -157,8 +204,10 @@ class MultiHeadSelfAttention(nn.Module):
         B, H, W, C = x.shape
         N = (H // grid_size) * (W // grid_size)
         dt = self.qkv.dtype
+        store = _recorder(self)
+        plain = self.xla or store is not None
         branch = N >= MIN_TOKENS and attn_branch_fits(N, C, self.heads)
-        if branch and self.attn_nhwc and not self.xla:
+        if branch and self.attn_nhwc and not plain:
             return attn_branch_nhwc_autograd(
                 x.to(dt).contiguous(), ln.weight, ln.bias,
                 *self._branch_weights(), self.heads, grid_size, ln.eps, True,
@@ -166,8 +215,8 @@ class MultiHeadSelfAttention(nn.Module):
         grids, meta = grid_partition(x, grid_size)
         G, Hg, Wg, _ = grids.shape
         tokens = grids.reshape(G, N, C)
-        if self.xla:
-            out = self._xla(tokens, ln)
+        if plain:
+            out = self._xla(tokens, ln, store)
         elif branch:
             out = attn_branch_autograd(
                 tokens.to(dt).contiguous(), ln.weight, ln.bias,
@@ -185,10 +234,18 @@ class MultiHeadSelfAttention(nn.Module):
             out = self.proj(core)
         return grid_unpartition(out.reshape(G, Hg, Wg, C), meta)
 
-    def _xla(self, tokens, ln: LayerNorm):
-        qkv = self.qkv(layernorm_fp32(tokens, ln.weight, ln.bias, ln.eps))
-        return self.proj(grid_mhsa_reference(qkv, self.heads,
-                                             round_probs=True))
+    def _xla(self, tokens, ln: LayerNorm, store: Optional[dict] = None):
+        qkv = self.qkv(layernorm_fp32(tokens, ln.weight, ln.bias, ln.eps),
+                       xla=True)
+        if store is None:
+            return self.proj(grid_mhsa_reference(qkv, self.heads,
+                                                 round_probs=True))
+        G, N, C3 = qkv.shape
+        q, k, v = qkv.reshape(G, N, 3, self.heads,
+                              C3 // (3 * self.heads)).permute(2, 0, 3, 1, 4)
+        out, store[f"{self.path}/attn"] = mhsa(q, k, v, return_attn=True)
+        return self.proj(out.transpose(1, 2).reshape(G, N, C3 // 3),
+                         xla=True)
 
 
 class GridAttention2D(nn.Module):

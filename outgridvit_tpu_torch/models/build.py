@@ -16,8 +16,6 @@ from outgridvit_tpu_torch.stage_config import DownsampleConfig, build_stages
 
 _MODEL_A_ALIASES = ("a", "model_a", "maxout", "outgrid")
 _MODEL_B_ALIASES = ("b", "model_b", "outlooker_front", "front")
-# ``model.remat`` values that mean off (``models/rematerialize.py:66``)
-_REMAT_OFF = ("off", "none", "false", "0", "")
 
 
 def outlook_mode(use_pallas: Any) -> str:
@@ -33,13 +31,6 @@ def outlook_mode(use_pallas: Any) -> str:
             f"model.use_pallas {use_pallas!r} is not null, a boolean or one "
             f"of {fused}")
     return use_pallas
-
-
-def _check_remat(remat: Any) -> None:
-    if remat and str(remat).strip().lower() not in _REMAT_OFF:
-        raise NotImplementedError(
-            f"model.remat {remat!r}: per-block rematerialization is not "
-            "ported yet (ROADMAP §1); set it off")
 
 
 def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
@@ -59,7 +50,11 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
     rounding points (``xla`` of
     :class:`~outgridvit_tpu_torch.models.blocks.MultiHeadSelfAttention` and
     :class:`~outgridvit_tpu_torch.models.layers.ChannelMLP`).
-    ``model.remat`` other than off raises.
+    ``model.remat`` names a per-block rematerialization policy
+    (``models/rematerialize.py``: ``nothing``, ``dots``,
+    ``dots_no_batch``; an unknown name raises ``ValueError``); the model's
+    ``remat`` is None without the key and ``"off"`` for a falsy value, as
+    in JAX. ``OUTGRIDVIT_REMAT`` is not read.
 
     ``dwconv`` picks every MBConv's depthwise 3x3, the port's one switch
     for the family that the JAX package opts into with ``OUTGRIDVIT_DW_T``
@@ -83,7 +78,9 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         raise ValueError(
             f"use_kernels=True needs a CUDA device; got {device}")
     mode = outlook_mode(model_cfg.get("use_pallas"))
-    _check_remat(model_cfg.get("remat"))
+    remat = None
+    if "remat" in model_cfg:  # a falsy value is the "off" sentinel, as in JAX
+        remat = str(model_cfg["remat"]) if model_cfg["remat"] else "off"
     model_type = str(model_cfg.get("type", "model_a")).lower()
     common = dict(
         num_classes=int(model_cfg.get("num_classes", 100)),
@@ -94,7 +91,8 @@ def build_model(model_cfg: Mapping[str, Any], dtype=torch.float32,
         down_cfg=DownsampleConfig.from_dict(model_cfg.get("downsample", {})
                                             or {}),
         dtype=dtype, use_kernels=use_kernels, device=device,
-        outlook_mode=mode, dwconv=dwconv, xla=xla, attn_nhwc=attn_nhwc)
+        outlook_mode=mode, dwconv=dwconv, xla=xla, attn_nhwc=attn_nhwc,
+        remat=remat)
     if model_type in _MODEL_A_ALIASES:
         model = MaxOutNet(**common)
     elif model_type in _MODEL_B_ALIASES:

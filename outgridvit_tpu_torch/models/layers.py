@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from outgridvit_tpu_torch.models.rematerialize import recomputing
 from outgridvit_tpu_torch.ops.activations import make_activation
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, drop_path
 from outgridvit_tpu_torch.ops.dwconv import VARIANTS, dwconv3x3_autograd
@@ -56,7 +57,8 @@ class BatchNorm(nn.Module):
     batch's: mean and the fast variance ``mean(x^2) - mean^2`` clamped at 0,
     and updates the running statistics with that **biased** variance at
     flax momentum 0.9 (``ra = 0.9 ra + 0.1 batch``; ``torch.nn.BatchNorm2d``
-    would use the unbiased one)."""
+    would use the unbiased one), except in a rematerialized block's
+    recompute, which must not update them a second time."""
 
     momentum = 0.9
 
@@ -75,10 +77,12 @@ class BatchNorm(nn.Module):
             mean = x32.mean(dims)
             var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
             m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -88,7 +92,8 @@ class BatchNorm(nn.Module):
 class DropPath(nn.Module):
     """Per-sample stochastic depth at ``rate`` in train mode, identity in
     eval mode or at rate 0. ``path`` is the flax module path that keys its
-    mask in :class:`DropPathMasks` (set by the model)."""
+    mask in :class:`DropPathMasks` (set by the model). A rematerialized
+    block's recompute reads the mask its forward drew."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -102,14 +107,17 @@ class DropPath(nn.Module):
             raise ValueError(
                 f"DropPath '{self.path}' (rate {self.rate}) in train mode "
                 "needs drop-path masks (DropPathMasks)")
-        keep = masks.get(self.path, self.rate, x.shape[0], x.device)
+        args = (self.path, self.rate, x.shape[0], x.device)
+        keep = (masks.get(*args, again=True) if recomputing()
+                else masks.get(*args))
         return drop_path(x, keep, self.rate)
 
 
 class Dense(nn.Module):
     """``nn.Dense`` over the last axis: fp32 ``weight`` [out, in] and
     optional ``bias``, computed in ``dtype``; with ``xla`` the product and
-    the bias add are rounded apart (``x @ w + b`` in the JAX package)."""
+    the bias add are rounded apart (``x @ w + b`` in the JAX package). A
+    call's ``xla`` overrides the module's."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, device=None, xla: bool = False):
@@ -120,10 +128,10 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
 
-    def forward(self, x):
+    def forward(self, x, xla: Optional[bool] = None):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        if self.xla:
+        if self.xla if xla is None else xla:
             y = torch.matmul(x.to(dt), self.weight.to(dt).t())
             return y if b is None else y + b
         return F.linear(x.to(dt), self.weight.to(dt), b)

@@ -3,6 +3,11 @@
 OutGridBlocks (linear stochastic-depth schedule ``make_dpr`` over all
 blocks) with stride-2 conv downsamples between them -> BN head -> fp32 mean
 over H, W -> fp32 classifier. NHWC throughout.
+
+``remat`` names a per-block rematerialization policy
+(``models/rematerialize.py``): each OutGridBlock then runs under
+``torch.utils.checkpoint``; None or an off value saves as usual.
+``stage_cfgs`` keeps the stage configs (the capture's grid sizes).
 """
 
 from __future__ import annotations
@@ -13,13 +18,21 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from outgridvit_tpu_torch.models.blocks import OutGridBlock
+from outgridvit_tpu_torch.models.blocks import (
+    MultiHeadSelfAttention,
+    OutGridBlock,
+    OutlookAttention2d,
+)
 from outgridvit_tpu_torch.models.layers import (
     BatchNorm,
     ConvStem,
     Dense,
     Downsample,
     DropPath,
+)
+from outgridvit_tpu_torch.models.rematerialize import (
+    checkpoint_block,
+    remat_enabled,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.stage_config import (
@@ -43,11 +56,14 @@ class MaxOutNet(nn.Module):
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None,
                  outlook_mode: str = "xla", dwconv: str = "xla",
-                 xla: bool = False, attn_nhwc: bool = False):
+                 xla: bool = False, attn_nhwc: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
-        self.dtype = dtype
+        remat_enabled(remat)  # an unknown policy raises here
+        self.dtype, self.remat = dtype, remat
+        self.stage_cfgs = tuple(stages)
         self.stem = ConvStem(in_ch, stem_dim, dtype, device, xla)
         self.proj_in = (Dense(stem_dim, stages[0].dim, dtype=dtype,
                               device=device, xla=xla)
@@ -66,7 +82,8 @@ class MaxOutNet(nn.Module):
         self.classifier = Dense(stages[-1].dim, num_classes,
                                 dtype=torch.float32, device=device)
         for name, m in self.named_modules():
-            if isinstance(m, DropPath):
+            if isinstance(m, (DropPath, OutlookAttention2d,
+                              MultiHeadSelfAttention)):
                 m.path = flax_path(name)
 
     def forward(self, x, drop_masks: Optional[DropPathMasks] = None):
@@ -80,7 +97,7 @@ class MaxOutNet(nn.Module):
             x = self.proj_in(x)
         for si, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x, drop_masks)
+                x = checkpoint_block(block, self.remat, x, drop_masks)
             if si < len(self.downs):
                 x = self.downs[si](x)
         x = self.head_norm(x).float().mean(dim=(1, 2))

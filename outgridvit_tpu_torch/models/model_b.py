@@ -4,7 +4,9 @@ stage 0 -> ``outlooker_front_depth`` outlooker blocks at stage 0's width with
 its outlook settings (``front.i``) -> stages of GridOnlyBlocks with stride-2
 conv downsamples between them -> BN head -> fp32 mean over H, W -> fp32
 classifier. The linear stochastic-depth schedule ``make_dpr`` runs over the
-front and the stage blocks together. NHWC throughout.
+front and the stage blocks together. NHWC throughout. ``remat`` as in
+``model_a.py``: each front outlooker and each GridOnlyBlock runs under
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from outgridvit_tpu_torch.models.blocks import GridOnlyBlock, OutlookerBlock2d
+from outgridvit_tpu_torch.models.blocks import (
+    GridOnlyBlock,
+    MultiHeadSelfAttention,
+    OutlookAttention2d,
+    OutlookerBlock2d,
+)
 from outgridvit_tpu_torch.models.layers import (
     BatchNorm,
     ConvStem,
@@ -23,6 +30,10 @@ from outgridvit_tpu_torch.models.layers import (
     DropPath,
 )
 from outgridvit_tpu_torch.models.model_a import flax_path
+from outgridvit_tpu_torch.models.rematerialize import (
+    checkpoint_block,
+    remat_enabled,
+)
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
 from outgridvit_tpu_torch.stage_config import (
     DownsampleConfig,
@@ -38,11 +49,14 @@ class OutlookerFrontGridNet(nn.Module):
                  down_cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, use_kernels: bool = False, device=None,
                  outlook_mode: str = "xla", dwconv: str = "xla",
-                 xla: bool = False, attn_nhwc: bool = False):
+                 xla: bool = False, attn_nhwc: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
         if not stages:
             raise ValueError("model.stages must have at least one stage config")
-        self.dtype = dtype
+        remat_enabled(remat)  # an unknown policy raises here
+        self.dtype, self.remat = dtype, remat
+        self.stage_cfgs = tuple(stages)
         self.stem = ConvStem(in_ch, stem_dim, dtype, device, xla)
         self.proj_in = (Dense(stem_dim, stages[0].dim, dtype=dtype,
                               device=device, xla=xla)
@@ -72,7 +86,8 @@ class OutlookerFrontGridNet(nn.Module):
         self.classifier = Dense(stages[-1].dim, num_classes,
                                 dtype=torch.float32, device=device)
         for name, m in self.named_modules():
-            if isinstance(m, DropPath):
+            if isinstance(m, (DropPath, OutlookAttention2d,
+                              MultiHeadSelfAttention)):
                 m.path = flax_path(name)
 
     def forward(self, x, drop_masks: Optional[DropPathMasks] = None):
@@ -89,10 +104,10 @@ class OutlookerFrontGridNet(nn.Module):
         if self.proj_in is not None:
             x = self.proj_in(x)
         for block in self.front:
-            x = block(x, drop_masks)
+            x = checkpoint_block(block, self.remat, x, drop_masks)
         for si, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x, drop_masks)
+                x = checkpoint_block(block, self.remat, x, drop_masks)
             if si < len(self.downs):
                 x = self.downs[si](x)
         x = self.head_norm(x).float().mean(dim=(1, 2))

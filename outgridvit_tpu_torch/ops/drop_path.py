@@ -32,7 +32,9 @@ class DropPathMasks:
     tensors, or drawn per call from a ``torch.Generator`` as Bernoulli(keep)
     per sample. Given a ``record`` list, the generator mode appends each
     call's ``(path, rate)`` to it: the order :func:`draw_drop_masks` needs
-    to draw the same masks before the forward."""
+    to draw the same masks before the forward. ``get(..., again=True)``
+    (a rematerialized block's recompute) returns the mask the forward got
+    for that path: it draws and records nothing."""
 
     def __init__(self, masks: Optional[Mapping[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
@@ -40,20 +42,30 @@ class DropPathMasks:
         if (masks is None) == (generator is None):
             raise ValueError("give exactly one of masks and generator")
         self.masks, self.generator, self.record = masks, generator, record
+        self.drawn: Dict[str, torch.Tensor] = {}
 
-    def get(self, path: str, rate: float, batch: int,
-            device) -> torch.Tensor:
+    def get(self, path: str, rate: float, batch: int, device,
+            again: bool = False) -> torch.Tensor:
+        if again:
+            try:
+                return self.drawn[path]
+            except KeyError:
+                raise KeyError(f"drop-path mask for '{path}' asked again "
+                               "but never drawn") from None
         if self.masks is not None:
             try:
                 mask = self.masks[path]
             except KeyError:
                 raise KeyError(f"no drop-path mask for '{path}'") from None
-            return torch.as_tensor(mask, dtype=torch.bool, device=device)
-        if self.record is not None:
-            self.record.append((path, rate))
-        u = torch.rand(batch, generator=self.generator,
-                       device=self.generator.device)
-        return (u < 1.0 - rate).to(device)
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=device)
+        else:
+            if self.record is not None:
+                self.record.append((path, rate))
+            u = torch.rand(batch, generator=self.generator,
+                           device=self.generator.device)
+            mask = (u < 1.0 - rate).to(device)
+        self.drawn[path] = mask
+        return mask
 
 
 def draw_drop_masks(generator: torch.Generator,

@@ -2564,3 +2564,111 @@ def test_eval_robustness_sweep_captures_one_eval_graph(dev, tmp_path):
     assert [r["severity"] for r in res["rows"]] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) for r in res["rows"])
     assert res["summary"]["n_settings"] == 3
+
+
+# ---- attention capture and per-block remat on the card --------------------
+
+CAPTURE_CFGS = {"a": LOOP_CFG,
+                "b": dict(LOOP_CFG, type="model_b", outlooker_front_depth=1,
+                          use_pallas="fused_agg")}
+# a capture takes the grid attention off its kernels (JAX's capture=True)
+CAPTURE_OFF = (grid_mhsa, grid_mhsa_packed, attn_branch, attn_branch_nhwc,
+               outlook_softmax_agg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model_key", ["a", "b"])
+def test_capture_on_the_kernel_path_matches_the_plain_path(
+        dev, model_key, dtype):
+    """The tiny models' capture with the kernels on (#2, and #7 for Model
+    B's front, still launched; no grid core, fused branch or fused
+    softmax) against the same weights' plain-path capture: within TOL in
+    fp32 and 5e-2 in bf16 (x (1 + |plain|)), the first outlooker's logits
+    bitwise, every grid_attn row summing to 1 within 1e-5."""
+    import numpy as np
+
+    from outgridvit_tpu_torch.experiments import capture_attention
+
+    cfg = CAPTURE_CFGS[model_key]
+    x = torch.randn(4, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    caps = {}
+    for label, kern in (("kernel", None), ("plain", False)):
+        model = build_model(cfg, dtype=dtype, use_kernels=kern, device=dev,
+                            seed=3)
+        before = [w.launches for w in (*CAPTURE_OFF, mlp_branch,
+                                        outlook_agg_proj)]
+        caps[label] = capture_attention(model, x)
+        after = [w.launches for w in (*CAPTURE_OFF, mlp_branch,
+                                      outlook_agg_proj)]
+        delta = [a - b for a, b in zip(after, before)]
+        if label == "plain":
+            assert not any(delta)
+            continue
+        assert not any(delta[:len(CAPTURE_OFF)]), delta
+        assert delta[-2] > 0
+        assert (delta[-1] > 0) == (model_key == "b"), delta
+    got, want = caps["kernel"], caps["plain"]
+    tol = TOL[torch.float32] if dtype == torch.float32 else 5e-2
+    assert set(got) == set(want)
+    first = ("front", 0) if model_key == "b" else (0, 0)
+    assert np.array_equal(got[first]["outlook_logits"],
+                          want[first]["outlook_logits"])
+    for key, slot in want.items():
+        for f in ("outlook_logits", "grid_attn"):
+            if slot[f] is None:
+                assert got[key][f] is None
+                continue
+            a, b = got[key][f], slot[f]
+            assert a.shape == b.shape and a.dtype == np.float32
+            assert np.all(np.abs(a - b) <= tol * (1 + np.abs(b))), (key, f)
+            if f == "grid_attn":
+                assert np.abs(a.sum(-1, dtype=np.float64) - 1).max() <= 1e-5
+        assert got[key]["grid_hw"] == slot["grid_hw"]
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_no_batch"])
+def test_remat_step_is_bitwise_the_plain_step_eager_and_in_the_graph(
+        dev, policy):
+    """The tiny bf16 model on the kernel path with ``model.remat``: one
+    eager step and the K = 2 train superstep's graph bitwise the steps
+    without remat from the same state, batches and seed (parameters, BN
+    statistics, mu, nu, count, the device step, every metric)."""
+    from outgridvit_tpu_torch.training.optim import warmup_cosine_lr
+    from outgridvit_tpu_torch.training.steps import (
+        TrainSuperstep,
+        make_train_superstep,
+    )
+
+    cfg = _loop_step_cfg()
+    sched = warmup_cosine_lr(1e-2, 40, 4, 1e-4)
+
+    def state(remat):
+        mcfg = LOOP_CFG if remat is None else dict(LOOP_CFG, remat=remat)
+        model = build_model(mcfg, dtype=torch.bfloat16, device=dev, seed=1)
+        return TrainState.create(model, AdamW(sched, 0.05, 1.0))
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (2, 16, 16, 16, 3), dtype=torch.uint8,
+                      generator=g).to(dev)
+    y = torch.randint(0, 10, (2, 16), generator=g).to(dev, torch.int32)
+    step = make_train_step(cfg, sched)
+    base, refs, ms = state(None), [], []
+    for i in range(2):
+        base, m = step(base, (x[i], y[i]), seed=7)
+        ms.append(m)
+        refs.append([t.clone() for t in _train_tensors(base)])
+    rem = state(policy)
+    assert rem.model.remat == policy
+    rem, m = step(rem, (x[0], y[0]), seed=7)
+    for k in m:
+        assert torch.equal(m[k], ms[0][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(_train_tensors(rem),
+                                                 refs[0]))
+    replays = TrainSuperstep.replays
+    graph, gm = make_train_superstep(cfg, sched, k=2)(state(policy), (x, y),
+                                                      seed=7)
+    assert TrainSuperstep.replays == replays + 1
+    for k in gm:
+        assert torch.equal(gm[k], torch.stack([m[k] for m in ms])), k
+    assert all(torch.equal(a, b) for a, b in zip(_train_tensors(graph),
+                                                 refs[1]))

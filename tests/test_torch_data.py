@@ -7,7 +7,8 @@ order, over two epochs: CIFAR-100 pickles, SVHN ``.mat``, a Food-101
 ``save_to_disk`` tree, the Oxford-Pets layout and both synthetic sets, with
 host augmentation and with raw uint8 for device augmentation. The fixtures
 are written as ``tests/test_data.py`` and ``tests/test_cli.py`` write
-theirs.
+theirs. Where the JAX loader ends an epoch early on a transform's error,
+the port's raises it in the consumer.
 """
 
 import pickle
@@ -350,3 +351,26 @@ def test_history_round_trips_and_reads_across(tmp_path):
         assert np.isnan(got["train_mem_alloc_gib"]).all()
     with pytest.raises(ValueError, match="no non-empty keys"):
         thistory.plot_convergence({"a": {"val_top1": []}})
+
+
+def test_array_loader_reraises_a_transform_error():
+    """A transform that raises in the producer thread (lookahead > 1) or
+    inline ends the epoch with its exception in the consumer, after the
+    batches before the bad image."""
+    images = np.zeros((10, 4, 4, 3), np.uint8)
+    images[7] = 1
+
+    def transform(img, rng):
+        if img.any():
+            raise ValueError("bad image")
+        return img.astype(np.float32)
+
+    for threads, lookahead in ((1, 4), (4, 4), (1, 1)):
+        loader = tpipe.ArrayDataLoader(
+            images, np.zeros(10), batch_size=3, transform=transform,
+            num_threads=threads, lookahead=lookahead)
+        seen = []
+        with pytest.raises(ValueError, match="bad image"):
+            for x, _ in loader:
+                seen.append(x.shape[0])
+        assert seen == [3, 3]  # the batches before the bad one

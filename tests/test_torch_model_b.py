@@ -13,7 +13,8 @@ cifar100_model_b.yaml``) against ``outgridvit_tpu`` on the same numpy inputs
   ``fused_outlook`` + "t" step with the yaml's recipe on the JAX step's
   draws; one step of a tiny Model A with the depthwise mode "bwd" (#11).
 - ``model.use_pallas`` and ``model.remat`` are read, never dropped: a fused
-  mode reaches the outlook op, and what is not ported raises.
+  mode reaches the outlook op, a remat policy builds, and what is not
+  ported raises.
 
 Tolerances (``docs/PARITY.md``): 1e-4 on logits, 1e-5 for one train step.
 The fused modes and the XLA path differ only in the order of fp32 sums.
@@ -410,8 +411,11 @@ def test_unported_use_pallas_and_remat_raise():
         build_model(dict(TINY_B, use_pallas="fused"), device="meta")
     with pytest.raises(ValueError, match="dwconv"):
         build_model(TINY_B, device="meta", dwconv="taps")
+    # remat is ported: each policy builds, an unknown one raises as in JAX
     for remat in ("dots", "nothing", "dots_no_batch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dict(TINY_B, remat=remat), device="meta")
+        assert build_model(dict(TINY_B, remat=remat),
+                           device="meta").remat == remat
+    with pytest.raises(ValueError, match="remat policy"):
+        build_model(dict(TINY_B, remat="everything"), device="meta")
     for remat in (False, None, "off", "none", 0, ""):
         build_model(dict(TINY_B, remat=remat), device="meta")

@@ -94,7 +94,11 @@ def test_port_imports_no_jax():
         "          'data.registry', 'data.data_utils', 'utils.config',\n"
         "          'utils.history', 'training.bench_eval',\n"
         "          'data.corruptions', 'benchmark_eval', 'eval_robustness',\n"
-        "          'export_model', 'ops.library'):\n"
+        "          'export_model', 'ops.library', 'ops.attention',\n"
+        "          'models.rematerialize', 'experiments',\n"
+        "          'experiments.capture', 'experiments.mad_entropy',\n"
+        "          'experiments.heatmaps', 'run_attention_analysis',\n"
+        "          'run_ablations'):\n"
         "    assert 'outgridvit_tpu_torch.' + m in mods, (m, mods)\n"
         "from outgridvit_tpu_torch.serving import build_predictor\n"
         f"cfg = {SMALL!r}\n"
@@ -123,6 +127,10 @@ def test_port_imports_no_jax():
         "with tempfile.TemporaryDirectory() as d:\n"
         "    assert main(['--config', 'configs/smoke_synthetic.yaml',\n"
         "                 '--output-dir', d]) == 0\n"
+        "    from outgridvit_tpu_torch import run_attention_analysis as ra\n"
+        "    assert ra.main(['--config', 'configs/smoke_synthetic.yaml',\n"
+        "                    '--device', 'cpu', '--skip-plots',\n"
+        "                    '--entropy', '--out-dir', d]) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'yaml', 'outgridvit_tpu',\n"
         "              'PIL', 'datasets', 'matplotlib'))\n"
@@ -171,8 +179,11 @@ def test_kernel_dispatch_rules():
     with pytest.raises(ValueError, match="CUDA device"):
         build_model(SMALL, use_kernels=True, device="cpu")
     assert not build_model(SMALL, device="cpu").stages[0][0].mlp.use_kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(SMALL, remat="dots"), device="cpu")
+    # per-block remat is ported: a policy builds, an unknown name raises
+    assert build_model(dict(SMALL, remat="dots"), device="cpu").remat == \
+        "dots"
+    with pytest.raises(ValueError, match="remat policy"):
+        build_model(dict(SMALL, remat="bogus"), device="cpu")
     assert type(build_model(dict(SMALL, type="model_b"), device="cpu")
                 ).__name__ == "OutlookerFrontGridNet"
     with pytest.raises(ValueError, match="model.type"):
