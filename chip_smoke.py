@@ -311,6 +311,94 @@ BENCH_KEYS = ("loss", "top1", "top3", "top5", "imgs_per_sec", "ms_per_batch",
               "flops_fwd", "mem_gib", "mem_peak_gib")
 
 
+# Phase zoo. Item 10's variants of the 7M config, both with the fused
+# outlook value path (#7): every dropout rate at 0.1 with the pool
+# downsample, and proj_drop alone
+ZOO_RATES = {"attn_drop": 0.1, "proj_drop": 0.1, "ffn_drop": 0.1}
+ZOO_DROP = {
+    "drop_all": dict(FLAGSHIP_MODEL_CFG, use_pallas="fused_agg",
+                     downsample={"kind": "pool"},
+                     stages=[dict(s, **ZOO_RATES)
+                             for s in FLAGSHIP_MODEL_CFG["stages"]]),
+    "drop_proj": dict(FLAGSHIP_MODEL_CFG, use_pallas="fused_agg",
+                      stages=[dict(s, proj_drop=0.1)
+                              for s in FLAGSHIP_MODEL_CFG["stages"]]),
+}
+ZOO_LOSS_STEPS = 20
+# the baseline zoo at full width, 100 classes: JAX's parameter counts (the
+# CPU tests hold them against outgridvit_tpu), and the kernel launches of
+# one forward (a train step's backward launches as many): MaxViT-Nano's
+# stage-0 grid attention has N = 64 tokens, the fused branch (#5)
+ZOO_PARAMS = {
+    "resnet18_cifar": 11_220_132, "resnet50_cifar": 23_705_252,
+    "convnext_tiny": 27_893_572, "effnetv2_s": 20_305_588,
+    "deit_tiny_patch4": 5_380_132, "deit_small_patch4": 21_376_996,
+    "vit_micro_patch4": 32_452, "maxvit_nano_cifar": 2_577_124,
+    "maxvit_tiny_cifar": 25_063_140, "swin_tiny_patch2": 8_622_724,
+}
+ZOO_LAUNCHES = {
+    "maxvit_nano_cifar": {"grid_mhsa": 9, "attn_branch": 1,
+                          "mlp_branch": 5},
+    "maxvit_tiny_cifar": {"grid_mhsa": 22, "mlp_branch": 11},
+    "swin_tiny_patch2": {"mlp_branch": 8},
+    "deit_tiny_patch4": {"mlp_branch": 12},
+    "deit_small_patch4": {"mlp_branch": 12},
+    "vit_micro_patch4": {"mlp_branch": 2},
+}
+# the baseline CLI's recipe (scripts/train_cifar32_baselines.py:38-47)
+ZOO_RECIPE = {"lr": 5e-4, "weight_decay": 0.05, "label_smoothing": 0.1,
+              "mixup_alpha": 0.8, "cutmix_alpha": 1.0, "mix_prob": 0.5}
+ZOO_CLI_MODELS = ("maxvit_nano_cifar", "resnet18_cifar")
+ZOO_CLI_TRAIN, ZOO_CLI_TEST = 2_048, 512
+
+
+def zoo_kernel_shapes(batch: int):
+    """The (kernel, shape) pairs the baselines bring to the port's kernels,
+    at ``batch``: the window and grid cores of MaxViT-Nano and MaxViT-T at
+    every stage (#1 / #3 by :func:`grid_mhsa_variant`; Nano's stage-0 grid
+    of N = 64 on the fused branch #5), their MLPs and those of DeiT-S and
+    Swin-T (#2, no LN inside). Each is ``(tag, kernel, shape, H)`` with the
+    shape a :func:`stage_shapes` entry's keys."""
+    from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
+    from outgridvit_tpu_torch.ops.mlp_branch import mlp_branch_variant
+
+    out = []
+
+    def attn(tag, hw, w, C, heads, windows):
+        # windows: w x w blocks (N = w*w, G = B * (hw/w)^2); a grid of w:
+        # G = B * w^2 groups of (hw/w)^2 tokens
+        N, G = ((w * w, batch * (hw // w) ** 2) if windows
+                else ((hw // w) ** 2, batch * w * w))
+        name = "attn_branch" if N >= 64 else "grid_mhsa"
+        out.append((tag, name, {
+            "stage": tag, "batch": batch, "G": G, "N": N, "C": C,
+            "heads": heads, "H_img": hw, "g": w,
+            "grid_variant": grid_mhsa_variant(N, C)}, None))
+
+    def mlp(tag, tokens, C, H):
+        out.append((tag, "mlp_branch", {
+            "stage": tag, "batch": batch, "M": batch * tokens, "C": C,
+            "G": 0, "N": 0, "heads": 1,
+            "mlp_variant": mlp_branch_variant(tokens, C)}, H))
+
+    for model, stem, dims, first in (("maxvit_nano", 32, (48, 96, 192),
+                                      False),
+                                     ("maxvit_tiny", 32, (64, 128, 256, 512),
+                                      True)):
+        hw = stem
+        for si, C in enumerate(dims):
+            hw //= 2 if (si > 0 or first) else 1
+            w = min(4, hw)
+            tag = f"{model} s{si}"
+            attn(tag + " window", hw, w, C, max(2, C // 32), True)
+            attn(tag + " grid", hw, w, C, max(2, C // 32), False)
+            mlp(tag, hw * hw, C, 4 * C)
+    mlp("deit_small", 65, 384, 1536)
+    for si, C in enumerate((96, 192, 384)):
+        mlp(f"swin_tiny s{si}", (16 >> si) ** 2, C, 4 * C)
+    return out
+
+
 def write_cifar_fixture(data_dir, n_train: int, n_test: int, classes: int,
                         seed: int) -> None:
     """Random uint8 images in the ``cifar-100-python/{train,test}`` pickle
@@ -904,6 +992,27 @@ def softmax_entry(args):
     return osm.softmax_entry(*v.shape, heads, k, v.dtype)
 
 
+def shape_entry(name, args):
+    """The C entry point the token branch (#5) or the grid core (#1 / #3)
+    takes on its arguments, by dtype and shape
+    (``ops/attn_branch.py:forward_entry`` / ``backward_entry``,
+    ``ops/grid_attention.py:grid_mhsa_entry``); None for the others."""
+    from outgridvit_tpu_torch.ops import attn_branch as ab
+    from outgridvit_tpu_torch.ops import grid_attention as ga
+
+    x, heads = args[0], args[-1]
+    if name in ("attn_branch", "attn_branch_bwd"):
+        pick = ab.backward_entry if name.endswith("_bwd") else \
+            ab.forward_entry
+        return pick(*x.shape, heads, x.dtype)
+    if name in ("grid_mhsa", "grid_mhsa_bwd"):
+        G, N, C3 = x.shape
+        return ga.grid_mhsa_entry(N, C3 // 3, heads, x.dtype,
+                                  ga.grid_mhsa_variant(N, C3 // 3),
+                                  name.endswith("_bwd"))
+    return None
+
+
 def nhwc_via_tokens(args, backward):
     """#12's function (``attn_branch_nhwc`` or its backward, on their
     arguments) computed as partition -> #5 -> unpartition, the two copies
@@ -1364,7 +1473,8 @@ class Smoke:
             entry = (outlook_entry(name, args) if name in
                      (*OUTLOOK_FWD_ENTRIES, *OUTLOOK_BWD_ENTRIES)
                      else softmax_entry(args) if name in SOFTMAX_ENTRIES
-                     else routed[0 if dt == "bfloat16" else 1])
+                     else shape_entry(name, args) or
+                     routed[0 if dt == "bfloat16" else 1])
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
                      if v - before.get(k, 0)}
@@ -3461,6 +3571,422 @@ class Smoke:
                   f"{nodes}, loaded output bitwise the direct launch, one "
                   f"launch; export + save + load {sec:.2f} s")
 
+    # -- phase zoo ------------------------------------------------------------
+    def zoo(self):
+        """Phase ``zoo``: the model options item 10 ported (train-mode
+        dropout, the pool downsample) on the 7M model (:meth:`zoo_dropout`),
+        the ten baselines at full width (:meth:`zoo_models`), the (kernel,
+        shape) pairs they add (:meth:`zoo_shapes`) and the baseline CLI
+        (:meth:`zoo_cli`)."""
+        t0 = time.perf_counter()
+        self.zoo_results = {}
+        self.zoo_dropout()
+        self.zoo_models()
+        self.zoo_shapes()
+        self.zoo_cli()
+        print(f"[zoo] results {json.dumps(self.zoo_results)}")
+        print(f"[zoo] phase seconds {time.perf_counter() - t0:.1f}")
+
+    def _zoo_step_cfg(self, case_train, classes, mean, std, crop_pad):
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.training.steps import StepConfig
+
+        T = case_train
+        return StepConfig(
+            num_classes=classes, label_smoothing=T["label_smoothing"],
+            mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+            mix_prob=T["mix_prob"], grad_clip_norm=T.get("grad_clip_norm",
+                                                         1.0),
+            augment=AugmentConfig(mean=mean, std=std, crop_pad=crop_pad))
+
+    def zoo_dropout(self):
+        """Both ``ZOO_DROP`` variants of the 7M model, bf16, batch 128, the
+        yaml's recipe: eval logits bitwise the dropout-free model's on the
+        same weights; 2 eager steps and the K = 2 train graph from the same
+        state bitwise (masks made on the card from the seed and the device
+        step); ``ZOO_LOSS_STEPS`` steps on one batch whose loss falls, each
+        launching what JAX's dispatch under dropout launches (``drop_all``:
+        #7 and no grid core, fused branch or fused MLP; ``drop_proj``:
+        every kernel of the path; one step's augment, mix and drop-path
+        draws throughout); then the eager and graph step ms and the
+        masks' share of them (every site's mask made alone, eager and in a
+        CUDA graph)."""
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.models.layers import DropPath
+        from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+        from outgridvit_tpu_torch.ops.dropout import HashedDropout
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            TrainSuperstep,
+            make_train_step,
+            make_train_superstep,
+            sample_step_draws,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        T, dev, gen = FLAGSHIP.train, self.dev, self.gen
+        cfg = self._zoo_step_cfg(T, 100, FLAGSHIP.mean, FLAGSHIP.std,
+                                 FLAGSHIP.crop_pad)
+        sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+        x = torch.randint(0, 256, (2, TRAIN_BATCH, 32, 32, 3),
+                          dtype=torch.uint8, generator=gen).to(dev)
+        y = torch.randint(0, 100, (2, TRAIN_BATCH),
+                          generator=gen).to(dev, torch.int32)
+        for tag, mcfg in ZOO_DROP.items():
+            case = dataclasses.replace(FLAGSHIP, tag=f"a7m_{tag}", model=mcfg)
+            shapes = stage_shapes(case, TRAIN_BATCH)
+            fplan, _ = launch_plan(case, shapes)
+            bplan, _ = launch_plan(case, shapes, backward=True)
+            plan = {**fplan, **bplan}
+            if tag == "drop_all":  # attn_drop and ffn_drop everywhere
+                plan = {k: (v if k.startswith("outlook_agg") else 0)
+                        for k, v in plan.items()}
+
+            def new_state(c=mcfg, lr=sched):
+                model = build_model(c, dtype=torch.bfloat16, device=dev,
+                                    seed=SEED)
+                return TrainState.create(model, AdamW(
+                    lr, T["weight_decay"], T["grad_clip_norm"]))
+
+            # eval logits: the rates change nothing in eval mode
+            clean = dict(mcfg, stages=[
+                {k: v for k, v in s.items() if k not in ZOO_RATES}
+                for s in mcfg["stages"]])
+            xe = self.randn(BATCH, 32, 32, 3)
+            with torch.no_grad():
+                a = build_model(mcfg, dtype=torch.bfloat16, device=dev,
+                                seed=SEED)(xe)
+                b = build_model(clean, dtype=torch.bfloat16, device=dev,
+                                seed=SEED)(xe)
+            require(torch.equal(a, b), f"zoo {tag}: eval logits differ from "
+                    "the dropout-free model's")
+
+            # the K = 2 graph bitwise 2 eager steps
+            step = make_train_step(cfg, sched)
+            eager, ms = new_state(), []
+            for i in range(2):
+                eager, m = step(eager, (x[i], y[i]), seed=SEED)
+                ms.append(m)
+            sup = make_train_superstep(cfg, sched, k=2)
+            replays = TrainSuperstep.replays
+            graph, gm = sup(new_state(), (x, y), seed=SEED)
+            torch.cuda.synchronize()
+            require(TrainSuperstep.replays == replays + 1,
+                    f"zoo {tag}: the train graph never replayed")
+            same = all(torch.equal(p, q) for p, q in zip(
+                TrainSuperstep._tensors(graph),
+                TrainSuperstep._tensors(eager))) and all(
+                torch.equal(gm[k], torch.stack([m[k] for m in ms]))
+                for k in gm)
+            require(same, f"zoo {tag}: the K = 2 graph is not bitwise 2 "
+                    "eager steps")
+            n_tensors = len(TrainSuperstep._tensors(graph))
+
+            # the loss falls over steps on one batch with one step's
+            # augment, mix and drop-path draws (the dropout masks follow the
+            # device step); launches per step
+            st = new_state(lr=warmup_cosine_lr(T["lr"], ZOO_LOSS_STEPS, 3,
+                                               T["min_lr"]))
+            loss_step = make_train_step(cfg, st.tx.learning_rate)
+            same = sample_step_draws(gen, cfg, tuple(x[0].shape), dev)
+            same = same._replace(drop_masks=DropPathMasks(
+                {m.path: torch.rand(TRAIN_BATCH, generator=gen) < 1 - m.rate
+                 for m in st.model.modules()
+                 if isinstance(m, DropPath) and m.rate > 0},
+                dropout=HashedDropout(SEED, st.device_step)))
+            losses = []
+            for i in range(ZOO_LOSS_STEPS):
+                self.reset_counts()
+                st, m = loss_step(st, (x[0], y[0]), same)
+                counts, variants = self.read_counts()
+                require({k: counts[k] for k in plan} == plan,
+                        f"zoo {tag} step {i}: launches {counts}, expected "
+                        f"{plan}")
+                losses.append(m["loss"].item())
+                require(math.isfinite(losses[-1]) and
+                        m["nonfinite"].item() == 0.0,
+                        f"zoo {tag} step {i}: non-finite loss")
+            self.record(f"a7m {tag} train step", counts, variants)
+            k = 5
+            first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+            require(last < first, f"zoo {tag}: the loss did not fall: "
+                    f"{losses}")
+
+            # step ms, eager and in the graph, and the masks' share
+            e_ms = time_ms(lambda: step(eager, (x[0], y[0]), seed=SEED), (),
+                           iters=6, warmup=1)
+            torch.cuda.synchronize()
+            t_graph = time.perf_counter()
+            for _ in range(3):
+                graph, _ = sup(graph, (x, y), seed=SEED)
+            torch.cuda.synchronize()
+            g_ms = (time.perf_counter() - t_graph) * 1e3 / 6
+            sites = []
+            draws = sample_step_draws(torch.Generator().manual_seed(0), cfg,
+                                      tuple(x[0].shape), dev)
+            draws.drop_masks.dropout = HashedDropout(
+                SEED, eager.device_step, record=sites)
+            eager, _ = step(eager, (x[0], y[0]), draws)
+            src = HashedDropout(SEED, eager.device_step)
+
+            def masks():
+                for path, shape in sites:
+                    src.keep(path, 0.1, shape, dev)
+
+            m_ms = time_ms(masks, (), iters=6, warmup=2)
+            m_dev = graph_ms(masks, iters=4)
+            n_elem = sum(math.prod(sh) for _, sh in sites)
+            self.zoo_results[f"a7m_{tag}"] = {
+                "eager_step_ms": e_ms, "graph_step_ms": g_ms,
+                "masks_ms": m_ms, "masks_device_ms": m_dev,
+                "mask_sites": len(sites), "mask_elements": n_elem,
+                "losses": losses}
+            print(f"[zoo] a7m {tag}: eval logits bitwise the dropout-free "
+                  f"model's; 2 eager steps and the K=2 graph bitwise "
+                  f"({n_tensors} tensors and the metrics); launches per "
+                  f"step {counts} (every one of {ZOO_LOSS_STEPS}); losses "
+                  + " ".join(f"{v:.4f}" for v in losses)
+                  + f"; mean of first {k} {first:.4f}, last {k} {last:.4f}")
+            print(f"[time] a7m {tag} train step bs{TRAIN_BATCH} bf16: eager "
+                  f"{e_ms:.3f} ms ({TRAIN_BATCH / e_ms * 1e3:.1f} imgs/s), "
+                  f"K=2 graph {g_ms:.3f} ms a step; dropout masks "
+                  f"({len(sites)} sites, {n_elem} elements) {m_ms:.3f} ms "
+                  f"eager ({m_ms / e_ms:.1%} of the eager step), "
+                  f"{m_dev:.3f} ms device ({m_dev / g_ms:.1%} of the graph "
+                  f"step) [{self.gpu}]")
+            del eager, graph, st, sup
+            torch.cuda.empty_cache()
+
+    def zoo_models(self):
+        """Each of the ten baselines at full width, bf16: the parameter
+        count (``ZOO_PARAMS``), a batch-64 forward on the kernel path
+        against the plain path (``LOGIT_TOL``) with its launches
+        (``ZOO_LAUNCHES``), then a warm-up and 3 timed eager train steps at
+        batch 128 with the baseline CLI's recipe (uint8 in, augmentation,
+        mixup / cutmix), each launching the forward's kernels and as many
+        backward ones; MaxViT-T also through the K = 2 train graph, bitwise
+        2 eager steps."""
+        import torch
+
+        from outgridvit_tpu_torch.models.baselines import build_baseline
+        from outgridvit_tpu_torch.training.optim import (
+            AdamW,
+            warmup_cosine_lr,
+        )
+        from outgridvit_tpu_torch.training.steps import (
+            TrainSuperstep,
+            make_train_step,
+            make_train_superstep,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        dev, gen = self.dev, self.gen
+        R = ZOO_RECIPE
+        cfg = self._zoo_step_cfg(R, 100, FLAGSHIP.mean, FLAGSHIP.std, 4)
+        sched = warmup_cosine_lr(R["lr"], 10_000, 500, 0.0)
+        x = torch.randint(0, 256, (3, TRAIN_BATCH, 32, 32, 3),
+                          dtype=torch.uint8, generator=gen).to(dev)
+        y = torch.randint(0, 100, (3, TRAIN_BATCH),
+                          generator=gen).to(dev, torch.int32)
+        xe = self.randn(BATCH, 32, 32, 3)
+        for name, n_params in ZOO_PARAMS.items():
+            got = sum(p.numel() for p in build_baseline(
+                name, 100, device="meta").parameters())
+            require(got == n_params, f"zoo {name}: {got} parameters, JAX "
+                    f"has {n_params}")
+            fwd = {k: ZOO_LAUNCHES.get(name, {}).get(k, 0) for k in FWD}
+            plan = {**fwd, **{k + "_bwd": v for k, v in fwd.items()
+                              if k + "_bwd" in SOURCES}}
+            with torch.no_grad():
+                self.reset_counts()
+                kern = build_baseline(name, 100, torch.bfloat16, dev,
+                                      seed=SEED)(xe).float()
+                counts, _ = self.read_counts()
+                require({k: counts[k] for k in fwd} == fwd,
+                        f"zoo {name} forward: launches {counts}, expected "
+                        f"{fwd}")
+                plain = build_baseline(name, 100, torch.bfloat16, dev,
+                                       use_kernels=False,
+                                       seed=SEED)(xe).float()
+            scale = max(1.0, plain.abs().max().item())
+            err = (kern - plain).abs().max().item()
+            require(bool(torch.isfinite(kern).all())
+                    and err <= LOGIT_TOL["bfloat16"] * scale,
+                    f"zoo {name}: kernel-path logits off the plain path's "
+                    f"by {err:.3e} (scale {scale:.3f})")
+            state = TrainState.create(
+                build_baseline(name, 100, torch.bfloat16, dev, seed=SEED),
+                AdamW(sched, R["weight_decay"], 1.0))
+            step = make_train_step(cfg, sched)
+            state, _ = step(state, (x[2], y[2]), seed=SEED)  # warm-up
+            torch.cuda.synchronize()
+            self.reset_counts()
+            t1 = time.perf_counter()
+            losses = []
+            for i in range(3):
+                state, m = step(state, (x[i], y[i]), seed=SEED)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3 / 3
+            counts, variants = self.read_counts()
+            want = {k: 3 * v for k, v in plan.items()}
+            require({k: counts[k] for k in want} == want,
+                    f"zoo {name} steps: launches {counts}, expected {want}")
+            losses = [v.item() for v in losses]
+            require(all(math.isfinite(v) for v in losses),
+                    f"zoo {name}: non-finite loss {losses}")
+            self.record(f"zoo {name} train steps", counts, variants)
+            row = {"params": got, "logit_err": err, "logit_scale": scale,
+                   "step_ms": step_ms,
+                   "imgs_per_s": TRAIN_BATCH / step_ms * 1e3,
+                   "launches_per_step": {k: v // 3 for k, v in
+                                         counts.items() if v},
+                   "entries": {k: v for k, v in self.read_entries().items()
+                               if v}}
+            print(f"[zoo] {name}: {got} parameters (JAX's); bs{BATCH} "
+                  f"forward kernel vs plain path max |err| {err:.3e} of "
+                  f"{scale:.3f} (tol {LOGIT_TOL['bfloat16']:g} x); 3 train "
+                  f"steps bs{TRAIN_BATCH} losses "
+                  + " ".join(f"{v:.4f}" for v in losses)
+                  + f", {step_ms:.2f} ms/step, {row['imgs_per_s']:.1f} "
+                  f"imgs/s (host clock, eager; uint8 in, augment + mix + "
+                  f"fwd + bwd + AdamW); launches per step "
+                  f"{row['launches_per_step']}, by entry {row['entries']} "
+                  f"[{self.gpu}]")
+            if name == "maxvit_tiny_cifar":
+                fresh = [TrainState.create(build_baseline(
+                    name, 100, torch.bfloat16, dev, seed=SEED),
+                    AdamW(sched, R["weight_decay"], 1.0)) for _ in range(2)]
+                eager, ms = fresh[0], []
+                for i in range(2):
+                    eager, m = step(eager, (x[i], y[i]), seed=SEED)
+                    ms.append(m)
+                replays = TrainSuperstep.replays
+                sup = make_train_superstep(cfg, sched, k=2)
+                graph, gm = sup(fresh[1], (x[:2], y[:2]), seed=SEED)
+                torch.cuda.synchronize()
+                require(TrainSuperstep.replays == replays + 1,
+                        "zoo maxvit_tiny: the train graph never replayed")
+                require(all(torch.equal(p, q) for p, q in zip(
+                    TrainSuperstep._tensors(graph),
+                    TrainSuperstep._tensors(eager))) and all(
+                    torch.equal(gm[k], torch.stack([m[k] for m in ms]))
+                    for k in gm), "zoo maxvit_tiny: the K = 2 graph is not "
+                        "bitwise 2 eager steps")
+                t1 = time.perf_counter()
+                for _ in range(3):
+                    graph, _ = sup(graph, (x[:2], y[:2]), seed=SEED)
+                torch.cuda.synchronize()
+                row["graph_step_ms"] = (time.perf_counter() - t1) * 1e3 / 6
+                print(f"[zoo] {name}: K=2 train graph bitwise 2 eager steps "
+                      f"({len(TrainSuperstep._tensors(graph))} tensors and "
+                      f"the metrics); {row['graph_step_ms']:.3f} ms a step "
+                      f"in the graph [{self.gpu}]")
+                del fresh, eager, graph, sup
+            self.zoo_results[name] = row
+            del state, step
+            torch.cuda.empty_cache()
+
+    def zoo_shapes(self):
+        """Every (kernel, shape) pair of :func:`zoo_kernel_shapes` against
+        its plain version, forward at batch 64 and backward at 128, bf16
+        and fp32 (:meth:`compare`); then the bf16 launches timed as
+        :meth:`time_kernels` times them: kernel, plain version, library
+        call, bound."""
+        import torch
+
+        timed = {}
+        for backward in (False, True):
+            batch = TRAIN_BATCH if backward else BATCH
+            for tag, base, sh, H in zoo_kernel_shapes(batch):
+                name = base + ("_bwd" if backward else "")
+                make = self.bwd_args if backward else self.fwd_args
+                kw = {} if H is None else {"H": H, "apply_ln": False}
+                if base == "grid_mhsa":
+                    label = (f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
+                             f"heads={sh['heads']} "
+                             f"variant={sh['grid_variant']}")
+                elif base == "attn_branch":
+                    label = (f"{tag} G={sh['G']} N={sh['N']} C={sh['C']} "
+                             f"heads={sh['heads']}")
+                else:
+                    label = (f"{tag} M={sh['M']} C={sh['C']} H={H} "
+                             f"variant={sh['mlp_variant']} no LN")
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = make(name, sh, dtype, **kw)
+                    self.compare(name, args, dtype, f"zoo {label}")
+                kern = self.launch.get(name, self.kernels[name][0])
+                plain = self.kernels[name][1]
+                k_ms = time_ms(kern, args, iters=6, warmup=2)
+                p_ms = time_ms(plain, args, iters=6, warmup=2)
+                lib = library_call(name, args)
+                l_ms = None if lib is None else time_ms(lib, (), iters=6,
+                                                        warmup=2)
+                by_bytes, by_ops = bound_ms(name, args, kern(*args),
+                                            torch.bfloat16)
+                bound = max(by_bytes, by_ops)
+                timed.setdefault(name, {})[label] = {
+                    "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if by_bytes >= by_ops
+                    else "operations"}
+                print(f"[time] zoo {name} {label} bf16: kernel "
+                      f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+                      f"library "
+                      + ("none" if l_ms is None else f"{l_ms * 1e3:.1f} us")
+                      + f"; bound {bound * 1e3:.2f} us "
+                      f"({timed[name][label]['bound_by']}), "
+                      f"{bound / k_ms:.1%} of it [{self.gpu}]")
+                del args, lib
+        self.zoo_timed = timed
+
+    def zoo_cli(self):
+        """``python -m outgridvit_tpu_torch.train_cifar32_baselines``
+        in-process: ``--models`` ``ZOO_CLI_MODELS`` for 1 epoch at batch
+        128 on a CIFAR-100 pickle fixture of random images; it must return
+        0, write both models' checkpoints and print the summary lines."""
+        import contextlib
+        import re
+        import tempfile
+        from pathlib import Path
+
+        from outgridvit_tpu_torch import train_cifar32_baselines as cli
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            tmp = Path(d)
+            write_cifar_fixture(tmp / "data", ZOO_CLI_TRAIN, ZOO_CLI_TEST,
+                                100, SEED)
+            tee = StampedLines(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                rc = cli.main(["--models", *ZOO_CLI_MODELS, "--epochs", "1",
+                               "--data-dir", str(tmp / "data"),
+                               "--batch-size", str(TRAIN_BATCH),
+                               "--output-dir", str(tmp / "out"),
+                               "--print-every", "5"])
+            require(rc == 0, f"zoo: the baseline CLI returned {rc}")
+            text = "\n".join(line for _, line in tee.lines)
+            for name in ZOO_CLI_MODELS:
+                for kind in ("best", "last"):
+                    p = tmp / "out" / f"{kind}_{name}.ckpt"
+                    require(p.exists() and p.read_bytes()[:4] == b"OGVT",
+                            f"zoo: the CLI wrote no {p.name}")
+                require(re.search(rf"^{name}: train top1 \d+\.\d\d% \| "
+                                  r"best val top1 \d+\.\d\d%$", text, re.M),
+                        f"zoo: no summary line for {name}")
+            require("===== Baseline summary =====" in text,
+                    "zoo: no summary header")
+        secs = time.perf_counter() - t0
+        self.zoo_results["cli_seconds"] = secs
+        print(f"[zoo] baseline CLI --models {' '.join(ZOO_CLI_MODELS)} "
+              f"--epochs 1 (batch {TRAIN_BATCH}, {ZOO_CLI_TRAIN} train "
+              f"images) ok in {secs:.1f} s [{self.gpu}]")
+
     def kernels_line(self):
         out = []
         for name, (source, replaces, covers) in SOURCES.items():
@@ -3492,12 +4018,27 @@ class Smoke:
             if len(sources) > 1:
                 out[-1]["sources"] = list(sources)
                 out[-1]["launches_by_entry"] = self.entries[name]
+            if name in getattr(self, "zoo_timed", {}):
+                out[-1]["zoo_shapes"] = self.zoo_timed[name]
         return out
 
 
-def main() -> int:
+PHASES = ("cases", "loop", "evaluate", "analyze", "zoo")
+
+
+def main(argv=None) -> int:
+    """Every phase with no arguments (the run whose last lines the kernels
+    and ok JSON are); given phase names (``PHASES``; ``evaluate`` and
+    ``analyze`` need ``loop``), only those, and no JSON lines."""
     import torch
 
+    phases = list((sys.argv[1:] if argv is None else argv) or PHASES)
+    bad = [p for p in phases if p not in PHASES]
+    if bad or ({"evaluate", "analyze"} & set(phases)
+               and "loop" not in phases):
+        print(f"chip_smoke: phases {phases}: choose from {PHASES} "
+              "(evaluate and analyze need loop)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -3526,7 +4067,7 @@ def main() -> int:
 
     smoke = Smoke(dev, gpu)
     t0 = time.perf_counter()
-    for case in CASES:
+    for case in CASES if "cases" in phases else ():
         # MODEL_B_V runs MODEL_B's kernels at its shapes; A7M_DWB the 7M
         # step with the depthwise backward, whose shapes MODEL_B_O holds
         full = case not in (MODEL_B_V, A7M_DWB)
@@ -3549,15 +4090,15 @@ def main() -> int:
             smoke.ab_outlook()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
-    smoke.loop()
-    torch.cuda.empty_cache()
-    print(f"[phase] loop done at {time.perf_counter() - t0:.1f} s")
-    smoke.evaluate()
-    torch.cuda.empty_cache()
-    print(f"[phase] evaluate done at {time.perf_counter() - t0:.1f} s")
-    smoke.analyze()
-    torch.cuda.empty_cache()
-    print(f"[phase] analyze done at {time.perf_counter() - t0:.1f} s")
+    for phase in PHASES[1:]:
+        if phase in phases:
+            getattr(smoke, phase)()
+            torch.cuda.empty_cache()
+            print(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
+    if tuple(phases) != PHASES:
+        print(f"[partial] phases {' '.join(phases)} passed; no kernels or "
+              "ok line without every phase")
+        return 0
     for name in FWD + BWD:
         require(smoke.launches[name], f"{name}: no launch on a main path")
 

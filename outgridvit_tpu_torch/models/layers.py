@@ -1,7 +1,7 @@
 """Shared NHWC layers (twins of ``outgridvit_tpu/models/layers.py``):
-LayerNorm, BatchNorm (batch statistics in train mode), DropPath, Dense, the
-channel MLP, NHWC convs (stem, depthwise 3x3, downsample), squeeze-excite
-and MBConv.
+LayerNorm, BatchNorm (batch statistics in train mode), DropPath, dropout,
+Dense, the channel MLP, NHWC convs (stem, depthwise 3x3, downsample),
+squeeze-excite and MBConv.
 
 Parameters are fp32 in PyTorch's layouts (Linear [out, in], Conv OIHW,
 depthwise [C, 1, 3, 3]) and are cast to the module's compute ``dtype`` per
@@ -26,6 +26,7 @@ from torch import nn
 from outgridvit_tpu_torch.models.rematerialize import recomputing
 from outgridvit_tpu_torch.ops.activations import make_activation
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, drop_path
+from outgridvit_tpu_torch.ops.dropout import dropout
 from outgridvit_tpu_torch.ops.dwconv import VARIANTS, dwconv3x3_autograd
 from outgridvit_tpu_torch.ops.mlp_branch import (
     layernorm_fp32,
@@ -113,6 +114,35 @@ class DropPath(nn.Module):
         return drop_path(x, keep, self.rate)
 
 
+def apply_dropout(x, rate: float, masks: Optional[DropPathMasks],
+                  path: str, training: bool):
+    """flax ``nn.Dropout(rate)`` at the site ``path``: x in eval mode or at
+    rate 0, zeros at rate 1, else x with the site's keep mask from
+    ``masks`` (``ops/dropout.py``). A rematerialized block's recompute
+    gets its forward's mask again: the masks are a function of the site
+    and the step, drawn or given, never of the call."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if masks is None:
+        raise ValueError(f"dropout '{path}' (rate {rate}) in train mode "
+                         "needs masks (DropPathMasks with a dropout source)")
+    return dropout(x, masks.dropout_keep(path, rate, x.shape, x.device), rate)
+
+
+def site_path(path: str, name: str) -> str:
+    """The flax path of dropout site ``name`` (``Dropout_0``) of the module
+    at ``path`` ("" for a module applied alone)."""
+    return f"{path}/{name}" if path else name
+
+
+def ln_identity(C: int, device):
+    """LayerNorm parameters (ones, zeros) that a fused branch called
+    without its LN (``apply_ln=False``) reads but does not apply."""
+    return (torch.ones(C, device=device), torch.zeros(C, device=device))
+
+
 class Dense(nn.Module):
     """``nn.Dense`` over the last axis: fp32 ``weight`` [out, in] and
     optional ``bias``, computed in ``dtype``; with ``xla`` the product and
@@ -137,14 +167,25 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+def same_pads(size: int, k: int, s: int):
+    """flax ``nn.Conv``'s ``"SAME"`` padding of one axis: (low, high) so
+    that the output has ``ceil(size / s)`` positions."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
 class ConvNHWC(nn.Module):
-    """2-D convolution on NHWC activations with an OIHW ``weight``."""
+    """2-D convolution on NHWC activations with an OIHW ``weight``: padded
+    ``kernel // 2`` on every side, or with ``same`` as flax ``nn.Conv``'s
+    default ``"SAME"`` (no padding where the kernel equals the stride and
+    divides the input, as the patch embeds have it)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = False, dtype=torch.float32,
-                 device=None):
+                 device=None, same: bool = False):
         super().__init__()
         self.stride, self.groups, self.dtype = stride, groups, dtype
+        self.same = same
         self.weight = nn.Parameter(torch.empty(
             out_ch, in_ch // groups, kernel, kernel, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_ch, device=device))
@@ -153,8 +194,15 @@ class ConvNHWC(nn.Module):
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     stride=self.stride, padding=self.weight.shape[-1] // 2,
+        k, s = self.weight.shape[-1], self.stride
+        x = x.to(dt).permute(0, 3, 1, 2)
+        pad = k // 2
+        if self.same:
+            (t, bo), (le, r) = (same_pads(n, k, s) for n in x.shape[2:])
+            pad = 0
+            if (t, bo, le, r) != (0, 0, 0, 0):
+                x = F.pad(x, (le, r, t, bo))
+        y = F.conv2d(x, self.weight.to(dt), b, stride=s, padding=pad,
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
@@ -197,41 +245,57 @@ def _conv_bn(conv: nn.Module, dim: int, use_bn: bool, device) -> nn.Sequential:
 
 
 class ChannelMLP(nn.Module):
-    """Pre-LN channel MLP branch ``fc2(act(fc1(LN(x))))`` over the last axis,
-    through :func:`mlp_branch_autograd`: with ``use_kernels`` the CUDA
-    kernels forward and backward, otherwise their plain versions. Launches
-    are tagged with the JAX kernel the shape picks
-    (:func:`mlp_branch_variant`, ``outgridvit_tpu/models/layers.py:237-241``);
-    the math is the same.
+    """Channel MLP branch ``fc2(act(fc1(LN(x))))`` over the last axis (no
+    LN when called without one), through :func:`mlp_branch_autograd`: with
+    ``use_kernels`` the CUDA kernels forward and backward, otherwise their
+    plain versions. Launches are tagged with the JAX kernel the shape picks
+    (:func:`mlp_branch_variant`, ``outgridvit_tpu/models/layers.py:
+    237-241``); the math is the same. JAX falls back to XLA for a token
+    count its TPU kernel cannot tile (``mlp_t_fits``); the CUDA kernels
+    take any, so the port runs them at every shape.
 
     ``xla`` takes the JAX package's unfused XLA path instead (``use_pallas:
     false``, ``outgridvit_tpu/models/layers.py:297-305``): LN cast to the
     compute dtype, ``x@w1`` and ``+ b1`` each rounded, the activation op
     by op in the compute dtype, ``@w2`` and ``+ b2`` each rounded; plain
-    PyTorch under autograd, no kernel."""
+    PyTorch under autograd, no kernel. Dropout at ``drop`` in train mode
+    takes that path too, as in JAX (``layers.py:260, 300-304``): after the
+    activation (site ``<path>/Dropout_0``) and after fc2
+    (``<path>/Dropout_1``)."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0, act: str = "gelu",
                  dtype=torch.float32, use_kernels: bool = False, device=None,
-                 xla: bool = False):
+                 xla: bool = False, drop: float = 0.0):
         super().__init__()
         hidden = max(1, int(dim * mlp_ratio))
         self.act = act.lower()
         make_activation(self.act)  # validate the name
         self.dtype, self.use_kernels, self.xla = dtype, use_kernels, xla
+        self.drop = float(drop)
+        self.path = ""  # the flax module path, set by the model
         self.fc1 = Dense(dim, hidden, dtype=dtype, device=device, xla=xla)
         self.fc2 = Dense(hidden, dim, dtype=dtype, device=device, xla=xla)
 
-    def forward(self, x, ln: LayerNorm):
+    def forward(self, x, ln: Optional[LayerNorm] = None,
+                masks: Optional[DropPathMasks] = None):
         dt = self.dtype
-        if self.xla:
-            h = self.fc1(layernorm_fp32(x, ln.weight, ln.bias, ln.eps))
-            return self.fc2(make_activation(self.act, xla=True)(h))
+        if self.xla or (self.training and self.drop > 0.0):
+            h = x if ln is None else layernorm_fp32(x, ln.weight, ln.bias,
+                                                    ln.eps)
+            h = make_activation(self.act, xla=True)(self.fc1(h, xla=True))
+            h = apply_dropout(h, self.drop, masks,
+                              site_path(self.path, "Dropout_0"), self.training)
+            return apply_dropout(self.fc2(h, xla=True), self.drop, masks,
+                                 site_path(self.path, "Dropout_1"),
+                                 self.training)
         spatial = math.prod(x.shape[1:-1])
+        lw, lb, eps = ((ln.weight, ln.bias, ln.eps) if ln is not None
+                       else (*ln_identity(x.shape[-1], x.device), 1e-5))
         return mlp_branch_autograd(
-            x.to(dt).contiguous(), ln.weight, ln.bias,
+            x.to(dt).contiguous(), lw, lb,
             self.fc1.weight.to(dt).t().contiguous(), self.fc1.bias.to(dt),
             self.fc2.weight.to(dt).t().contiguous(), self.fc2.bias.to(dt),
-            self.act, ln.eps, True, self.use_kernels,
+            self.act, eps, ln is not None, self.use_kernels,
             mlp_branch_variant(spatial, x.shape[-1]))
 
 
@@ -299,23 +363,48 @@ class MBConv(nn.Module):
         return x + out if self.residual else out
 
 
+def avg_pool(x, s: int):
+    """flax ``nn.avg_pool(x, (s, s), strides=(s, s))`` on NHWC (VALID: a
+    remainder row or column is dropped): the window's sum in x's dtype,
+    then divided by s*s."""
+    B, H, W, C = x.shape
+    Hs, Ws = H // s, W // s
+    win = x[:, :Hs * s, :Ws * s].reshape(B, Hs, s, Ws, s, C)
+    acc = win[:, :, 0, :, 0]
+    for i in range(s):
+        for j in range(s):
+            if i or j:
+                acc = acc + win[:, :, i, :, j]
+    return acc / torch.tensor(float(s * s), dtype=x.dtype)
+
+
 class Downsample(nn.Module):
-    """Between-stage downsample: 3x3 stride-2 conv (pad 1) -> BN -> act."""
+    """Between-stage downsample (``outgridvit_tpu/models/layers.py:
+    463-490``): kind ``"conv"``, a 3x3 stride-2 conv (pad 1) -> BN -> act;
+    kind ``"pool"``, a 2x2 stride-2 average pool -> 1x1 (``Dense``) -> BN
+    -> act. Either way ``op.0`` holds the conv and ``op.1`` the BN: the
+    JAX package's ``port_torch_state_dict`` maps ``downs_i.bn`` to the
+    first of ``op.1`` / ``op.2`` it finds, so the reference's pool layout
+    (conv at ``op.1``, BN at ``op.2``) would hand the BN the conv's
+    weight."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  cfg: DownsampleConfig = DownsampleConfig(),
                  dtype=torch.float32, device=None, xla: bool = False):
         super().__init__()
-        if cfg.kind != "conv":
-            raise NotImplementedError(
-                f"downsample kind '{cfg.kind}' is not ported yet (ROADMAP "
-                "§1); only 'conv' is")
+        if cfg.kind not in ("conv", "pool"):
+            raise ValueError("cfg.kind must be 'conv' or 'pool'")
+        self.kind = cfg.kind
         self.act = make_activation(cfg.act, xla)
-        self.op = _conv_bn(ConvNHWC(in_ch, out_ch, 3, 2, bias=not cfg.use_bn,
-                                    dtype=dtype, device=device),
-                           out_ch, cfg.use_bn, device)
+        conv = (ConvNHWC(in_ch, out_ch, 3, 2, bias=not cfg.use_bn,
+                         dtype=dtype, device=device) if cfg.kind == "conv"
+                else Dense(in_ch, out_ch, bias=not cfg.use_bn, dtype=dtype,
+                           device=device, xla=xla))
+        self.op = _conv_bn(conv, out_ch, cfg.use_bn, device)
 
     def forward(self, x):
+        if self.kind == "pool":
+            x = avg_pool(x, 2)
         return self.act(self.op(x))
 
 

@@ -1,8 +1,8 @@
 """Model A, MaxOutNet (twin of ``outgridvit_tpu/models/model_a.py``): stem
 -> 1x1 ``proj_in`` when the stem width differs from stage 0 -> stages of
 OutGridBlocks (linear stochastic-depth schedule ``make_dpr`` over all
-blocks) with stride-2 conv downsamples between them -> BN head -> fp32 mean
-over H, W -> fp32 classifier. NHWC throughout.
+blocks) with downsamples (``downsample.kind``) between them -> BN head ->
+fp32 mean over H, W -> fp32 classifier. NHWC throughout.
 
 ``remat`` names a per-block rematerialization policy
 (``models/rematerialize.py``): each OutGridBlock then runs under
@@ -25,6 +25,7 @@ from outgridvit_tpu_torch.models.blocks import (
 )
 from outgridvit_tpu_torch.models.layers import (
     BatchNorm,
+    ChannelMLP,
     ConvStem,
     Dense,
     Downsample,
@@ -83,15 +84,15 @@ class MaxOutNet(nn.Module):
                                 dtype=torch.float32, device=device)
         for name, m in self.named_modules():
             if isinstance(m, (DropPath, OutlookAttention2d,
-                              MultiHeadSelfAttention)):
+                              MultiHeadSelfAttention, ChannelMLP)):
                 m.path = flax_path(name)
 
     def forward(self, x, drop_masks: Optional[DropPathMasks] = None):
         """x: [B, H, W, in_ch] float -> logits [B, num_classes] fp32.
 
         In train mode BatchNorm uses (and updates) batch statistics, and
-        drop-path draws its keep masks from ``drop_masks`` (required when any
-        block's rate is nonzero)."""
+        drop-path and dropout take their keep masks from ``drop_masks``
+        (required when any block's rate is nonzero)."""
         x = self.stem(x.to(self.dtype))
         if self.proj_in is not None:
             x = self.proj_in(x)

@@ -1,8 +1,8 @@
 """Model B, OutlookerFrontGridNet (twin of ``outgridvit_tpu/models/
 model_b.py``): stem -> 1x1 ``proj_in`` when the stem width differs from
 stage 0 -> ``outlooker_front_depth`` outlooker blocks at stage 0's width with
-its outlook settings (``front.i``) -> stages of GridOnlyBlocks with stride-2
-conv downsamples between them -> BN head -> fp32 mean over H, W -> fp32
+its outlook settings and dropouts (``front.i``) -> stages of GridOnlyBlocks
+with downsamples between them -> BN head -> fp32 mean over H, W -> fp32
 classifier. The linear stochastic-depth schedule ``make_dpr`` runs over the
 front and the stage blocks together. NHWC throughout. ``remat`` as in
 ``model_a.py``: each front outlooker and each GridOnlyBlock runs under
@@ -24,6 +24,7 @@ from outgridvit_tpu_torch.models.blocks import (
 )
 from outgridvit_tpu_torch.models.layers import (
     BatchNorm,
+    ChannelMLP,
     ConvStem,
     Dense,
     Downsample,
@@ -69,10 +70,10 @@ class OutlookerFrontGridNet(nn.Module):
                              f.outlook_mlp_ratio, f.mlp_act,
                              drop_path=next(dprs), dtype=dtype,
                              use_kernels=use_kernels, device=device,
-                             outlook_mode=outlook_mode, xla=xla)
+                             outlook_mode=outlook_mode, xla=xla,
+                             attn_drop=f.attn_drop, proj_drop=f.proj_drop,
+                             mlp_drop=f.ffn_drop)
             for _ in range(outlooker_front_depth))
-        self.dropout = {"attn_drop": f.attn_drop, "proj_drop": f.proj_drop,
-                        "ffn_drop": f.ffn_drop}
         self.stages = nn.ModuleList(
             nn.ModuleList(GridOnlyBlock(s.replace(drop_path=next(dprs)),
                                         dtype, use_kernels, device, dwconv,
@@ -87,19 +88,13 @@ class OutlookerFrontGridNet(nn.Module):
                                 dtype=torch.float32, device=device)
         for name, m in self.named_modules():
             if isinstance(m, (DropPath, OutlookAttention2d,
-                              MultiHeadSelfAttention)):
+                              MultiHeadSelfAttention, ChannelMLP)):
                 m.path = flax_path(name)
 
     def forward(self, x, drop_masks: Optional[DropPathMasks] = None):
         """x: [B, H, W, in_ch] float -> logits [B, num_classes] fp32, with
         the train-mode behaviour of :class:`~outgridvit_tpu_torch.models.
         model_a.MaxOutNet`."""
-        if self.training and self.front:
-            active = {k: v for k, v in self.dropout.items() if v > 0.0}
-            if active:
-                raise NotImplementedError(
-                    f"dropout {active} in train mode is not ported yet "
-                    "(ROADMAP §1); every shipped config sets it to 0")
         x = self.stem(x.to(self.dtype))
         if self.proj_in is not None:
             x = self.proj_in(x)

@@ -9,6 +9,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from outgridvit_tpu_torch.ops.dropout import dropout_keep
+
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor,
               rate: float) -> torch.Tensor:
@@ -34,15 +36,31 @@ class DropPathMasks:
     call's ``(path, rate)`` to it: the order :func:`draw_drop_masks` needs
     to draw the same masks before the forward. ``get(..., again=True)``
     (a rematerialized block's recompute) returns the mask the forward got
-    for that path: it draws and records nothing."""
+    for that path: it draws and records nothing.
+
+    ``dropout`` is the forward's source of element-wise dropout keep masks
+    (``ops/dropout.py``): a mapping of bool masks by dropout site path, or
+    a :class:`~outgridvit_tpu_torch.ops.dropout.HashedDropout`; None where
+    no dropout is active."""
 
     def __init__(self, masks: Optional[Mapping[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
-                 record: Optional[List[Tuple[str, float]]] = None):
+                 record: Optional[List[Tuple[str, float]]] = None,
+                 dropout=None):
         if (masks is None) == (generator is None):
             raise ValueError("give exactly one of masks and generator")
         self.masks, self.generator, self.record = masks, generator, record
+        self.dropout = dropout
         self.drawn: Dict[str, torch.Tensor] = {}
+
+    def dropout_keep(self, path: str, rate: float, shape,
+                     device) -> torch.Tensor:
+        """The keep mask of dropout site ``path`` (x's ``shape``)."""
+        if self.dropout is None:
+            raise ValueError(f"dropout '{path}' (rate {rate}) in train mode "
+                             "needs a dropout mask source (DropPathMasks("
+                             "dropout=...))")
+        return dropout_keep(self.dropout, path, rate, shape, device)
 
     def get(self, path: str, rate: float, batch: int, device,
             again: bool = False) -> torch.Tensor:

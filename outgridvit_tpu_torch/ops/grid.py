@@ -1,8 +1,9 @@
-"""MaxViT-style dilated grid partitioning, NHWC (twin of
-``outgridvit_tpu/ops/grid.py``).
+"""MaxViT-style dilated grid and contiguous window partitioning, NHWC
+(twin of ``outgridvit_tpu/ops/grid.py``).
 
 Grid group (gy, gx) holds the pixels (i*g+gy, j*g+gx): each group is a
-dilated view of the whole map.
+dilated view of the whole map. Window (by, bx) holds the w x w block of
+pixels (by*w + i, bx*w + j).
 """
 
 from __future__ import annotations
@@ -38,4 +39,33 @@ def grid_unpartition(grids: torch.Tensor, meta: tuple) -> torch.Tensor:
             f"grids shape mismatch. Expected {(B * g * g, Hg, Wg, C)} "
             f"got {tuple(grids.shape)}")
     return (grids.reshape(B, g, g, Hg, Wg, C).permute(0, 3, 1, 4, 2, 5)
+            .reshape(B, H, W, C))
+
+
+def window_partition(x: torch.Tensor,
+                     window_size: int) -> Tuple[torch.Tensor, tuple]:
+    """[B, H, W, C] -> ([B*nW, w, w, C], meta): contiguous (non-dilated)
+    w x w windows, row-major over the map, the MaxViT block attention's
+    counterpart of :func:`grid_partition`."""
+    if x.dim() != 4:
+        raise ValueError(f"Expected x.ndim==4 (BHWC). Got shape {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    w = window_size
+    if w <= 0:
+        raise ValueError("window_size must be > 0")
+    if H % w or W % w:
+        raise ValueError(
+            f"H and W must be divisible by window_size. Got H={H}, W={W}, "
+            f"w={w}")
+    Hb, Wb = H // w, W // w
+    wins = (x.reshape(B, Hb, w, Wb, w, C).permute(0, 1, 3, 2, 4, 5)
+            .reshape(B * Hb * Wb, w, w, C))
+    return wins, (B, H, W, C, w)
+
+
+def window_unpartition(wins: torch.Tensor, meta: tuple) -> torch.Tensor:
+    """Inverse of :func:`window_partition`."""
+    B, H, W, C, w = meta
+    Hb, Wb = H // w, W // w
+    return (wins.reshape(B, Hb, Wb, w, w, C).permute(0, 1, 3, 2, 4, 5)
             .reshape(B, H, W, C))

@@ -336,15 +336,20 @@ def _probs(q, k, hd, divide=False):
 
 
 def grid_mhsa_reference(qkv: torch.Tensor, heads: int,
-                        round_probs: bool = False) -> torch.Tensor:
+                        round_probs: bool = False,
+                        probs=None) -> torch.Tensor:
     """Plain PyTorch version: qkv [G, N, 3C] -> [G, N, C]. ``round_probs``
     divides by the softmax sum and casts the probabilities to qkv's dtype
     before P.V (the JAX rounding point for N > 16); without it they stay
-    fp32 (kernels #1 and #3)."""
+    fp32 (kernels #1 and #3). ``probs``, a function applied to the fp32
+    probabilities ``[G, heads, N, N]`` before their cast (a dropout), is
+    the JAX XLA path's ``attn_drop`` (``round_probs`` only)."""
     G, N, C = _check(qkv, heads)
     hd = C // heads
     q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
     a = _probs(q, k, hd, divide=round_probs)
+    if probs is not None:
+        a = probs(a)
     if round_probs:
         a = a.to(qkv.dtype).float()
     out = torch.einsum("ghnm,gmhd->gnhd", a, v)

@@ -15,7 +15,10 @@ with :func:`sample_step_draws`: one the caller hands in, or, given a
 state.step)``, as the JAX step folds ``state.step`` into its key, so a
 resumed run draws what an uninterrupted one drew. The drop-path masks are
 drawn during the forward, or, given the order the forward calls its
-DropPaths in, before it (``drop_order``): bitwise the same masks.
+DropPaths in, before it (``drop_order``): bitwise the same masks. Dropout's
+element-wise masks are not drawn on the host: the step computes them on the
+device (``ops/dropout.py:HashedDropout``) from the seed (or, given only a
+generator, its initial seed), the state's device step and the site.
 ``jax.random`` bits cannot be reproduced, so parity tests hand both
 frameworks the same draws.
 
@@ -63,6 +66,7 @@ from outgridvit_tpu_torch.ops.augment import (
     sample_augment_draws,
 )
 from outgridvit_tpu_torch.ops.drop_path import DropPathMasks, draw_drop_masks
+from outgridvit_tpu_torch.ops.dropout import HashedDropout
 from outgridvit_tpu_torch.training.losses import (
     cross_entropy_smoothed,
     soft_target_cross_entropy,
@@ -142,7 +146,11 @@ def make_train_step(cfg: StepConfig,
     sample them from :func:`step_generator` at ``state.step`` (moved to
     the batch's device). The metrics are 0-d device tensors: loss, top1, top3,
     top5, grad_norm, clipped, nonfinite and, with ``lr_schedule``, lr (at
-    the state's device step, which the step then increments in place)."""
+    the state's device step, which the step then increments in place).
+    Sampled draws carry the step's dropout masks as a
+    :class:`~outgridvit_tpu_torch.ops.dropout.HashedDropout` of ``seed``
+    (else the generator's initial seed) and the device step; given
+    ``draws`` bring their own (``drop_masks.dropout``) or none."""
 
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None,
@@ -156,6 +164,9 @@ def make_train_step(cfg: StepConfig,
                 generator = step_generator(seed, state.step)
             draws = sample_step_draws(generator, cfg, tuple(images.shape),
                                       images.device)
+            draws.drop_masks.dropout = HashedDropout(
+                generator.initial_seed() if seed is None else seed,
+                state.device_step)
         if cfg.augment is not None:
             images = apply_augment_draws(images, draws.augment, cfg.augment)
         if cfg.mixing and cfg.mix_prob > 0.0:
@@ -378,9 +389,10 @@ class _Prepared:
     drop-path order, the draws' layout and buffers, and on the card the
     graph and its static inputs and outputs."""
 
-    def __init__(self, state: TrainState, order):
+    def __init__(self, state: TrainState, order, dropout_seed):
         self.state = state  # keeps what the key's ids name alive
         self.order = order
+        self.dropout_seed = dropout_seed
         self.layout: Optional[DrawLayout] = None
         self.host: List[Tuple[torch.Tensor, Dict, Optional[object]]] = []
         self.turn = 0
@@ -403,7 +415,11 @@ class TrainSuperstep:
     on a side stream. Each call draws K steps' augment, mix and drop-path
     draws on the host from ``step_generator(seed, state.step + i)``,
     bitwise what K single steps draw, and writes them into one flat
-    buffer (:class:`DrawLayout`).
+    buffer (:class:`DrawLayout`). Dropout masks are computed in the steps
+    on the device from ``seed`` and the device step (``HashedDropout``,
+    as a single step with ``seed`` computes them; with ``draws``, from the
+    seed of the first step's ``drop_masks.dropout``), so the seed is part
+    of what a graph is captured for.
 
     On a CUDA device the K steps are captured once per state and input
     shape in one CUDA graph that reads static image, label and draw
@@ -433,7 +449,16 @@ class TrainSuperstep:
         return [*model.parameters(), *model.buffers(), *opt.mu.values(),
                 *opt.nu.values(), opt.count, state.device_step]
 
-    def _warm_up(self, state: TrainState, images, labels) -> list:
+    @staticmethod
+    def _with_dropout(draws: StepDraws, state: TrainState,
+                      dropout_seed: Optional[int]) -> StepDraws:
+        if dropout_seed is not None:
+            draws.drop_masks.dropout = HashedDropout(dropout_seed,
+                                                     state.device_step)
+        return draws
+
+    def _warm_up(self, state: TrainState, images, labels,
+                 dropout_seed) -> list:
         """One step from a snapshot of the state, then the snapshot back;
         returns the drop-path order the forward drew its masks in."""
         order: List[Tuple[str, float]] = []
@@ -443,8 +468,9 @@ class TrainSuperstep:
         g = torch.Generator()  # the warm-up's draws are thrown away
         draws = sample_step_draws(g, self.cfg, tuple(images.shape[1:]),
                                   images.device)
-        draws = draws._replace(
-            drop_masks=DropPathMasks(generator=g, record=order))
+        draws = self._with_dropout(draws._replace(
+            drop_masks=DropPathMasks(generator=g, record=order)), state,
+            dropout_seed)
         self.step(state, (torch.zeros_like(images[0]),
                           torch.zeros_like(labels[0])), draws=draws)
         with torch.no_grad():
@@ -452,25 +478,28 @@ class TrainSuperstep:
                 t.copy_(old)
         return order
 
-    def _run(self, state, images, labels, draws) -> Dict[str, torch.Tensor]:
+    def _run(self, state, images, labels, draws,
+             dropout_seed) -> Dict[str, torch.Tensor]:
         ms = []
         for i in range(self.k):
             state, m = self.step(state, (images[i], labels[i]),
-                                 draws=draws[i])
+                                 draws=self._with_dropout(
+                                     draws[i], state, dropout_seed))
             ms.append(m)
         return {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
 
-    def _prepare(self, state, images, labels) -> _Prepared:
+    def _prepare(self, state, images, labels, dropout_seed) -> _Prepared:
         if images.device.type != "cuda":
-            return _Prepared(state, self._warm_up(state, images, labels))
+            return _Prepared(state, self._warm_up(state, images, labels,
+                                                  dropout_seed), dropout_seed)
         dev = images.device
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
-            order = self._warm_up(state, images, labels)
+            order = self._warm_up(state, images, labels, dropout_seed)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
-        return _Prepared(state, order)
+        return _Prepared(state, order, dropout_seed)
 
     def _capture(self, prep: _Prepared, state, images, labels):
         dev = images.device
@@ -481,7 +510,7 @@ class TrainSuperstep:
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.graph(graph, stream=self.stream,
                               capture_error_mode="thread_local"):
-            out = self._run(state, x, y, draws)
+            out = self._run(state, x, y, draws, prep.dropout_seed)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         prep.graph = (graph, x, y, buf, out)
 
@@ -495,12 +524,20 @@ class TrainSuperstep:
         if (seed is None) == (draws is None):
             raise ValueError("give the superstep a seed or its K steps' "
                              "draws")
+        if seed is not None:
+            dropout_seed = seed
+        else:
+            given = draws[0].drop_masks.dropout if draws[0].drop_masks \
+                else None
+            dropout_seed = (given.seed if isinstance(given, HashedDropout)
+                            else None)
         key = (id(state.model), id(state.opt_state), id(state.device_step),
                images.device, tuple(images.shape), images.dtype,
-               tuple(labels.shape), labels.dtype)
+               tuple(labels.shape), labels.dtype, dropout_seed)
         prep = self.prepared.get(key)
         if prep is None:
-            prep = self.prepared[key] = self._prepare(state, images, labels)
+            prep = self.prepared[key] = self._prepare(state, images, labels,
+                                                      dropout_seed)
         if draws is None:  # on the host, bitwise what K single steps draw
             draws = [sample_step_draws(
                 step_generator(seed, state.step + i), self.cfg,
@@ -519,7 +556,7 @@ class TrainSuperstep:
         prep.layout.fill(views, draws)
         if not cuda:
             metrics = self._run(state, images, labels,
-                                prep.layout.steps(buf))
+                                prep.layout.steps(buf), prep.dropout_seed)
             return dataclasses.replace(state, step=state.step + self.k), \
                 metrics
         if prep.graph is None:

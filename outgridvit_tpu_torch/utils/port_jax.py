@@ -2,7 +2,9 @@
 
 ``load_flax_variables(model, variables)`` takes the ``{"params": ...,
 "batch_stats": ...}`` tree of ``outgridvit_tpu`` (nested dicts of numpy
-arrays; no JAX needed) and fills the port's parameters and buffers.
+arrays; no JAX needed) and fills the port's parameters and buffers, Model
+A's and B's through ``_RENAMES``, the baseline zoo's through its own table
+(``models/baselines.py:FLAX_RENAMES``, which the model names).
 ``jax_tree_to_port`` maps any tree shaped like the JAX params (grads, AdamW
 moments) to the port's parameter names and layouts, and
 ``load_jax_train_state`` turns a JAX ``TrainState``'s parts into the port's
@@ -51,14 +53,22 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def torch_key(flax_path: Tuple[str, ...]) -> str:
+def renames_of(model: nn.Module) -> tuple:
+    """The rename table of ``model``: its ``flax_renames`` (the baseline
+    zoo's, ``models/baselines.py:FLAX_RENAMES``), else Model A's and B's."""
+    return getattr(model, "flax_renames", _RENAMES)
+
+
+def torch_key(flax_path: Tuple[str, ...], renames: tuple = _RENAMES) -> str:
     """('stages_0_0', 'mbconv', 'expand_bn', 'bn', 'mean') ->
-    'stages.0.0.mbconv.expand.1.running_mean'."""
+    'stages.0.0.mbconv.expand.1.running_mean'; a top-level parameter
+    (``('cls_token',)``) keeps its name."""
     *mods, leaf = flax_path
     s = ".".join(mods)
-    for pat, rep in _RENAMES:
+    for pat, rep in renames:
         s = re.sub(pat, rep, s)
-    return f"{s}.{_LEAF.get(leaf, leaf)}"
+    leaf = _LEAF.get(leaf, leaf)
+    return f"{s}.{leaf}" if s else leaf
 
 
 def _to_torch_layout(a: np.ndarray, leaf: str) -> np.ndarray:
@@ -77,11 +87,12 @@ def load_flax_variables(model: nn.Module,
     Strict: raises ``ValueError`` listing every port tensor left unfilled,
     every JAX leaf left unused and every shape that disagrees."""
     state = model.state_dict()
+    renames = renames_of(model)
     new: Dict[str, torch.Tensor] = {}
     unused, bad = [], []
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
-            key = torch_key(path)
+            key = torch_key(path, renames)
             name = "/".join((collection,) + path)
             if key not in state:
                 unused.append(name)
@@ -105,11 +116,12 @@ def load_flax_variables(model: nn.Module,
     return model
 
 
-def jax_tree_to_port(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+def jax_tree_to_port(tree: Mapping[str, Any], renames: tuple = _RENAMES
+                     ) -> Dict[str, np.ndarray]:
     """A tree shaped like the JAX params (the params themselves, their
     grads, AdamW ``mu``/``nu``) -> {port parameter name: fp32 array in the
-    port's layout}."""
-    return {torch_key(path): np.ascontiguousarray(
+    port's layout}; ``renames``: the model's table (:func:`renames_of`)."""
+    return {torch_key(path, renames): np.ascontiguousarray(
                 _to_torch_layout(np.asarray(leaf, dtype=np.float32), path[-1]))
             for path, leaf in _flatten(tree)}
 
@@ -129,7 +141,7 @@ def load_jax_train_state(model: nn.Module, tx: "AdamW", *,
     load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
     state = TrainState.create(model, tx)
     for name, tree in (("mu", mu), ("nu", nu)):
-        mapped = jax_tree_to_port(tree)
+        mapped = jax_tree_to_port(tree, renames_of(model))
         dst = getattr(state.opt_state, name)
         if set(mapped) != set(dst):
             raise ValueError(

@@ -2672,3 +2672,166 @@ def test_remat_step_is_bitwise_the_plain_step_eager_and_in_the_graph(
         assert torch.equal(gm[k], torch.stack([m[k] for m in ms])), k
     assert all(torch.equal(a, b) for a, b in zip(_train_tensors(graph),
                                                  refs[1]))
+
+
+DROP_CFG = dict(LOOP_CFG, use_pallas="fused_agg", downsample={"kind": "pool"},
+                stages=[dict(s, attn_drop=0.1, proj_drop=0.1, ffn_drop=0.1)
+                        for s in LOOP_CFG["stages"]])
+
+
+def _drop_state(dev, cfg=DROP_CFG):
+    from outgridvit_tpu_torch.training.optim import warmup_cosine_lr
+
+    sched = warmup_cosine_lr(1e-2, 40, 4, 1e-4)
+    model = build_model(cfg, dtype=torch.bfloat16, device=dev, seed=1)
+    return TrainState.create(model, AdamW(sched, 0.05, 1.0)), sched
+
+
+@pytest.mark.parametrize("remat", [None, "nothing"])
+def test_dropout_train_graph_is_bitwise_eager_steps(dev, remat):
+    """The tiny bf16 model with every dropout rate at 0.1, the pool
+    downsample and ``fused_agg`` (and remat): the K = 2 train graph bitwise
+    2 eager steps (masks computed on the card from the seed and the device
+    step), and the launches of an active dropout: the outlook value path
+    (#7) on its kernel, no grid core (attn_drop) and no fused MLP
+    (ffn_drop)."""
+    from outgridvit_tpu_torch.training.steps import (
+        TrainSuperstep,
+        make_train_superstep,
+    )
+
+    cfg = DROP_CFG if remat is None else dict(DROP_CFG, remat=remat)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (2, 16, 16, 16, 3), dtype=torch.uint8,
+                      generator=g).to(dev)
+    y = torch.randint(0, 10, (2, 16), generator=g).to(dev, torch.int32)
+    eager, sched = _drop_state(dev, cfg)
+    step = make_train_step(_loop_step_cfg(), sched)
+    before = (outlook_agg_proj.launches, grid_mhsa.launches,
+              mlp_branch.launches)
+    ms = []
+    for i in range(2):
+        eager, m = step(eager, (x[i], y[i]), seed=9)
+        ms.append(m)
+    torch.cuda.synchronize()
+    assert outlook_agg_proj.launches > before[0]
+    assert (grid_mhsa.launches, mlp_branch.launches) == before[1:]
+    graph, _ = _drop_state(dev, cfg)
+    replays = TrainSuperstep.replays
+    graph, got = make_train_superstep(_loop_step_cfg(), sched, k=2)(
+        graph, (x, y), seed=9)
+    assert TrainSuperstep.replays == replays + 1
+    for k in got:
+        assert torch.equal(got[k], torch.stack([m[k] for m in ms])), k
+    assert all(torch.equal(a, b) for a, b in zip(_train_tensors(graph),
+                                                 _train_tensors(eager)))
+    assert bool(torch.isfinite(got["loss"]).all())
+    if remat is not None:  # and the recompute drew its forward's masks
+        plain, _ = _drop_state(dev)
+        for i in range(2):
+            plain, _ = step(plain, (x[i], y[i]), seed=9)
+        assert all(torch.equal(a, b) for a, b in zip(
+            _train_tensors(plain), _train_tensors(eager)))
+
+
+def test_dropout_resume_is_bitwise_an_uninterrupted_run(dev, tmp_path):
+    from outgridvit_tpu_torch.training.checkpoints import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (3, 16, 16, 16, 3), dtype=torch.uint8,
+                      generator=g).to(dev)
+    y = torch.randint(0, 10, (3, 16), generator=g).to(dev, torch.int32)
+    full, sched = _drop_state(dev)
+    step = make_train_step(_loop_step_cfg(), sched)
+    for i in range(3):
+        full, _ = step(full, (x[i], y[i]), seed=4)
+    part, _ = _drop_state(dev)
+    part, _ = step(part, (x[0], y[0]), seed=4)
+    save_checkpoint(str(tmp_path / "c.ckpt"), part, epoch=0)
+    resumed, _ = _drop_state(dev)
+    resumed = load_checkpoint(str(tmp_path / "c.ckpt"), resumed)["state"]
+    for i in (1, 2):
+        resumed, _ = step(resumed, (x[i], y[i]), seed=4)
+    assert all(torch.equal(a, b) for a, b in zip(_train_tensors(resumed),
+                                                 _train_tensors(full)))
+
+
+# MaxViT-T's new kernel shapes at batch 8 (the train batch of 128 in
+# chip_smoke.py): the window core at stage 2 (N = 16, C = 256, 8 heads,
+# "th") and stage 3 (N = 4, C = 512, 16 heads, "t"), the grid core at N = 1
+# there, and the MLP at C = 512, H = 2048 over 4 tokens an image
+MAXVIT_T_GRIDS = [(8 * 1, 16, 256, 8), (8 * 16, 1, 256, 8),
+                  (8 * 1, 4, 512, 16), (8 * 4, 1, 512, 16)]
+MAXVIT_T_MLPS = [(8 * 16, 256, 1024), (8 * 4, 512, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,N,C,heads", MAXVIT_T_GRIDS)
+def test_grid_core_at_maxvit_tiny_shapes(dev, dtype, G, N, C, heads):
+    from outgridvit_tpu_torch.ops.grid_attention import grid_mhsa_variant
+
+    g = torch.Generator().manual_seed(G + N + C)
+    qkv = torch.randn(G, N, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(G, N, C, generator=g).to(dev, dtype)
+    variant = grid_mhsa_variant(N, C)
+    _assert_close(grid_mhsa(qkv, heads, variant),
+                  grid_mhsa_reference(qkv, heads), dtype)
+    got = grid_mhsa_backward(qkv, dout, heads, variant)
+    _assert_close(got, grid_mhsa_backward_reference(qkv, dout, heads),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,H", MAXVIT_T_MLPS)
+def test_mlp_branch_at_maxvit_tiny_shapes(dev, dtype, M, C, H):
+    g = torch.Generator().manual_seed(M + C)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g) * s
+
+    args = (r(M, C).to(dev, dtype), torch.ones(C, device=dev),
+            torch.zeros(C, device=dev), r(C, H, s=C ** -0.5).to(dev, dtype),
+            r(H, s=0.02).to(dev, dtype), r(H, C, s=H ** -0.5).to(dev, dtype),
+            r(C, s=0.02).to(dev, dtype))
+    _assert_close(mlp_branch(*args, "gelu", 1e-5, False),
+                  mlp_branch_reference(*args, "gelu", 1e-5, False), dtype)
+    dy = r(M, C).to(dev, dtype)
+    got = mlp_branch_backward(*args, dy, "gelu", 1e-5, False)
+    want = mlp_branch_backward_reference(*args, dy, "gelu", 1e-5, False)
+    _assert_close(got[0], want[0], dtype)
+    for i, (a, b) in enumerate(zip(got[3:], want[3:])):
+        _assert_close_to_max(a, b, dtype, f"grad {i + 3}")
+
+
+def test_maxvit_tiny_forward_and_step_kernel_path_vs_plain(dev):
+    """Full-width MaxViT-T, bf16, batch 8: the kernel path's logits against
+    the plain path's (within 5e-2 of max |logits|), then one train step
+    each: finite losses within 1e-2 relative, the grid core and the MLP on
+    their kernels."""
+    from outgridvit_tpu_torch.models.baselines import build_baseline
+    from outgridvit_tpu_torch.training.optim import warmup_cosine_lr
+
+    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(
+        0)).to(dev)
+    models = {k: build_baseline("maxvit_tiny_cifar", 100, torch.bfloat16,
+                                dev, use_kernels=k, seed=3)
+              for k in (True, False)}
+    n = (grid_mhsa.launches, mlp_branch.launches)
+    with torch.no_grad():
+        got, want = (models[k](x).float() for k in (True, False))
+    assert grid_mhsa.launches - n[0] == 22 and mlp_branch.launches - n[1] \
+        == 11
+    assert (got - want).abs().max() <= 5e-2 * max(1.0, want.abs().max())
+    sched = warmup_cosine_lr(5e-4, 10, 1, 1e-6)
+    step = make_train_step(StepConfig(num_classes=100), sched)
+    labels = torch.randint(0, 100, (8,), device=dev)
+    losses = {}
+    for k, m in models.items():
+        st = TrainState.create(m, AdamW(sched, 0.05, 1.0))
+        st, metrics = step(st, (x, labels), seed=1)
+        losses[k] = metrics["loss"].item()
+    assert all(torch.isfinite(torch.tensor(v)) for v in losses.values())
+    assert abs(losses[True] - losses[False]) <= 1e-2 * abs(losses[False])

@@ -98,7 +98,8 @@ def test_port_imports_no_jax():
         "          'models.rematerialize', 'experiments',\n"
         "          'experiments.capture', 'experiments.mad_entropy',\n"
         "          'experiments.heatmaps', 'run_attention_analysis',\n"
-        "          'run_ablations'):\n"
+        "          'run_ablations', 'ops.dropout', 'models.baselines',\n"
+        "          'train_cifar32_baselines'):\n"
         "    assert 'outgridvit_tpu_torch.' + m in mods, (m, mods)\n"
         "from outgridvit_tpu_torch.serving import build_predictor\n"
         f"cfg = {SMALL!r}\n"
@@ -175,7 +176,7 @@ def test_stage_config_copy_matches_the_jax_schema():
         tsc.DownsampleConfig(kind="pool")
 
 
-def test_kernel_dispatch_rules():
+def test_kernel_dispatch_rules(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device"):
         build_model(SMALL, use_kernels=True, device="cpu")
     assert not build_model(SMALL, device="cpu").stages[0][0].mlp.use_kernels
@@ -189,14 +190,30 @@ def test_kernel_dispatch_rules():
     with pytest.raises(ValueError, match="model.type"):
         build_model(dict(SMALL, type="vit"), device="cpu")
     # the train forward needs explicit drop-path masks (dpr_max defaults to
-    # 0.1) and refuses dropout, which is not ported
+    # 0.1); dropout runs with its masks, and an active ffn_drop takes every
+    # MLP off the fused branch onto the plain unfused path, as JAX does
+    # (outgridvit_tpu/models/layers.py:260)
     model = build_model(SMALL, device="cpu").train()
     with pytest.raises(ValueError, match="drop-path masks"):
         model(torch.zeros(1, 16, 16, 3))
+    from outgridvit_tpu_torch.models import layers
+    from outgridvit_tpu_torch.ops.drop_path import DropPathMasks
+    from outgridvit_tpu_torch.ops.dropout import HashedDropout
+
+    fused = []
+    monkeypatch.setattr(layers, "mlp_branch_autograd",
+                        lambda *a, f=layers.mlp_branch_autograd:
+                        fused.append(1) or f(*a))
     stages = [dict(s, ffn_drop=0.1) for s in SMALL["stages"]]
-    model = build_model(dict(SMALL, stages=stages), device="cpu").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    model = build_model(dict(SMALL, stages=stages, dpr_max=0.0),
+                        device="cpu").train()
+    with pytest.raises(ValueError, match="dropout"):
         model(torch.zeros(1, 16, 16, 3))
+    out = model(torch.zeros(1, 16, 16, 3), DropPathMasks({}, dropout=(
+        HashedDropout(0, torch.zeros((), dtype=torch.int32)))))
+    assert bool(torch.isfinite(out).all()) and fused == []
+    model.eval()(torch.zeros(1, 16, 16, 3))  # eval: the fused branch
+    assert len(fused) == 6  # 3 blocks, an outlooker MLP and a block MLP
 
 
 def test_kernel_library_name_follows_the_sources(tmp_path, monkeypatch):
