@@ -348,6 +348,13 @@ ZOO_LAUNCHES = {
 # the baseline CLI's recipe (scripts/train_cifar32_baselines.py:38-47)
 ZOO_RECIPE = {"lr": 5e-4, "weight_decay": 0.05, "label_smoothing": 0.1,
               "mixup_alpha": 0.8, "cutmix_alpha": 1.0, "mix_prob": 0.5}
+# the C entry point a pair of zoo_kernel_shapes must take in both dtypes
+# where it is not the one GRID_ENTRIES / ATTN_*_ENTRIES give bf16:
+# MaxViT-Nano's stage-0 grid (N = 64, C = 48, heads of 24) reaches the
+# fused branch #5, whose tensor-core kernels are built for C = 64 and 80
+ZOO_ENTRIES = {
+    ("attn_branch", "maxvit_nano s0 grid"): "ogvt_attn_branch",
+    ("attn_branch_bwd", "maxvit_nano s0 grid"): "ogvt_attn_branch_bwd"}
 ZOO_CLI_MODELS = ("maxvit_nano_cifar", "resnet18_cifar")
 ZOO_CLI_TRAIN, ZOO_CLI_TEST = 2_048, 512
 
@@ -992,27 +999,6 @@ def softmax_entry(args):
     return osm.softmax_entry(*v.shape, heads, k, v.dtype)
 
 
-def shape_entry(name, args):
-    """The C entry point the token branch (#5) or the grid core (#1 / #3)
-    takes on its arguments, by dtype and shape
-    (``ops/attn_branch.py:forward_entry`` / ``backward_entry``,
-    ``ops/grid_attention.py:grid_mhsa_entry``); None for the others."""
-    from outgridvit_tpu_torch.ops import attn_branch as ab
-    from outgridvit_tpu_torch.ops import grid_attention as ga
-
-    x, heads = args[0], args[-1]
-    if name in ("attn_branch", "attn_branch_bwd"):
-        pick = ab.backward_entry if name.endswith("_bwd") else \
-            ab.forward_entry
-        return pick(*x.shape, heads, x.dtype)
-    if name in ("grid_mhsa", "grid_mhsa_bwd"):
-        G, N, C3 = x.shape
-        return ga.grid_mhsa_entry(N, C3 // 3, heads, x.dtype,
-                                  ga.grid_mhsa_variant(N, C3 // 3),
-                                  name.endswith("_bwd"))
-    return None
-
-
 def nhwc_via_tokens(args, backward):
     """#12's function (``attn_branch_nhwc`` or its backward, on their
     arguments) computed as partition -> #5 -> unpartition, the two copies
@@ -1453,7 +1439,11 @@ class Smoke:
         return out
 
     # -- kernel vs plain --------------------------------------------------
-    def compare(self, name, args, dtype, label):
+    def compare(self, name, args, dtype, label, entry=None):
+        """The kernel against its plain version on ``args``; a routed
+        kernel's two launches must take ``entry``, by default the one its
+        dtype takes in the fixed tables (``GRID_ENTRIES``,
+        ``ATTN_*_ENTRIES``; the outlook's and the softmax's by shape)."""
         import torch
 
         plain = self.kernels[name][1]
@@ -1469,12 +1459,12 @@ class Smoke:
         got = kernel(*args)
         again = kernel(*args) if twice else got
         torch.cuda.synchronize()
-        if routed:  # the entry its dtype (and, outlook, its shape) takes
+        if routed and entry is None:  # by dtype (outlook: and shape)
             entry = (outlook_entry(name, args) if name in
                      (*OUTLOOK_FWD_ENTRIES, *OUTLOOK_BWD_ENTRIES)
                      else softmax_entry(args) if name in SOFTMAX_ENTRIES
-                     else shape_entry(name, args) or
-                     routed[0 if dt == "bfloat16" else 1])
+                     else routed[0 if dt == "bfloat16" else 1])
+        if routed:
             delta = {k: v - before.get(k, 0)
                      for k, v in self.kernels[name][0].by_entry.items()
                      if v - before.get(k, 0)}
@@ -3919,7 +3909,8 @@ class Smoke:
                              f"variant={sh['mlp_variant']} no LN")
                 for dtype in (torch.float32, torch.bfloat16):
                     args = make(name, sh, dtype, **kw)
-                    self.compare(name, args, dtype, f"zoo {label}")
+                    self.compare(name, args, dtype, f"zoo {label}",
+                                 ZOO_ENTRIES.get((name, tag)))
                 kern = self.launch.get(name, self.kernels[name][0])
                 plain = self.kernels[name][1]
                 k_ms = time_ms(kern, args, iters=6, warmup=2)
@@ -4023,22 +4014,9 @@ class Smoke:
         return out
 
 
-PHASES = ("cases", "loop", "evaluate", "analyze", "zoo")
-
-
-def main(argv=None) -> int:
-    """Every phase with no arguments (the run whose last lines the kernels
-    and ok JSON are); given phase names (``PHASES``; ``evaluate`` and
-    ``analyze`` need ``loop``), only those, and no JSON lines."""
+def main() -> int:
     import torch
 
-    phases = list((sys.argv[1:] if argv is None else argv) or PHASES)
-    bad = [p for p in phases if p not in PHASES]
-    if bad or ({"evaluate", "analyze"} & set(phases)
-               and "loop" not in phases):
-        print(f"chip_smoke: phases {phases}: choose from {PHASES} "
-              "(evaluate and analyze need loop)", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -4067,7 +4045,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke(dev, gpu)
     t0 = time.perf_counter()
-    for case in CASES if "cases" in phases else ():
+    for case in CASES:
         # MODEL_B_V runs MODEL_B's kernels at its shapes; A7M_DWB the 7M
         # step with the depthwise backward, whose shapes MODEL_B_O holds
         full = case not in (MODEL_B_V, A7M_DWB)
@@ -4090,15 +4068,10 @@ def main(argv=None) -> int:
             smoke.ab_outlook()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
-    for phase in PHASES[1:]:
-        if phase in phases:
-            getattr(smoke, phase)()
-            torch.cuda.empty_cache()
-            print(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
-    if tuple(phases) != PHASES:
-        print(f"[partial] phases {' '.join(phases)} passed; no kernels or "
-              "ok line without every phase")
-        return 0
+    for phase in ("loop", "evaluate", "analyze", "zoo"):
+        getattr(smoke, phase)()
+        torch.cuda.empty_cache()
+        print(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
     for name in FWD + BWD:
         require(smoke.launches[name], f"{name}: no launch on a main path")
 

@@ -323,7 +323,7 @@ class MultiHeadSelfAttention(nn.Module):
         return self.proj(grid_mhsa_reference(
             qkv, self.heads, round_probs=True, probs=lambda a: apply_dropout(
                 a, self.attn_drop, masks, site_path(self.path, "Dropout_0"),
-                True)),
+                self.training)),
             xla=True)
 
 

@@ -137,10 +137,26 @@ def site_path(path: str, name: str) -> str:
     return f"{path}/{name}" if path else name
 
 
+_LN_IDENTITY: dict = {}
+
+
 def ln_identity(C: int, device):
     """LayerNorm parameters (ones, zeros) that a fused branch called
-    without its LN (``apply_ln=False``) reads but does not apply."""
-    return (torch.ones(C, device=device), torch.zeros(C, device=device))
+    without its LN (``apply_ln=False``) reads but does not apply, made
+    once per (C, device). A pair made where it could not serve every later
+    call is not kept: in a CUDA graph capture (whose fill runs only at
+    replay), in inference mode (its tensors cannot be saved for a
+    backward), or as a tracer's tensors."""
+    key = (C, torch.device(device))
+    got = _LN_IDENTITY.get(key)
+    if got is None:
+        got = (torch.ones(C, device=device), torch.zeros(C, device=device))
+        if (type(got[0]) is torch.Tensor and not got[0].is_inference()
+                and not torch.compiler.is_compiling()
+                and not (key[1].type == "cuda"
+                         and torch.cuda.is_current_stream_capturing())):
+            _LN_IDENTITY[key] = got
+    return got
 
 
 class Dense(nn.Module):

@@ -4,8 +4,9 @@ mask passed in, and the keep masks of a train step computed on the device.
 ``dropout(x, keep, rate)`` is flax's ``select(mask, x / keep_prob, 0)``:
 the division in x's dtype (``keep_prob`` rounded to it first, as JAX
 rounds the weak-typed Python float), not a product with ``1 / keep_prob``,
-which rounds differently in bf16. Rate 0 returns x, rate 1 zeros, as flax
-does without drawing a mask.
+which rounds differently in bf16. At a site (``models/layers.py:
+apply_dropout``) rate 0 returns x and rate 1 zeros, as flax does without
+drawing a mask.
 
 Masks are element-wise over the whole tensor, one per dropout site, a site
 being the flax module path of the ``nn.Dropout`` the JAX module creates
@@ -38,13 +39,11 @@ _MUL = (0x7FEB352D, 0x1B873593)
 def dropout(x: torch.Tensor, keep_mask: torch.Tensor,
             rate: float) -> torch.Tensor:
     """flax ``nn.Dropout(rate)`` in train mode on x with the bool keep mask
-    ``keep_mask`` (x's shape): ``where(mask, x / keep, 0)`` in x's dtype,
-    ``keep = 1 - rate``. The divisor is a 0-d host tensor, which a device
-    op reads as a launch argument (no host-to-device copy)."""
-    if rate == 0.0:
-        return x
-    if rate == 1.0:
-        return torch.zeros_like(x)
+    ``keep_mask`` (x's shape), for 0 < rate < 1 (the caller,
+    ``models/layers.py:apply_dropout``, returns x at rate 0 and zeros at
+    rate 1): ``where(mask, x / keep, 0)`` in x's dtype, ``keep = 1 - rate``.
+    The divisor is a 0-d host tensor, which a device op reads as a launch
+    argument (no host-to-device copy)."""
     if keep_mask.shape != x.shape:
         raise ValueError(f"keep_mask must be {tuple(x.shape)}; got "
                          f"{tuple(keep_mask.shape)}")

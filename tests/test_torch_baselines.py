@@ -12,10 +12,9 @@ train step of a narrow MaxViT against the JAX step, every full-width
 parameter count against JAX's (the port's built on the ``meta`` device,
 JAX's from ``jax.eval_shape``), and the baseline CLI in a subprocess.
 
-Bars: 1e-4 on fp32 logits (5e-4 for the train mode of ResNet-50 and
-EfficientNetV2-S at full width, ``TRAIN_AT``), BN statistics a tenth of
-that, the
-partition bitwise; bf16 logits
+Bars: 1e-4 on fp32 logits and 1e-5 on BN statistics (ResNet-50's and
+EfficientNetV2-S's train mode at full width just above the port's
+readings, ``TRAIN_AT``), the partition bitwise; bf16 logits
 within 2e-2 of max |fp32 logits| of JAX's bf16 ones; one fp32 train step as
 ``tests/test_torch_dropout.py`` holds it.
 """
@@ -115,12 +114,18 @@ NARROW = {
         lambda **kw: tb.SwinTiny(10, 2, (16, 32), (2, 2), img=16, **kw), 16),
 }
 BATCH = 3
-# train mode of the full-width deep CNNs: at 8 px their last stages'
-# batch statistics come from a handful of values, and the fast variance
-# cancels so badly that JAX's jitted and eager forwards disagree by 1.7e-2;
-# at 32 px and batch 4 JAX's own spread is 3.6e-5 (ResNet-50) and 1.1e-5
-# (EfficientNetV2-S), and the port is held to 5e-4 there
-TRAIN_AT = {"resnet50_cifar": (32, 4, 5e-4), "effnetv2_s": (32, 4, 5e-4)}
+# train mode of the full-width deep CNNs, (px, batch, logits bar, BN
+# statistics bar): at 8 px their last stages' batch statistics come from a
+# handful of values, and the fast variance cancels so badly that JAX's
+# jitted and eager forwards disagree by 1.7e-2, so they run at 32 px and
+# batch 4. There the port reads 1.37e-4 on ResNet-50's logits and 2.45e-5
+# on EfficientNetV2-S's statistics (in allclose's units, |d| / (1 + |x|)),
+# the rest under the default bars. Both are JAX's fp32 statistics more than
+# the port's: against a forward whose batch statistics are summed in fp64,
+# JAX's jitted logits are 1.28e-4 off and the port's 3.4e-5 (ResNet-50),
+# JAX's statistics 2.56e-5 off and the port's 1.34e-5 (EfficientNetV2-S)
+TRAIN_AT = {"resnet50_cifar": (32, 4, 1.5e-4, 1.5e-5),
+            "effnetv2_s": (32, 4, 1e-4, 3e-5)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,7 +187,8 @@ def test_baseline_logits_match_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
     # train mode: batch statistics (the zoo's drop-path rates are 0)
-    img, batch, tol = TRAIN_AT.get(name, (img, BATCH, 1e-4))
+    img, batch, tol, stats_tol = TRAIN_AT.get(name, (img, BATCH, 1e-4,
+                                                     1e-5))
     x = np.random.default_rng(2).normal(size=(batch, img, img, 3)).astype(
         np.float32)
     want, upd = jax.jit(lambda v, x: jmod.apply(
@@ -197,8 +203,8 @@ def test_baseline_logits_match_jax(name):
                              port.flax_renames)
     assert set(stats) == {k for k, _ in port.named_buffers()}
     for k, b in port.named_buffers():
-        np.testing.assert_allclose(b.numpy(), stats[k], atol=tol / 10,
-                                   rtol=tol / 10, err_msg=k)
+        np.testing.assert_allclose(b.numpy(), stats[k], atol=stats_tol,
+                                   rtol=stats_tol, err_msg=k)
     port.load_state_dict(saved)
     port.eval()
 

@@ -239,9 +239,12 @@ def test_dropout_is_flax_dropout(dtype, rate):
 
 def test_dropout_rate_one_zero_and_eval():
     x = _t(np.random.default_rng(0).normal(size=(2, 3)).astype(np.float32))
-    mask = torch.ones(2, 3, dtype=torch.bool)
-    assert torch.equal(dropout(x, mask, 1.0), torch.zeros_like(x))
-    assert dropout(x, mask, 0.0) is x
+    masks = DropPathMasks({}, dropout={"d": torch.ones(2, 3,
+                                                       dtype=torch.bool)})
+    # rate 1 and rate 0 are the site's (apply_dropout), with masks or not
+    assert torch.equal(tlayers.apply_dropout(x, 1.0, masks, "d", True),
+                       torch.zeros_like(x))
+    assert tlayers.apply_dropout(x, 0.0, masks, "d", True) is x
     jx = jnp.asarray(x.numpy())
     np.testing.assert_array_equal(np.asarray(nn.Dropout(1.0).apply(
         {}, jx, deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})),
@@ -416,6 +419,53 @@ def test_dispatch_under_each_rate_alone(monkeypatch, mode, rate):
     if rate == "ffn_drop":  # every MLP unfused
         want["mlp"] = 0
     assert calls == {k: want.get(k, 0) for k in SPIED}, calls
+
+
+# ---- eval mode: the rates change nothing, on every path ---------------------
+
+def _eval_masks(with_masks):
+    return (DropPathMasks({}, dropout=HashedDropout(
+        0, torch.zeros((), dtype=torch.int32))) if with_masks else None)
+
+
+@pytest.mark.parametrize("with_masks", [False, True],
+                         ids=["no_masks", "masks"])
+@pytest.mark.parametrize("grid", [4, 1], ids=["n4", "n64"])
+def test_xla_attention_eval_is_dropout_free(grid, with_masks):
+    # the plain einsum path (use_pallas: false) in eval mode is flax's
+    # deterministic Dropout: x, with or without masks
+    B, H, C, heads = 2, 8, 16, 2
+    x = _t(np.random.default_rng(8).normal(size=(B, H, H, C)).astype(
+        np.float32))
+    ln = tlayers.LayerNorm(C, 1e-5)
+    drop = tblocks.GridAttention2D(C, heads, grid, xla=True, attn_drop=0.2,
+                                   proj_drop=0.3)
+    clean = tblocks.GridAttention2D(C, heads, grid, xla=True)
+    clean.load_state_dict(drop.state_dict())
+    _site_names(drop)
+    with torch.no_grad():
+        got = drop.eval()(x, ln, _eval_masks(with_masks))
+        want = clean.eval()(x, ln)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("with_masks", [False, True],
+                         ids=["no_masks", "masks"])
+@pytest.mark.parametrize("use_pallas", [False, "fused_agg"],
+                         ids=["xla", "fused_agg"])
+@pytest.mark.parametrize("cfg", [TINY_A, TINY_B], ids=["model_a", "model_b"])
+def test_eval_logits_are_dropout_free(cfg, use_pallas, with_masks):
+    clean = dict(cfg, use_pallas=use_pallas, stages=[
+        {k: v for k, v in st.items() if k not in RATES}
+        for st in cfg["stages"]])
+    drop = build_model(dict(cfg, use_pallas=use_pallas), device="cpu",
+                       seed=3)
+    base = build_model(clean, device="cpu", seed=3)
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        got = drop.eval()(x, _eval_masks(with_masks))
+        want = base.eval()(x)
+    assert torch.equal(got, want)
 
 
 # ---- train steps of tiny Model A and Model B against the JAX step ----------
