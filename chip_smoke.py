@@ -175,6 +175,31 @@ replay, the kernel families launched or absent); and ``Smoke.remat``: one
 bitwise the step without remat eagerly and through the K = 2 train graph,
 with each policy's peak memory and step time.
 
+Phase ``parallel`` (last, ``Smoke.parallel``) drives data × model
+parallelism (``outgridvit_tpu_torch/parallel``) on the 7M at full width,
+bf16, batch 128, uint8 in with the yaml's recipe. (a) A world of one
+through NCCL (a free TCP port on localhost): ``PAR_STEPS`` eager train
+steps and the K = ``PAR_K`` train graph on mesh (1, 1), whose gradient and
+metric all-reduces run in the step and in the graph, are bitwise the plain
+single-device steps and graph from the same state (every parameter, BN
+statistic, AdamW moment and metric; the eager-vs-eager difference bounds
+it, as in ``train_graph``), with #1 and #2 launched inside the distributed
+step as often as in the plain one; the K = ``PAR_K`` eval graph and
+``build_predictor(mesh=make_mesh())`` are bitwise the plain ones; each is
+timed against the plain one in turns. (b) Two ranks on the one card
+(spawned processes of this script, gloo on CUDA tensors: NCCL takes one
+rank a card), ``PAR_STEPS`` eager steps each: mesh (2, 1) against (a)'s
+eager steps (losses within ``BF16_LOSS_TOL``; AdamW's first moments and
+the parameters' updates in relative norm, each within the world of one's
+own bf16-vs-fp32 difference; BN statistics within ``KERNEL_TOL``), the
+same 2 steps in fp32 within the fp32 bars (``STEP_LOSS_TOL``;
+``STEP_GRAD_TOL`` on the moments in relative norm; the updates reported), mesh
+(1, 2) against (a) within the fp32 bars (its ranks hold the world of
+one's rows and sums) and against (2, 1)'s losses within the bf16 bar, #1
+and #2 launched in every rank ``PAR_STEPS`` times as often as in (a)'s
+plain step, on its local rows (64 on (2, 1)), and the mesh predictor's
+labels against (a)'s.
+
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
@@ -566,6 +591,11 @@ STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL, STEP_STAT_TOL = (
 # bf16 kernel step vs the fp32 plain step: loss relative (bf16 keeps ~3
 # significant digits through the blocks).
 BF16_LOSS_TOL = 3e-2
+
+# phase parallel: eager steps a check, the graphs' K, the seconds a
+# collective waits for the other rank
+PAR_STEPS, PAR_K, PAR_TIMEOUT_S = 2, 2, 300.0
+PAR_TIMED = 5
 
 # name -> (source, or sources, the TPU kernel it replaces, the JAX entry
 # points it covers). grid_mhsa: csrc/grid_mhsa_th.cu for every bf16 launch
@@ -3978,6 +4008,379 @@ class Smoke:
               f"--epochs 1 (batch {TRAIN_BATCH}, {ZOO_CLI_TRAIN} train "
               f"images) ok in {secs:.1f} s [{self.gpu}]")
 
+    # -- phase parallel: data x model parallelism ---------------------------
+    def _par_setup(self):
+        """The 7M model's config, train-step config and schedule, and a
+        batch of ``PAR_K`` x 128 uint8 images and labels from the seed."""
+        import torch
+
+        from outgridvit_tpu_torch.ops.augment import AugmentConfig
+        from outgridvit_tpu_torch.training.optim import warmup_cosine_lr
+        from outgridvit_tpu_torch.training.steps import StepConfig
+
+        T = FLAGSHIP.train
+        sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
+        cfg = StepConfig(
+            num_classes=FLAGSHIP_MODEL_CFG["num_classes"],
+            label_smoothing=T["label_smoothing"],
+            mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
+            mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
+            augment=AugmentConfig(mean=FLAGSHIP.mean, std=FLAGSHIP.std,
+                                  crop_pad=FLAGSHIP.crop_pad))
+        gen = torch.Generator().manual_seed(SEED + 26)
+        x = torch.randint(0, 256, (PAR_K, TRAIN_BATCH, 32, 32, 3),
+                          dtype=torch.uint8, generator=gen)
+        y = torch.randint(0, FLAGSHIP_MODEL_CFG["num_classes"],
+                          (PAR_K, TRAIN_BATCH), generator=gen).to(
+                              torch.int32)
+        return cfg, sched, x, y
+
+    def _par_fp32(self, cfg, sched, x, y, mesh=None):
+        """``PAR_STEPS`` eager 7M steps in fp32 (the FMA kernels) from the
+        seed's weights, on ``mesh`` (the rank's rows) or one device: the
+        losses, AdamW's first moments and the parameters' updates
+        (:func:`updates`), whole, on the host."""
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.parallel import shard_train_state
+        from outgridvit_tpu_torch.parallel.mesh import batch_sharding
+        from outgridvit_tpu_torch.training.checkpoints import _tree
+        from outgridvit_tpu_torch.training.optim import AdamW
+        from outgridvit_tpu_torch.training.steps import make_train_step
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        T = FLAGSHIP.train
+        model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.float32,
+                            device=x.device, seed=SEED)
+        start = params_of(model)
+        state = TrainState.create(model, AdamW(sched, T["weight_decay"],
+                                               T["grad_clip_norm"]))
+        rows = (lambda t: t) if mesh is None else batch_sharding(mesh).local
+        if mesh is not None:
+            state = shard_train_state(state, mesh)
+        step, losses = make_train_step(cfg, sched), []
+        for i in range(PAR_STEPS):
+            state, m = step(state, (rows(x[i]), rows(y[i])), seed=SEED)
+            losses.append(float(m["loss"]))
+        tree = _tree(state)
+        return losses, {f"mu.{k}": v.float().cpu() for k, v in
+                        tree["opt_state"]["mu"].items()}, updates(
+                            tree["model"], start)
+
+    def parallel(self):
+        """Phase ``parallel``: (a) a world of one through NCCL
+        (:meth:`parallel_one`), then (b) two gloo ranks sharing the card
+        (:meth:`parallel_two`)."""
+        import tempfile
+
+        t0 = time.perf_counter()
+        self.par_results = {}
+        with tempfile.TemporaryDirectory(prefix="ogvt_par_") as tmp:
+            self.parallel_one(tmp)
+            import torch
+
+            torch.cuda.empty_cache()
+            self.parallel_two(tmp)
+        print(f"[parallel] results {json.dumps(self.par_results)}")
+        print(f"[parallel] phase seconds {time.perf_counter() - t0:.1f}")
+
+    def parallel_one(self, tmp):
+        import dataclasses
+        import socket
+
+        import numpy as np
+        import torch
+
+        from outgridvit_tpu_torch.models import build_model
+        from outgridvit_tpu_torch.parallel import distributed, make_mesh
+        from outgridvit_tpu_torch.parallel import shard_train_state
+        from outgridvit_tpu_torch.serving import build_predictor
+        from outgridvit_tpu_torch.training.optim import AdamW
+        from outgridvit_tpu_torch.training.steps import (
+            TrainSuperstep,
+            make_eval_superstep,
+            make_train_step,
+            make_train_superstep,
+        )
+        from outgridvit_tpu_torch.training.train_state import TrainState
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        require(distributed.initialize(f"localhost:{port}", 1, 0,
+                                       device="cuda",
+                                       timeout_s=PAR_TIMEOUT_S),
+                "parallel: no process group")
+        try:
+            distributed.warmup_collectives()
+            mesh = make_mesh()
+            require(mesh.active and mesh.backend == "nccl"
+                    and mesh.shape == {"data": 1, "model": 1},
+                    f"parallel: mesh {mesh}")
+            print(f"[parallel] world of one: {mesh} on "
+                  f"{distributed.device()}")
+            cfg, sched, x, y = self._par_setup()
+            x, y = x.to(self.dev), y.to(self.dev)
+            T = FLAGSHIP.train
+            states = {}
+            for name in ("plain", "dp"):
+                model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.bfloat16,
+                                    device=self.dev, seed=SEED)
+                st = TrainState.create(model, AdamW(
+                    sched, T["weight_decay"], T["grad_clip_norm"]))
+                states[name] = (shard_train_state(st, mesh) if name == "dp"
+                                else st)
+            require(states["dp"].model.parallel_mesh is mesh
+                    and states["plain"].model.state_dict().keys()
+                    == states["dp"].model.state_dict().keys(),
+                    "parallel: the dp state is not on the mesh")
+
+            def tensors(st):
+                named = {f"model.{k}": v for k, v in
+                         st.model.state_dict().items()}
+                for part in ("mu", "nu"):
+                    named.update((f"{part}.{k}", v) for k, v in
+                                 getattr(st.opt_state, part).items())
+                named["count"] = st.opt_state.count
+                named["device_step"] = st.device_step
+                return named
+
+            start = {k: v.detach().clone()
+                     for k, v in tensors(states["plain"]).items()}
+            start_params = params_of(states["plain"].model)
+
+            def from_start(name):
+                st = states[name]
+                with torch.no_grad():
+                    for k, v in tensors(st).items():
+                        v.copy_(start[k])
+                return dataclasses.replace(st, step=0)
+
+            step = make_train_step(cfg, sched)
+
+            def eager(name):
+                st, ms = from_start(name), []
+                for i in range(PAR_STEPS):
+                    st, m = step(st, (x[i], y[i]), seed=SEED)
+                    ms.append(m)
+                return st, {k: torch.stack([m[k] for m in ms])
+                            for k in ms[0]}
+
+            def result(st, metrics):
+                out = {k: v.detach().clone() for k, v in tensors(st).items()}
+                out.update((f"metric.{k}", v.clone())
+                           for k, v in metrics.items())
+                return out
+
+            def differ(a, b):
+                return {k: float((a[k].double() - b[k].double()).abs().max())
+                        for k in a if not torch.equal(a[k], b[k])}
+
+            def same(what, got, ref, ref2):
+                base, d = differ(ref2, ref), differ(got, ref)
+                print(f"[parallel] {what}: {len(got)} tensors; plain vs "
+                      f"plain {len(base)} differ, dp vs plain {len(d)} "
+                      "differ")
+                if base:
+                    require(all(v <= base.get(k, 0.0) for k, v in d.items()),
+                            f"{what}: beyond the plain-vs-plain difference: "
+                            f"{sorted(d.items())[:10]}")
+                else:
+                    require(not d, f"{what}: not bitwise the plain run: "
+                            f"{sorted(d.items())[:10]}")
+
+            names = ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
+                     "mlp_branch_bwd")
+            self.reset_counts()
+            plain = [result(*eager("plain")), result(*eager("plain"))]
+            per_step = {n: c // (2 * PAR_STEPS)
+                        for n, c in self.read_counts()[0].items()
+                        if n in names}
+            self.reset_counts()
+            dp = result(*eager("dp"))
+            counts, variants = self.read_counts()
+            self.record("parallel world of one, dp eager", counts, variants)
+            require(all(counts[n] == PAR_STEPS * per_step[n] > 0
+                        for n in names),
+                    f"parallel: the dp step launched {counts}, a plain step "
+                    f"{per_step}")
+            print(f"[parallel] #1 / #2 launches in {PAR_STEPS} dp steps "
+                  f"{ {n: counts[n] for n in names} } (a plain step "
+                  f"{per_step}); loss {dp['metric.loss'].tolist()}")
+            same(f"{PAR_STEPS} eager dp steps", dp, *plain)
+            self.par_one_eager = {k: v.cpu() for k, v in dp.items()
+                                  if k.startswith(("model.", "metric.",
+                                                   "mu."))}
+
+            # the K-step train graph: the NCCL all-reduces captured
+            supers = {n: make_train_superstep(cfg, sched, k=PAR_K)
+                      for n in ("plain", "dp")}
+            graph = {}
+            for name in ("plain", "dp"):
+                replays = TrainSuperstep.replays
+                self.reset_counts()
+                try:
+                    st, m = supers[name](from_start(name), (x, y), seed=SEED)
+                except Exception as e:
+                    print(f"[parallel] the {name} K={PAR_K} train graph "
+                          f"failed: {type(e).__name__}: {e}")
+                    raise
+                require(TrainSuperstep.replays == replays + 1,
+                        f"parallel {name} graph: no replay")
+                counts, variants = self.read_counts()
+                if name == "dp":
+                    self.record("parallel world of one, dp graph", counts,
+                                variants)
+                    require(all(counts[n] == (PAR_K + 1) * per_step[n]
+                                for n in names),
+                            f"parallel dp graph: launched {counts} "
+                            "(warm-up + capture)")
+                graph[name] = result(st, m)
+            graph_plain2 = result(*supers["plain"](from_start("plain"),
+                                                   (x, y), seed=SEED))
+            same(f"K={PAR_K} train graph, dp vs plain", graph["dp"],
+                 graph["plain"], graph_plain2)
+            print("[parallel] the NCCL all-reduces were captured in the "
+                  f"K={PAR_K} train graph and replayed")
+
+            def timed(fn, n=PAR_TIMED):
+                out = []
+                for _ in range(n):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    a.record()
+                    fn()
+                    b.record()
+                    torch.cuda.synchronize()
+                    out.append(a.elapsed_time(b))
+                return float(np.median(out))
+
+            def eager_steps(name):
+                st = from_start(name)
+
+                def go():
+                    nonlocal st
+                    for i in range(PAR_STEPS):
+                        st, _ = step(st, (x[i], y[i]), seed=SEED)
+                return go
+
+            def graph_steps(name):
+                st = from_start(name)
+                return lambda: supers[name](st, (x, y), seed=SEED)
+
+            ms = {}
+            for _ in range(PAR_TIMED):  # in turns, from the same state
+                for name in ("plain", "dp"):
+                    ms.setdefault(f"eager_{name}", []).append(timed(
+                        eager_steps(name), 1) / PAR_STEPS)
+                    ms.setdefault(f"graph_{name}", []).append(timed(
+                        graph_steps(name), 1) / PAR_K)
+            ms = {k: float(np.median(v)) for k, v in ms.items()}
+            print(f"[parallel] a batch-{TRAIN_BATCH} 7M train step, world of "
+                  f"one, median of {PAR_TIMED} in turns (host draws and "
+                  f"launches included): eager plain {ms['eager_plain']:.3f} "
+                  f"ms vs dp {ms['eager_dp']:.3f} ms; K={PAR_K} graph plain "
+                  f"{ms['graph_plain']:.3f} ms vs dp {ms['graph_dp']:.3f} "
+                  f"ms; {self.gpu}")
+
+            # the eval graph and the predictor on the mesh
+            evals = {}
+            for name in ("plain", "dp"):
+                sup = make_eval_superstep(
+                    states[name].model, normalize=(FLAGSHIP.mean,
+                                                   FLAGSHIP.std), k=PAR_K)
+                evals[name] = sup((x, y.long()))
+                evals[name + "2"] = sup((x, y.long()))
+            require(all(torch.equal(evals["dp"][k], evals["plain"][k])
+                        and torch.equal(evals["dp2"][k], evals["plain"][k])
+                        for k in evals["plain"]),
+                    f"parallel eval graph: {evals}")
+            print(f"[parallel] K={PAR_K} eval graph on the mesh bitwise the "
+                  f"plain one: {({k: v.tolist() for k, v in evals['dp'].items()})}")
+            req = x[0, :BATCH].cpu().numpy()
+            preds = {name: build_predictor(
+                FLAGSHIP_MODEL_CFG, batch_size=BATCH, mean=FLAGSHIP.mean,
+                std=FLAGSHIP.std, device=self.dev, seed=SEED,
+                mesh=mesh if name == "dp" else None)
+                for name in ("plain", "dp")}
+            outs = {n: p.predict(req) for n, p in preds.items()}
+            require(np.array_equal(outs["dp"][0], outs["plain"][0])
+                    and np.array_equal(outs["dp"][1], outs["plain"][1]),
+                    "parallel: the mesh predictor is not bitwise the plain")
+            ips = {}
+            for _ in range(2):
+                for n, p in preds.items():
+                    ips.setdefault(n, []).append(BATCH * 1e3 / timed(
+                        lambda p=p: p.predict(req)))
+            ips = {n: float(np.median(v)) for n, v in ips.items()}
+            print(f"[parallel] build_predictor(mesh=make_mesh()) bitwise the "
+                  f"plain predictor; batch-{BATCH} serving {ips['plain']:.1f} "
+                  f"vs {ips['dp']:.1f} img/s (plain vs mesh); {self.gpu}")
+            np.savez(f"{tmp}/one.npz", labels=outs["plain"][0],
+                     probs=outs["plain"][1], request=req)
+            torch.save({**self.par_one_eager, **updates(
+                {k.removeprefix("model."): v
+                 for k, v in self.par_one_eager.items()}, start_params)},
+                f"{tmp}/one.pt")
+            # the fp32 steps: the reference a rank's fp32 steps are held to,
+            # and with the bf16 ones the error bf16 itself carries
+            torch.save(dict(zip(("loss", "mu", "upd"), self._par_fp32(
+                cfg, sched, x, y))), f"{tmp}/one32.pt")
+            self.par_results["one"] = {
+                "eager_ms": [ms["eager_plain"], ms["eager_dp"]],
+                "graph_ms": [ms["graph_plain"], ms["graph_dp"]],
+                "serve_img_s": [ips["plain"], ips["dp"]],
+                "launches_per_step": per_step}
+            del states, supers, preds
+        finally:
+            distributed.shutdown()
+
+    def parallel_two(self, tmp):
+        """Two ranks on the one card (gloo), spawned from this script;
+        their results checked here."""
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--parallel-rank", str(r), str(port),
+             tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                if line.startswith("[parallel"):
+                    print(line)
+            require(p.returncode == 0, f"parallel rank {r} exited "
+                    f"{p.returncode}:\n{out[-4000:]}")
+        res = [json.loads(open(f"{tmp}/rank{r}.json").read())
+               for r in range(2)]
+        per_step = self.par_results["one"]["launches_per_step"]
+        for r, got in enumerate(res):
+            for mesh, run in got["runs"].items():
+                require(run["rows"] == [TRAIN_BATCH // run["data"]],
+                        f"rank {r} {mesh}: the model saw rows {run['rows']}")
+                require(run["launches"] == {n: PAR_STEPS * c for n, c in
+                                            per_step.items()},
+                        f"rank {r} {mesh}: launches {run['launches']}, a "
+                        f"plain step {per_step}")
+        self.par_results["two"] = {"seconds": time.perf_counter() - t0,
+                                   "ranks": res}
+        print(f"[parallel] two gloo ranks on one card: {json.dumps(res)}; "
+              f"{time.perf_counter() - t0:.1f} s; {self.gpu}")
+
     def kernels_line(self):
         out = []
         for name, (source, replaces, covers) in SOURCES.items():
@@ -4014,9 +4417,212 @@ class Smoke:
         return out
 
 
+def params_of(model) -> dict:
+    """The model's parameters (not its buffers) by name, fp32, on the host:
+    whole before the model is placed on a mesh."""
+    return {k: p.detach().float().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def updates(final: dict, start: dict) -> dict:
+    """``upd.<name>``: what the steps moved each parameter of ``start`` by
+    (``final``: the whole tensors by name after the steps). Two runs'
+    updates are held in relative norm: a parameter's max abs gap cannot
+    fail, since AdamW moves a parameter by at most about lr a step, noise
+    included."""
+    return {f"upd.{k}": final[k].float().cpu() - v for k, v in start.items()}
+
+
+def rel_norm(a: dict, b: dict) -> float:
+    """``|a - b| / |b|`` over every tensor of ``b`` (by name)."""
+    diff = sum(float((a[k].double() - b[k].double()).square().sum())
+               for k in b)
+    return math.sqrt(diff / sum(float(b[k].double().square().sum())
+                                for k in b))
+
+
+def parallel_rank(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase ``parallel``'s part (b): gloo on the card, shared
+    with the other rank. PAR_STEPS eager 7M steps on mesh (2, 1) and on
+    (1, 2), held against the world of one's eager steps (``tmp/one.pt``)
+    and each other, then the mesh predictor's labels against the world of
+    one's (``tmp/one.npz``); results to ``tmp/rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from outgridvit_tpu_torch.models import build_model
+    from outgridvit_tpu_torch.ops import kernel_build
+    from outgridvit_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+        shard_train_state,
+    )
+    from outgridvit_tpu_torch.serving import build_predictor
+    from outgridvit_tpu_torch.training.checkpoints import _tree
+    from outgridvit_tpu_torch.training.optim import AdamW
+    from outgridvit_tpu_torch.training.steps import make_train_step
+    from outgridvit_tpu_torch.training.train_state import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel_build.build()  # the parent's build, from the cache
+    kernel_build.load()
+    kernel_build.load_layouts()
+    require(distributed.initialize(
+        f"localhost:{port}", 2, rank, device="cuda", backend="gloo",
+        local_device_ids=0, timeout_s=PAR_TIMEOUT_S), "no process group")
+    try:
+        distributed.warmup_collectives()
+        dev = distributed.device()
+        smoke = Smoke(dev, "")
+        cfg, sched, x, y = smoke._par_setup()
+        x, y = x.to(dev), y.to(dev)
+        ref = torch.load(f"{tmp}/one.pt")
+        ref32 = torch.load(f"{tmp}/one32.pt")
+        T = FLAGSHIP.train
+        names = ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
+                 "mlp_branch_bwd")
+        out = {"rank": rank, "runs": {}}
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_mesh(shape)
+            tag = f"mesh{shape[0]}x{shape[1]}"
+            model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.bfloat16,
+                                device=dev, seed=SEED)
+            start = params_of(model)
+            rows_seen = []
+            hook = model.register_forward_pre_hook(
+                lambda m, a: rows_seen.append(int(a[0].shape[0])))
+            state = shard_train_state(TrainState.create(model, AdamW(
+                sched, T["weight_decay"], T["grad_clip_norm"])), mesh)
+            b = TRAIN_BATCH // mesh.data.size
+            rows = slice(mesh.data.index * b, (mesh.data.index + 1) * b)
+            step = make_train_step(cfg, sched)
+            smoke.reset_counts()
+            losses, lrs, ms = [], [], []
+            for i in range(PAR_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                state, m = step(state, (x[i, rows], y[i, rows]), seed=SEED)
+                e.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(e))
+                losses.append(float(m["loss"]))
+                lrs.append(float(m["lr"]))
+            hook.remove()
+            counts = smoke.read_counts()[0]
+            tree = _tree(state)
+            whole = {f"model.{k}": v.float().cpu()
+                     for k, v in tree["model"].items()}
+            mu = {f"mu.{k}": v.float().cpu()
+                  for k, v in tree["opt_state"]["mu"].items()}
+            upd = updates({k.removeprefix("model."): v
+                           for k, v in whole.items()}, start)
+            want_loss = ref["metric.loss"].tolist()
+            loss_err = max(abs(g - w) / abs(w)
+                           for g, w in zip(losses, want_loss))
+            stat_err = max(float(((v - ref[k].float()).abs()
+                                  / (1 + ref[k].float().abs())).max())
+                           for k, v in whole.items() if "running_" in k)
+            # AdamW's first moments (mostly the steps' gradients) and the
+            # parameters' updates, in relative norm
+            mu_err = rel_norm(mu, {k: ref[k] for k in mu})
+            upd_err = rel_norm(upd, {k: ref[k] for k in upd})
+            if tag == "mesh2x1":
+                # a split batch in bf16: within the error bf16 itself
+                # carries (the world of one's bf16 against its fp32)
+                tol = {"loss": BF16_LOSS_TOL, "stat": KERNEL_TOL["bfloat16"],
+                       "mu": rel_norm({k: ref[k] for k in mu}, ref32["mu"]),
+                       "upd": rel_norm({k: ref[k] for k in upd},
+                                       ref32["upd"])}
+            else:
+                # the world of one's rows and sums, the weights gathered:
+                # the fp32 bars
+                tol = {"loss": STEP_LOSS_TOL, "stat": STEP_STAT_TOL,
+                       "mu": STEP_GRAD_TOL, "upd": STEP_GRAD_TOL}
+            run = {"data": mesh.data.size, "model": mesh.model.size,
+                   "rows": sorted(set(rows_seen)),
+                   "launches": {n: counts[n] for n in names},
+                   "loss": losses, "loss_err_vs_one": loss_err,
+                   "mu_err_vs_one": mu_err, "upd_err_vs_one": upd_err,
+                   "stat_err_vs_one": stat_err, "tol": tol, "step_ms": ms}
+            print(f"[parallel rank {rank}] {tag}: rows {run['rows']}, "
+                  f"launches {run['launches']}, loss {losses} vs the world "
+                  f"of one {want_loss}: rel err {loss_err:.2e} (tol "
+                  f"{tol['loss']:g}); AdamW mu |diff| / |mu| {mu_err:.2e} "
+                  f"(tol {tol['mu']:.3g}); param updates |diff| / |upd| "
+                  f"{upd_err:.2e} (tol {tol['upd']:.3g}); BN stats rel err "
+                  f"{stat_err:.2e} (tol {tol['stat']:g}); eager step ms "
+                  f"{ms} (the first pays the rank's first collectives and "
+                  "kernel loads)")
+            for what, err in (("loss", loss_err), ("mu", mu_err),
+                              ("upd", upd_err), ("stat", stat_err)):
+                require(err <= tol[what], f"{tag}: {what} vs one {err} > "
+                        f"{tol[what]}")
+            if tag == "mesh2x1":  # the same steps in fp32: the maths
+                # the updates are reported, not held: AdamW divides each
+                # element by its own gradient's size, so an element with a
+                # small gradient carries the sums' fp32 rounding into its
+                # update; the moments hold the gradients
+                l32, mu32, upd32 = smoke._par_fp32(cfg, sched, x, y, mesh)
+                loss32 = max(abs(a - b) / abs(b)
+                             for a, b in zip(l32, ref32["loss"]))
+                mu32_err = rel_norm(mu32, ref32["mu"])
+                upd32_err = rel_norm(upd32, ref32["upd"])
+                upd32_max = max(float((v - ref32["upd"][k]).abs().max())
+                                for k, v in upd32.items()) / sum(lrs)
+                run.update(fp32_loss_err_vs_one=loss32,
+                           fp32_mu_err_vs_one=mu32_err,
+                           fp32_upd_err_vs_one=upd32_err,
+                           fp32_upd_max_err_over_lr=upd32_max)
+                print(f"[parallel rank {rank}] mesh2x1 fp32: loss {l32} vs "
+                      f"the world of one {ref32['loss']}: rel err "
+                      f"{loss32:.2e} (tol {STEP_LOSS_TOL:g}); AdamW mu "
+                      f"|diff| / |mu| {mu32_err:.2e} (tol "
+                      f"{STEP_GRAD_TOL:g}); param updates |diff| / |upd| "
+                      f"{upd32_err:.2e}, max |diff| {upd32_max:.3f} of the "
+                      "steps' summed lr (reported)")
+                require(loss32 <= STEP_LOSS_TOL, "mesh2x1 fp32: loss vs one")
+                require(mu32_err <= STEP_GRAD_TOL, "mesh2x1 fp32: mu vs one")
+            if tag == "mesh1x2":
+                loss12 = max(abs(a - b) / abs(b) for a, b in zip(
+                    losses, out["runs"]["mesh2x1"]["loss"]))
+                run["loss_err_vs_2x1"] = loss12
+                print(f"[parallel rank {rank}] mesh1x2 vs mesh2x1: loss rel "
+                      f"err {loss12:.2e} (tol {BF16_LOSS_TOL:g})")
+                require(loss12 <= BF16_LOSS_TOL,
+                        "mesh (1, 2) disagrees with (2, 1)")
+            out["runs"][tag] = run
+            del state, model
+            torch.cuda.empty_cache()
+        one = np.load(f"{tmp}/one.npz")
+        pred = build_predictor(FLAGSHIP_MODEL_CFG, batch_size=BATCH,
+                               mean=FLAGSHIP.mean, std=FLAGSHIP.std,
+                               device=dev, seed=SEED, mesh=make_mesh((2, 1)))
+        labels, probs = pred.predict(one["request"])
+        top2 = np.sort(one["probs"], axis=-1)[:, -2:]
+        close = (top2[:, 1] - top2[:, 0]) < KERNEL_TOL["bfloat16"]
+        flips = labels != one["labels"]
+        out["serve"] = {"flips": int(flips.sum()),
+                        "probs_err": float(np.abs(probs - one["probs"]).max())}
+        print(f"[parallel rank {rank}] mesh predictor: {int(flips.sum())} of "
+              f"{len(labels)} labels differ from the world of one's (all "
+              f"within a top-2 margin of {KERNEL_TOL['bfloat16']:g}); probs "
+              f"max abs err {out['serve']['probs_err']:.2e}")
+        require(not (flips & ~close).any(), "mesh predictor: labels differ")
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -4068,7 +4674,7 @@ def main() -> int:
             smoke.ab_outlook()
         torch.cuda.empty_cache()
         print(f"[phase] {case.tag} done at {time.perf_counter() - t0:.1f} s")
-    for phase in ("loop", "evaluate", "analyze", "zoo"):
+    for phase in ("loop", "evaluate", "analyze", "zoo", "parallel"):
         getattr(smoke, phase)()
         torch.cuda.empty_cache()
         print(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")

@@ -4,8 +4,9 @@ deterministic, threaded array loader and a device prefetcher.
 ``ArrayDataLoader`` is the JAX package's loader, numpy for numpy: the same
 seeded batch order per ``(seed, epoch)`` (``set_epoch``), the same per-image
 generator ``(seed, epoch, index)`` for the host transform, so for the same
-seed it yields the same batches, in the same order, bit for bit. It keeps
-one process's view (the JAX multi-process rows are not ported).
+seed it yields the same batches, in the same order, bit for bit. Under data
+parallelism (``process_id`` / ``process_count``) it yields one data rank's
+rows of every global batch, as the JAX loader yields one process's.
 
 ``Prefetcher`` moves batches to the card ahead of the consumer: each numpy
 array is pinned and copied on a copy stream of its own, the consumer's
@@ -50,12 +51,19 @@ class ArrayDataLoader:
       labels: int array [N].
       transform: callable (img_uint8_hwc, np.random.Generator) -> HWC array.
       num_threads: transform worker threads (PIL and numpy release the GIL).
+      process_id, process_count: this data rank and the number of data
+        ranks. ``batch_size`` stays the global batch; every rank walks the
+        same seeded order and makes only its rows ``[p*B/P, (p+1)*B/P)`` of
+        each global batch. ``drop_last`` is forced on (a ragged global
+        tail cannot split evenly), and a batch that does not divide raises.
+        ``split`` sets them on a loader already built.
     """
 
     def __init__(self, images, labels: np.ndarray, batch_size: int,
                  shuffle: bool = False, transform: Optional[Callable] = None,
                  seed: int = 0, drop_last: bool = False, num_threads: int = 8,
-                 lookahead: int = 4):
+                 lookahead: int = 4, process_id: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self.images = images
         self.labels = np.asarray(labels)
         self.n = len(self.labels)
@@ -68,8 +76,24 @@ class ArrayDataLoader:
         self.lookahead = lookahead
         self.epoch = 0
         self._pool = None  # persistent transform pool, created lazily
+        self.split(process_id or 0, process_count or 1)
         if self.n == 0:
             raise ValueError("empty dataset")
+
+    def split(self, process_id: int, process_count: int) -> None:
+        """Yield data rank ``process_id``'s rows of every global batch, of
+        ``process_count`` data ranks (the constructor's arguments)."""
+        process_id, process_count = int(process_id), int(process_count)
+        if not 0 <= process_id < process_count:
+            raise ValueError(f"process_id {process_id} out of range "
+                             f"[0, {process_count})")
+        if process_count > 1:
+            if self.batch_size % process_count != 0:
+                raise ValueError(
+                    f"global batch {self.batch_size} not divisible by "
+                    f"{process_count} processes")
+            self.drop_last = True
+        self.process_id, self.process_count = process_id, process_count
 
     def __del__(self):  # pragma: no cover
         try:
@@ -113,6 +137,10 @@ class ArrayDataLoader:
         order = self._order()
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.process_count > 1:  # this rank's rows of every batch
+            loc = self.batch_size // self.process_count
+            lo = self.process_id * loc
+            batches = [b[lo:lo + loc] for b in batches]
         if self.lookahead <= 1:
             for b in batches:
                 yield self._make_batch(b)

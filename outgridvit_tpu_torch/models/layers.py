@@ -59,9 +59,17 @@ class BatchNorm(nn.Module):
     and updates the running statistics with that **biased** variance at
     flax momentum 0.9 (``ra = 0.9 ra + 0.1 batch``; ``torch.nn.BatchNorm2d``
     would use the unbiased one), except in a rematerialized block's
-    recompute, which must not update them a second time."""
+    recompute, which must not update them a second time.
+
+    On a mesh (``parallel/mesh.py:shard_model`` sets ``data_axis``) the
+    train-mode statistics cover the global batch, as GSPMD's mean over a
+    batch split on ``data`` does in JAX: the per-channel ``sum(x)``,
+    ``sum(x^2)`` and the count are summed over the data group, gradients
+    flowing through the sum (SyncBatchNorm's maths on the fast variance).
+    With one rank on the data axis the expression is the one above."""
 
     momentum = 0.9
+    data_axis = None  # the mesh's data Axis (parallel/collectives.py)
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -75,8 +83,13 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x32.mean(dims)
-            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            axis = self.data_axis
+            if axis is None or axis.size == 1:
+                mean = x32.mean(dims)
+                var = torch.clamp((x32 * x32).mean(dims) - mean * mean,
+                                  min=0.0)
+            else:
+                mean, var = _global_moments(x32, dims, axis)
             m = self.momentum
             if not recomputing():
                 with torch.no_grad():
@@ -88,6 +101,20 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x32 - mean) * mul + self.bias).to(x.dtype)
+
+
+def _global_moments(x32, dims, axis):
+    """Mean and clamped fast variance of ``x32`` over ``dims`` and the
+    ranks of ``axis``: the local sums and count, summed over the axis."""
+    from outgridvit_tpu_torch.parallel.collectives import all_reduce_sum
+
+    C = x32.shape[-1]
+    count = x32.new_full((1,), float(x32.numel() // C))
+    sums = all_reduce_sum(torch.cat([x32.sum(dims), (x32 * x32).sum(dims),
+                                     count]), axis)
+    mean = sums[:C] / sums[2 * C]
+    var = torch.clamp(sums[C:2 * C] / sums[2 * C] - mean * mean, min=0.0)
+    return mean, var
 
 
 class DropPath(nn.Module):

@@ -41,16 +41,21 @@ class DropPathMasks:
     ``dropout`` is the forward's source of element-wise dropout keep masks
     (``ops/dropout.py``): a mapping of bool masks by dropout site path, or
     a :class:`~outgridvit_tpu_torch.ops.dropout.HashedDropout`; None where
-    no dropout is active."""
+    no dropout is active.
+
+    ``rows=(rows, global batch)``: the forward holds those rows of the
+    global batch (a data rank's, ``parallel/mesh.py``); the generator
+    draws each mask for the global batch and keeps the rows, the masks the
+    single device draws."""
 
     def __init__(self, masks: Optional[Mapping[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
                  record: Optional[List[Tuple[str, float]]] = None,
-                 dropout=None):
+                 dropout=None, rows: Optional[Tuple[slice, int]] = None):
         if (masks is None) == (generator is None):
             raise ValueError("give exactly one of masks and generator")
         self.masks, self.generator, self.record = masks, generator, record
-        self.dropout = dropout
+        self.dropout, self.rows = dropout, rows
         self.drawn: Dict[str, torch.Tensor] = {}
 
     def dropout_keep(self, path: str, rate: float, shape,
@@ -79,8 +84,11 @@ class DropPathMasks:
         else:
             if self.record is not None:
                 self.record.append((path, rate))
-            u = torch.rand(batch, generator=self.generator,
+            n = batch if self.rows is None else self.rows[1]
+            u = torch.rand(n, generator=self.generator,
                            device=self.generator.device)
+            if self.rows is not None:
+                u = u[self.rows[0]]
             mask = (u < 1.0 - rate).to(device)
         self.drawn[path] = mask
         return mask

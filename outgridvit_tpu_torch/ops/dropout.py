@@ -72,11 +72,20 @@ class HashedDropout:
     mixed from the seed, the site and ``step`` (a 0-d integer tensor on the
     device, read when the mask is made: the train state's ``device_step``,
     which the train step advances in place). Given a ``record`` list, each
-    mask appends ``(path, shape)`` to it."""
+    mask appends ``(path, shape)`` to it.
+
+    ``rows=(first, count)``: the tensors hold rows ``[first, first +
+    count)`` of the global batch (a data rank's, ``parallel/mesh.py``), the
+    batch leading and outermost (``[B * grids, ...]`` grid tensors
+    included), so an element's global flat index is its local one plus
+    ``first`` times the elements a row: the rank draws the single device's
+    masks of its rows."""
 
     def __init__(self, seed: int, step: torch.Tensor,
-                 record: Optional[List[Tuple[str, tuple]]] = None):
+                 record: Optional[List[Tuple[str, tuple]]] = None,
+                 rows: Optional[Tuple[int, int]] = None):
         self.seed, self.step, self.record = int(seed), step, record
+        self.rows = rows
 
     def key(self, path: str) -> torch.Tensor:
         """The site's key at the current step, a 0-d int64 device tensor."""
@@ -91,7 +100,15 @@ class HashedDropout:
         for d in shape:
             n *= int(d)
         k = self.key(path).to(device)
-        h = _mix(torch.arange(n, dtype=torch.int64, device=device) ^ k)
+        first = 0
+        if self.rows is not None:
+            lead, count = int(shape[0]), self.rows[1]
+            if lead % count:
+                raise ValueError(f"dropout '{path}' {tuple(shape)}: the "
+                                 f"leading axis is not {count} batch rows")
+            first = self.rows[0] * (n // count)
+        h = _mix(torch.arange(first, first + n, dtype=torch.int64,
+                              device=device) ^ k)
         return (h < round((1.0 - rate) * 2.0 ** 32)).reshape(shape)
 
 

@@ -57,6 +57,24 @@ class Classifier(nn.Module):
         return probs.argmax(dim=-1).to(torch.int32), probs
 
 
+class MeshClassifier(nn.Module):
+    """A :class:`Classifier` on a mesh's data axis: each rank classifies
+    its rows of the request and the labels and probabilities are gathered
+    over the data group, so every rank returns the whole result."""
+
+    def __init__(self, classifier: Classifier, mesh):
+        super().__init__()
+        self.classifier, self.mesh = classifier, mesh
+
+    def forward(self, images: torch.Tensor):
+        from outgridvit_tpu_torch.parallel.collectives import gather
+        from outgridvit_tpu_torch.parallel.mesh import batch_sharding
+
+        labels, probs = self.classifier(batch_sharding(self.mesh).local(
+            images))
+        return gather(labels, self.mesh.data), gather(probs, self.mesh.data)
+
+
 @dataclass(frozen=True)
 class Predictor:
     """``predict`` accepts 1..batch_size uint8 images [n, H, W, 3] (or one
@@ -133,6 +151,7 @@ def build_predictor(
     seed: int = 0,
     dwconv: str = "xla",
     attn_nhwc: bool = False,
+    mesh=None,
 ) -> Predictor:
     """Build a predictor from a model config and the JAX package's
     ``variables`` (numpy tree, loaded by
@@ -141,12 +160,27 @@ def build_predictor(
     :func:`~outgridvit_tpu_torch.training.checkpoints.load_model_variables`)
     or random weights from ``seed``; passing both ``variables`` and
     ``checkpoint`` raises. ``use_kernels``, ``dwconv`` and ``attn_nhwc`` as
-    in :func:`~outgridvit_tpu_torch.models.build_model`. ``mesh`` is not
-    ported (ROADMAP §1 item 11)."""
+    in :func:`~outgridvit_tpu_torch.models.build_model`.
+
+    ``mesh``: a ``parallel.Mesh`` whose data axis splits the request batch
+    (``batch_size`` must divide by it; the model on the rank's device is
+    whole, as JAX replicates its parameters): every rank calls ``predict``
+    with the same request and returns the whole result
+    (:class:`MeshClassifier`)."""
     if variables is not None and checkpoint:
         raise ValueError(
             "pass either live variables or a checkpoint path, not both "
             "(the checkpoint would be silently ignored)")
+    if mesh is not None:
+        from outgridvit_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be the port's parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if batch_size % mesh.data.size != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must divide over the data axis "
+                f"({mesh.data.size} devices)")
     model = build_model(model_cfg, dtype=dtype, use_kernels=use_kernels,
                         device=device, seed=seed, dwconv=dwconv,
                         attn_nhwc=attn_nhwc)
@@ -161,8 +195,11 @@ def build_predictor(
 
         load_model_variables(checkpoint, model)
     model.eval()
+    fn = Classifier(model, mean, std)
+    if mesh is not None and mesh.data.size > 1:
+        fn = MeshClassifier(fn, mesh)
     return Predictor(
-        fn=Classifier(model, mean, std), batch_size=batch_size,
+        fn=fn, batch_size=batch_size,
         img_size=img_size, num_classes=int(model_cfg.get("num_classes", 100)),
         mean=tuple(mean), std=tuple(std),
         device=next(model.parameters()).device,
@@ -184,6 +221,10 @@ def export_predictor(predictor: Predictor, path: str) -> None:
     if predictor.model is None:
         raise ValueError("export_predictor needs a live predictor "
                          "(build_predictor), not a loaded artifact")
+    if isinstance(predictor.fn, MeshClassifier):
+        raise ValueError("export_predictor takes a single-device predictor "
+                         "(build_predictor without a mesh of several data "
+                         "ranks): the artifact holds no collectives")
     example = torch.zeros(
         (predictor.batch_size, predictor.img_size, predictor.img_size, 3),
         dtype=torch.uint8, device=predictor.device)

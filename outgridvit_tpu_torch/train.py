@@ -9,9 +9,19 @@ CUDA device without a card exits non-zero; nothing falls back.
 ``--device-augment auto`` runs the augmentation recipe in the train step on
 the card and on the host on the CPU; ``--steps-per-dispatch`` defaults to 8
 on the card and 1 on the CPU. The configs are read by
-``utils/config.py:load_config`` (no PyYAML needed). ``--mesh`` and the
-``--dist-*`` flags are refused: data and model parallelism are not ported
-(ROADMAP §1 item 11).
+``utils/config.py:load_config`` (no PyYAML needed).
+
+Data × model parallelism, as the JAX script: one process per rank, the same
+flags everywhere but ``--dist-process-id`` (or ``torchrun``'s environment,
+or ``OUTGRIDVIT_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``);
+``--mesh D,M`` lays the ranks out as data × model (default: all on data).
+Each rank computes on ``cuda:(LOCAL_RANK % cards)`` with NCCL (which
+takes one rank a card), or on the CPU with gloo. The process group is
+joined before any CUDA work, the loaders yield each data rank's rows of the
+global batch, and only rank 0 logs and writes.
+
+    torchrun --nproc-per-node 2 -m outgridvit_tpu_torch.train \
+        --config configs/cifar100_model_a_7m.yaml --mesh 2,1
 """
 
 from __future__ import annotations
@@ -20,9 +30,6 @@ import argparse
 import sys
 from pathlib import Path
 from typing import Optional, Sequence
-
-_NOT_PORTED = ("data/model parallelism is not ported yet (ROADMAP §1 item "
-               "11): drop --mesh and the --dist-* flags")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -47,7 +54,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--no-amp", action="store_true",
                         help="Disable mixed precision (use fp32)")
     parser.add_argument("--seed", type=int, help="Override random seed")
-    parser.add_argument("--mesh", help="not ported: " + _NOT_PORTED)
+    parser.add_argument("--mesh",
+                        help="Device mesh as data,model (e.g. '4,2')")
     parser.add_argument(
         "--device-augment", choices=["auto", "on", "off"], default="auto",
         help="run the train augmentation recipe in the step on the device "
@@ -56,12 +64,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         "--steps-per-dispatch", type=int, default=None,
         help="group K full batches per host-to-device copy and K eval "
              "batches per CUDA graph (default: 8 on CUDA, 1 on the CPU)")
-    parser.add_argument("--dist-coordinator", default=None,
-                        help="not ported: " + _NOT_PORTED)
-    parser.add_argument("--dist-num-processes", type=int, default=None,
-                        help="not ported: " + _NOT_PORTED)
-    parser.add_argument("--dist-process-id", type=int, default=None,
-                        help="not ported: " + _NOT_PORTED)
+    # multi-process execution: one process per rank, the same flags
+    # everywhere except --dist-process-id; defaults also come from the
+    # OUTGRIDVIT_* and torchrun environments (parallel/distributed.py)
+    parser.add_argument(
+        "--dist-coordinator", default=None,
+        help="host:port of rank 0's store (enables torch.distributed)")
+    parser.add_argument(
+        "--dist-num-processes", type=int, default=None,
+        help="total number of processes in the distributed run")
+    parser.add_argument(
+        "--dist-process-id", type=int, default=None,
+        help="this process's rank in [0, num_processes)")
     parser.add_argument(
         "--history-out", default=None,
         help="pickle the training history dict after the run "
@@ -92,11 +106,6 @@ def resolve_device(name: str):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if args.mesh or any(v is not None for v in (
-            args.dist_coordinator, args.dist_num_processes,
-            args.dist_process_id)):
-        raise SystemExit(f"error: {_NOT_PORTED}")
-
     from outgridvit_tpu_torch.utils.config import load_config
 
     cfg = load_config(Path(args.config))
@@ -135,6 +144,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+    # the process group before any CUDA work; the rank's device after it
+    from outgridvit_tpu_torch.parallel import distributed
+
+    if distributed.initialize(
+            coordinator_address=args.dist_coordinator,
+            num_processes=args.dist_num_processes,
+            process_id=args.dist_process_id, device=device.type):
+        device = distributed.device()
+        distributed.warmup_collectives()
+    try:
+        return _train(args, cfg, device)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, cfg, device) -> int:
+    from outgridvit_tpu_torch.parallel import distributed
+
+    model_cfg = cfg.get("model", {})
+    data_cfg = cfg.get("data", {})
+    train_cfg = cfg.get("training", {})
+    runtime_cfg = cfg.get("runtime", {})
     on_card = device.type == "cuda"
 
     if "device_augment" not in data_cfg:
@@ -152,6 +184,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from outgridvit_tpu_torch.data import build_dataloaders
     from outgridvit_tpu_torch.models import build_model
+    from outgridvit_tpu_torch.parallel import make_mesh
     from outgridvit_tpu_torch.training.loop import _dtype_from_cfg, train_model
 
     seed = int(runtime_cfg.get("seed", 7))
@@ -166,6 +199,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     num_classes = int(model_cfg.get("num_classes", 100))
     train_loader, val_loader, _ = build_dataloaders(data_cfg, num_classes,
                                                     seed=seed)
+    mesh = make_mesh(tuple(int(x) for x in args.mesh.split(","))
+                     if args.mesh else None)
+    # per-rank input pipelines: each data rank's rows of every global batch
+    train_loader = distributed.shard_loader_for_process(train_loader, mesh)
+    val_loader = distributed.shard_loader_for_process(val_loader, mesh)
 
     save_path = Path(train_cfg.get("save_path", "best_model.ckpt"))
     last_path = Path(train_cfg.get("last_path", "last_model.ckpt"))
@@ -205,15 +243,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         early_stop_require_monotonic=bool(
             train_cfg.get("early_stop_require_monotonic", False)),
         seed=seed,
+        mesh=mesh,
         steps_per_dispatch=int(train_cfg.get("steps_per_dispatch", 1)),
     )
 
-    if args.history_out:
-        from outgridvit_tpu_torch.utils.history import save_history
+    if distributed.is_main_process():
+        if args.history_out:
+            from outgridvit_tpu_torch.utils.history import save_history
 
-        save_history(history, args.history_out)
-        print(f"History saved to {args.history_out}")
-    print("Training complete. History keys:", sorted(history.keys()))
+            save_history(history, args.history_out)
+            print(f"History saved to {args.history_out}")
+        print("Training complete. History keys:", sorted(history.keys()))
     return 0
 
 

@@ -15,6 +15,12 @@ back with ``torch.load(weights_only=True)``.
 Loading copies into the existing tensors of the state or model
 (``copy_``), never rebinding them, so a captured CUDA graph that reads
 them (``training/steps.py:EvalSuperstep``) stays valid.
+
+On a mesh (``parallel/mesh.py``) the file holds the whole state, as the
+JAX checkpoint does: every rank calls :func:`save_checkpoint`, which
+gathers the tensor-parallel blocks of the parameters and moments over the
+model group (a collective), and only rank 0 writes. Every rank loads the
+whole state and keeps its blocks.
 """
 
 from __future__ import annotations
@@ -31,10 +37,27 @@ from torch import nn
 _MAGIC = b"OGVT"
 
 
+def _whole(tensors: Mapping[str, torch.Tensor], model: nn.Module
+           ) -> Dict[str, torch.Tensor]:
+    """The tensors by name, each tensor-parallel block of ``model``'s
+    gathered whole over its model group (a collective)."""
+    from outgridvit_tpu_torch.parallel.distributed import replicate_to_host
+    from outgridvit_tpu_torch.parallel.mesh import mesh_of, shard_dims_of
+
+    dims = shard_dims_of(model)
+    if not dims:
+        return dict(tensors)
+    mesh = mesh_of(model)
+    return {k: replicate_to_host(t, mesh, dims[k]) if k in dims else t
+            for k, t in tensors.items()}
+
+
 def _tree(state) -> Dict[str, Any]:
+    model = state.model
     return {
-        "model": state.model.state_dict(),
-        "opt_state": {"mu": state.opt_state.mu, "nu": state.opt_state.nu,
+        "model": _whole(model.state_dict(), model),
+        "opt_state": {"mu": _whole(state.opt_state.mu, model),
+                      "nu": _whole(state.opt_state.nu, model),
                       "count": state.opt_state.count},
         "step": int(state.step),
         "device_step": int(state.device_step),
@@ -44,11 +67,17 @@ def _tree(state) -> Dict[str, Any]:
 def save_checkpoint(path: str, state, epoch: int,
                     best_top1: float = float("-inf"),
                     extra: Optional[Dict[str, Any]] = None) -> None:
-    """Write the train state and its metadata into one file."""
+    """Write the train state and its metadata into one file (on a mesh:
+    every rank calls it, rank 0 writes)."""
+    from outgridvit_tpu_torch.parallel.distributed import is_main_process
+
+    tree = _tree(state)
+    if not is_main_process():
+        return
     meta = json.dumps({"epoch": int(epoch), "best_top1": float(best_top1),
                        "extra": extra or {}}).encode("utf-8")
     payload = io.BytesIO()
-    torch.save(_tree(state), payload)
+    torch.save(tree, payload)
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     with open(p, "wb") as f:
@@ -73,7 +102,20 @@ def _read(path: str, map_location="cpu"):
 
 @torch.no_grad()
 def _copy_into(dst: Mapping[str, torch.Tensor],
-               src: Mapping[str, torch.Tensor], what: str) -> None:
+               src: Mapping[str, torch.Tensor], what: str,
+               model: Optional[nn.Module] = None) -> None:
+    """Copy ``src`` into ``dst`` by name; a tensor-parallel parameter of
+    ``model`` (or its moment) takes the rank's block of the whole."""
+    from outgridvit_tpu_torch.parallel.mesh import (
+        local_block,
+        mesh_of,
+        shard_dims_of,
+    )
+
+    dims = shard_dims_of(model) if model is not None else {}
+    if dims:
+        src = {k: local_block(t, mesh_of(model), dims[k]) if k in dims
+               else t for k, t in src.items()}
     if set(dst) != set(src):
         raise ValueError(
             f"checkpoint {what} does not match: missing "
@@ -97,10 +139,11 @@ def load_checkpoint(path: str, state=None) -> Dict[str, Any]:
     if state is None:
         out["state"] = tree
         return out
-    _copy_into(state.model.state_dict(), tree["model"], "model")
+    model = state.model
+    _copy_into(model.state_dict(), tree["model"], "model", model)
     opt = tree["opt_state"]
-    _copy_into(state.opt_state.mu, opt["mu"], "AdamW mu")
-    _copy_into(state.opt_state.nu, opt["nu"], "AdamW nu")
+    _copy_into(state.opt_state.mu, opt["mu"], "AdamW mu", model)
+    _copy_into(state.opt_state.nu, opt["nu"], "AdamW nu", model)
     with torch.no_grad():
         state.opt_state.count.copy_(opt["count"])
     state.set_step(int(tree["step"]))
@@ -111,5 +154,5 @@ def load_checkpoint(path: str, state=None) -> Dict[str, Any]:
 def load_model_variables(path: str, model: nn.Module) -> nn.Module:
     """Restore only the model's parameters and BatchNorm statistics (in
     place), for eval-only use: the optimizer state is ignored."""
-    _copy_into(model.state_dict(), _read(path)[1]["model"], "model")
+    _copy_into(model.state_dict(), _read(path)[1]["model"], "model", model)
     return model

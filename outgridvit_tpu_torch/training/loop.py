@@ -5,7 +5,12 @@
 resume and best-tracking semantics and its printed log lines, format for
 format. On the port:
 
-- it runs on one device, the card unless the caller asks for the CPU;
+- it runs on one device a rank, the card unless the caller asks for the
+  CPU; on a mesh (``parallel/mesh.py``, ``mesh=``) every rank runs this
+  same loop on its rows of each global batch (per-rank loaders), the state
+  placed on the mesh by ``shard_train_state`` at the start and at a resume,
+  and only rank 0 logs and writes checkpoints (every rank calls the save,
+  whose gather of tensor-parallel blocks is a collective);
 - a step's augment, mix and drop-path draws come from a generator seeded
   from ``(seed, state.step)`` (``training/steps.py:step_generator``), so a
   resumed run is bitwise the run it resumes;
@@ -36,6 +41,12 @@ import numpy as np
 import torch
 
 from outgridvit_tpu_torch.data.pipeline import Prefetcher, peek_loader
+from outgridvit_tpu_torch.parallel.distributed import is_main_process
+from outgridvit_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    shard_train_state,
+)
 from outgridvit_tpu_torch.training.checkpoints import (
     load_checkpoint,
     save_checkpoint,
@@ -168,18 +179,34 @@ def train_model(
 
     ``state``: a ``TrainState`` to start from (its model is trained and its
     optimizer used); else a fresh one of ``model`` and AdamW with the
-    warmup-cosine schedule. ``mesh`` is accepted for the JAX signature and
-    must be None: data and model parallelism are not ported (ROADMAP §1
-    item 11)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: data/model parallelism is not ported yet (ROADMAP §1 "
-            "item 11); train on one device")
+    warmup-cosine schedule. ``mesh``: a ``parallel.Mesh`` (default
+    ``make_mesh()``: every rank on ``data``; without a process group, one
+    device as before); the loaders must yield each data rank's rows of the
+    global batches (``parallel/distributed.py:shard_loader_for_process``),
+    as in JAX: a loader split for another data rank, or not split for a
+    data axis of several ranks, raises."""
+    if mesh is None:
+        mesh = make_mesh()
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be the port's parallel.Mesh "
+                        f"(make_mesh), got {type(mesh).__name__}")
+    for what, loader in (("train", train_loader), ("val", val_loader)):
+        if loader is None:
+            continue
+        split = (getattr(loader, "process_id", 0),
+                 getattr(loader, "process_count", 1))
+        if split != (mesh.data.index, mesh.data.size):
+            raise ValueError(
+                f"the {what} loader yields data rank {split[0]} of "
+                f"{split[1]}'s rows; mesh {mesh.shape} puts this rank at "
+                f"data index {mesh.data.index} of {mesh.data.size} "
+                "(shard_loader_for_process)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} asked for, but torch sees no "
                            "CUDA device; pass device='cpu' for the CPU")
-    log = print
+    log = print if is_main_process() else (lambda *a, **k: None)
+    n_data = mesh.data.size
 
     steps_per_epoch = len(train_loader)
     total_steps = epochs * steps_per_epoch
@@ -210,6 +237,7 @@ def train_model(
     if state is None:
         state = TrainState.create(
             model, AdamW(schedule, weight_decay, grad_clip_norm))
+    state = shard_train_state(state, mesh)
 
     # loaders built with device_augment yield raw uint8 and carry the
     # AugmentConfig; the recipe then runs in the train step
@@ -240,8 +268,8 @@ def train_model(
     best_metric = -float("inf") if mode == "max" else float("inf")
 
     if resume_path is not None:
-        ckpt = load_checkpoint(resume_path, state)
-        state = ckpt["state"]
+        ckpt = load_checkpoint(resume_path, state)  # takes its blocks
+        state = shard_train_state(ckpt["state"], mesh)
         start_epoch = int(ckpt.get("epoch", 0))
         best_val_top1 = float(ckpt.get("best_top1", best_val_top1))
         extra = ckpt.get("extra", {}) or {}
@@ -280,20 +308,22 @@ def train_model(
         return all(vals[i] <= vals[i + 1] for i in range(len(vals) - 1))
 
     # ---- run-config banner
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_dev = (mesh.devices.size if mesh.active else
+             torch.cuda.device_count() if device.type == "cuda" else 1)
     log("=== Run config ===")
     log(
         f"device={device.type}x{n_dev} | amp={use_amp} | "
         f"autocast_dtype={autocast_dtype} "
         f"(compute={str(compute_dtype).removeprefix('torch.')}) | "
-        f"mesh={ {'data': 1, 'model': 1} }"
+        f"mesh={mesh.shape}"
     )
     log(
         f"epochs={epochs} | steps/epoch={steps_per_epoch} | "
         f"total_steps={total_steps} | warmup_steps={warmup_steps}"
     )
-    log(f"batch_size={bs0} | input_shape={img_shape} | "
-        f"num_classes={num_classes}")
+    log(f"batch_size={bs0 * n_data}"
+        + (f" ({n_data} data ranks x {bs0} local)" if n_data > 1 else "")
+        + f" | input_shape={img_shape} | num_classes={num_classes}")
     log(f"opt=AdamW | lr={lr} | wd={weight_decay} | grad_clip_norm={grad_clip_norm}")
     log(
         f"aug: mix_prob={mix_prob} | mixup_alpha={mixup_alpha} | "

@@ -61,9 +61,27 @@ class AdamWState:
     nu: Dict[str, torch.Tensor]
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every gradient tensor (fp32)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None,
+                model_axis=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient tensor (fp32). With
+    ``sharded`` (one flag a tensor) the flagged tensors are a rank's blocks
+    of tensor-parallel parameters: their squares are summed over
+    ``model_axis`` (``parallel/collectives.py:Axis``), so each block counts
+    once and each replicated tensor once."""
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+    from outgridvit_tpu_torch.parallel.collectives import all_reduce_
+
+    def squares(ts):
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(ts))).square()
+
+    blocks = all_reduce_(squares([g for g, s in zip(grads, sharded) if s]),
+                         model_axis)
+    rest = [g for g, s in zip(grads, sharded) if not s]
+    return torch.sqrt(blocks + squares(rest) if rest else blocks)
 
 
 @dataclass(frozen=True)

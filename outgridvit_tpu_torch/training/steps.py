@@ -35,6 +35,23 @@ The K-step train superstep (twin of ``make_train_superstep``'s
 ``lax.scan``) replays K train steps captured in one CUDA graph, their draws
 in static device buffers (:class:`TrainSuperstep`).
 
+On a mesh (``parallel/mesh.py``; the model placed there by
+``shard_train_state``) each rank runs the step on its rows of the global
+batch and the step equals the single device's, as GSPMD's does in JAX:
+every rank draws the global step's draws (augment, mix and drop-path for
+all rows, dropout masks by global index) and keeps its rows; the mix pairs
+rows across ranks, so the augmented images and labels are gathered over
+the data group before it and the rank keeps its rows of the mixed batch;
+BatchNorm takes global statistics (``models/layers.py:BatchNorm``); the
+gradients are summed over the data group in one all-reduce of a flat
+buffer between the backward and AdamW and divided by its size; the loss
+and the metrics are the means of the ranks' means; the global norm sums a
+tensor-parallel parameter's blocks over the model group. Every rank then
+takes the same guard decision and ends with the same BatchNorm
+statistics. The all-reduces are NCCL's on the card and stay inside the
+K-step graph; a gloo mesh runs eagerly only (its collectives cannot be
+captured), and the supersteps raise on the card under one.
+
 The eval step (twin of ``make_eval_step``) normalizes a raw uint8 batch in
 the step when asked, runs the eval-mode forward and returns the loss and
 top-1/3/5 as 0-d device tensors. The K-batch eval superstep (twin of
@@ -77,6 +94,8 @@ from outgridvit_tpu_torch.training.mixing import (
     apply_mix_draws,
     sample_mix_draws,
 )
+from outgridvit_tpu_torch.parallel import collectives
+from outgridvit_tpu_torch.parallel.mesh import mesh_of, shard_dims_of
 from outgridvit_tpu_torch.training.optim import global_norm
 from outgridvit_tpu_torch.training.train_state import TrainState
 
@@ -138,6 +157,67 @@ def sample_step_draws(generator: torch.Generator, cfg: StepConfig,
         {p: m.to(device) for p, m in masks.items()}))
 
 
+def data_rows(model: torch.nn.Module, local_batch: int
+              ) -> Optional[Tuple[slice, int]]:
+    """``(this rank's rows, the global batch)`` where the model's mesh
+    splits the batch over more than one data rank, else None."""
+    mesh = mesh_of(model)
+    if mesh is None or mesh.data.size == 1:
+        return None
+    first = mesh.data.index * local_batch
+    return slice(first, first + local_batch), local_batch * mesh.data.size
+
+
+def local_draws(draws: StepDraws, rows: Optional[Tuple[slice, int]]
+                ) -> StepDraws:
+    """The draws of a data rank's rows (``rows`` from :func:`data_rows`)
+    from a global step's draws: the per-image augment draws and drop-path
+    masks of the rows (a mask generator draws for the global batch and
+    keeps the rows); the mix draws stay global, as the mix runs on the
+    gathered batch."""
+    if rows is None:
+        return draws
+    sl = rows[0]
+    aug = draws.augment
+    if aug is not None:  # op_ids and signs are [num_ops, B]
+        aug = AugmentDraws(*(
+            None if t is None else (t[:, sl] if f in ("op_ids", "signs")
+                                    else t[sl])
+            for f, t in zip(AugmentDraws._fields, aug)))
+    drop = draws.drop_masks
+    if drop is not None:
+        if drop.masks is not None:
+            drop = DropPathMasks({p: torch.as_tensor(m)[sl]
+                                  for p, m in drop.masks.items()},
+                                 dropout=drop.dropout)
+        else:
+            drop.rows = rows
+    return StepDraws(aug, draws.mix, drop)
+
+
+def _all_reduce_grads(grads: Dict[str, torch.Tensor], axis
+                      ) -> Dict[str, torch.Tensor]:
+    """The gradients' mean over the data axis: one all-reduce of a flat
+    buffer, then views of it by name."""
+    names = list(grads)
+    ts = [grads[k] for k in names]
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    collectives.all_reduce_(flat, axis)
+    if axis.size > 1:
+        flat.div_(axis.size)
+    return {k: piece.view_as(t) for k, piece, t in
+            zip(names, flat.split([t.numel() for t in ts]), ts)}
+
+
+def _graph_collectives(mesh, what: str) -> None:
+    """Refuse a CUDA graph whose collectives would be gloo's."""
+    if mesh is not None and mesh.active and mesh.backend != "nccl":
+        raise RuntimeError(
+            f"{what}: the mesh's {mesh.backend} collectives cannot be "
+            "captured in a CUDA graph; run the single steps "
+            "(steps_per_dispatch=1) or an NCCL mesh")
+
+
 def make_train_step(cfg: StepConfig,
                     lr_schedule: Optional[Callable] = None):
     """Build the train step: ``(state, (images NHWC, int labels), draws=None,
@@ -156,22 +236,36 @@ def make_train_step(cfg: StepConfig,
                    generator: Optional[torch.Generator] = None,
                    seed: Optional[int] = None):
         images, labels = batch
+        mesh = mesh_of(state.model)
+        rows = data_rows(state.model, images.shape[0])
         if draws is None:
             if generator is None:
                 if seed is None:
                     raise ValueError(
                         "give the step's draws or a generator, or a seed")
                 generator = step_generator(seed, state.step)
-            draws = sample_step_draws(generator, cfg, tuple(images.shape),
-                                      images.device)
+            shape = tuple(images.shape)
+            if rows is not None:
+                shape = (rows[1],) + shape[1:]
+            draws = local_draws(sample_step_draws(
+                generator, cfg, shape, images.device), rows)
             draws.drop_masks.dropout = HashedDropout(
                 generator.initial_seed() if seed is None else seed,
-                state.device_step)
+                state.device_step,
+                rows=None if rows is None else (rows[0].start,
+                                                images.shape[0]))
         if cfg.augment is not None:
             images = apply_augment_draws(images, draws.augment, cfg.augment)
         if cfg.mixing and cfg.mix_prob > 0.0:
-            images, targets = apply_mix_draws(images, labels, draws.mix,
-                                              cfg.num_classes)
+            if rows is None:
+                images, targets = apply_mix_draws(images, labels, draws.mix,
+                                                  cfg.num_classes)
+            else:  # partners cross ranks: mix the gathered batch
+                images, targets = apply_mix_draws(
+                    collectives.gather(images, mesh.data),
+                    collectives.gather(labels, mesh.data), draws.mix,
+                    cfg.num_classes)
+                images, targets = images[rows[0]], targets[rows[0]]
         else:
             targets = torch.nn.functional.one_hot(
                 labels.long(), cfg.num_classes).float()
@@ -189,19 +283,35 @@ def make_train_step(cfg: StepConfig,
             loss = cross_entropy_smoothed(logits, labels,
                                           cfg.label_smoothing)
         loss.backward()
+        loss = loss.detach()
+        with torch.no_grad():
+            accs = accuracy_topk(logits.detach(),
+                                 targets if cfg.mixing else labels)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
-        gnorm = global_norm(list(grads.values()))
+        if mesh is None or not mesh.active:
+            gnorm = global_norm(list(grads.values()))
+        else:
+            grads = _all_reduce_grads(grads, mesh.data)
+            shards = shard_dims_of(model)
+            gnorm = global_norm(list(grads.values()),
+                                [k in shards for k in grads], mesh.model)
+            # the loss and metrics: the means of the ranks' means
+            loss, accs[1], accs[3], accs[5] = collectives.mean(
+                torch.stack([loss, accs[1], accs[3], accs[5]]),
+                mesh.data).unbind()
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+        if mesh is not None and mesh.model.size > 1:
+            # one guard decision in the model group
+            bad = collectives.all_reduce_((~finite).float(), mesh.model)
+            finite = bad == 0
         state.tx.apply_(params, grads, state.opt_state, gnorm, finite)
         with torch.no_grad():
             for b, old in zip(buffers, stats_before):
                 b.copy_(torch.where(finite, b, old))
-            logits = logits.detach()
-            accs = accuracy_topk(logits, targets if cfg.mixing else labels)
             zero = torch.zeros((), dtype=torch.float32, device=loss.device)
             metrics: Dict[str, torch.Tensor] = {
-                "loss": torch.where(finite, loss.detach(), zero),
+                "loss": torch.where(finite, loss, zero),
                 "top1": accs[1], "top3": accs[3], "top5": accs[5],
                 "grad_norm": torch.where(finite, gnorm, zero),
                 "clipped": ((gnorm > cfg.grad_clip_norm).float()
@@ -225,7 +335,11 @@ def make_eval_step(model: torch.nn.Module, label_smoothing: float = 0.0,
     eval-mode forward of ``model``. With ``normalize=(mean, std)`` the
     images come as raw uint8 and are normalized in the step
     (``normalize_batch``, which keeps the mean and std on each device), so
-    a step makes no host tensor once it has run on a device."""
+    a step makes no host tensor once it has run on a device.
+
+    On a mesh (the one the model was placed on, ``parallel/mesh.py:
+    shard_model``) the batch is the rank's rows of the global batch and
+    the metrics are the means of the data group's, the global batch's."""
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:
@@ -234,9 +348,14 @@ def make_eval_step(model: torch.nn.Module, label_smoothing: float = 0.0,
             images = normalize_batch(images, *normalize)
         logits = model.eval()(images)
         accs = accuracy_topk(logits, labels)
-        return {"loss": cross_entropy_smoothed(logits, labels,
-                                               label_smoothing),
-                "top1": accs[1], "top3": accs[3], "top5": accs[5]}
+        out = {"loss": cross_entropy_smoothed(logits, labels,
+                                              label_smoothing),
+               "top1": accs[1], "top3": accs[3], "top5": accs[5]}
+        mesh = mesh_of(model)
+        if mesh is not None and mesh.active:
+            out = dict(zip(out, collectives.mean(
+                torch.stack(list(out.values())), mesh.data).unbind()))
+        return out
 
     return eval_step
 
@@ -265,6 +384,7 @@ class EvalSuperstep:
     def __init__(self, model: torch.nn.Module, k: int,
                  label_smoothing: float = 0.0, normalize=None):
         self.k = int(k)
+        self.model = model
         self.step = make_eval_step(model, label_smoothing, normalize)
         self.graphs: Dict[tuple, tuple] = {}
 
@@ -273,6 +393,7 @@ class EvalSuperstep:
         return {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
 
     def _capture(self, images, labels):
+        _graph_collectives(mesh_of(self.model), "eval graph")
         static = (torch.empty_like(images), torch.empty_like(labels))
         side = torch.cuda.Stream(images.device)
         side.wait_stream(torch.cuda.current_stream(images.device))
@@ -432,7 +553,11 @@ class TrainSuperstep:
     ``copy_``. A capture or a replay that fails raises: there is no eager
     fallback on the card. The kernel wrappers count their launches once,
     at the capture; :attr:`replays` counts the replays of every instance.
-    On the CPU the K steps run eagerly on the same draws."""
+    On the CPU the K steps run eagerly on the same draws. On a mesh the
+    steps are the mesh's (a rank's rows; given ``draws`` are the rank's
+    draws, :func:`local_draws`); the graph holds their NCCL all-reduces,
+    which the warm-up runs once first (NCCL makes its communicators at the
+    first collective); a gloo mesh on the card raises."""
 
     replays = 0
 
@@ -451,11 +576,17 @@ class TrainSuperstep:
 
     @staticmethod
     def _with_dropout(draws: StepDraws, state: TrainState,
-                      dropout_seed: Optional[int]) -> StepDraws:
+                      dropout_seed: Optional[int], rows=None) -> StepDraws:
         if dropout_seed is not None:
-            draws.drop_masks.dropout = HashedDropout(dropout_seed,
-                                                     state.device_step)
+            draws.drop_masks.dropout = HashedDropout(
+                dropout_seed, state.device_step,
+                rows=None if rows is None else (
+                    rows[0].start, rows[0].stop - rows[0].start))
         return draws
+
+    def _global_shape(self, images, rows) -> tuple:
+        shape = tuple(images.shape[1:])
+        return shape if rows is None else (rows[1],) + shape[1:]
 
     def _warm_up(self, state: TrainState, images, labels,
                  dropout_seed) -> list:
@@ -466,11 +597,12 @@ class TrainSuperstep:
         with torch.no_grad():
             snap = [t.detach().clone() for t in tensors]
         g = torch.Generator()  # the warm-up's draws are thrown away
-        draws = sample_step_draws(g, self.cfg, tuple(images.shape[1:]),
-                                  images.device)
-        draws = self._with_dropout(draws._replace(
-            drop_masks=DropPathMasks(generator=g, record=order)), state,
-            dropout_seed)
+        rows = data_rows(state.model, images.shape[1])
+        draws = sample_step_draws(g, self.cfg, self._global_shape(
+            images, rows), images.device)
+        draws = local_draws(draws._replace(drop_masks=DropPathMasks(
+            generator=g, record=order)), rows)
+        draws = self._with_dropout(draws, state, dropout_seed, rows)
         self.step(state, (torch.zeros_like(images[0]),
                           torch.zeros_like(labels[0])), draws=draws)
         with torch.no_grad():
@@ -481,10 +613,11 @@ class TrainSuperstep:
     def _run(self, state, images, labels, draws,
              dropout_seed) -> Dict[str, torch.Tensor]:
         ms = []
+        rows = data_rows(state.model, images.shape[1])
         for i in range(self.k):
             state, m = self.step(state, (images[i], labels[i]),
                                  draws=self._with_dropout(
-                                     draws[i], state, dropout_seed))
+                                     draws[i], state, dropout_seed, rows))
             ms.append(m)
         return {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
 
@@ -492,6 +625,7 @@ class TrainSuperstep:
         if images.device.type != "cuda":
             return _Prepared(state, self._warm_up(state, images, labels,
                                                   dropout_seed), dropout_seed)
+        _graph_collectives(mesh_of(state.model), "train graph")
         dev = images.device
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
@@ -539,10 +673,11 @@ class TrainSuperstep:
             prep = self.prepared[key] = self._prepare(state, images, labels,
                                                       dropout_seed)
         if draws is None:  # on the host, bitwise what K single steps draw
-            draws = [sample_step_draws(
+            rows = data_rows(state.model, images.shape[1])
+            draws = [local_draws(sample_step_draws(
                 step_generator(seed, state.step + i), self.cfg,
-                tuple(images.shape[1:]), drop_order=prep.order)
-                for i in range(self.k)]
+                self._global_shape(images, rows), drop_order=prep.order),
+                rows) for i in range(self.k)]
         cuda = images.device.type == "cuda"
         if prep.layout is None:
             prep.layout = DrawLayout(draws[0], self.k)

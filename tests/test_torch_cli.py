@@ -2,8 +2,8 @@
 ``python -m outgridvit_tpu_torch.train`` in a subprocess on the CPU
 (``--device cpu`` or ``runtime.device: cpu``): exit codes, the JAX CLI's
 log-line formats, checkpoints, the history pickle and a resume; the CIFAR
-pickle fixture end to end; and the refusals (a CUDA device without a
-card, ``--mesh``)."""
+pickle fixture end to end; the refusal of a CUDA device without a card;
+``--mesh`` and a 2-process ``--dist-*`` run."""
 
 import os
 import pickle
@@ -145,12 +145,47 @@ def test_cli_cuda_without_a_card_exits_nonzero(tmp_path):
     assert not (tmp_path / "last_smoke.ckpt").exists()
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "1,1"],
                                   ["--dist-num-processes", "2"]])
 def test_cli_refuses_parallel_flags(tmp_path, flag):
-    proc = _run(["--config", str(ROOT / "configs" / "smoke_synthetic.yaml"),
-                 "--output-dir", str(tmp_path), *flag], expect=1)
-    assert "ROADMAP §1 item 11" in proc.stderr
+    """The parallel flags, refused until data × model parallelism was
+    ported, now train: ``--mesh 1,1`` in one process, and a 2-process
+    ``--dist-*`` run (gloo on the CPU, mesh (2, 1) by default) in which
+    rank 0 alone logs and writes its one checkpoint."""
+    args = ["--config", str(ROOT / "configs" / "smoke_synthetic.yaml"),
+            "--output-dir", str(tmp_path), *flag]
+    if "--mesh" in flag:
+        out = _run(args).stdout
+        assert "mesh={'data': 1, 'model': 1}" in out
+        assert TRAIN_LINE.search(out), out[-2000:]
+        assert (tmp_path / "last_smoke.ckpt").exists()
+        return
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "outgridvit_tpu_torch.train", *args,
+         "--dist-coordinator", f"localhost:{port}", "--dist-process-id",
+         str(r)], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}\n{err[-3000:]}"
+    assert "mesh={'data': 2, 'model': 1}" in outs[0][0]
+    assert "batch_size=16 (2 data ranks x 8 local)" in outs[0][0]
+    assert TRAIN_LINE.search(outs[0][0]), outs[0][0][-2000:]
+    assert "[Train]" not in outs[1][0] and "Training complete" not in \
+        outs[1][0]
+    # the smoke config has no val split: one "last" checkpoint, rank 0's
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["last_smoke.ckpt"]
 
 
 def test_cli_main_in_process(tmp_path, capsys):

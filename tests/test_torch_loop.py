@@ -518,7 +518,7 @@ def test_train_model_refuses_a_mismatched_model_or_device(tmp_path):
               last_path=str(tmp_path / "l"))
     with pytest.raises(ValueError, match="build_model"):  # fp32 vs bf16
         tloop.train_model(model, loader, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tloop.train_model(model, loader, device="cpu", use_amp=False,
                           mesh=object(), **kw)
     if not torch.cuda.is_available():
