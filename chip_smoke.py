@@ -39,7 +39,15 @@ from a seed:
   N=144 (C=48, 2 heads) that the fused branch cannot hold, so they run the
   block-packed core's kernel for long grids (``grid_mhsa_long``), as the
   JAX model falls back to its #6 there; stages 1-3 the N=36 grids of
-  ``grid_mhsa_packed`` at C = 96/192/256.
+  ``grid_mhsa_packed`` at C = 96/192/256;
+- Model A-7M at 192 px (``a7m_192``, crop pad 24): stage 0 has grids of
+  N=576, which run #6's kernels past 256 tokens (``grid_mhsa_tiles``:
+  ``csrc/grid_mhsa_tiles.cu`` in bf16, the long kernel in fp32), stages
+  1-3 the N=144 grids of ``grid_mhsa_long``. Its kernel compares and fp32
+  step run at batch 8 (``compare_batch``; the plain version's
+  probabilities), with one more compare at the 224 px stage 0 (N=784);
+  serving at 64, training at 32 (``train_batch``), then its K = 2 train
+  graph bitwise two eager steps (``Smoke.train_graph``).
 
 Every bf16 launch of the grid core, tagged "t" (#1: the 7M model's,
 Model B's and ``a7m_48``'s grids of N <= 16) or "th" (#3: Tiny-ImageNet's
@@ -49,9 +57,10 @@ the block-packed core's bf16 launches of N <= 63 (``a7m_48``'s stage 0,
 ``a7m_96``'s stages 1-3) run ``csrc/grid_mhsa_packed_mma.cu``, its fp32
 ones ``csrc/grid_mhsa_packed.cu``, and its launches of 64 <= N <= 256 in
 both dtypes ``csrc/grid_mhsa_long.cu`` (the kernels line's
-``grid_mhsa_long`` row). The MLP branch's bf16 launches (every main
-path's shapes) run ``csrc/mlp_branch_mma.cu`` forward and
-``csrc/mlp_branch_bwd_mma.cu`` backward, its fp32 ones
+``grid_mhsa_long`` row), its bf16 launches of N > 256
+``csrc/grid_mhsa_tiles.cu`` (``grid_mhsa_tiles``). The MLP branch's bf16
+launches (every main path's shapes) run ``csrc/mlp_branch_mma.cu``
+forward and ``csrc/mlp_branch_bwd_mma.cu`` backward, its fp32 ones
 ``csrc/mlp_branch.cu`` and ``csrc/mlp_branch_bwd.cu``. The fused
 attention branch's bf16 launches (Tiny-ImageNet's and ``a_base``'s stage
 0) run ``csrc/attn_branch_mma.cu`` forward and
@@ -107,7 +116,8 @@ kernel against SDPA at the "t" shapes of the 7M model and Model B (#1;
 forward at batch 64, backward at 128) and at #3's six "th" shapes, and #6
 against SDPA at ``a7m_48``'s stage 0
 and, for long grids, at ``a7m_96``'s (forward at batch 64 and 128,
-backward at 128); per shape and per forward or train step. Phase
+backward at 128) and past 256 tokens at ``a7m_192``'s (forward at 64,
+backward at 32); per shape and per forward or train step. Phase
 ``ab_mlp`` (``AB_MLP``) then times the MLP branch's tensor-core kernels
 against the FMA kernels they replace at every MLP shape of the
 Tiny-ImageNet, Model B, 7M and ``a7m_96`` paths, the same way: the
@@ -205,8 +215,9 @@ limit, then a JSON line ``{"kernels": [...]}`` (launch counts of the main
 paths; ms per batch-64 forward for the forward kernels and per batch-128
 train step for the backward ones, of Tiny-ImageNet for the grid and MLP
 kernels, of Model B for the outlook and depthwise ones, of ``a7m_48``,
-``a7m_96`` and ``a_base`` for the block-packed core, its kernel for long
-grids and the NHWC branch: the kernel, its
+``a7m_96``, ``a7m_192`` and ``a_base`` for the block-packed core, its
+kernels for long grids and past 256 tokens (per batch-32 train step) and
+the NHWC branch: the kernel, its
 plain version, one
 PyTorch call computing the same function where there is one, and the bound
 from the bytes and operations of the same launches), then the last line
@@ -487,6 +498,12 @@ class ModelCase:
     fixed_draws_loss: bool  # the loss loop reuses one step's draws
     dwconv: str = "xla"  # every MBConv's depthwise mode (build_model)
     attn_nhwc: bool = False  # the N >= 64 grids through #12 (build_model)
+    # the train phase's batch, TRAIN_BATCH where its activations fit
+    train_batch: int = TRAIN_BATCH
+    # the batch of the kernel-vs-plain compares and the fp32 step, where
+    # the plain version's [G, heads, N, N] fp32 probabilities at the serve
+    # and train batches would not leave room (None: BATCH / the train batch)
+    compare_batch: int | None = None
 
     @property
     def front(self) -> int:
@@ -549,8 +566,17 @@ A_BASE = ModelCase(
 # (#6 for long grids), N=36 at stages 1-3 (#6); the crop pad of
 # scripts/bench_config.py:75-76 at that size
 A7M_96 = dataclasses.replace(FLAGSHIP, tag="a7m_96", img=96, crop_pad=12)
+# the 7M model at 192 px: grids of N=576 at stage 0 (#6 past 256 tokens),
+# N=144 at stages 1-3 (#6's long kernel); the crop pad of
+# scripts/bench_config.py:75-76. Its train batch is 32: at 128 the bf16
+# activations (36x the pixels of 32 px, whose step held 2.853 GiB above the
+# state) would take ~100 GiB. The compares and the fp32 step at batch 8:
+# the plain version's probabilities of one stage-0 launch are then 1.4 GB.
+A7M_192 = dataclasses.replace(FLAGSHIP, tag="a7m_192", img=192, crop_pad=24,
+                              loss_steps=6, fixed_draws_loss=True,
+                              train_batch=32, compare_batch=8)
 CASES = (FLAGSHIP, TIN, MODEL_B, MODEL_B_V, MODEL_B_O, A7M_DWB, A7M_48,
-         A_BASE, A7M_96)
+         A_BASE, A7M_96, A7M_192)
 OUTLOOK_KERNELS = {"fused_agg": "outlook_agg", "fused_agg_v": "outlook_branch",
                    "fused_outlook": "outlook_softmax"}
 # Every outlooker shape of the three configurations: (H=W, C, heads).
@@ -613,6 +639,8 @@ PAR_TIMED = 5
 # paths' (#6), csrc/grid_mhsa_packed.cu for fp32 ones, both for N <= 63;
 # grid_mhsa_long: the same wrapper's launches of 64 <= N <= 256 (#6 where
 # JAX falls back to it from #5), csrc/grid_mhsa_long.cu in both dtypes.
+# grid_mhsa_tiles: its launches of N > 256, csrc/grid_mhsa_tiles.cu in bf16
+# (every main path's), csrc/grid_mhsa_long.cu in fp32.
 # outlook_agg / outlook_branch: csrc/outlook_agg_fwd_mma.cu for bf16
 # launches its plan takes (Wp, and Wv with the fold, resident beside one
 # tile: every main path's), csrc/outlook_agg.cu for fp32 ones and wider bf16
@@ -735,6 +763,19 @@ SOURCES = {
         "outgridvit_tpu/ops/grid_attention_pallas.py:244",
         ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
          "backward (#6, :244) at N >= 64"]),
+    "grid_mhsa_tiles": (
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_tiles.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_long.cu"),
+        "outgridvit_tpu/ops/grid_attention_pallas.py:183",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:183 grid_mhsa_pallas "
+         "(#6, forward :202) at N > 256, where "
+         "outgridvit_tpu/models/blocks.py:283-290 falls back to it"]),
+    "grid_mhsa_tiles_bwd": (
+        ("outgridvit_tpu_torch/csrc/grid_mhsa_tiles.cu",
+         "outgridvit_tpu_torch/csrc/grid_mhsa_long.cu"),
+        "outgridvit_tpu/ops/grid_attention_pallas.py:244",
+        ["outgridvit_tpu/ops/grid_attention_pallas.py:227 grid_mhsa_pallas "
+         "backward (#6, :244) at N > 256"]),
     "attn_branch_nhwc": (
         ("outgridvit_tpu_torch/csrc/attn_branch_mma.cu",
          "outgridvit_tpu_torch/csrc/attn_branch.cu"),
@@ -750,25 +791,29 @@ SOURCES = {
 }
 FWD = ("grid_mhsa", "attn_branch", "mlp_branch", "outlook_agg",
        "outlook_branch", "outlook_softmax", "dwconv3x3", "grid_mhsa_packed",
-       "attn_branch_nhwc", "grid_mhsa_long")
+       "attn_branch_nhwc", "grid_mhsa_long", "grid_mhsa_tiles")
 # #9 has no backward kernel (its backward is autograd of plain PyTorch)
 BWD = tuple(name + "_bwd" for name in FWD if name + "_bwd" in SOURCES)
 OUTLOOK = ("outlook_agg", "outlook_branch")
-GRID_CORES = ("grid_mhsa", "grid_mhsa_packed", "grid_mhsa_long")
+GRID_CORES = ("grid_mhsa", "grid_mhsa_packed", "grid_mhsa_long",
+              "grid_mhsa_tiles")
 # the case whose forward / train step each kernel's ms are taken on
 TIMED_ON = {"outlook_agg": "model_b", "outlook_branch": "model_b",
             "outlook_softmax": "model_b_o", "dwconv3x3": "model_b_o",
             "grid_mhsa_packed": "a7m_48", "attn_branch_nhwc": "a_base",
-            "grid_mhsa_long": "a7m_96"}
+            "grid_mhsa_long": "a7m_96", "grid_mhsa_tiles": "a7m_192"}
 # the kernel each kind of grid attention (stage_shapes' "attn") launches
 ATTN_KERNEL = {"grid": "grid_mhsa", "packed": "grid_mhsa_packed",
                "branch": "attn_branch", "nhwc": "attn_branch_nhwc",
-               "long": "grid_mhsa_long"}
+               "long": "grid_mhsa_long", "tiles": "grid_mhsa_tiles"}
 # rows of the kernels line whose launches go through another row's wrapper,
 # told apart by C entry point: row -> (the wrapper's row, its entry point)
 ENTRY_ROWS = {"grid_mhsa_long": ("grid_mhsa_packed", "ogvt_grid_mhsa_long"),
               "grid_mhsa_long_bwd": ("grid_mhsa_packed_bwd",
-                                     "ogvt_grid_mhsa_long_bwd")}
+                                     "ogvt_grid_mhsa_long_bwd"),
+              "grid_mhsa_tiles": ("grid_mhsa_packed", "ogvt_grid_mhsa_tiles"),
+              "grid_mhsa_tiles_bwd": ("grid_mhsa_packed_bwd",
+                                      "ogvt_grid_mhsa_tiles_bwd")}
 # The A/Bs of Smoke.ab_vs_library: (kernel, case, batch, which of the
 # case's stage shapes), in this order, and the key of each kernel's A/B in
 # the kernels line.
@@ -779,6 +824,7 @@ AB_SHAPES = {
     "th": lambda sh: sh["attn"] == "grid" and sh["grid_variant"] == "th",
     "packed": lambda sh: sh["attn"] == "packed",
     "long": lambda sh: sh["attn"] == "long",
+    "tiles": lambda sh: sh["attn"] == "tiles",
 }
 AB_LIBRARY = (
     ("dwconv3x3_bwd", MODEL_B_O, TRAIN_BATCH, "all"),
@@ -799,6 +845,8 @@ AB_LIBRARY = (
     ("grid_mhsa_long", A7M_96, BATCH, "long"),
     ("grid_mhsa_long", A7M_96, TRAIN_BATCH, "long"),
     ("grid_mhsa_long_bwd", A7M_96, TRAIN_BATCH, "long"),
+    ("grid_mhsa_tiles", A7M_192, BATCH, "tiles"),
+    ("grid_mhsa_tiles_bwd", A7M_192, A7M_192.train_batch, "tiles"),
 )
 # the paths whose every MLP forward and backward Smoke.ab_mlp times, the
 # tensor-core kernels against the FMA kernels they replace
@@ -825,6 +873,12 @@ ATTN_FWD_ENTRIES = {
 GRID_ENTRIES = {"grid_mhsa": ("ogvt_grid_mhsa_th", "ogvt_grid_mhsa"),
                 "grid_mhsa_bwd": ("ogvt_grid_mhsa_th_bwd",
                                   "ogvt_grid_mhsa_bwd")}
+# the C entry points of #6 past 256 tokens, bf16 first (its compares must
+# launch the one their dtype takes)
+TILES_ENTRIES = {"grid_mhsa_tiles": ("ogvt_grid_mhsa_tiles",
+                                     "ogvt_grid_mhsa_long"),
+                 "grid_mhsa_tiles_bwd": ("ogvt_grid_mhsa_tiles_bwd",
+                                         "ogvt_grid_mhsa_long_bwd")}
 AB_GRID = (FLAGSHIP, MODEL_B, A7M_48)
 # the C entry points of the outlook forward's and backward's A/Bs,
 # tensor-core side first (bf16 launches their plans take; fp32 and the rest
@@ -862,7 +916,7 @@ BITWISE_SHARE = {"mlp_branch": 0.9, "outlook_agg": 0.9,
 # is reported, not gated (they are held to KERNEL_TOL): the fused attention
 # branch's forward and the grid core, whose softmax takes the card's expf
 SHARE_REPORTED = ("attn_branch", "attn_branch_nhwc", "grid_mhsa",
-                  "grid_mhsa_bwd")
+                  "grid_mhsa_bwd", "grid_mhsa_tiles", "grid_mhsa_tiles_bwd")
 # outputs of a backward kernel held per element (the others are parameter
 # gradients, sums over every pixel): dx, or dv / dx and da
 PER_ELEMENT = {"outlook_agg_bwd": (0, 1), "outlook_branch_bwd": (0, 1)}
@@ -901,6 +955,7 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
         attn_branch_fits,
     )
     from outgridvit_tpu_torch.ops.grid_attention import (
+        LONG_MAX_TOKENS,
         MAX_TOKENS,
         PACKED_MAX_TOKENS,
         grid_mhsa_variant,
@@ -915,7 +970,8 @@ def stage_shapes(case: ModelCase = FLAGSHIP, batch: int = BATCH):
         if N >= MIN_TOKENS and attn_branch_fits(N, C, heads):
             attn = "nhwc" if case.attn_nhwc else "branch"
         else:
-            attn = ("long" if N > PACKED_MAX_TOKENS else "packed"
+            attn = ("tiles" if N > LONG_MAX_TOKENS else "long"
+                    if N > PACKED_MAX_TOKENS else "packed"
                     if N > MAX_TOKENS else "grid")
         out.append({
             "stage": si, "batch": batch, "blocks": s["depth"], "C": C,
@@ -1241,6 +1297,10 @@ class Smoke:
                                ga.grid_mhsa_packed_reference),
             "grid_mhsa_long_bwd": (ga.grid_mhsa_packed_backward,
                                    ga.grid_mhsa_packed_backward_reference),
+            "grid_mhsa_tiles": (ga.grid_mhsa_packed,
+                                ga.grid_mhsa_packed_reference),
+            "grid_mhsa_tiles_bwd": (ga.grid_mhsa_packed_backward,
+                                    ga.grid_mhsa_packed_backward_reference),
             "attn_branch_nhwc": (ab.attn_branch_nhwc,
                                  ab.attn_branch_nhwc_reference),
             "attn_branch_nhwc_bwd": (ab.attn_branch_nhwc_backward,
@@ -1304,7 +1364,8 @@ class Smoke:
         """On a bf16 main path: every launch of the grid core, "t" (#1) and
         "th" (#3), went through csrc/grid_mhsa_th.cu's entry points;
         every #6 launch of N <= 63 through csrc/grid_mhsa_packed_mma.cu's,
-        of N >= 64 through csrc/grid_mhsa_long.cu's; every MLP forward
+        of 64 <= N <= 256 through csrc/grid_mhsa_long.cu's, of N > 256
+        through csrc/grid_mhsa_tiles.cu's; every MLP forward
         and backward through csrc/mlp_branch_mma.cu's and
         csrc/mlp_branch_bwd_mma.cu's; every forward and backward of the
         fused attention branch through csrc/attn_branch_mma.cu's and
@@ -1321,6 +1382,8 @@ class Smoke:
                             ("grid_mhsa_long", "ogvt_grid_mhsa_long"),
                             ("grid_mhsa_long_bwd",
                              "ogvt_grid_mhsa_long_bwd"),
+                            *((name, bf16) for name, (bf16, _)
+                              in TILES_ENTRIES.items()),
                             *((name, mma) for name, (mma, _)
                               in (*MLP_ENTRIES.items(),
                                   *ATTN_FWD_ENTRIES.items(),
@@ -1473,7 +1536,8 @@ class Smoke:
         """The kernel against its plain version on ``args``; a routed
         kernel's two launches must take ``entry``, by default the one its
         dtype takes in the fixed tables (``GRID_ENTRIES``,
-        ``ATTN_*_ENTRIES``; the outlook's and the softmax's by shape)."""
+        ``ATTN_*_ENTRIES``, ``TILES_ENTRIES``; the outlook's and the
+        softmax's by shape)."""
         import torch
 
         plain = self.kernels[name][1]
@@ -1483,7 +1547,7 @@ class Smoke:
         routed = (ATTN_FWD_ENTRIES.get(name) or ATTN_BWD_ENTRIES.get(name)
                   or GRID_ENTRIES.get(name) or OUTLOOK_FWD_ENTRIES.get(name)
                   or OUTLOOK_BWD_ENTRIES.get(name)
-                  or SOFTMAX_ENTRIES.get(name))
+                  or SOFTMAX_ENTRIES.get(name) or TILES_ENTRIES.get(name))
         twice = backward or routed is not None
         before = dict(self.kernels[name][0].by_entry) if routed else None
         got = kernel(*args)
@@ -1560,7 +1624,8 @@ class Smoke:
             self.compare_outlook_softmax()
             self.compare_dwconv()
             return
-        for backward, batch in ((False, BATCH), (True, TRAIN_BATCH)):
+        for backward, batch in ((False, case.compare_batch or BATCH),
+                                (True, case.compare_batch or TRAIN_BATCH)):
             shapes = stage_shapes(case, batch)
             for dtype in (torch.float32, torch.bfloat16):
                 for name, args, label, *_ in self.cases(shapes, backward,
@@ -1569,6 +1634,15 @@ class Smoke:
                     del args
                 if case is MODEL_B:
                     self.compare_outlook(backward, batch, dtype)
+            if case is A7M_192:  # and the 224 px model's stage 0, N = 784
+                sh = stage_shapes(dataclasses.replace(case, img=224),
+                                  batch)[0]
+                name = "grid_mhsa_tiles" + ("_bwd" if backward else "")
+                make = self.bwd_args if backward else self.fwd_args
+                for dtype in (torch.float32, torch.bfloat16):
+                    self.compare(name, make(name, sh, dtype), dtype,
+                                 f"a7m_224 stage0 G={sh['G']} N={sh['N']} "
+                                 f"C={sh['C']} heads={sh['heads']}")
             if case is A_BASE:
                 self.compare_nhwc_with_tokens(shapes[0], backward)
             if case is FLAGSHIP:  # every activation and the no-LN form
@@ -2152,12 +2226,13 @@ class Smoke:
         new = case in (MODEL_B_O, A7M_DWB)  # this slice's kernels only
         outlook = (("outlook_softmax",) if case is MODEL_B_O
                    else () if new else OUTLOOK if case.front else ())
-        shapes = stage_shapes(case, TRAIN_BATCH if backward else BATCH)
+        batch = case.train_batch if backward else BATCH
+        shapes = stage_shapes(case, batch)
         totals = {}
         for name, args, label, sh, count in self.cases(
                 shapes, backward, torch.bfloat16, outlook, dw=new,
                 core=not new):
-            if (case in (A7M_48, A_BASE, A7M_96) and TIMED_ON.get(
+            if (case in (A7M_48, A_BASE, A7M_96, A7M_192) and TIMED_ON.get(
                     name.removesuffix("_bwd")) != case.tag):
                 continue  # the kernels of the path timed on another case
             plain = self.kernels[name][1]
@@ -2188,8 +2263,7 @@ class Smoke:
                   f"{by_bytes * 1e3:.2f}, operations {by_ops * 1e3:.2f}) "
                   f"[{self.gpu}]")
             del args, lib
-        per = (f"batch-{TRAIN_BATCH} train step" if backward
-               else f"batch-{BATCH} forward")
+        per = f"batch-{batch} {'train step' if backward else 'forward'}"
         for name, t in totals.items():
             lib = t["library_ms"]
             by = "bytes" if t["bytes"] >= t["ops"] else "operations"
@@ -2349,10 +2423,13 @@ class Smoke:
                                   crop_pad=case.crop_pad))
         bench_lr = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
         step = make_train_step(step_cfg, bench_lr)
-        images = torch.randint(0, 256, (TRAIN_BATCH, case.img, case.img, 3),
+        B = case.train_batch
+        images = torch.randint(0, 256, (B, case.img, case.img, 3),
                                dtype=torch.uint8, generator=gen).to(dev)
-        labels = torch.randint(0, classes, (TRAIN_BATCH,),
-                               generator=gen).to(dev)
+        labels = torch.randint(0, classes, (B,), generator=gen).to(dev)
+        # the fp32 kernel-vs-plain step's rows
+        Bc = case.compare_batch or B
+        batch_c = (images[:Bc], labels[:Bc])
 
         def new_state(dtype, use_kernels, lr=bench_lr):
             model = build_model(case.model, dtype=dtype,
@@ -2362,28 +2439,29 @@ class Smoke:
             return TrainState.create(model, AdamW(
                 lr, T["weight_decay"], T["grad_clip_norm"]))
 
-        def fixed_draws(model):
-            draws = sample_step_draws(gen, step_cfg, tuple(images.shape), dev)
+        def fixed_draws(model, rows=B):
+            draws = sample_step_draws(gen, step_cfg,
+                                      (rows, *images.shape[1:]), dev)
             return draws._replace(drop_masks=DropPathMasks({
-                m.path: torch.rand(TRAIN_BATCH, generator=gen) < 1.0 - m.rate
+                m.path: torch.rand(rows, generator=gen) < 1.0 - m.rate
                 for m in model.modules() if isinstance(m, DropPath)
                 and m.rate > 0}))
 
         # one train step, kernel path vs plain path
         runs = {}
         draws = None
-        mlp_steps = launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0][
+        mlp_steps = launch_plan(case, stage_shapes(case, B))[0][
             "mlp_branch"]  # as many forwards as backwards a step
-        attn_steps = {**launch_plan(case, stage_shapes(case, TRAIN_BATCH))[0],
-                      **launch_plan(case, stage_shapes(case, TRAIN_BATCH),
+        attn_steps = {**launch_plan(case, stage_shapes(case, B))[0],
+                      **launch_plan(case, stage_shapes(case, B),
                                     backward=True)[0]}
         for label, dtype, kern in (("fp32 kernel", torch.float32, True),
                                    ("fp32 plain", torch.float32, False),
                                    ("bf16 kernel", torch.bfloat16, True)):
             state = new_state(dtype, kern)
-            draws = draws or fixed_draws(state.model)
+            draws = draws or fixed_draws(state.model, Bc)
             self.reset_counts()
-            state, m = step(state, (images, labels), draws)
+            state, m = step(state, batch_c, draws)
             torch.cuda.synchronize()
             if label == "fp32 kernel":  # the fp32 kernels: the FMA ones
                 got = self.read_entries()
@@ -2404,7 +2482,7 @@ class Smoke:
                             f"{case.tag} fp32 step: {name} launches by "
                             f"entry point {got[name]}, expected {want}")
             runs[label] = (state, {k: v.item() for k, v in m.items()})
-            print(f"[train-step] {case.tag} {label}: " + " ".join(
+            print(f"[train-step] {case.tag} {label} (batch {Bc}): " + " ".join(
                 f"{k}={v:.6g}" for k, v in runs[label][1].items()))
         (ks, km), (ps, pm) = runs["fp32 kernel"], runs["fp32 plain"]
         require(km["nonfinite"] == 0.0 and pm["nonfinite"] == 0.0,
@@ -2437,9 +2515,10 @@ class Smoke:
               f"err {bf_err:.2e} (tol {BF16_LOSS_TOL:g})")
         require(bf_err <= BF16_LOSS_TOL, "bf16 train step: loss disagrees")
         del runs, ks, ps
+        torch.cuda.empty_cache()
 
         # the main path: bf16 steps on one batch, launch counts per step
-        shapes = stage_shapes(case, TRAIN_BATCH)
+        shapes = stage_shapes(case, B)
         fplan, fvar = launch_plan(case, shapes)
         bplan, bvar = launch_plan(case, shapes, backward=True)
         plan, pvar = {**fplan, **bplan}, {**fvar, **bvar}
@@ -2470,7 +2549,7 @@ class Smoke:
         print(f"[train] {case.tag} launches per step {counts}, by variant "
               f"{by_variant} (every one of {case.loss_steps} steps)")
         print(f"[train] {case.tag} {case.loss_steps} bf16 kernel-path steps "
-              f"on one batch of {TRAIN_BATCH}"
+              f"on one batch of {B}"
               + (" with one step's draws" if same else "") + ": losses "
               + " ".join(f"{x:.4f}" for x in losses)
               + f"; mean of first {k} {first:.4f}, of last {k} {last:.4f}")
@@ -2487,10 +2566,10 @@ class Smoke:
             def one(st=st):
                 step(st, (images, labels), draws)
             ms = time_ms(one, (), iters=6, warmup=2)
-            print(f"[time] {case.tag} train step bs{TRAIN_BATCH} bf16 "
+            print(f"[time] {case.tag} train step bs{B} bf16 "
                   f"{label} (uint8 in, augment + mix + fwd + bwd + AdamW; "
                   f"draws sampled beforehand): {ms:.3f} ms/step, "
-                  f"{TRAIN_BATCH / ms * 1e3:.1f} imgs/s [{self.gpu}]")
+                  f"{B / ms * 1e3:.1f} imgs/s [{self.gpu}]")
 
     def nonfinite_guard(self, step_cfg, state, images, labels, sampler):
         import torch
@@ -2631,10 +2710,9 @@ class Smoke:
               f"{replays}")
         self.loop_epochs = epochs
         self.eval_graph()
-        self.train_graph()
+        per_step, captured = self.train_graph()
         # a graph's launches are counted at its capture; each replay runs
         # them again: K steps' (train) or K forwards' (eval) launches
-        per_step, captured = self.train_graph_launches
         ran = {n: counts[n] + train_replays * c
                + (0 if n.endswith("_bwd") else replays * LOOP_K * per_step[n])
                for n, c in captured.items()}
@@ -2643,16 +2721,20 @@ class Smoke:
               f"replays {replays} x {LOOP_K} forwards = {ran}")
         print(f"[loop] phase done in {time.perf_counter() - t_phase:.1f} s")
 
-    def train_graph(self):
-        """The 7M train superstep at K = ``LOOP_K`` (full width, bf16, batch
-        128, uint8 in, the yaml's recipe: device augmentation, mixup /
-        cutmix, drop-path) against ``LOOP_K`` eager train steps from the
+    def train_graph(self, case: ModelCase = FLAGSHIP, k: int = LOOP_K,
+                    turns: int = LOOP_TIMED):
+        """The case's train superstep at K = ``k`` (full width, bf16, its
+        train batch, uint8 in, the yaml's recipe: device augmentation,
+        mixup / cutmix, drop-path) against ``k`` eager train steps from the
         same state on the same batches and seed: parameters, BN
         statistics, AdamW mu, nu and count, the device step and every
         metric bitwise. The eager steps run twice first: if they differ
         from each other, the graph may differ from the first by no more
-        than they do. Then both timed in turns, training on (CUDA events
-        around each K-group, the host's draws and launches included)."""
+        than they do. Every kernel a step launches must be captured ``k``
+        times. Then both timed in ``turns`` turns, training on (CUDA events
+        around each K-group, the host's draws and launches included).
+        Returns the launches of an eager step and those captured, by
+        kernel."""
         import dataclasses
 
         import numpy as np
@@ -2672,26 +2754,26 @@ class Smoke:
         )
         from outgridvit_tpu_torch.training.train_state import TrainState
 
-        T, dev, gen = FLAGSHIP.train, self.dev, self.gen
-        model = build_model(FLAGSHIP_MODEL_CFG, dtype=torch.bfloat16,
-                            device=dev, seed=SEED)
+        T, dev, gen, B = case.train, self.dev, self.gen, case.train_batch
+        classes = case.model["num_classes"]
+        model = build_model(case.model, dtype=torch.bfloat16, device=dev,
+                            seed=SEED, dwconv=case.dwconv,
+                            attn_nhwc=case.attn_nhwc)
         sched = warmup_cosine_lr(T["lr"], 10_000, 500, T["min_lr"])
         state = TrainState.create(model, AdamW(sched, T["weight_decay"],
                                                T["grad_clip_norm"]))
         cfg = StepConfig(
-            num_classes=FLAGSHIP_MODEL_CFG["num_classes"],
-            label_smoothing=T["label_smoothing"],
+            num_classes=classes, label_smoothing=T["label_smoothing"],
             mixup_alpha=T["mixup_alpha"], cutmix_alpha=T["cutmix_alpha"],
             mix_prob=T["mix_prob"], grad_clip_norm=T["grad_clip_norm"],
-            augment=AugmentConfig(mean=FLAGSHIP.mean, std=FLAGSHIP.std,
-                                  crop_pad=FLAGSHIP.crop_pad))
+            augment=AugmentConfig(mean=case.mean, std=case.std,
+                                  crop_pad=case.crop_pad))
         step = make_train_step(cfg, sched)
-        superstep = make_train_superstep(cfg, sched, k=LOOP_K)
-        x = torch.randint(0, 256, (LOOP_K, TRAIN_BATCH, 32, 32, 3),
+        superstep = make_train_superstep(cfg, sched, k=k)
+        x = torch.randint(0, 256, (k, B, case.img, case.img, 3),
                           dtype=torch.uint8, generator=gen).to(dev)
-        y = torch.randint(0, FLAGSHIP_MODEL_CFG["num_classes"],
-                          (LOOP_K, TRAIN_BATCH), generator=gen).to(
-                              dev, torch.int32)
+        y = torch.randint(0, classes, (k, B), generator=gen).to(
+            dev, torch.int32)
 
         def tensors(st):
             named = {f"model.{k}": v for k, v in
@@ -2713,7 +2795,7 @@ class Smoke:
 
         def eager_k(st):
             ms = []
-            for i in range(LOOP_K):
+            for i in range(k):
                 st, m = step(st, (x[i], y[i]), seed=SEED)
                 ms.append(m)
             return st, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
@@ -2724,26 +2806,30 @@ class Smoke:
             out["host_step"] = torch.tensor(st.step)
             return out
 
-        names = ("grid_mhsa", "grid_mhsa_bwd", "mlp_branch",
-                 "mlp_branch_bwd")
+        shapes = stage_shapes(case, B)
+        names = [n for plan in (launch_plan(case, shapes)[0],
+                                launch_plan(case, shapes, True)[0])
+                 for n, c in plan.items() if c]
         self.reset_counts()
         runs = [result(*eager_k(from_start()))]
-        per_step = {n: c // LOOP_K for n, c in self.read_counts()[0].items()
+        per_step = {n: c // k for n, c in self.read_counts()[0].items()
                     if n in names}
         runs.append(result(*eager_k(from_start())))
+        torch.cuda.empty_cache()  # the eager steps' blocks, for the capture
         self.reset_counts()
         replays = TrainSuperstep.replays
         runs.append(result(*superstep(from_start(), (x, y), seed=SEED)))
         require(TrainSuperstep.replays == replays + 1,
-                "train graph: no replay")
+                f"{case.tag} train graph: no replay")
         # the first call: one warm-up step, then the K steps captured
         captured = {n: c - per_step[n] for n, c in
                     self.read_counts()[0].items() if n in names}
-        require(all(captured[n] == LOOP_K * per_step[n] > 0 for n in names),
-                f"train graph: captured {captured}, a step {per_step}")
-        self.train_graph_launches = (per_step, captured)
-        print(f"[train_graph] launches a step {per_step}; captured in the "
-              f"K={LOOP_K} graph {captured}, run again at each replay")
+        require(all(captured[n] == k * per_step[n] > 0 for n in names),
+                f"{case.tag} train graph: captured {captured}, a step "
+                f"{per_step}")
+        print(f"[train_graph] {case.tag} launches a step {per_step}; "
+              f"captured in the K={k} graph {captured}, run again at each "
+              "replay")
         e1, e2, g = runs
 
         def differ(a, b):
@@ -2751,7 +2837,7 @@ class Smoke:
                     for k in a if not torch.equal(a[k], b[k])}
 
         eager_diff, graph_diff = differ(e2, e1), differ(g, e1)
-        print(f"[train_graph] K={LOOP_K} 7M steps from one state: loss "
+        print(f"[train_graph] K={k} {case.tag} steps from one state: loss "
               f"{g['metric.loss'].tolist()} lr {g['metric.lr'].tolist()}; "
               f"{len(g)} tensors compared; eager vs eager: "
               f"{len(eager_diff)} differ; graph vs eager: "
@@ -2761,11 +2847,12 @@ class Smoke:
                   f"in: {sorted(eager_diff.items())[:20]}")
             require(all(v <= eager_diff.get(k, 0.0)
                         for k, v in graph_diff.items()),
-                    f"train graph: beyond the eager-vs-eager difference: "
+                    f"{case.tag} train graph: beyond the eager-vs-eager "
+                    "difference: "
                     f"{sorted(graph_diff.items())[:20]}")
         else:
-            require(not graph_diff, f"train graph: not bitwise the eager "
-                    f"steps: {sorted(graph_diff.items())[:20]}")
+            require(not graph_diff, f"{case.tag} train graph: not bitwise "
+                    f"the eager steps: {sorted(graph_diff.items())[:20]}")
 
         def timed(fn):
             start_ev = torch.cuda.Event(enable_timing=True)
@@ -2788,17 +2875,16 @@ class Smoke:
             st, _ = eager_k(st)
 
         graph_ms, eager_ms = [], []
-        for _ in range(LOOP_TIMED):
-            graph_ms.append(timed(run_graph) / LOOP_K)
-            eager_ms.append(timed(run_eager) / LOOP_K)
-        self.train_graph_ms = (float(np.median(graph_ms)),
-                               float(np.median(eager_ms)))
-        ips = [TRAIN_BATCH * 1e3 / t for t in self.train_graph_ms]
-        print(f"[train_graph] a batch-{TRAIN_BATCH} train step, K={LOOP_K} "
-              f"groups, median of {LOOP_TIMED} in turns: graph "
-              f"{self.train_graph_ms[0]:.4f} ms ({ips[0]:.1f} img/s) vs "
-              f"eager {self.train_graph_ms[1]:.4f} ms ({ips[1]:.1f} img/s); "
-              f"{self.gpu}")
+        for _ in range(turns):
+            graph_ms.append(timed(run_graph) / k)
+            eager_ms.append(timed(run_eager) / k)
+        ms = (float(np.median(graph_ms)), float(np.median(eager_ms)))
+        ips = [B * 1e3 / t for t in ms]
+        print(f"[train_graph] {case.tag} a batch-{B} train step, K={k} "
+              f"groups, median of {turns} in turns: graph {ms[0]:.4f} ms "
+              f"({ips[0]:.1f} img/s) vs eager {ms[1]:.4f} ms ({ips[1]:.1f} "
+              f"img/s); {self.gpu}")
+        return per_step, captured
 
     def eval_graph(self):
         """The 7M eval superstep at K = ``LOOP_K`` (bf16, batch 128, uint8
@@ -4666,6 +4752,8 @@ def main() -> int:
             smoke.time_kernels(case, backward=True, iters=6)
         if case is A_BASE:
             smoke.ab_nhwc()
+        if case is A7M_192:  # #6 past 256 tokens inside the train graph
+            smoke.train_graph(case, k=2, turns=3)
         if case is MODEL_B_O:
             smoke.ab_vs_library()
             smoke.ab_mlp()

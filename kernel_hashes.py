@@ -7,7 +7,8 @@
 The first form builds the kernels of the repository at TREE (this file's
 own by default, e.g. a ``git archive`` checkout of another commit), calls
 every kernel wrapper of ``chip_smoke.py`` once at every stage shape of its
-cases (the forward at batch 64, the backward at 128, in fp32 and bf16;
+cases (the forward at batch 64, the backward at 128, both at a case's
+``compare_batch`` where it has one, in fp32 and bf16;
 the outlook kernels at the outlookers' shapes, the depthwise ones at the
 MBConvs'; the outlook forward and backward also at every
 ``OUTLOOK_SHAPES`` entry, at batch 64 and 128, and #9 at every
@@ -18,8 +19,9 @@ dtype),
 and writes the SHA-256 of each output's bytes, keyed by case, kernel, shape
 and dtype. The inputs depend only on ``chip_smoke.py``'s shapes and its
 input makers, so two trees that share those get the same inputs. The
-second form lists the calls whose outputs differ and the kernels whose
-every call is bitwise equal. Needs one card; imports no JAX.
+second form lists the calls only one file hashes (a case one tree lacks),
+then, of the calls both hash, those whose outputs differ and the kernels
+whose every call is bitwise equal. Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -58,7 +60,10 @@ def hashes(root: Path) -> dict:
     for ci, case in enumerate(cs.CASES):
         outlook = (("outlook_agg", "outlook_branch", "outlook_softmax")
                    if case.front else ())
-        for backward, batch in ((False, cs.BATCH), (True, cs.TRAIN_BATCH)):
+        # (an older tree's cases have no compare_batch)
+        small = getattr(case, "compare_batch", None)
+        for backward, batch in ((False, small or cs.BATCH),
+                                (True, small or cs.TRAIN_BATCH)):
             shapes = cs.stage_shapes(case, batch)
             for di, dtype in enumerate((torch.float32, torch.bfloat16)):
                 smoke.gen.manual_seed(1000 * ci + 10 * backward + di)
@@ -100,15 +105,16 @@ def hashes(root: Path) -> dict:
 
 
 def compare(a: dict, b: dict) -> None:
-    if a.keys() != b.keys():
-        raise SystemExit(f"the two files hash other calls: "
-                         f"{sorted(set(a) ^ set(b))}")
-    diff = [k for k in a if a[k] != b[k]]
-    print(f"{len(a)} kernel calls: {len(a) - len(diff)} bitwise equal, "
-          f"{len(diff)} differ")
+    for label, only in (("A", set(a) - set(b)), ("B", set(b) - set(a))):
+        for k in sorted(only):
+            print(f"only in {label}: {k}")
+    both = [k for k in a if k in b]
+    diff = [k for k in both if a[k] != b[k]]
+    print(f"{len(both)} kernel calls in both: {len(both) - len(diff)} "
+          f"bitwise equal, {len(diff)} differ")
     for k in diff:
         print(f"differs: {k}")
-    names = {k.split("|")[1] for k in a}
+    names = {k.split("|")[1] for k in both}
     print("kernels whose every call is bitwise equal:",
           sorted(n for n in names
                  if not any(k.split("|")[1] == n for k in diff)))

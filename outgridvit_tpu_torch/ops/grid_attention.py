@@ -37,22 +37,27 @@ grid_mhsa_pallas`` (#6) computes that forward; its backward recomputes the
 probabilities by division and keeps them in fp32
 (:func:`grid_mhsa_packed_backward_reference`). The JAX model runs it for
 grids of 16 < N < 64 tokens, and for grids of N >= 64 that the fused branch
-(#5) cannot hold. It packs ``32 // N`` grids of N < 16 tokens
+(#5) cannot hold, at any N. It packs ``32 // N`` grids of N < 16 tokens
 block-diagonally under a -1e30 mask, a layout device only: ``exp`` of a
 masked logit is exactly 0 in fp32. Its Hopper kernels
 (:func:`grid_mhsa_packed`, :func:`grid_mhsa_packed_backward`) pack nothing
-and take 1 <= N <= 256, in three C sources by N and dtype:
+and take 1 <= N <= 4096, in four C sources by N and dtype:
 
 - 1 <= N <= 63, bf16: ``csrc/grid_mhsa_packed_mma.cu`` (one warp per grid
   and head on ``mma.sync`` tiles, launch plan :func:`grid_mhsa_packed_plan`);
 - 1 <= N <= 63, fp32 (the parity path): ``csrc/grid_mhsa_packed.cu`` (one
   block per grid, fp32 staging);
-- 64 <= N <= 256, both dtypes: ``csrc/grid_mhsa_long.cu`` (one block per
-  grid and head that streams the key tiles in exact passes, bf16 on
-  ``mma.sync`` tiles, launch plan :func:`grid_mhsa_long_plan`).
+- 64 <= N <= 256 in bf16, 64 <= N <= 4096 in fp32: ``csrc/grid_mhsa_long.cu``
+  (one block per grid and head that streams the key tiles in exact passes,
+  bf16 on ``mma.sync`` tiles, launch plan :func:`grid_mhsa_long_plan`);
+- 257 <= N <= 4096, bf16: ``csrc/grid_mhsa_tiles.cu`` (a head's query rows
+  cut into blocks that stream the keys in chunks through a ring of shared
+  buffers, the same passes; the backward a query-row kernel, then a key-row
+  kernel, through an fp32 scratch of row statistics; launch plan
+  :func:`grid_mhsa_tiles_plan`, asked of the kernels' layout header).
 
 The bf16 kernels and the long one take a head width that is a multiple of 8
-up to 64 and raise on any other, as on N > 256. Launches are counted per C
+up to 64 and raise on any other, as on N > 4096. Launches are counted per C
 entry point (``grid_mhsa_packed.by_entry``).
 
 :func:`grid_mhsa_autograd` and :func:`grid_mhsa_packed_autograd` are the
@@ -73,7 +78,10 @@ from outgridvit_tpu_torch.ops import kernel_build
 
 MAX_TOKENS = 16  # the JAX dispatch runs this kernel for N <= 16
 PACKED_MAX_TOKENS = 63  # and #6 for 16 < N < 64 (and N >= 64 past #5)
-LONG_MAX_TOKENS = 256  # csrc/grid_mhsa_long.cu takes 64 <= N <= 256
+LONG_MAX_TOKENS = 256  # csrc/grid_mhsa_long.cu takes 64 <= N <= 256 in bf16
+# and 64 <= N <= 4096 in fp32; csrc/grid_mhsa_tiles.cu 257 <= N <= 4096 in
+# bf16 (csrc/grid_mhsa_tiles_layout.h:kMaxN)
+TILES_MAX_TOKENS = 4096
 VARIANTS = ("t", "th")  # grid_mhsa_pallas_t (#1), grid_mhsa_pallas_th (#3)
 
 
@@ -280,17 +288,19 @@ def grid_mhsa_long_plan(G: int, N: int, C: int, heads: int, backward: bool,
                         dtype: str = "bfloat16") -> LongPlan:
     """#6's kernel for long grids, its launch plan for qkv ``[G, N, 3C]`` of
     ``dtype`` ("bfloat16" or "float32"), or a ValueError naming the shape it
-    does not take (N outside 64..256, a head width that is not a multiple of
-    8 in [8, 64]). Cached: the wrapper asks at every launch."""
+    does not take (N outside 64..256 in bf16, 64..4096 in fp32; a head width
+    that is not a multiple of 8 in [8, 64]). Cached: the wrapper asks at
+    every launch."""
     if G < 0 or heads <= 0 or C % heads:
         raise ValueError(f"grid_mhsa_long: G={G}, N={N}, C={C}, "
                          f"heads={heads}")
     hd = C // heads
-    if not PACKED_MAX_TOKENS < N <= LONG_MAX_TOKENS or hd % 8 or \
+    top = TILES_MAX_TOKENS if dtype == "float32" else LONG_MAX_TOKENS
+    if not PACKED_MAX_TOKENS < N <= top or hd % 8 or \
             not 8 <= hd <= LONG_MAX_HD:
         raise ValueError(
             f"grid_mhsa_long: N={N}, C={C}, heads={heads} (hd={hd}); the "
-            f"kernel takes {PACKED_MAX_TOKENS + 1} <= N <= {LONG_MAX_TOKENS} "
+            f"kernel takes {PACKED_MAX_TOKENS + 1} <= N <= {top} in {dtype} "
             f"and hd a multiple of 8 up to {LONG_MAX_HD} (ROADMAP.md §2)")
     if dtype == "bfloat16":
         warps = -(-N // 16)
@@ -308,6 +318,79 @@ def grid_mhsa_long_plan(G: int, N: int, C: int, heads: int, backward: bool,
                      else dtype]
     return LongPlan(warps, G * heads, rows, row, smem, regs,
                     blocks_per_sm(warps, smem, regs))
+
+
+# ---- #6's bf16 kernels for N > 256 (csrc/grid_mhsa_tiles.cu) --------------
+
+class TilesPlan(NamedTuple):
+    """How ``ogvt_grid_mhsa_tiles[_bwd]`` cuts one call: each (grid, head)
+    unit's rows in ``parts`` blocks of ``warps`` warps (one per m16 tile of
+    the block's own rows: query rows forward and in the backward's query
+    kernel, key rows in its key kernel), ``rows`` a block and ``covered``
+    (>= N) a unit, ``blocks`` a kernel in all; the other side's rows stream
+    in chunks of ``chunk`` rows through ``stages`` shared buffers, staged
+    rows ``row_bytes`` apart; ``smem_bytes`` a block of the forward or of
+    the backward's query kernel, ``smem_key`` of its key kernel (0
+    forward); ``scratch_floats``, the backward's fp32 statistics of the
+    call (4 a covered row a unit; 0 forward); and, at the kernels' register
+    caps ``regs`` / ``regs_key``, the blocks one SM holds
+    (``blocks_per_sm`` / ``blocks_per_sm_key``). Everything but the counts
+    comes from ``csrc/grid_mhsa_tiles_layout.h``."""
+    parts: int
+    warps: int
+    blocks: int
+    rows: int
+    covered: int
+    chunk: int
+    stages: int
+    row_bytes: int
+    smem_bytes: int
+    smem_key: int
+    scratch_floats: int
+    regs: int
+    regs_key: int
+    blocks_per_sm: int
+    blocks_per_sm_key: int
+
+
+@lru_cache(maxsize=None)
+def _tiles_layout(N: int, C: int, heads: int, backward: bool):
+    """``csrc/grid_mhsa_tiles_layout.h``'s layout for the shape (blocks a
+    unit, warps, the two kernels' shared bytes and register caps, chunk
+    rows, ring buffers, row bytes, scratch floats a unit), or None where
+    the kernels do not take it."""
+    out = (ctypes.c_int * 10)()
+    if kernel_build.load_layouts().ogvt_grid_mhsa_tiles_layout(
+            N, C, heads, int(backward), out):
+        return None
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
+def grid_mhsa_tiles_plan(G: int, N: int, C: int, heads: int,
+                         backward: bool) -> TilesPlan:
+    """#6's bf16 kernels for grids of N > 256, their launch plan for qkv
+    ``[G, N, 3C]``, or a ValueError naming the shape they do not take (N
+    outside 257..4096, a head width that is not a multiple of 8 in [8,
+    64]). Cached: the wrapper asks at every launch."""
+    if G < 0 or heads <= 0 or C % heads:
+        raise ValueError(f"grid_mhsa_tiles: G={G}, N={N}, C={C}, "
+                         f"heads={heads}")
+    layout = _tiles_layout(N, C, heads, backward)
+    if layout is None:
+        raise ValueError(
+            f"grid_mhsa_tiles: N={N}, C={C}, heads={heads} (hd={C // heads}); "
+            f"the bf16 kernels take {LONG_MAX_TOKENS + 1} <= N <= "
+            f"{TILES_MAX_TOKENS} and hd a multiple of 8 up to {LONG_MAX_HD} "
+            "(ROADMAP.md §2)")
+    parts, warps, smem, smem_key, regs, regs_key, chunk, stages, row, \
+        scratch = layout
+    rows = 16 * warps
+    return TilesPlan(
+        parts, warps, G * heads * parts, rows, rows * parts, chunk, stages,
+        row, smem, smem_key, G * heads * scratch, regs, regs_key,
+        blocks_per_sm(warps, smem, regs),
+        blocks_per_sm(warps, smem_key, regs_key) if backward else 0)
 
 
 def grid_mhsa_variant(N: int, C: int) -> str:
@@ -578,38 +661,54 @@ def packed_smem_floats(N: int, C: int, heads: int, backward: bool) -> int:
     return 3 * N * (hd + 1) + N * (N + 1)
 
 
+def grid_mhsa_packed_entry(N: int, dtype: torch.dtype,
+                           backward: bool = False) -> str:
+    """The C entry point a #6 launch of grids of N tokens in ``dtype``
+    takes, by N and dtype alone: ``csrc/grid_mhsa_tiles.cu``'s for bf16
+    past 256 tokens, ``csrc/grid_mhsa_long.cu``'s from 64 tokens on (fp32
+    past 256 too), below that ``csrc/grid_mhsa_packed_mma.cu``'s in bf16
+    and ``csrc/grid_mhsa_packed.cu``'s in fp32."""
+    bf16 = dtype == torch.bfloat16
+    entry = ("ogvt_grid_mhsa_tiles" if bf16 and N > LONG_MAX_TOKENS
+             else "ogvt_grid_mhsa_long" if N > PACKED_MAX_TOKENS
+             else "ogvt_grid_mhsa_packed_mma" if bf16
+             else "ogvt_grid_mhsa_packed")
+    return entry + ("_bwd" if backward else "")
+
+
 def _packed_launch(name: str, qkv: torch.Tensor, heads: int, backward: bool,
                    *others):
-    """(G, N, C, entry, plan) of a #6 launch: the C entry point by N and
-    dtype and its launch plan (None for the fp32 kernel of N <= 63, whose
-    block must fit shared memory); or a ValueError."""
-    bf16 = qkv.dtype == torch.bfloat16
-    long = _check(qkv, heads)[1] > PACKED_MAX_TOKENS
+    """(G, N, C, entry, plan) of a #6 launch: the C entry point
+    (:func:`grid_mhsa_packed_entry`) and its launch plan (None for the fp32
+    kernel of N <= 63, whose block must fit shared memory); or a
+    ValueError."""
+    entry = grid_mhsa_packed_entry(_check(qkv, heads)[1], qkv.dtype,
+                                   backward)
+    base = entry.removesuffix("_bwd")
     G, N, C = _check_launch(
         name, qkv, heads,
-        None if bf16 or long else
-        lambda N, C: packed_smem_floats(N, C, heads, backward),
-        max_tokens=LONG_MAX_TOKENS, beyond=" (ROADMAP.md §2)")
+        (lambda N, C: packed_smem_floats(N, C, heads, backward))
+        if base == "ogvt_grid_mhsa_packed" else None,
+        max_tokens=TILES_MAX_TOKENS, beyond=" (ROADMAP.md §2)")
     if backward:
         _check_dout(name, qkv, others[0][1], G, N, C)
-    sfx = "_bwd" if backward else ""
-    if long:
-        planner = partial(grid_mhsa_long_plan,
-                          dtype=str(qkv.dtype).removeprefix("torch."))
-        return G, N, C, "ogvt_grid_mhsa_long" + sfx, _mma_plan(
-            name, planner, qkv, heads, backward, *others)
-    if bf16:
-        return G, N, C, "ogvt_grid_mhsa_packed_mma" + sfx, _mma_plan(
-            name, grid_mhsa_packed_plan, qkv, heads, backward, *others)
-    return G, N, C, "ogvt_grid_mhsa_packed" + sfx, None
+    if base == "ogvt_grid_mhsa_packed":
+        return G, N, C, entry, None
+    planner = {"ogvt_grid_mhsa_tiles": grid_mhsa_tiles_plan,
+               "ogvt_grid_mhsa_packed_mma": grid_mhsa_packed_plan}.get(
+        base, partial(grid_mhsa_long_plan,
+                      dtype=str(qkv.dtype).removeprefix("torch.")))
+    return G, N, C, entry, _mma_plan(name, planner, qkv, heads, backward,
+                                     *others)
 
 
 def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """#6's forward, qkv [G, N, 3C] -> [G, N, C]: probabilities divided by
     their sum and cast to qkv's dtype before P.V. A CUDA tensor launches a
     kernel (or raises): for N <= 63 ``csrc/grid_mhsa_packed_mma.cu`` in
-    bf16, ``csrc/grid_mhsa_packed.cu`` in fp32; for 64 <= N <= 256
-    ``csrc/grid_mhsa_long.cu``; a CPU tensor takes
+    bf16, ``csrc/grid_mhsa_packed.cu`` in fp32; for 64 <= N <= 256 (fp32:
+    up to 4096) ``csrc/grid_mhsa_long.cu``; for 257 <= N <= 4096 in bf16
+    ``csrc/grid_mhsa_tiles.cu``; a CPU tensor takes
     :func:`grid_mhsa_packed_reference`. Under tracing it is the op
     ``ogvt::grid_mhsa_packed`` (``ops/library.py``)."""
     if kernel_build.tracing():
@@ -633,6 +732,10 @@ def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             err = lib.ogvt_grid_mhsa_packed(
                 qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale, dtype,
                 stream)
+        elif isinstance(plan, TilesPlan):
+            err = lib.ogvt_grid_mhsa_tiles(
+                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
+                plan.parts, plan.warps, plan.smem_bytes, stream)
         else:
             err = getattr(lib, entry)(
                 qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
@@ -650,7 +753,8 @@ def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
                               heads: int) -> torch.Tensor:
     """#6's backward, (qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C].
     A CUDA tensor launches a kernel (or raises), chosen as in
-    :func:`grid_mhsa_packed`; a CPU tensor takes
+    :func:`grid_mhsa_packed` (for N > 256 in bf16 two kernels in one call,
+    through an fp32 scratch it allocates); a CPU tensor takes
     :func:`grid_mhsa_packed_backward_reference`."""
     if qkv.device.type == "cpu":
         return grid_mhsa_packed_backward_reference(qkv, dout, heads)
@@ -666,6 +770,13 @@ def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
             err = lib.ogvt_grid_mhsa_packed_bwd(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
                 heads, scale, dtype, stream)
+        elif isinstance(plan, TilesPlan):
+            stats = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                device=qkv.device)
+            err = lib.ogvt_grid_mhsa_tiles_bwd(
+                qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                stats.data_ptr(), G, N, C, heads, scale, plan.parts,
+                plan.warps, plan.smem_bytes, plan.smem_key, stream)
         else:
             err = getattr(lib, entry)(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,

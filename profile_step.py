@@ -1,6 +1,7 @@
 """Where the device time of one bf16 train step of the port goes on the
 card: the kernel-path step that ``chip_smoke.py`` drives (its cases, random
-weights from its seed, batch 128, one step's draws sampled beforehand),
+weights from its seed, its train batch: 128, or 32 for ``a7m_192``; one
+step's draws sampled beforehand),
 traced by ``torch.profiler`` over 3 steps after 3 warm-up ones.
 
 Prints, per step: the wall time (CUDA events), the device busy time (the
@@ -82,7 +83,7 @@ def main() -> int:
     gpu = cs.gpu_name_and_power_limit()
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(cs.SEED)
-    T, B = case.train, cs.TRAIN_BATCH
+    T, B = case.train, case.train_batch
     classes = case.model["num_classes"]
     step_cfg = StepConfig(
         num_classes=classes, label_smoothing=T["label_smoothing"],

@@ -27,7 +27,12 @@ block-packed grid core (#6) at the 48 px 7M stage-0 shapes (serving and
 train batch) and edge shapes (N = 1, 17, 63; hd = 56, 64), its bf16 kernel
 (``csrc/grid_mhsa_packed_mma.cu``) at N = 17, 33, 48, 49, 63 times hd = 8,
 24, 56, 64 through its own entry points (fp32 through
-``csrc/grid_mhsa_packed.cu``'s) and its refusal of hd = 12, the NHWC fused
+``csrc/grid_mhsa_packed.cu``'s) and its refusal of hd = 12, #6 past 256
+tokens (``csrc/grid_mhsa_tiles.cu`` in bf16, ``csrc/grid_mhsa_long.cu`` in
+fp32) at N = 257, 576, 784 times hd = 8, 24, 64, both ways, two calls
+bitwise equal, its refusals (hd 10, 12, 72; N = 4097) with nothing
+launched, its entry points' plan check and the 192 px 7M's stage-0
+attention trained against the plain path, the NHWC fused
 branch (#12) at the default Model A stage-0 shape and rectangular maps,
 against its plain version and bit for bit against partition -> #5 ->
 unpartition, tiny models through both, and ``model.use_pallas: false``,
@@ -2053,21 +2058,130 @@ def test_grid_mhsa_long_kernels_match_plain(dev, dtype, N, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [36, 63, 64, 144, 256])
+@pytest.mark.parametrize("N", [36, 63, 64, 144, 256, 257, 576])
 def test_grid_mhsa_packed_entry_point_by_n(dev, dtype, N):
     """N <= 63 takes csrc/grid_mhsa_packed_mma.cu (bf16) or
-    csrc/grid_mhsa_packed.cu (fp32), N >= 64 csrc/grid_mhsa_long.cu."""
+    csrc/grid_mhsa_packed.cu (fp32), N >= 64 csrc/grid_mhsa_long.cu, but
+    bf16 past 256 csrc/grid_mhsa_tiles.cu."""
+    bf16 = dtype == torch.bfloat16
     short = ("ogvt_grid_mhsa_packed_mma", "ogvt_grid_mhsa_packed_mma_bwd") \
-        if dtype == torch.bfloat16 else ("ogvt_grid_mhsa_packed",
-                                         "ogvt_grid_mhsa_packed_bwd")
-    want = LONG_ENTRIES if N >= 64 else short
-    other = short if N >= 64 else LONG_ENTRIES
+        if bf16 else ("ogvt_grid_mhsa_packed", "ogvt_grid_mhsa_packed_bwd")
+    want = (TILES_ENTRIES if bf16 and N > 256 else LONG_ENTRIES if N >= 64
+            else short)
+    others = [e for e in (short, LONG_ENTRIES, TILES_ENTRIES) if e != want]
     qkv = torch.randn(2, N, 3 * 48, device=dev).to(dtype)
-    before, before_other = _entries_of(*want), _entries_of(*other)
+    before = _entries_of(*want)
+    before_others = [_entries_of(*e) for e in others]
     grid_mhsa_packed(qkv, 2)
     grid_mhsa_packed_backward(qkv, qkv[..., :48].contiguous(), 2)
     assert _entries_of(*want) == (before[0] + 1, before[1] + 1)
-    assert _entries_of(*other) == before_other
+    assert [_entries_of(*e) for e in others] == before_others
+
+
+# ---- #6 for N > 256: csrc/grid_mhsa_tiles.cu (bf16), csrc/grid_mhsa_long.cu
+# (fp32) ----------------------------------------------------------------------
+
+TILES_ENTRIES = ("ogvt_grid_mhsa_tiles", "ogvt_grid_mhsa_tiles_bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 24, 64])
+@pytest.mark.parametrize("N", [257, 576, 784])
+def test_grid_mhsa_past_256_tokens_matches_plain(dev, dtype, N, hd):
+    """Both directions past 256 tokens against their plain versions (3
+    grids, 2 heads; N = 257: a partial last query block and a one-key last
+    chunk, 576: the 7M model's stage 0 at 192 px, 784: at 224 px), each
+    call twice bitwise equal: bf16 through csrc/grid_mhsa_tiles.cu's entry
+    points, fp32 through csrc/grid_mhsa_long.cu's."""
+    g = torch.Generator().manual_seed(N * 100 + hd)
+    C = 2 * hd
+    qkv = torch.randn(3, N, 3 * C, generator=g).to(dev, dtype)
+    dout = torch.randn(3, N, C, generator=g).to(dev, dtype)
+    entries = TILES_ENTRIES if dtype == torch.bfloat16 else LONG_ENTRIES
+    before = _entries_of(*entries)
+    got = grid_mhsa_packed(qkv, 2)
+    got2 = grid_mhsa_packed(qkv, 2)
+    dqkv = grid_mhsa_packed_backward(qkv, dout, 2)
+    again = grid_mhsa_packed_backward(qkv, dout, 2)
+    torch.cuda.synchronize()
+    assert _entries_of(*entries) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, got2) and torch.equal(dqkv, again)
+    _assert_close(got, grid_mhsa_packed_reference(qkv, 2), dtype)
+    _assert_close(dqkv, grid_mhsa_packed_backward_reference(qkv, dout, 2),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C,heads,what", [
+    (576, 24, 2, "hd=12"), (576, 144, 2, "hd=72"), (300, 40, 4, "hd=10"),
+    (4097, 16, 2, "N=4097")])
+def test_grid_mhsa_past_256_tokens_refuses_on_the_card(dev, dtype, N, C,
+                                                       heads, what):
+    """A CUDA qkv past 256 tokens at a head width (or N) the kernels do not
+    take raises, both directions, and launches nothing: no plain fallback."""
+    qkv = torch.randn(2, N, 3 * C, device=dev).to(dtype)
+    n = (grid_mhsa_packed.launches, grid_mhsa_packed_backward.launches)
+    with pytest.raises(ValueError, match=what):
+        grid_mhsa_packed(qkv, heads)
+    with pytest.raises(ValueError, match=what):
+        grid_mhsa_packed_backward(qkv, qkv[..., :C].contiguous(), heads)
+    assert (grid_mhsa_packed.launches,
+            grid_mhsa_packed_backward.launches) == n
+
+
+def test_grid_mhsa_tiles_entry_points_refuse_another_plan(dev):
+    """The C entry points check the plan against the layout header."""
+    qkv = torch.randn(2, 576, 144, device=dev).bfloat16()
+    out = torch.empty(2, 576, 48, device=dev, dtype=torch.bfloat16)
+    p = grid_attention_mod.grid_mhsa_tiles_plan(2, 576, 48, 2, False)
+    lib = kernel_build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(parts, warps, smem):
+        return lib.ogvt_grid_mhsa_tiles(qkv.data_ptr(), out.data_ptr(), 2,
+                                        576, 48, 2, 0.2, parts, warps, smem,
+                                        stream)
+
+    assert call(p.parts, p.warps, p.smem_bytes) == 0
+    for bad in ((p.parts + 1, p.warps, p.smem_bytes),
+                (p.parts, p.warps + 1, p.smem_bytes),
+                (p.parts, p.warps, p.smem_bytes + 16)):
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_at_576_tokens_trains_on_the_card(dev, dtype):
+    """The 7M model's stage 0 at 192 px: grids of N = 576, C = 48, 2 heads.
+    The module routes them to #6 past 256 tokens both ways (bf16:
+    csrc/grid_mhsa_tiles.cu; fp32: csrc/grid_mhsa_long.cu), and its output
+    and gradients match the plain path's."""
+    x = torch.randn(2, 192, 192, 48,
+                    generator=torch.Generator().manual_seed(5))
+    entries = TILES_ENTRIES if dtype == torch.bfloat16 else LONG_ENTRIES
+    out = {}
+    for use_kernels in (True, False):
+        mhsa = MultiHeadSelfAttention(48, 2, dtype=dtype,
+                                      use_kernels=use_kernels, device=dev)
+        ln = LayerNorm(48, 1e-5, device=dev)
+        gen = torch.Generator().manual_seed(6)
+        with torch.no_grad():
+            for p in (*mhsa.parameters(), *ln.parameters()):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        before = _entries_of(*entries)
+        xin = x.to(dev, dtype).requires_grad_(True)
+        y = mhsa(xin, ln, 8)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert _entries_of(*entries) == (
+            (before[0] + 1, before[1] + 1) if use_kernels else before)
+        out[use_kernels] = [y.detach(), xin.grad] + [
+            p.grad for p in (*mhsa.parameters(), *ln.parameters())]
+    for got, want in zip(out[True], out[False]):
+        assert torch.isfinite(got.float()).all()
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(scale, 1.0), (err, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2147,8 +2261,8 @@ def test_attn_branch_nhwc_kernels_match_plain_and_attn_branch(
 
 
 def test_packed_and_nhwc_wrappers_reject_what_the_kernels_do_not_take(dev):
-    with pytest.raises(ValueError, match="N=257"):
-        grid_mhsa_packed(torch.randn(2, 257, 48, device=dev), 2)
+    with pytest.raises(ValueError, match="N=4097"):
+        grid_mhsa_packed(torch.randn(2, 4097, 48, device=dev), 2)
     with pytest.raises(ValueError, match="shared memory"):
         grid_mhsa_packed(torch.randn(2, 63, 3 * 1024, device=dev), 1)
     with pytest.raises(ValueError, match="dout"):

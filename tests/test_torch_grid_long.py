@@ -7,7 +7,8 @@ back to it from the fused branch (#5) (``outgridvit_tpu/models/blocks.py:
 - The plain forward and backward (:func:`grid_mhsa_packed_reference`,
   :func:`grid_mhsa_packed_backward_reference`, what ``grid_mhsa_packed``
   computes on a CPU tensor) against ``grid_mhsa_pallas`` in interpret mode
-  at N = 64, 100 and 144, hd 8 and 24, fp32 and bf16.
+  at N = 64, 100 and 144, hd 8 and 24, and at N = 257 and 576, hd 8, fp32
+  and bf16.
 - ``attn_branch_fits`` at the N >= 64 shapes of the configs, and the route
   :class:`MultiHeadSelfAttention` takes for each: #5 (or #12 with
   ``attn_nhwc``) where the branch's kernels hold the grid, #6 where not.
@@ -92,9 +93,14 @@ def _chip_smoke():
 
 # ---- the core against grid_mhsa_pallas -------------------------------------
 
+# (N, hd): the long kernel's grids at two head widths, and past 256 tokens
+# (csrc/grid_mhsa_tiles.cu's and the fp32 long kernel's) at hd 8
+CORE = [(N, hd) for N in (64, 100, 144) for hd in (8, 24)] + [(257, 8),
+                                                              (576, 8)]
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("hd", [8, 24])
-@pytest.mark.parametrize("N", [64, 100, 144])
+@pytest.mark.parametrize("N,hd", CORE)
 def test_plain_core_matches_grid_mhsa_pallas(N, hd, dtype):
     G, heads = 2, 2
     C = heads * hd
@@ -312,7 +318,8 @@ def test_long_plan_keeps_several_blocks_at_the_96px_shape():
 
 @pytest.mark.parametrize("G,N,C,heads,dtype,what", [
     (2, 63, 48, 2, "bfloat16", "N=63"), (2, 257, 48, 2, "bfloat16", "N=257"),
-    (2, 257, 48, 2, "float32", "N=257"), (2, 144, 24, 2, "bfloat16", "hd=12"),
+    (2, 4097, 48, 2, "float32", "N=4097"),
+    (2, 144, 24, 2, "bfloat16", "hd=12"),
     (2, 144, 144, 2, "float32", "hd=72"), (2, 144, 8, 2, "bfloat16", "hd=4"),
     (2, 144, 48, 5, "bfloat16", "heads=5")])
 def test_long_plan_refuses_what_the_kernel_does_not_take(G, N, C, heads,
