@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port's serving and training paths on one NVIDIA
 GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
 
 Builds the port's CUDA kernels from ``outgridvit_tpu_torch/csrc`` (nvcc,
 sm_90a), then drives three models at their full width with random weights
@@ -47,7 +47,18 @@ from a seed:
   step run at batch 8 (``compare_batch``; the plain version's
   probabilities), with one more compare at the 224 px stage 0 (N=784);
   serving at 64, training at 32 (``train_batch``), then its K = 2 train
-  graph bitwise two eager steps (``Smoke.train_graph``).
+  graph bitwise two eager steps (``Smoke.train_graph``). The bf16 backward
+  there reads the row statistics (max, sum, 1 / sum) its forward keeps
+  under grad: its compares get them from the forward, its plain version
+  recomputes them, and the statistics themselves are held to their plain
+  version at N=576 and 784 (``Smoke.compare_tiles_stats``). With
+  ``--parent TREE`` (a ``git archive`` of the commit before that design,
+  whose ``csrc/grid_mhsa_tiles.cu`` is built alone beside the main build)
+  the phase also holds the kept statistics bitwise to the parent's query
+  kernel's, out and dqkv bitwise to the parent's, and times the backward
+  and the forward (served, keeping statistics) against the parent's and
+  SDPA in turns at N=576 and 784, train batch 32
+  (``Smoke.ab_tiles_parent``); without it that A/B is skipped.
 
 Every bf16 launch of the grid core, tagged "t" (#1: the 7M model's,
 Model B's and ``a7m_48``'s grids of N <= 16) or "th" (#3: Tiny-ImageNet's
@@ -902,7 +913,9 @@ AB_KEY = {"dwconv3x3": "ab_vs_conv2d_ms",
           "dwconv3x3_bwd": "ab_vs_convolution_backward_ms"}
 # the key of a redesign's A/B against the kernel it replaces (default
 # ab_vs_fma_kernel_ms)
-AB_OLD_KEY = {"outlook_softmax": "ab_vs_old_kernel_ms"}
+AB_OLD_KEY = {"outlook_softmax": "ab_vs_old_kernel_ms",
+              "grid_mhsa_tiles": "ab_vs_old_kernel_ms",
+              "grid_mhsa_tiles_bwd": "ab_vs_old_kernel_ms"}
 LIBRARY = {"cudnn": "cuDNN", "sdpa": "SDPA"}
 # kernels whose outputs equal their plain versions bit for bit on the card
 BITWISE = ("dwconv3x3", "outlook_softmax")
@@ -926,6 +939,19 @@ SHARE_OUTPUTS = {"outlook_agg_bwd": ("dv", "da"),
                  "outlook_branch_bwd": ("dx", "da")}
 
 
+# #6 past 256 tokens against the kernel of another tree (``--parent``, a
+# ``git archive`` of the commit before its backward kept the forward's row
+# statistics): that tree's csrc/grid_mhsa_tiles.cu built alone, its entry
+# points' C signatures there ((qkv, out, G, N, C, heads, scale, parts,
+# warps, smem, stream); (qkv, dout, dqkv, scratch, G, N, C, heads, scale,
+# parts, warps, smem_query, smem_key, stream), the scratch 4 fp32
+# statistics of each covered row a unit: max, sum, 1 / sum, D), and the
+# shapes: a7m_192's stage 0 at its train batch and the 224 px model's
+PARENT_TILES_SOURCE = "outgridvit_tpu_torch/csrc/grid_mhsa_tiles.cu"
+PARENT_TILES_STATS = 4
+AB_PARENT = ((A7M_192, 192), (A7M_192, 224))
+
+
 class CheckFailed(RuntimeError):
     pass
 
@@ -933,6 +959,45 @@ class CheckFailed(RuntimeError):
 def require(cond, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
+
+
+def start_parent_build(tree):
+    """Start nvcc on ``tree``'s ``csrc/grid_mhsa_tiles.cu`` alone, with
+    ``kernel_build``'s flags, into a shared library under the build
+    directory; returns (process, library path). Runs beside the main build."""
+    from pathlib import Path
+
+    from outgridvit_tpu_torch.ops import kernel_build
+
+    src = Path(tree).resolve() / PARENT_TILES_SOURCE
+    if not src.is_file():
+        raise CheckFailed(f"--parent {tree}: no {PARENT_TILES_SOURCE}")
+    kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernel_build.BUILD_DIR / "parent_grid_mhsa_tiles.so"
+    cmd = [kernel_build.find_nvcc(), *kernel_build.NVCC_FLAGS, "-shared",
+           "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def load_parent_build(proc, path):
+    """Wait for :func:`start_parent_build`'s nvcc and load its library with
+    the parent's C signatures."""
+    import ctypes
+
+    log, _ = proc.communicate()
+    require(proc.returncode == 0, f"parent tiles build failed:\n{log}")
+    for line in log.splitlines():
+        if "tiles_bwd" in line or "spill" in line or "Used" in line:
+            print(f"[build parent] {line.strip()}")
+    lib = ctypes.CDLL(str(path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ogvt_grid_mhsa_tiles.argtypes = (P, P, I, I, I, I, F, I, I, I, P)
+    lib.ogvt_grid_mhsa_tiles_bwd.argtypes = (P, P, P, P, I, I, I, I, F, I,
+                                             I, I, I, P)
+    lib.ogvt_grid_mhsa_tiles.restype = I
+    lib.ogvt_grid_mhsa_tiles_bwd.restype = I
+    return lib
 
 
 def gpu_name_and_power_limit() -> str:
@@ -1121,7 +1186,7 @@ def work(name, args, outs):
     if base in GRID_CORES:  # softmax(q.k^T).v
         G, N, C = x.shape[0], x.shape[1], x.shape[2] // 3
         return nbytes, (10 if bwd else 4) * G * N * N * C, \
-            5 * G * args[-1] * N * N
+            5 * G * grid_heads(args) * N * N
     if base in ("attn_branch", "attn_branch_nhwc"):  # + LN, projections
         if base == "attn_branch":
             (G, N, C), heads = x.shape, args[-1]
@@ -1151,6 +1216,13 @@ def work(name, args, outs):
     raise KeyError(name)
 
 
+def grid_heads(args) -> int:
+    """The heads of a grid core's arguments: (qkv, heads) forward; (qkv,
+    dout, heads) backward, and the forward's row statistics after them
+    where the backward reads them (#6 past 256 tokens in bf16)."""
+    return next(a for a in args if isinstance(a, int))
+
+
 def bound_ms(name, args, outs, dtype):
     """(ms bound by bytes, ms bound by operations) of one launch on the
     H100 SXM: bytes over HBM_BYTES_PER_S; matrix products at the tensor-core
@@ -1174,7 +1246,7 @@ def library_call(name, args):
     import torch.nn.functional as F
 
     if name.startswith("grid_mhsa"):
-        qkv, heads = args[0], args[-1]
+        qkv, heads = args[0], grid_heads(args)
         G, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
         q, k, v = (t.contiguous() for t in qkv.reshape(
             G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4))
@@ -1299,8 +1371,12 @@ class Smoke:
                                    ga.grid_mhsa_packed_backward_reference),
             "grid_mhsa_tiles": (ga.grid_mhsa_packed,
                                 ga.grid_mhsa_packed_reference),
-            "grid_mhsa_tiles_bwd": (ga.grid_mhsa_packed_backward,
-                                    ga.grid_mhsa_packed_backward_reference),
+            # the plain version recomputes the row statistics the kernel
+            # reads from its forward (held apart, compare_tiles_stats)
+            "grid_mhsa_tiles_bwd": (
+                ga.grid_mhsa_packed_backward,
+                lambda qkv, dout, heads, stats=None:
+                ga.grid_mhsa_packed_backward_reference(qkv, dout, heads)),
             "attn_branch_nhwc": (ab.attn_branch_nhwc,
                                  ab.attn_branch_nhwc_reference),
             "attn_branch_nhwc_bwd": (ab.attn_branch_nhwc_backward,
@@ -1480,8 +1556,15 @@ class Smoke:
             # (v, a, wp, g) / (x, a, wv, bv, wp, g) / (x, w9, dy)
             return args
         if base in GRID_CORES:
+            from outgridvit_tpu_torch.ops import grid_attention as ga
+
             dout = self.randn(sh["G"], sh["N"], sh["C"]).to(dtype)
-            return (args[0], dout, args[1])
+            args = (args[0], dout, args[1])
+            if base != "grid_mhsa" and ga.keeps_stats(sh["N"], dtype):
+                # the forward's row statistics, which this backward reads
+                args += (ga.grid_mhsa_packed(args[0], args[2],
+                                             save_stats=True)[1],)
+            return args
         # the branches: dy at unit scale, so that dx is large against the
         # tolerance's absolute term
         return (*args[:7], self.randn(*args[0].shape).to(dtype), *args[7:])
@@ -1643,6 +1726,11 @@ class Smoke:
                     self.compare(name, make(name, sh, dtype), dtype,
                                  f"a7m_224 stage0 G={sh['G']} N={sh['N']} "
                                  f"C={sh['C']} heads={sh['heads']}")
+                if not backward:  # the statistics it keeps under grad
+                    for tag, s in ((case.tag, shapes[0]), ("a7m_224", sh)):
+                        self.compare_tiles_stats(
+                            s, f"{tag} stage0 G={s['G']} N={s['N']} "
+                            f"C={s['C']} heads={s['heads']}")
             if case is A_BASE:
                 self.compare_nhwc_with_tokens(shapes[0], backward)
             if case is FLAGSHIP:  # every activation and the no-LN form
@@ -1655,6 +1743,39 @@ class Smoke:
                                                 sh["H_block"], act, False),
                                      dtype, f"{case.tag} stage0 M={sh['M']} "
                                      f"C={sh['C']} act={act} ln=False")
+
+    def compare_tiles_stats(self, sh, label):
+        """The row statistics #6's bf16 forward past 256 tokens keeps under
+        grad (each query row's max, sum and 1 / sum, the backward's input)
+        against their plain version (``grid_mhsa_tiles_stats_reference``)
+        at the fp32 bar, ``KERNEL_TOL["float32"]`` (fp32 sums of the same
+        bf16 products, in another order); two calls bitwise equal, and the
+        output bitwise the forward's without them (the served one)."""
+        import torch
+
+        from outgridvit_tpu_torch.ops import grid_attention as ga
+
+        qkv, heads = self.fwd_args("grid_mhsa_tiles", sh, torch.bfloat16)
+        out, got = ga.grid_mhsa_packed(qkv, heads, save_stats=True)
+        out2, again = ga.grid_mhsa_packed(qkv, heads, save_stats=True)
+        served = ga.grid_mhsa_packed(qkv, heads)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again) and torch.equal(out, out2),
+                f"grid_mhsa_tiles stats {label}: two calls differ")
+        require(torch.equal(out, served), f"grid_mhsa_tiles {label}: the "
+                "forward that keeps statistics differs from the served one")
+        want = ga.grid_mhsa_tiles_stats_reference(qkv, heads)
+        tol = KERNEL_TOL["float32"]
+        diff = (got - want).abs()
+        require(bool((diff <= tol + tol * want.abs()).all()),
+                f"grid_mhsa_tiles stats {label}: kernel disagrees with the "
+                "plain version")
+        share = (got == want).float().mean().item()
+        print(f"[compare] grid_mhsa_tiles row statistics {label} bf16 "
+              f"max_abs_err={diff.max().item():.3e} (max, sum, 1/sum of "
+              f"{tuple(got.shape)}; tol {tol:g} abs+rel) deterministic ok, "
+              f"out bitwise the served forward's, bitwise equal "
+              f"{share:.4%} (reported, not gated)")
 
     def compare_nhwc_with_tokens(self, sh, backward):
         """#12 against #5 on the same inputs, partitioned: the forward bit
@@ -1824,6 +1945,129 @@ class Smoke:
                       f"ms, kernel at {total['bound'] / k:.1%}, "
                       f"{LIBRARY[lib]} at {total['bound'] / l:.1%} "
                       f"[{self.gpu}]")
+            torch.cuda.empty_cache()
+
+    def ab_tiles_parent(self, lib, iters=10):
+        """#6 past 256 tokens in bf16 against the parent tree's kernel
+        (``lib``, :func:`load_parent_build`: its backward recomputes the row
+        statistics in two more walks over the keys) and SDPA, at the stage
+        0 of ``AB_PARENT`` (train batch 32; N = 576 and 784). First the
+        bits: the forward that keeps statistics, the served one and the
+        parent's give the same out; the statistics it keeps are the max,
+        sum and 1 / sum the parent's query kernel writes to its scratch;
+        the backward from them gives the parent's dqkv. Then in turns
+        (each side, then again in reverse): device time (``iters`` calls
+        in one CUDA graph) and eager time (host time included), with
+        shares of the bound, the backward (new, parent, SDPA's autograd
+        backward) and the forward (served, keeping statistics, parent,
+        SDPA)."""
+        import ctypes
+
+        import torch
+
+        from outgridvit_tpu_torch.ops import grid_attention as ga
+
+        for case, img in AB_PARENT:
+            sh = stage_shapes(dataclasses.replace(case, img=img),
+                              case.train_batch)[0]
+            G, N, C, heads = sh["G"], sh["N"], sh["C"], sh["heads"]
+            label = (f"a7m_{img} stage0 B={case.train_batch} G={G} N={N} "
+                     f"C={C} heads={heads}")
+            qkv, _ = self.fwd_args("grid_mhsa_tiles", sh, torch.bfloat16)
+            dout = self.randn(G, N, C).to(torch.bfloat16)
+            fp = ga.grid_mhsa_tiles_plan(G, N, C, heads, False)
+            bp = ga.grid_mhsa_tiles_plan(G, N, C, heads, True)
+            scale = ctypes.c_float((C // heads) ** -0.5)
+            scratch = torch.empty(G * heads * PARENT_TILES_STATS * bp.covered,
+                                  dtype=torch.float32, device=self.dev)
+
+            def parent_fwd():
+                out = torch.empty(G, N, C, dtype=qkv.dtype, device=self.dev)
+                err = lib.ogvt_grid_mhsa_tiles(
+                    qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
+                    fp.parts, fp.warps, fp.smem_bytes,
+                    torch.cuda.current_stream().cuda_stream)
+                require(err == 0, f"parent ogvt_grid_mhsa_tiles: {err}")
+                return out
+
+            def parent_bwd():
+                dqkv = torch.empty_like(qkv)
+                err = lib.ogvt_grid_mhsa_tiles_bwd(
+                    qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                    scratch.data_ptr(), G, N, C, heads, scale, bp.parts,
+                    bp.warps, bp.smem_bytes, bp.smem_key,
+                    torch.cuda.current_stream().cuda_stream)
+                require(err == 0, f"parent ogvt_grid_mhsa_tiles_bwd: {err}")
+                return dqkv
+
+            out, stats = ga.grid_mhsa_packed(qkv, heads, save_stats=True)
+            served, old_out = ga.grid_mhsa_packed(qkv, heads), parent_fwd()
+            dqkv = ga.grid_mhsa_packed_backward(qkv, dout, heads, stats)
+            old_dqkv = parent_bwd()
+            torch.cuda.synchronize()
+            old_stats = scratch.view(G * heads, PARENT_TILES_STATS,
+                                     bp.covered)[:, :3]
+            require(torch.equal(out, served) and torch.equal(out, old_out),
+                    f"grid_mhsa_tiles {label}: forward not bitwise the "
+                    "parent's")
+            require(torch.equal(stats, old_stats),
+                    f"grid_mhsa_tiles {label}: the kept statistics are not "
+                    "bitwise the parent's query kernel's")
+            require(torch.equal(dqkv, old_dqkv),
+                    f"grid_mhsa_tiles_bwd {label}: dqkv not bitwise the "
+                    "parent's")
+            print(f"[ab] grid_mhsa_tiles {label}: out (served, keeping "
+                  f"statistics) bitwise the parent's; the {stats.numel():,} "
+                  f"kept statistics bitwise the parent query kernel's; dqkv "
+                  f"bitwise the parent's")
+            del served, old_out, old_dqkv
+            for name, args, outs in (
+                    ("grid_mhsa_tiles_bwd", (qkv, dout, heads, stats), dqkv),
+                    ("grid_mhsa_tiles", (qkv, heads), out)):
+                backward = name.endswith("_bwd")
+                stream = torch.cuda.Stream()
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    sdpa = library_call(name, args)
+                torch.cuda.current_stream().wait_stream(stream)
+                if backward:
+                    fns = {"new": lambda: ga.grid_mhsa_packed_backward(
+                        qkv, dout, heads, stats), "old": parent_bwd,
+                        "sdpa": sdpa}
+                else:
+                    fns = {"new": lambda: ga.grid_mhsa_packed(qkv, heads),
+                           "saving": lambda: ga.grid_mhsa_packed(
+                               qkv, heads, save_stats=True),
+                           "old": parent_fwd, "sdpa": sdpa}
+                streams = {w: stream if w == "sdpa" else None for w in fns}
+                bound = max(bound_ms(name, args, outs, torch.bfloat16))
+                res = self.ab_fma.setdefault(name, {})[label] = {
+                    "bound_ms": bound, "launches": 1}
+                for how, timer in (
+                        ("device", lambda f, w: graph_ms(f, iters,
+                                                         streams[w])),
+                        ("eager", lambda f, w: time_ms(f, (), iters,
+                                                       warmup=2))):
+                    runs = {w: [] for w in fns}
+                    for w in (*fns, *reversed(fns)):
+                        runs[w].append(timer(fns[w], w))
+                    t = {w: sum(v) / len(v) for w, v in runs.items()}
+                    res[how] = {
+                        **{f"{w}_ms": t[w] for w in fns},
+                        **{f"{w}_bound_share": bound / t[w] for w in fns},
+                        "runs": {w: [round(x, 6) for x in v]
+                                 for w, v in runs.items()}}
+                    print(f"[ab] {name} {label} bf16 {how}: "
+                          + ", ".join(f"{w} {t[w] * 1e3:.1f} us ("
+                                      f"{runs[w][0] * 1e3:.1f}, "
+                                      f"{runs[w][1] * 1e3:.1f}; "
+                                      f"{bound / t[w]:.1%} of the bound)"
+                                      for w in fns)
+                          + f"; new/old {t['new'] / t['old']:.4f}, "
+                          f"new/SDPA {t['new'] / t['sdpa']:.4f}; bound "
+                          f"{bound * 1e3:.2f} us [{self.gpu}]")
+                del sdpa, fns
+            del qkv, dout, stats, out, dqkv, scratch
             torch.cuda.empty_cache()
 
     def ab_fma_shape(self, name, label, args, fns, entries, n, count,
@@ -4709,6 +4953,12 @@ def main() -> int:
 
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    parent = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--parent TREE]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
@@ -4724,6 +4974,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     print(f"gpu: {gpu}")
 
+    parent_build = start_parent_build(parent) if parent else None
     build = kernel_build.build()
     kernel_build.load()
     print(f"[build] nvcc {kernel_build.find_nvcc()} built={build.built} "
@@ -4754,6 +5005,11 @@ def main() -> int:
             smoke.ab_nhwc()
         if case is A7M_192:  # #6 past 256 tokens inside the train graph
             smoke.train_graph(case, k=2, turns=3)
+            if parent_build:  # and against the parent tree's kernel
+                smoke.ab_tiles_parent(load_parent_build(*parent_build))
+            else:
+                print("[ab] grid_mhsa_tiles vs the parent tree's kernel: "
+                      "skipped (no --parent TREE)")
         if case is MODEL_B_O:
             smoke.ab_vs_library()
             smoke.ab_mlp()

@@ -163,12 +163,23 @@ __device__ __forceinline__ void normalise(float (&e)[2][4],
 }
 
 // The statistics of rows g (index 0) and g + 8 (index 1) spread over a
-// tile's 8 values: the max m, the sum l and its reciprocal r.
+// tile's 8 values: the max m, the sum l and its reciprocal r (__frcp_rn(l),
+// computed here or given).
 struct RowStats {
   float m[2][4], l[2][4], r[2][4];
   __device__ __forceinline__ RowStats(const float (&mr)[2],
                                       const float (&lr)[2]) {
     const float rr[2] = {__frcp_rn(lr[0]), __frcp_rn(lr[1])};
+    spread(mr, lr, rr);
+  }
+  __device__ __forceinline__ RowStats(const float (&mr)[2],
+                                      const float (&lr)[2],
+                                      const float (&rr)[2]) {
+    spread(mr, lr, rr);
+  }
+  __device__ __forceinline__ void spread(const float (&mr)[2],
+                                         const float (&lr)[2],
+                                         const float (&rr)[2]) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll

@@ -26,33 +26,47 @@
 // products about equally at N = 576 (a grid's head reads 3 * N * hd and
 // writes N * hd bf16 values for 4 * N * N * hd flops forward, N / 2 flop a
 // byte against the bf16 ridge of ~295; 10 * N * N * hd backward for 7 * N
-// * hd values). Expected, as measured for the long kernel: instruction
-// issue, two exp and one division a logit forward, five and four backward.
+// * hd values). In fact instruction issue and its latency: the exact
+// passes take two exps and one division a logit forward, and the backward
+// three exps and three divisions beside its products.
 //
-// What the design does about it (a simple kernel, right first): a head's
-// k and v no longer fit one block beside its q (k and v alone take 200 KB
-// at N = 784, hd 64), so its query rows are cut into blocks of up to 16
-// m16 tiles, one a warp (grid_mhsa_tiles_layout.h), and each block streams
-// the keys and values in chunks of 64 rows through a ring of two shared
-// buffers filled by 16-byte cp.async while the previous chunk is computed;
-// a pass that needs only k streams only k. No statistic crosses blocks.
-// The tile arithmetic (fragments, q.k^T on mma.sync, the masked last tile,
-// the IEEE division, P cast into the A fragment of the P.v product) is
-// csrc/grid_mhsa_long.cuh's, shared with the long kernel. The backward is
-// two kernels on one stream, no atomics, so two calls give bitwise-equal
-// results:
-//   - tiles_bwd_query, a block of query rows over the streamed keys: m,
-//     the sum, then D = sum_m dp*a, then dq += ds.k; it writes m, the sum,
-//     its reciprocal and D of each of its rows to an fp32 scratch [G *
-//     heads, 4, covered rows] that the wrapper allocates;
+// What the design does about it: a head's k and v no longer fit one block
+// beside its q (k and v alone take 200 KB at N = 784, hd 64), so its query
+// rows are cut into blocks of up to 16 m16 tiles, one a warp
+// (grid_mhsa_tiles_layout.h), and each block streams the keys and values in
+// chunks of 64 rows through a ring of two shared buffers filled by 16-byte
+// cp.async while the previous chunk is computed; a pass that needs only k
+// streams only k. No statistic crosses blocks. The tile arithmetic
+// (fragments, q.k^T on mma.sync, the masked last tile, the IEEE division,
+// P cast into the A fragment of the P.v product) is csrc/grid_mhsa_long.cuh's,
+// shared with the long kernel.
+//
+// Under grad the forward keeps each query row's max m, sum l and 1 / l
+// (RowStats', __frcp_rn(l)) in an fp32 residual [G * heads, 3, covered
+// rows], which the JAX kernel does not (its _fwd_vjp saves only qkv): the
+// backward reads them instead of recomputing them in two more walks over
+// the keys. They are row_stats' values over the same chunks in the same
+// order, so the bits a recompute gives. A forward without grad writes
+// nothing (its own instantiation). The
+// backward is two kernels on one stream, no atomics, so two calls give
+// bitwise-equal results:
+//   - tiles_bwd_query, a block of query rows over the streamed keys and
+//     values in two walks: D = sum_m dp*a, then dq += ds.k; it writes D of
+//     each of its rows to an fp32 scratch [G * heads, covered] that the
+//     wrapper allocates;
 //   - tiles_bwd_key, a block of key rows over the streamed queries (q, dO
-//     and their four statistics): a^T from the statistics, dv += a^T.dO and
-//     dk += ds^T.q, at hd > 32 in two walks (dv, then dk) to stay in
-//     registers.
-// This is the long kernel's two-phase split with its barrier turned into a
-// second launch. The backward's fp32 a and ds enter the products as two
-// bf16 terms, hi = bf16(x) and lo = bf16(x - hi). Results are cast once into
-// the block's own staged rows and leave by 16-byte stores.
+//     and the four statistics m, l, 1 / l and D): a^T from the statistics,
+//     dv += a^T.dO and dk += ds^T.q, at hd > 32 in two walks (dv, then dk)
+//     to stay in registers.
+// Per logit at hd <= 32: three q.k^T and three dO.v^T products, three exps
+// and three divisions. Both backward kernels take their blocks' own rows'
+// fragments from shared memory at each tile instead of holding them, so
+// that they fit 72 registers a thread (__maxnreg__, grid_mhsa_tiles_layout.h:
+// reg_cap) and two blocks of up to 14 warps share an SM: 24 warps at N =
+// 576, 26 at 784, against 12 and 13 at 128 registers. The backward's fp32 a
+// and ds enter the products as two bf16 terms, hi = bf16(x) and lo =
+// bf16(x - hi). Results are cast once into the block's own staged rows and
+// leave by 16-byte stores.
 //
 // The launch plan (blocks a unit, warps a block, shared bytes) is
 // ops/grid_attention.py:grid_mhsa_tiles_plan, asked of the layout header;
@@ -72,7 +86,7 @@ namespace lay = ogvt::tiles;
 namespace {
 
 constexpr int kChunk = lay::kChunk, kStages = lay::kStages,
-              kStats = lay::kStats;
+              kStats = lay::kStats, kSaved = lay::kSaved;
 
 // A ring of kStages shared buffers, `bytes` apart from shared address
 // `base`, through which the block streams `items` chunks; load(i, buf)
@@ -182,21 +196,33 @@ __device__ __forceinline__ void row_stats(R& keys, Frag<NT>& qf,
 
 // The unit (grid * heads + head) and the first own row of this block.
 struct Part {
-  int g, h, r0;
+  int unit, g, h, r0;
   __device__ __forceinline__ Part(int parts, int heads, int rows) {
-    const int unit = blockIdx.x / parts;
+    unit = blockIdx.x / parts;
     g = unit / heads;
     h = unit - g * heads;
     r0 = (blockIdx.x - unit * parts) * rows;
   }
 };
 
-// qkv [G, N, 3C] -> out [G, N, C]; `parts` blocks a (grid, head) unit, each
-// 16 * warps query rows.
+// s = x.y^T for the warp's 16 rows staged at shared address x (their
+// fragments loaded for this product only) and the 16 rows at y.
 template <int NT>
-__global__ void __launch_bounds__(lay::kThreads, lay::sm_blocks(NT, lay::kFwd))
-tiles_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
-          int heads, int parts, float scale) {
+__device__ __forceinline__ void scores_at(float (&s)[2][4], unsigned x,
+                                          unsigned y, int lane) {
+  Frag<NT> f;
+  load_frag<NT>(f, x, lane);
+  scores<NT>(s, f, y, lane);
+}
+
+// qkv [G, N, 3C] -> out [G, N, C]; `parts` blocks a (grid, head) unit, each
+// 16 * warps query rows. kSave: each query row's max, sum and 1 / sum
+// (RowStats') into saved [G * heads, kSaved, covered] for the backward.
+template <int NT, bool kSave>
+__global__ void __launch_bounds__(lay::kThreads, lay::fwd_blocks(NT))
+tiles_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+          float* __restrict__ saved, int N, int heads, int parts,
+          int covered, float scale) {
   extern __shared__ uint4 smem[];
   constexpr int kRow = row_bytes(NT), kTile = kChunk * kRow;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -222,6 +248,18 @@ tiles_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
   float m[2], l[2];
   row_stats<NT>(keys, qf, sq + w0 * kRow, chunks, N, scale, lane, m, l);
   const RowStats st(m, l);
+  if constexpr (kSave) {  // rows g and g + 8 of the warp's tile
+    if ((lane & 3) == 0) {
+      float* row = saved + static_cast<size_t>(p.unit) * kSaved * covered +
+                   p.r0 + w0 + (lane >> 2);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        row[8 * hf] = m[hf];
+        row[covered + 8 * hf] = l[hf];
+        row[2 * covered + 8 * hf] = st.r[0][2 * hf];
+      }
+    }
+  }
   float acc[NT][4];
   zero<NT>(acc);
   for (int c = 0; c < chunks; ++c) {  // pass 3: P = bf16(a), acc += P.v
@@ -245,15 +283,30 @@ tiles_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
               C, tq, w0, N - p.r0, lane);
 }
 
-// qkv [G, N, 3C], dout [G, N, C] -> dq of dqkv [G, N, 3C], and the
-// statistics of the block's query rows into stats [G * heads, kStats,
-// covered] (covered floats apart).
+// The probabilities a (in s) and dp = dO.v^T (in dp) of the warp's query
+// rows (q staged at wq, dO at wd) against the 16 keys of tile ct at sk
+// (k) and sv (v), with the rows' statistics rs.
+template <int NT, typename Mask>
+__device__ __forceinline__ void probs_dp(float (&s)[2][4], float (&dp)[2][4],
+                                         unsigned wq, unsigned wd,
+                                         unsigned sk, unsigned sv,
+                                         float scale, const RowStats& rs,
+                                         Mask mask, int ct, int N, int lane) {
+  scores_at<NT>(s, wq, sk, lane);
+  scores_at<NT>(dp, wd, sv, lane);
+  row_probs(s, scale, rs, mask, ct, N, lane);
+}
+
+// qkv [G, N, 3C], dout [G, N, C] and the forward's statistics saved [G *
+// heads, kSaved, covered] -> dq of dqkv [G, N, 3C], and D of the block's
+// query rows into dsum [G * heads, covered]: two walks over the keys, D =
+// sum_m dp*a, then dq += ds.k.
 template <int NT>
-__global__ void __launch_bounds__(lay::kThreads,
-                                  lay::sm_blocks(NT, lay::kBwdQuery))
+__global__ void __maxnreg__(lay::reg_cap(NT, lay::kBwdQuery))
 tiles_bwd_query(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                bf16* __restrict__ dqkv, float* __restrict__ stats, int N,
-                int heads, int parts, int covered, float scale) {
+                bf16* __restrict__ dqkv, const float* __restrict__ saved,
+                float* __restrict__ dsum, int N, int heads, int parts,
+                int covered, float scale) {
   extern __shared__ uint4 smem[];
   constexpr int kRow = row_bytes(NT), kTile = kChunk * kRow;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -268,28 +321,28 @@ tiles_bwd_query(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   stage<NT>(sd, dout + (row0 + p.r0) * C + p.h * 8 * NT, C, N - p.r0, rows);
   cp_async_commit();
   const int chunks = (N + kChunk - 1) / kChunk;
-  // passes 1 and 2 stream k, passes 3 and 4 k and v
+  // both walks stream k and v
   auto keys = make_ring(sd + rows * kRow,
-                        lay::buffer_bytes(NT, lay::kBwdQuery), 4 * chunks,
+                        lay::buffer_bytes(NT, lay::kBwdQuery), 2 * chunks,
                         [&](int i, unsigned buf) {
-    const int pass = i / chunks, r0 = (i - pass * chunks) * kChunk;
+    const int r0 = (i % chunks) * kChunk;
     stage_chunk<NT>(buf, src + C, ld, r0, N);
-    if (pass >= 2) stage_chunk<NT>(buf + kTile, src + 2 * C, ld, r0, N);
+    stage_chunk<NT>(buf + kTile, src + 2 * C, ld, r0, N);
   });
   const int w0 = 16 * warp;
-  Frag<NT> qf, df;
-  float m[2], l[2];
-  row_stats<NT>(keys, qf, sq + w0 * kRow, chunks, N, scale, lane, m, l);
-  const RowStats rs(m, l);
-  load_frag<NT>(df, sd + w0 * kRow, lane);  // landed before pass 1
+  const unsigned wq = sq + w0 * kRow, wd = sd + w0 * kRow;
+  const float* st = saved + static_cast<size_t>(p.unit) * kSaved * covered +
+                    p.r0 + w0 + gr;  // rows g and g + 8 of the warp's tile
+  const float m[2] = {st[0], st[8]}, l[2] = {st[covered], st[covered + 8]},
+              r[2] = {st[2 * covered], st[2 * covered + 8]};
+  const RowStats rs(m, l, r);
   float d[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {  // pass 3: D = sum_m dp*a
+  for (int c = 0; c < chunks; ++c) {  // walk 1: D = sum_m dp*a
     const unsigned sk = keys.next(), sv = sk + kTile;
     for_chunk_tiles(c * kChunk, N, [&](int u, int ct, auto mask) {
       float s[2][4], dp[2][4];
-      scores<NT>(s, qf, sk + 16 * u * kRow, lane);
-      scores<NT>(dp, df, sv + 16 * u * kRow, lane);
-      row_probs(s, scale, rs, mask, ct, N, lane);
+      probs_dp<NT>(s, dp, wq, wd, sk + 16 * u * kRow, sv + 16 * u * kRow,
+                   scale, rs, mask, ct, N, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -301,13 +354,12 @@ tiles_bwd_query(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   d[1] = quad_sum(d[1]);
   float acc[NT][4];
   zero<NT>(acc);
-  for (int c = 0; c < chunks; ++c) {  // pass 4: dq += ds.k
+  for (int c = 0; c < chunks; ++c) {  // walk 2: dq += ds.k
     const unsigned sk = keys.next(), sv = sk + kTile;
     for_chunk_tiles(c * kChunk, N, [&](int u, int ct, auto mask) {
       float s[2][4], dp[2][4];
-      scores<NT>(s, qf, sk + 16 * u * kRow, lane);
-      scores<NT>(dp, df, sv + 16 * u * kRow, lane);
-      row_probs(s, scale, rs, mask, ct, N, lane);
+      probs_dp<NT>(s, dp, wq, wd, sk + 16 * u * kRow, sv + 16 * u * kRow,
+                   scale, rs, mask, ct, N, lane);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -318,61 +370,69 @@ tiles_bwd_query(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
       packed::mma_rows16<NT, 0, NT, 2>(acc, a, sk, 16 * u, lane);
     });
   }
-  // only this warp reads its q rows: dq goes there
+  __syncwarp();  // only this warp reads its q rows: dq goes there
   put<NT>(tq, acc, scale, w0, lane);
   __syncwarp();
   unstage<NT>(dqkv + (row0 + p.r0) * ld + p.h * 8 * NT, ld, tq, w0,
               N - p.r0, lane);
   if ((lane & 3) == 0) {
-    float* st = stats + (static_cast<size_t>(blockIdx.x / parts) * kStats) *
-                            covered + p.r0 + w0 + gr;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      st[8 * hf] = m[hf];
-      st[covered + 8 * hf] = l[hf];
-      st[2 * covered + 8 * hf] = rs.r[0][2 * hf];
-      st[3 * covered + 8 * hf] = d[hf];
-    }
+    float* dr = dsum + static_cast<size_t>(p.unit) * covered + p.r0 + w0 + gr;
+    dr[0] = d[0];
+    dr[8] = d[1];
   }
 }
 
-// The key rows' walk of one chunk of queries for the warp's key tile
-// (fragments kf, vf): over the chunk's query tiles, a^T from k.q^T and the
-// stored statistics of each query (st: the max, the sum, its reciprocal
-// and D of the chunk's rows, kChunk floats apart); kDv: dv += a^T.dO;
+// The key rows' walk of one chunk of queries for the warp's key tile (k
+// staged at wk; vscores(dp, y) computes dp = v.y^T for its v rows): over the
+// chunk's query tiles, a^T from k.q^T and the staged statistics of each
+// query (st: the max, the sum, its reciprocal and D of the chunk's rows,
+// kChunk floats apart, each read where it is used); kDv: dv += a^T.dO;
 // kDk: ds^T = a^T * (v.dO^T - D), dk += ds^T.q.
-template <int NT, bool kDv, bool kDk>
+template <int NT, bool kDv, bool kDk, typename VScores>
 __device__ __forceinline__ void key_chunk(float (&dv)[NT][4],
-                                          float (&dk)[NT][4],
-                                          const Frag<NT>& kf,
-                                          const Frag<NT>& vf, unsigned sq,
+                                          float (&dk)[NT][4], unsigned wk,
+                                          VScores&& vscores, unsigned sq,
                                           unsigned sd, const float* st,
                                           int r0, int N, float scale,
                                           int lane) {
   constexpr int kRow = row_bytes(NT);
   const int t = lane & 3;
   for_chunk_tiles(r0, N, [&](int u, int ct, auto mask) {
-    float s[2][4], dp[2][4], m[2][4], l[2][4], r[2][4], d[2][4];
-    scores<NT>(s, kf, sq + 16 * u * kRow, lane);
-    if constexpr (kDk) scores<NT>(dp, vf, sd + 16 * u * kRow, lane);
+    // statistic k of queries 16u + 8j + 2t (x) and + 1 (y) of the chunk:
+    // key rows g take x (v < 2 at column 2t), g + 8 the same; v & 1 picks
+    const auto at = [&](int k, int j) {
+      return *reinterpret_cast<const float2*>(st + k * kChunk + 16 * u +
+                                              8 * j + 2 * t);
+    };
+    float s[2][4];
+    scores_at<NT>(s, wk, sq + 16 * u * kRow, lane);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {  // queries 16u + 8j + 2t, + 1 of the chunk
-      const int q = 16 * u + 8 * j + 2 * t;
-      const float2 qm = *reinterpret_cast<const float2*>(st + q);
-      const float2 ql = *reinterpret_cast<const float2*>(st + kChunk + q);
-      const float2 qr = *reinterpret_cast<const float2*>(st + 2 * kChunk + q);
-      const float2 qd = *reinterpret_cast<const float2*>(st + 3 * kChunk + q);
+    for (int j = 0; j < 2; ++j) {
+      const float2 qm = at(0, j);
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {  // key rows g (v < 2), g + 8
-        m[j][v] = v & 1 ? qm.y : qm.x;
-        l[j][v] = v & 1 ? ql.y : ql.x;
-        r[j][v] = v & 1 ? qr.y : qr.x;
-        d[j][v] = v & 1 ? qd.y : qd.x;
-        s[j][v] = expo(s[j][v], scale, m[j][v], live(mask, ct, j, v, N, lane));
+      for (int v = 0; v < 4; ++v) {
+        s[j][v] = expo(s[j][v], scale, v & 1 ? qm.y : qm.x,
+                       live(mask, ct, j, v, N, lane));
       }
     }
-    normalise(s, l, r);  // a^T
+    {
+      float l[2][4], r[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 ql = at(1, j), qr = at(2, j);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          l[j][v] = v & 1 ? ql.y : ql.x;
+          r[j][v] = v & 1 ? qr.y : qr.x;
+        }
+      }
+      normalise(s, l, r);  // a^T
+    }
+    // dp before the dv product: at the 72-register cap ptxas then spills
+    // nothing at hd <= 32 (with dp after it, 20 bytes at hd 24 and 32)
     unsigned a[2][4];
+    [[maybe_unused]] float dp[2][4];
+    if constexpr (kDk) vscores(dp, sd + 16 * u * kRow);
     if constexpr (kDv) {
       to_a(s[0], s[1], a[0], a[1]);
       packed::mma_rows16<NT, 0, NT, 2>(dv, a, sd, 16 * u, lane);
@@ -380,8 +440,11 @@ __device__ __forceinline__ void key_chunk(float (&dv)[NT][4],
     if constexpr (kDk) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
+        const float2 qd = at(3, j);
 #pragma unroll
-        for (int v = 0; v < 4; ++v) dp[j][v] = s[j][v] * (dp[j][v] - d[j][v]);
+        for (int v = 0; v < 4; ++v) {
+          dp[j][v] = s[j][v] * (dp[j][v] - (v & 1 ? qd.y : qd.x));
+        }
       }
       to_a(dp[0], dp[1], a[0], a[1]);
       packed::mma_rows16<NT, 0, NT, 2>(dk, a, sq, 16 * u, lane);
@@ -389,15 +452,16 @@ __device__ __forceinline__ void key_chunk(float (&dv)[NT][4],
   });
 }
 
-// qkv [G, N, 3C], dout [G, N, C] and the query kernel's statistics -> dk
-// and dv of dqkv [G, N, 3C]; `parts` blocks a unit, each 16 * warps key
-// rows.
+// qkv [G, N, 3C], dout [G, N, C], the forward's statistics saved [G *
+// heads, kSaved, covered] and the query kernel's D, dsum [G * heads,
+// covered] -> dk and dv of dqkv [G, N, 3C]; `parts` blocks a unit, each 16
+// * warps key rows.
 template <int NT>
-__global__ void __launch_bounds__(lay::kThreads,
-                                  lay::sm_blocks(NT, lay::kBwdKey))
+__global__ void __maxnreg__(lay::reg_cap(NT, lay::kBwdKey))
 tiles_bwd_key(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-              bf16* __restrict__ dqkv, const float* __restrict__ stats,
-              int N, int heads, int parts, int covered, float scale) {
+              bf16* __restrict__ dqkv, const float* __restrict__ saved,
+              const float* __restrict__ dsum, int N, int heads, int parts,
+              int covered, float scale) {
   extern __shared__ uint4 smem[];
   constexpr int kRow = row_bytes(NT), kTile = kChunk * kRow;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -407,8 +471,8 @@ tiles_bwd_key(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   const size_t row0 = static_cast<size_t>(p.g) * N;
   const bf16* src = qkv + row0 * ld + p.h * 8 * NT;
   const bf16* go = dout + row0 * C + p.h * 8 * NT;
-  const float* st = stats +
-                    static_cast<size_t>(blockIdx.x / parts) * kStats * covered;
+  const float* sa = saved + static_cast<size_t>(p.unit) * kSaved * covered;
+  const float* sd_ = dsum + static_cast<size_t>(p.unit) * covered;
   unsigned char* tk = reinterpret_cast<unsigned char*>(smem);
   unsigned char* tv = tk + rows * kRow;
   const unsigned sk = smem_addr(tk), sv = smem_addr(tv);
@@ -425,12 +489,15 @@ tiles_bwd_key(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     stage_chunk<NT>(buf, src, ld, r0, N);
     stage_chunk<NT>(buf + kTile, go, C, r0, N);
     // the statistics of the chunk's rows below N rounded up to a tile,
-    // which the query kernel wrote (covered >= that)
+    // which the forward and the query kernel wrote (covered >= that): the
+    // forward's kSaved, then D
     const int n4 = ((min(kChunk, N - r0) + 15) & ~15) / 4;
     for (int e = threadIdx.x; e < kStats * n4; e += blockDim.x) {
       const int k = e / n4, c4 = e - k * n4;
+      const float* from = k < kSaved ? sa + static_cast<size_t>(k) * covered
+                                     : sd_;
       cp_async16(buf + 2 * kTile + (k * kChunk + 4 * c4) * 4,
-                 st + static_cast<size_t>(k) * covered + r0 + 4 * c4);
+                 from + r0 + 4 * c4);
     }
   });
   // the generic pointer to the statistics of the buffer at shared `buf`
@@ -438,26 +505,31 @@ tiles_bwd_key(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     return reinterpret_cast<const float*>(tk + (buf - sk) + 2 * kTile);
   };
   const int w0 = 16 * warp;
-  Frag<NT> kf, vf;
+  const unsigned wk = sk + w0 * kRow, wv = sv + w0 * kRow;
+  const auto v_staged = [&](float (&dp)[2][4], unsigned y) {
+    scores_at<NT>(dp, wv, y, lane);
+  };
   float dv[NT][4], dk[NT][4];
   zero<NT>(dv);
   zero<NT>(dk);
   for (int c = 0; c < chunks; ++c) {
     const unsigned buf = queries.next();
-    if (c == 0) {
-      load_frag<NT>(kf, sk + w0 * kRow, lane);
-      load_frag<NT>(vf, sv + w0 * kRow, lane);
-    }
     key_chunk<NT, true, lay::walks(NT) == 1>(
-        dv, dk, kf, vf, buf, buf + kTile, stats_at(buf), c * kChunk, N,
-        scale, lane);
+        dv, dk, wk, v_staged, buf, buf + kTile, stats_at(buf), c * kChunk,
+        N, scale, lane);
   }
   if constexpr (lay::walks(NT) == 2) {  // dk in a walk of its own
-    __syncwarp();  // every lane has its v fragments: dv goes to v's rows
+    // dv goes to v's rows: their fragments stay in registers for the walk
+    Frag<NT> vf;
+    load_frag<NT>(vf, wv, lane);
+    __syncwarp();
     put<NT>(tv, dv, 1.f, w0, lane);
+    const auto v_held = [&](float (&dp)[2][4], unsigned y) {
+      scores<NT>(dp, vf, y, lane);
+    };
     for (int c = 0; c < chunks; ++c) {
       const unsigned buf = queries.next();
-      key_chunk<NT, false, true>(dv, dk, kf, vf, buf, buf + kTile,
+      key_chunk<NT, false, true>(dv, dk, wk, v_held, buf, buf + kTile,
                                  stats_at(buf), c * kChunk, N, scale, lane);
     }
   }
@@ -498,7 +570,8 @@ struct Launch {
   const bf16* qkv;
   const bf16* dout;  // the backward's
   bf16* out;         // out, or dqkv
-  float* stats;      // the backward's scratch
+  float* saved;      // the forward's statistics (null: none kept)
+  float* dsum;       // the backward's D
   int units, N, heads, parts, warps;
   float scale;
   int smem, smem_key;  // the forward's or the query kernel's; the key one's
@@ -510,26 +583,31 @@ cudaError_t launch(int nt, const Launch& a) {
   return packed::with_const<1, lay::kMaxNT>(nt, [&](auto n) {
     constexpr int NT = decltype(n)::value;
     const dim3 grid(a.units * a.parts), block(32 * a.warps);
+    const int covered = lay::covered(a.N);
     cudaError_t err;
     if constexpr (kBwd) {
-      const int covered = lay::covered(a.N);
       err = set_smem(tiles_bwd_query<NT>, a.smem);
       if (err != cudaSuccess) return err;
       err = set_smem(tiles_bwd_key<NT>, a.smem_key);
       if (err != cudaSuccess) return err;
       tiles_bwd_query<NT><<<grid, block, a.smem, a.stream>>>(
-          a.qkv, a.dout, a.out, a.stats, a.N, a.heads, a.parts, covered,
-          a.scale);
+          a.qkv, a.dout, a.out, a.saved, a.dsum, a.N, a.heads, a.parts,
+          covered, a.scale);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       tiles_bwd_key<NT><<<grid, block, a.smem_key, a.stream>>>(
-          a.qkv, a.dout, a.out, a.stats, a.N, a.heads, a.parts, covered,
-          a.scale);
-    } else {
-      err = set_smem(tiles_fwd<NT>, a.smem);
+          a.qkv, a.dout, a.out, a.saved, a.dsum, a.N, a.heads, a.parts,
+          covered, a.scale);
+    } else if (a.saved) {
+      err = set_smem(tiles_fwd<NT, true>, a.smem);
       if (err != cudaSuccess) return err;
-      tiles_fwd<NT><<<grid, block, a.smem, a.stream>>>(
-          a.qkv, a.out, a.N, a.heads, a.parts, a.scale);
+      tiles_fwd<NT, true><<<grid, block, a.smem, a.stream>>>(
+          a.qkv, a.out, a.saved, a.N, a.heads, a.parts, covered, a.scale);
+    } else {
+      err = set_smem(tiles_fwd<NT, false>, a.smem);
+      if (err != cudaSuccess) return err;
+      tiles_fwd<NT, false><<<grid, block, a.smem, a.stream>>>(
+          a.qkv, a.out, nullptr, a.N, a.heads, a.parts, covered, a.scale);
     }
     return cudaGetLastError();
   });
@@ -537,42 +615,49 @@ cudaError_t launch(int nt, const Launch& a) {
 
 }  // namespace
 
-// qkv [G, N, 3C] -> out [G, N, C], both contiguous bf16; `parts` (blocks a
-// unit), `warps` and `smem` (bytes a block) as grid_mhsa_tiles_plan gives
-// them.
-extern "C" int ogvt_grid_mhsa_tiles(const void* qkv, void* out, int G, int N,
-                                    int C, int heads, float scale, int parts,
-                                    int warps, int smem, void* stream) {
+// qkv [G, N, 3C] -> out [G, N, C], both contiguous bf16; `saved`, null or
+// an fp32 [G * heads, 3, covered] (covered: the rows a unit's blocks cover)
+// that the call overwrites with each query row's max, sum and 1 / sum for
+// the backward; `parts` (blocks a unit), `warps` and `smem` (bytes a
+// block) as grid_mhsa_tiles_plan gives them.
+extern "C" int ogvt_grid_mhsa_tiles(const void* qkv, void* out, void* saved,
+                                    int G, int N, int C, int heads,
+                                    float scale, int parts, int warps,
+                                    int smem, void* stream) {
   if (!plan_ok(G, N, C, heads, parts, warps, {{lay::kFwd, smem}},
-               {qkv, out})) {
+               {qkv, out}) ||
+      (saved && !aligned16(saved))) {
     return cudaErrorInvalidValue;
   }
   if (G == 0) return cudaSuccess;
   const Launch a{static_cast<const bf16*>(qkv), nullptr,
-                 static_cast<bf16*>(out), nullptr, G * heads, N, heads,
-                 parts, warps, scale, smem, 0,
+                 static_cast<bf16*>(out), static_cast<float*>(saved),
+                 nullptr, G * heads, N, heads, parts, warps, scale, smem, 0,
                  static_cast<cudaStream_t>(stream)};
   return launch<false>(C / heads / 8, a);
 }
 
 // qkv [G, N, 3C], dout [G, N, C] -> dqkv [G, N, 3C], all contiguous bf16;
-// `stats` an fp32 scratch of G * heads * 4 * covered floats (covered: the
-// rows a unit's blocks cover), which the call overwrites; `parts`, `warps`
-// and the two kernels' shared bytes as grid_mhsa_tiles_plan gives them.
+// `saved` the forward's statistics of the same qkv (fp32 [G * heads, 3,
+// covered], ogvt_grid_mhsa_tiles'), `dsum` an fp32 scratch of G * heads *
+// covered floats, which the call overwrites; `parts`, `warps` and the two
+// kernels' shared bytes as grid_mhsa_tiles_plan gives them.
 extern "C" int ogvt_grid_mhsa_tiles_bwd(const void* qkv, const void* dout,
-                                        void* dqkv, void* stats, int G, int N,
-                                        int C, int heads, float scale,
-                                        int parts, int warps, int smem_query,
+                                        void* dqkv, const void* saved,
+                                        void* dsum, int G, int N, int C,
+                                        int heads, float scale, int parts,
+                                        int warps, int smem_query,
                                         int smem_key, void* stream) {
   if (!plan_ok(G, N, C, heads, parts, warps,
                {{lay::kBwdQuery, smem_query}, {lay::kBwdKey, smem_key}},
-               {qkv, dout, dqkv, stats})) {
+               {qkv, dout, dqkv, saved, dsum})) {
     return cudaErrorInvalidValue;
   }
   if (G == 0) return cudaSuccess;
   const Launch a{static_cast<const bf16*>(qkv),
                  static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
-                 static_cast<float*>(stats), G * heads, N, heads, parts,
+                 const_cast<float*>(static_cast<const float*>(saved)),
+                 static_cast<float*>(dsum), G * heads, N, heads, parts,
                  warps, scale, smem_query, smem_key,
                  static_cast<cudaStream_t>(stream)};
   return launch<true>(C / heads / 8, a);

@@ -10,9 +10,10 @@ using namespace ogvt::tiles;
 // `backward`) the backward: out = {blocks a unit, warps a block; shared
 // bytes of the forward or the backward's query kernel, of the backward's
 // key kernel; the register caps of the same two; rows a streamed chunk,
-// ring buffers, bytes between staged rows, scratch floats a unit}, the
-// backward's key kernel and scratch 0 for the forward. Returns 1, writing
-// nothing, where the kernels do not take them.
+// ring buffers, bytes between staged rows, the backward's scratch floats a
+// unit (D), the floats a unit of the statistics the forward keeps under
+// grad}, the backward's key kernel and scratch 0 for the forward. Returns
+// 1, writing nothing, where the kernels do not take them.
 extern "C" int ogvt_grid_mhsa_tiles_layout(int N, int C, int heads,
                                            int backward, int* out) {
   if (!takes(N, C, heads)) return 1;
@@ -29,5 +30,6 @@ extern "C" int ogvt_grid_mhsa_tiles_layout(int N, int C, int heads,
   out[7] = kStages;
   out[8] = row_bytes(nt);
   out[9] = bwd ? scratch_floats(N) : 0;
+  out[10] = saved_floats(N);
   return 0;
 }

@@ -10,7 +10,10 @@
 // the other side's rows stream through a ring of kStages shared buffers in
 // chunks of kChunk rows. Every kernel stages its block's own rows (q; q and
 // dO; k and v) once and two [kChunk, hd] tiles a chunk (k and v; q and dO),
-// the key kernel also the chunk's kStats fp32 statistics a query row.
+// the key kernel also the chunk's kStats fp32 statistics a query row. Under
+// grad the forward keeps kSaved statistics of each query row for the
+// backward, [units, kSaved, covered] fp32; the backward's query kernel adds
+// D, [units, covered].
 #pragma once
 
 #ifdef __CUDACC__
@@ -29,6 +32,7 @@ constexpr int kThreads = 32 * kMaxWarps;  // the kernels' launch bound
 constexpr int kChunk = 64;     // streamed rows a chunk: four m16 tiles
 constexpr int kStages = 2;     // the ring's buffers: one chunk in flight
 constexpr int kStats = 4;      // a query row's max, sum, 1 / sum and D
+constexpr int kSaved = 3;      // the forward's: the max, the sum, 1 / sum
 constexpr int kMaxNT = 8;      // hd / 8 up to 8 (the accumulators)
 
 enum Kernel : int { kFwd = 0, kBwdQuery = 1, kBwdKey = 2 };
@@ -49,14 +53,18 @@ OGVT_TILES_HD constexpr int warps(int N) {
 }
 
 // Rows the blocks of a unit cover (at least N), and so the rows of each
-// statistic of a unit in the backward's scratch.
+// statistic of a unit.
 OGVT_TILES_HD constexpr int covered(int N) { return 16 * warps(N) * parts(N); }
 
-// fp32 scratch of the backward a unit: kStats statistics of covered(N)
-// rows, written by the query kernel, read by the key kernel.
-OGVT_TILES_HD constexpr int scratch_floats(int N) {
-  return kStats * covered(N);
+// fp32 statistics a unit that the forward keeps under grad: kSaved of
+// covered(N) rows, read by both backward kernels.
+OGVT_TILES_HD constexpr int saved_floats(int N) {
+  return kSaved * covered(N);
 }
+
+// fp32 scratch of the backward a unit: D of covered(N) rows, written by the
+// query kernel, read by the key kernel.
+OGVT_TILES_HD constexpr int scratch_floats(int N) { return covered(N); }
 
 // One ring buffer: two [kChunk, hd] tiles, and the key kernel's statistics.
 OGVT_TILES_HD constexpr int buffer_bytes(int nt, Kernel k) {
@@ -70,15 +78,20 @@ OGVT_TILES_HD constexpr int smem_bytes(int N, int nt, Kernel k) {
          kStages * buffer_bytes(nt, k);
 }
 
-// Blocks of kThreads an SM holds by the kernels' register caps: two (64
-// registers a thread) for the forward at hd <= 32 and the backward at
-// hd <= 16, one (128) otherwise, as csrc/grid_mhsa_long.cu's kernels.
-OGVT_TILES_HD constexpr int sm_blocks(int nt, Kernel k) {
-  return nt <= (k == kFwd ? 4 : 2) ? 2 : 1;
-}
+// Blocks of kThreads an SM holds by the forward's register cap
+// (__launch_bounds__(kThreads, fwd_blocks)): two (64 registers a thread) at
+// hd <= 32, one (128) otherwise, as csrc/grid_mhsa_long.cu's forward.
+OGVT_TILES_HD constexpr int fwd_blocks(int nt) { return nt <= 4 ? 2 : 1; }
 
+// The backward kernels' cap at hd <= 32 (__maxnreg__): two blocks of up to
+// 14 warps share an SM (14 * 32 * 72 * 2 <= 65536), so 24 warps at N = 576
+// (12 a block) and 26 at N = 784 (13); 128 above, one block of 16 warps.
+constexpr int kBwdRegs = 72;
+
+// Registers a thread of each kernel.
 OGVT_TILES_HD constexpr int reg_cap(int nt, Kernel k) {
-  return 65536 / (kThreads * sm_blocks(nt, k)) / 8 * 8;
+  return k == kFwd ? 65536 / (kThreads * fwd_blocks(nt)) / 8 * 8
+                   : nt <= 4 ? kBwdRegs : 128;
 }
 
 // Walks of the key kernel over the query chunks: dv and dk in one, or at

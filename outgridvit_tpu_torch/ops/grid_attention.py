@@ -53,8 +53,12 @@ and take 1 <= N <= 4096, in four C sources by N and dtype:
 - 257 <= N <= 4096, bf16: ``csrc/grid_mhsa_tiles.cu`` (a head's query rows
   cut into blocks that stream the keys in chunks through a ring of shared
   buffers, the same passes; the backward a query-row kernel, then a key-row
-  kernel, through an fp32 scratch of row statistics; launch plan
+  kernel, through an fp32 scratch of each query row's D; launch plan
   :func:`grid_mhsa_tiles_plan`, asked of the kernels' layout header).
+  Asked to (``save_stats``), its forward also keeps each query row's max,
+  sum and 1 / sum, an fp32 ``[G * heads, 3, covered]``, which its backward
+  needs: its query kernel walks the keys twice, not four times
+  (:func:`grid_mhsa_tiles_stats_reference` is the plain version).
 
 The bf16 kernels and the long one take a head width that is a multiple of 8
 up to 64 and raise on any other, as on N > 4096. Launches are counted per C
@@ -62,7 +66,10 @@ entry point (``grid_mhsa_packed.by_entry``).
 
 :func:`grid_mhsa_autograd` and :func:`grid_mhsa_packed_autograd` are the
 differentiable cores the model calls: ``torch.autograd.Function``s that
-save only qkv.
+save qkv, and #6 under grad past 256 tokens in bf16 also the forward's row
+statistics. That departs from JAX's residuals (``_fwd_vjp`` saves only qkv),
+not from its arithmetic: the statistics are those the backward would
+recompute, bit for bit. A forward without grad keeps none.
 """
 
 from __future__ import annotations
@@ -331,11 +338,13 @@ class TilesPlan(NamedTuple):
     in chunks of ``chunk`` rows through ``stages`` shared buffers, staged
     rows ``row_bytes`` apart; ``smem_bytes`` a block of the forward or of
     the backward's query kernel, ``smem_key`` of its key kernel (0
-    forward); ``scratch_floats``, the backward's fp32 statistics of the
-    call (4 a covered row a unit; 0 forward); and, at the kernels' register
-    caps ``regs`` / ``regs_key``, the blocks one SM holds
-    (``blocks_per_sm`` / ``blocks_per_sm_key``). Everything but the counts
-    comes from ``csrc/grid_mhsa_tiles_layout.h``."""
+    forward); ``scratch_floats``, the backward's fp32 scratch of the call
+    (D, 1 a covered row a unit; 0 forward); ``saved_floats``, the fp32
+    statistics the forward keeps under grad and the backward reads (3 a
+    covered row a unit); and, at the kernels' register caps ``regs`` /
+    ``regs_key``, the blocks one SM holds (``blocks_per_sm`` /
+    ``blocks_per_sm_key``). Everything but the counts comes from
+    ``csrc/grid_mhsa_tiles_layout.h``."""
     parts: int
     warps: int
     blocks: int
@@ -347,6 +356,7 @@ class TilesPlan(NamedTuple):
     smem_bytes: int
     smem_key: int
     scratch_floats: int
+    saved_floats: int
     regs: int
     regs_key: int
     blocks_per_sm: int
@@ -357,9 +367,9 @@ class TilesPlan(NamedTuple):
 def _tiles_layout(N: int, C: int, heads: int, backward: bool):
     """``csrc/grid_mhsa_tiles_layout.h``'s layout for the shape (blocks a
     unit, warps, the two kernels' shared bytes and register caps, chunk
-    rows, ring buffers, row bytes, scratch floats a unit), or None where
-    the kernels do not take it."""
-    out = (ctypes.c_int * 10)()
+    rows, ring buffers, row bytes, scratch floats and saved statistics'
+    floats a unit), or None where the kernels do not take it."""
+    out = (ctypes.c_int * 11)()
     if kernel_build.load_layouts().ogvt_grid_mhsa_tiles_layout(
             N, C, heads, int(backward), out):
         return None
@@ -384,11 +394,12 @@ def grid_mhsa_tiles_plan(G: int, N: int, C: int, heads: int,
             f"{TILES_MAX_TOKENS} and hd a multiple of 8 up to {LONG_MAX_HD} "
             "(ROADMAP.md §2)")
     parts, warps, smem, smem_key, regs, regs_key, chunk, stages, row, \
-        scratch = layout
+        scratch, saved = layout
     rows = 16 * warps
     return TilesPlan(
         parts, warps, G * heads * parts, rows, rows * parts, chunk, stages,
-        row, smem, smem_key, G * heads * scratch, regs, regs_key,
+        row, smem, smem_key, G * heads * scratch, G * heads * saved, regs,
+        regs_key,
         blocks_per_sm(warps, smem, regs),
         blocks_per_sm(warps, smem_key, regs_key) if backward else 0)
 
@@ -411,10 +422,25 @@ def _check(qkv: torch.Tensor, heads: int):
     return G, N, C3 // 3
 
 
-def _probs(q, k, hd, divide=False):
+def _row_stats(q, k, hd):
+    """exp(logit - max) of the scaled logits ``[G, heads, N, N]``, each
+    row's max and the sum of its exps (``[G, heads, N, 1]``), fp32."""
     logits = torch.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    s = e.sum(-1, keepdim=True)
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    return e, m, e.sum(-1, keepdim=True)
+
+
+def _probs(q, k, hd, divide=False, stats=None):
+    """The fp32 probabilities, from the rows' statistics as
+    :func:`_row_stats` computes them, or as given: ``stats`` in
+    :func:`grid_mhsa_tiles_stats_reference`'s layout."""
+    if stats is None:
+        e, _, s = _row_stats(q, k, hd)
+    else:
+        G, N, heads = q.shape[:3]
+        m, s = (stats[:, i, :N].reshape(G, heads, N, 1) for i in (0, 1))
+        e = torch.exp(torch.einsum("gnhd,gmhd->ghnm", q, k) * hd**-0.5 - m)
     return e / s if divide else e * (1.0 / s)
 
 
@@ -440,20 +466,21 @@ def grid_mhsa_reference(qkv: torch.Tensor, heads: int,
 
 
 def grid_mhsa_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
-                                 heads: int, divide: bool = False
-                                 ) -> torch.Tensor:
+                                 heads: int, divide: bool = False,
+                                 stats=None) -> torch.Tensor:
     """Plain PyTorch version of the backward: (qkv [G, N, 3C], dout
     [G, N, C]) -> dqkv [G, N, 3C], with the rounding points of the Pallas
     ``_bwd_kernel``: fp32 q, k, v and dO; recomputed fp32 probabilities a
-    (normalized by division with ``divide``, as #6 does); ``dp = dO.v^T``;
-    ``ds = a * (dp - sum_m dp*a)``; dq and dk multiplied by the scale before
-    the single cast, dv cast once."""
+    (normalized by division with ``divide``, as #6 does; from the rows'
+    max and sum in ``stats`` where given, else recomputed);
+    ``dp = dO.v^T``; ``ds = a * (dp - sum_m dp*a)``; dq and dk multiplied by
+    the scale before the single cast, dv cast once."""
     G, N, C = _check(qkv, heads)
     hd = C // heads
     scale = hd**-0.5
     q, k, v = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
     g = dout.float().reshape(G, N, heads, hd)
-    a = _probs(q, k, hd, divide)
+    a = _probs(q, k, hd, divide, stats)
     dp = torch.einsum("gnhd,gmhd->ghnm", g, v)
     ds = a * (dp - (dp * a).sum(-1, keepdim=True))
     dq = torch.einsum("ghnm,gmhd->gnhd", ds, k) * scale
@@ -470,13 +497,39 @@ def grid_mhsa_packed_reference(qkv: torch.Tensor,
 
 
 def grid_mhsa_packed_backward_reference(qkv: torch.Tensor,
-                                        dout: torch.Tensor,
-                                        heads: int) -> torch.Tensor:
+                                        dout: torch.Tensor, heads: int,
+                                        stats=None) -> torch.Tensor:
     """Plain PyTorch version of #6's backward (``grid_attention_pallas.py:
     _bwd_kernel``): :func:`grid_mhsa_backward_reference` with the
     probabilities recomputed by division and kept in fp32 (dv sees the
-    unrounded a, unlike autograd of the forward)."""
-    return grid_mhsa_backward_reference(qkv, dout, heads, divide=True)
+    unrounded a, unlike autograd of the forward); from the forward's row
+    statistics ``stats`` where given (:func:`grid_mhsa_tiles_stats_reference`
+    gives them bitwise as this function recomputes them)."""
+    return grid_mhsa_backward_reference(qkv, dout, heads, divide=True,
+                                        stats=stats)
+
+
+def grid_mhsa_tiles_stats_reference(qkv: torch.Tensor,
+                                    heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the row statistics #6's forward past 256
+    tokens keeps for its backward: qkv [G, N, 3C] -> fp32 ``[G * heads, 3,
+    covered]`` (``covered``: :func:`grid_mhsa_tiles_plan`'s rows a unit)
+    holding each query row's max of the scaled logits, the sum of exp(logit
+    - max) and 1 / sum, as :func:`grid_mhsa_packed_backward_reference`
+    computes them; rows past N are the kernel's zero q rows' (0, N, 1 /
+    N)."""
+    G, N, C = _check(qkv, heads)
+    hd = C // heads
+    covered = grid_mhsa_tiles_plan(G, N, C, heads, False).covered
+    q, k, _ = qkv.float().reshape(G, N, 3, heads, hd).unbind(2)
+    _, m, s = _row_stats(q, k, hd)
+    out = torch.empty(G * heads, 3, covered, dtype=torch.float32,
+                      device=qkv.device)
+    out[:, 0, :N] = m.reshape(G * heads, N)
+    out[:, 1, :N] = s.reshape(G * heads, N)
+    out[:, 0, N:], out[:, 1, N:] = 0.0, float(N)
+    out[:, 2] = 1.0 / out[:, 1]
+    return out
 
 
 def _check_launch(name: str, qkv: torch.Tensor, heads: int, smem_floats,
@@ -702,27 +755,50 @@ def _packed_launch(name: str, qkv: torch.Tensor, heads: int, backward: bool,
                                      *others)
 
 
-def grid_mhsa_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def keeps_stats(N: int, dtype: torch.dtype) -> bool:
+    """Whether #6's forward on grids of N tokens in ``dtype`` keeps row
+    statistics for its backward (``save_stats``): where it takes
+    ``csrc/grid_mhsa_tiles.cu``, bf16 past 256 tokens."""
+    return grid_mhsa_packed_entry(N, dtype) == "ogvt_grid_mhsa_tiles"
+
+
+def grid_mhsa_packed(qkv: torch.Tensor, heads: int, save_stats: bool = False):
     """#6's forward, qkv [G, N, 3C] -> [G, N, C]: probabilities divided by
     their sum and cast to qkv's dtype before P.V. A CUDA tensor launches a
     kernel (or raises): for N <= 63 ``csrc/grid_mhsa_packed_mma.cu`` in
     bf16, ``csrc/grid_mhsa_packed.cu`` in fp32; for 64 <= N <= 256 (fp32:
     up to 4096) ``csrc/grid_mhsa_long.cu``; for 257 <= N <= 4096 in bf16
     ``csrc/grid_mhsa_tiles.cu``; a CPU tensor takes
-    :func:`grid_mhsa_packed_reference`. Under tracing it is the op
-    ``ogvt::grid_mhsa_packed`` (``ops/library.py``)."""
+    :func:`grid_mhsa_packed_reference`. With ``save_stats`` it returns (out,
+    stats): the row statistics the backward takes where the launch keeps
+    them (:func:`keeps_stats`; on the CPU
+    :func:`grid_mhsa_tiles_stats_reference`), else None. Under tracing it is
+    the op ``ogvt::grid_mhsa_packed`` (``ops/library.py``), which keeps
+    none."""
     if kernel_build.tracing():
+        if save_stats:
+            raise ValueError("grid_mhsa_packed: the traced op keeps no row "
+                             "statistics")
         return kernel_build.traced_op("grid_mhsa_packed")(qkv, heads)
     if qkv.device.type == "cpu":
-        return grid_mhsa_packed_reference(qkv, heads)
-    return _launch_packed(qkv, heads)
+        out = grid_mhsa_packed_reference(qkv, heads)
+        if not save_stats:
+            return out
+        keep = keeps_stats(_check(qkv, heads)[1], qkv.dtype)
+        return out, (grid_mhsa_tiles_stats_reference(qkv, heads) if keep
+                     else None)
+    return _launch_packed(qkv, heads, save_stats)
 
 
-def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def _launch_packed(qkv: torch.Tensor, heads: int, save_stats: bool = False):
     """:func:`grid_mhsa_packed` on the card."""
     G, N, C, entry, plan = _packed_launch("grid_mhsa_packed", qkv, heads,
                                           False)
     out = torch.empty((G, N, C), dtype=qkv.dtype, device=qkv.device)
+    stats = None
+    if save_stats and isinstance(plan, TilesPlan):
+        stats = torch.empty((G * heads, 3, plan.covered), dtype=torch.float32,
+                            device=qkv.device)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
     dtype = kernel_build.DTYPE_CODES[qkv.dtype]
@@ -734,32 +810,60 @@ def _launch_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                 stream)
         elif isinstance(plan, TilesPlan):
             err = lib.ogvt_grid_mhsa_tiles(
-                qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
-                plan.parts, plan.warps, plan.smem_bytes, stream)
+                qkv.data_ptr(), out.data_ptr(),
+                None if stats is None else stats.data_ptr(), G, N, C, heads,
+                scale, plan.parts, plan.warps, plan.smem_bytes, stream)
         else:
             err = getattr(lib, entry)(
                 qkv.data_ptr(), out.data_ptr(), G, N, C, heads, scale,
                 plan.warps, plan.smem_bytes, dtype, stream)
     kernel_build.check(err, f"grid_mhsa_packed launch ({entry})")
     kernel_build.count_launch(grid_mhsa_packed, None, entry)
-    return out
+    return (out, stats) if save_stats else out
 
 
 grid_mhsa_packed.launches = 0
 grid_mhsa_packed.by_entry = Counter()
 
 
+def _check_stats(qkv: torch.Tensor, stats, G, heads, plan):
+    """The forward's row statistics a ``csrc/grid_mhsa_tiles.cu`` backward
+    reads, or a ValueError: the launch needs them, contiguous fp32 ``[G *
+    heads, 3, covered]`` on qkv's device."""
+    want = (G * heads, 3, plan.covered)
+    if stats is None:
+        raise ValueError(
+            "grid_mhsa_packed_backward: a bf16 launch past "
+            f"{LONG_MAX_TOKENS} tokens needs the forward's row statistics "
+            "(grid_mhsa_packed(..., save_stats=True))")
+    if (tuple(stats.shape) != want or stats.dtype != torch.float32
+            or stats.device != qkv.device or not stats.is_contiguous()):
+        raise ValueError(
+            f"grid_mhsa_packed_backward: stats is {tuple(stats.shape)} "
+            f"{stats.dtype} on {stats.device}; expected contiguous {want} "
+            f"torch.float32 on {qkv.device}")
+
+
 def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
-                              heads: int) -> torch.Tensor:
+                              heads: int, stats=None) -> torch.Tensor:
     """#6's backward, (qkv [G, N, 3C], dout [G, N, C]) -> dqkv [G, N, 3C].
     A CUDA tensor launches a kernel (or raises), chosen as in
-    :func:`grid_mhsa_packed` (for N > 256 in bf16 two kernels in one call,
-    through an fp32 scratch it allocates); a CPU tensor takes
-    :func:`grid_mhsa_packed_backward_reference`."""
+    :func:`grid_mhsa_packed`: for N > 256 in bf16 two kernels in one call
+    that read the forward's row statistics ``stats`` (required there, and
+    only there) and write D to an fp32 scratch they allocate; a CPU tensor
+    takes :func:`grid_mhsa_packed_backward_reference` (from ``stats`` where
+    given)."""
     if qkv.device.type == "cpu":
-        return grid_mhsa_packed_backward_reference(qkv, dout, heads)
+        return grid_mhsa_packed_backward_reference(qkv, dout, heads, stats)
     G, N, C, entry, plan = _packed_launch(
         "grid_mhsa_packed_backward", qkv, heads, True, ("dout", dout))
+    tiles = isinstance(plan, TilesPlan)
+    if tiles:
+        _check_stats(qkv, stats, G, heads, plan)
+    elif stats is not None:
+        raise ValueError(
+            f"grid_mhsa_packed_backward: {entry} takes no row statistics "
+            f"(N={N}, {qkv.dtype})")
     dqkv = torch.empty_like(qkv)
     lib = kernel_build.load()
     scale = ctypes.c_float((C // heads) ** -0.5)
@@ -770,13 +874,14 @@ def grid_mhsa_packed_backward(qkv: torch.Tensor, dout: torch.Tensor,
             err = lib.ogvt_grid_mhsa_packed_bwd(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
                 heads, scale, dtype, stream)
-        elif isinstance(plan, TilesPlan):
-            stats = torch.empty(plan.scratch_floats, dtype=torch.float32,
-                                device=qkv.device)
+        elif tiles:
+            dsum = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                               device=qkv.device)
             err = lib.ogvt_grid_mhsa_tiles_bwd(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-                stats.data_ptr(), G, N, C, heads, scale, plan.parts,
-                plan.warps, plan.smem_bytes, plan.smem_key, stream)
+                stats.data_ptr(), dsum.data_ptr(), G, N, C, heads, scale,
+                plan.parts, plan.warps, plan.smem_bytes, plan.smem_key,
+                stream)
         else:
             err = getattr(lib, entry)(
                 qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), G, N, C,
@@ -791,27 +896,42 @@ grid_mhsa_packed_backward.by_entry = Counter()
 
 
 class _GridMHSAPacked(torch.autograd.Function):
-    """#6, recompute style as ``_fwd_vjp``/``_bwd_vjp``: saves only qkv."""
+    """#6 as ``_fwd_vjp``/``_bwd_vjp``: saves qkv, and with ``keep`` (autograd
+    records) the forward's row statistics where the launch keeps them
+    (:func:`keeps_stats`)."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, use_kernels):
-        ctx.save_for_backward(qkv)
+    def forward(ctx, qkv, heads, use_kernels, keep):
         ctx.cfg = (heads, use_kernels)
-        fn = grid_mhsa_packed if use_kernels else grid_mhsa_packed_reference
-        return fn(qkv, heads)
+        if use_kernels and keep:
+            out, stats = grid_mhsa_packed(qkv, heads, save_stats=True)
+        else:
+            fn = grid_mhsa_packed if use_kernels else \
+                grid_mhsa_packed_reference
+            out, stats = fn(qkv, heads), None
+        ctx.save_for_backward(qkv, stats)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
+        qkv, stats = ctx.saved_tensors
         heads, use_kernels = ctx.cfg
-        fn = (grid_mhsa_packed_backward if use_kernels
-              else grid_mhsa_packed_backward_reference)
-        return fn(qkv, dout.contiguous(), heads), None, None
+        if use_kernels:
+            dqkv = grid_mhsa_packed_backward(qkv, dout.contiguous(), heads,
+                                             stats)
+        else:
+            dqkv = grid_mhsa_packed_backward_reference(qkv, dout.contiguous(),
+                                                       heads)
+        return dqkv, None, None, None
 
 
 def grid_mhsa_packed_autograd(qkv: torch.Tensor, heads: int,
                               use_kernels: bool) -> torch.Tensor:
     """Differentiable #6 core: the kernels (:func:`grid_mhsa_packed`,
     :func:`grid_mhsa_packed_backward`) with ``use_kernels``, else their
-    plain versions, both ways."""
-    return _GridMHSAPacked.apply(qkv, heads, use_kernels)
+    plain versions, both ways. The forward keeps its row statistics only
+    where autograd records a backward (grad enabled, qkv requiring it, not
+    tracing)."""
+    keep = (torch.is_grad_enabled() and qkv.requires_grad
+            and not kernel_build.tracing())
+    return _GridMHSAPacked.apply(qkv, heads, use_kernels, keep)

@@ -150,13 +150,14 @@ _SIGNATURES = {
     # qkv, dout, dqkv, G, N, C, heads, scale, warps, smem, dtype, stream
     "ogvt_grid_mhsa_long_bwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                                  _P), _I),
-    # qkv, out, G, N, C, heads, scale, parts, warps, smem, stream
-    "ogvt_grid_mhsa_tiles": ((_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
-                             _I),
-    # qkv, dout, dqkv, stats, G, N, C, heads, scale, parts, warps,
+    # qkv, out, saved (or null), G, N, C, heads, scale, parts, warps, smem,
+    # stream
+    "ogvt_grid_mhsa_tiles": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                              _P), _I),
+    # qkv, dout, dqkv, saved, dsum, G, N, C, heads, scale, parts, warps,
     # smem_query, smem_key, stream
-    "ogvt_grid_mhsa_tiles_bwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                                  _I, _I, _P), _I),
+    "ogvt_grid_mhsa_tiles_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                  _I, _I, _I, _P), _I),
     # x, a, wv, bv, wp, bp, out, B, H, W, Cin, C, heads, rows, fold, dtype,
     # stream
     "ogvt_outlook_agg": ((_P,) * 7 + (_I,) * 9 + (_P,), _I),
@@ -203,7 +204,7 @@ _HOST_SIGNATURES = {
     "ogvt_attn_branch_bwd_mma_weights_layout": ((_I, _I, _I, _P), _I),
     # N, C, heads, backward, int out[6]
     "ogvt_grid_mhsa_th_layout": ((_I, _I, _I, _I, _P), _I),
-    # N, C, heads, backward, int out[10]
+    # N, C, heads, backward, int out[11]
     "ogvt_grid_mhsa_tiles_layout": ((_I, _I, _I, _I, _P), _I),
     # W, Cin, C, heads, rows, chunk, fold, int out[4]
     "ogvt_outlook_agg_bwd_mma_layout": ((_I,) * 7 + (_P,), _I),

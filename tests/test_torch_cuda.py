@@ -2072,8 +2072,9 @@ def test_grid_mhsa_packed_entry_point_by_n(dev, dtype, N):
     qkv = torch.randn(2, N, 3 * 48, device=dev).to(dtype)
     before = _entries_of(*want)
     before_others = [_entries_of(*e) for e in others]
-    grid_mhsa_packed(qkv, 2)
-    grid_mhsa_packed_backward(qkv, qkv[..., :48].contiguous(), 2)
+    _, stats = grid_mhsa_packed(qkv, 2, save_stats=True)
+    assert (stats is not None) == (want == TILES_ENTRIES)
+    grid_mhsa_packed_backward(qkv, qkv[..., :48].contiguous(), 2, stats)
     assert _entries_of(*want) == (before[0] + 1, before[1] + 1)
     assert [_entries_of(*e) for e in others] == before_others
 
@@ -2092,23 +2093,31 @@ def test_grid_mhsa_past_256_tokens_matches_plain(dev, dtype, N, hd):
     grids, 2 heads; N = 257: a partial last query block and a one-key last
     chunk, 576: the 7M model's stage 0 at 192 px, 784: at 224 px), each
     call twice bitwise equal: bf16 through csrc/grid_mhsa_tiles.cu's entry
-    points, fp32 through csrc/grid_mhsa_long.cu's."""
+    points, the backward from the row statistics its forward keeps (held
+    to their plain version at the fp32 bar; out bitwise the forward's
+    without them), fp32 through csrc/grid_mhsa_long.cu's, which keeps
+    none."""
     g = torch.Generator().manual_seed(N * 100 + hd)
     C = 2 * hd
     qkv = torch.randn(3, N, 3 * C, generator=g).to(dev, dtype)
     dout = torch.randn(3, N, C, generator=g).to(dev, dtype)
     entries = TILES_ENTRIES if dtype == torch.bfloat16 else LONG_ENTRIES
     before = _entries_of(*entries)
-    got = grid_mhsa_packed(qkv, 2)
+    got, stats = grid_mhsa_packed(qkv, 2, save_stats=True)
     got2 = grid_mhsa_packed(qkv, 2)
-    dqkv = grid_mhsa_packed_backward(qkv, dout, 2)
-    again = grid_mhsa_packed_backward(qkv, dout, 2)
+    dqkv = grid_mhsa_packed_backward(qkv, dout, 2, stats)
+    again = grid_mhsa_packed_backward(qkv, dout, 2, stats)
     torch.cuda.synchronize()
     assert _entries_of(*entries) == (before[0] + 2, before[1] + 2)
     assert torch.equal(got, got2) and torch.equal(dqkv, again)
     _assert_close(got, grid_mhsa_packed_reference(qkv, 2), dtype)
     _assert_close(dqkv, grid_mhsa_packed_backward_reference(qkv, dout, 2),
                   dtype)
+    if dtype == torch.bfloat16:
+        want = grid_attention_mod.grid_mhsa_tiles_stats_reference(qkv, 2)
+        _assert_close(stats, want, torch.float32)
+    else:
+        assert stats is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2124,9 +2133,33 @@ def test_grid_mhsa_past_256_tokens_refuses_on_the_card(dev, dtype, N, C,
     with pytest.raises(ValueError, match=what):
         grid_mhsa_packed(qkv, heads)
     with pytest.raises(ValueError, match=what):
+        grid_mhsa_packed(qkv, heads, save_stats=True)
+    with pytest.raises(ValueError, match=what):
         grid_mhsa_packed_backward(qkv, qkv[..., :C].contiguous(), heads)
     assert (grid_mhsa_packed.launches,
             grid_mhsa_packed_backward.launches) == n
+
+
+def test_grid_mhsa_tiles_backward_needs_the_forwards_stats(dev):
+    """A bf16 backward past 256 tokens without the forward's row statistics,
+    or with statistics of another shape, dtype or device, raises and
+    launches nothing (no recompute fallback); a launch that keeps none
+    refuses them."""
+    qkv = torch.randn(2, 576, 144, device=dev).bfloat16()
+    dout = qkv[..., :48].contiguous()
+    _, stats = grid_mhsa_packed(qkv, 2, save_stats=True)
+    n = grid_mhsa_packed_backward.launches
+    with pytest.raises(ValueError, match="row statistics"):
+        grid_mhsa_packed_backward(qkv, dout, 2)
+    for bad in (stats[:2], stats.double(), stats.cpu(),
+                stats.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="stats is"):
+            grid_mhsa_packed_backward(qkv, dout, 2, bad)
+    short = torch.randn(2, 144, 144, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="takes no row statistics"):
+        grid_mhsa_packed_backward(short, short[..., :48].contiguous(), 2,
+                                  stats)
+    assert grid_mhsa_packed_backward.launches == n
 
 
 def test_grid_mhsa_tiles_entry_points_refuse_another_plan(dev):
@@ -2137,15 +2170,19 @@ def test_grid_mhsa_tiles_entry_points_refuse_another_plan(dev):
     lib = kernel_build.load()
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(parts, warps, smem):
-        return lib.ogvt_grid_mhsa_tiles(qkv.data_ptr(), out.data_ptr(), 2,
-                                        576, 48, 2, 0.2, parts, warps, smem,
-                                        stream)
+    stats = torch.empty(p.saved_floats + 4, device=dev)
+
+    def call(parts, warps, smem, saved=None):
+        return lib.ogvt_grid_mhsa_tiles(qkv.data_ptr(), out.data_ptr(), saved,
+                                        2, 576, 48, 2, 0.2, parts, warps,
+                                        smem, stream)
 
     assert call(p.parts, p.warps, p.smem_bytes) == 0
+    assert call(p.parts, p.warps, p.smem_bytes, stats.data_ptr()) == 0
     for bad in ((p.parts + 1, p.warps, p.smem_bytes),
                 (p.parts, p.warps + 1, p.smem_bytes),
-                (p.parts, p.warps, p.smem_bytes + 16)):
+                (p.parts, p.warps, p.smem_bytes + 16),
+                (p.parts, p.warps, p.smem_bytes, stats[1:].data_ptr())):
         assert call(*bad) != 0, bad
     torch.cuda.synchronize()
 

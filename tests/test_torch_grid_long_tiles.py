@@ -117,19 +117,22 @@ def test_tiles_plan_covers_every_row_once(N, hd, backward):
     _fits_one_sm(p.smem_bytes, p.warps, p.regs, p.blocks_per_sm)
     if backward:
         # the key kernel: k and v rows, then chunks of q, dO and the four
-        # fp32 statistics a query row; the scratch: four a covered row
+        # fp32 statistics a query row; the scratch: D, one a covered row
         assert p.smem_key == 2 * p.rows * p.row_bytes \
             + p.stages * (2 * tile + 4 * 4 * p.chunk), where
         _fits_one_sm(p.smem_key, p.warps, p.regs_key, p.blocks_per_sm_key)
-        assert p.scratch_floats == G * heads * 4 * p.covered, where
+        assert p.scratch_floats == G * heads * p.covered, where
     else:
         assert p.smem_key == p.regs_key == p.scratch_floats == 0, where
+    # the forward's saved statistics: three a covered row
+    assert p.saved_floats == G * heads * 3 * p.covered, where
     assert ga.grid_mhsa_tiles_plan(G, N, C, heads, backward) is p
 
 
 def test_tiles_plan_at_the_192px_shape():
     """The 7M model's stage 0 at 192 px: 36 m16 tiles of rows a head, three
-    blocks of 12 warps; hd 24 keeps two forward blocks an SM."""
+    blocks of 12 warps; hd 24 keeps two blocks an SM, forward and
+    backward."""
     fwd = ga.grid_mhsa_tiles_plan(4096, 576, 48, 2, False)
     bwd = ga.grid_mhsa_tiles_plan(2048, 576, 48, 2, True)
     assert (fwd.parts, fwd.warps, fwd.blocks, fwd.smem_bytes) == (
@@ -137,7 +140,9 @@ def test_tiles_plan_at_the_192px_shape():
     assert fwd.regs == 64 and fwd.blocks_per_sm == 2
     assert (bwd.blocks, bwd.smem_bytes, bwd.smem_key) == (12_288, 30_720,
                                                           32_768)
-    assert bwd.scratch_floats == 2048 * 2 * 4 * 576
+    assert bwd.scratch_floats == 2048 * 2 * 576
+    assert bwd.saved_floats == fwd.saved_floats * 2048 // 4096 \
+        == 2048 * 2 * 3 * 576
 
 
 @pytest.mark.parametrize("backward", [False, True])
